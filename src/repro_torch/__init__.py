@@ -1,0 +1,10 @@
+"""PyTorch/CUDA port of the ``repro`` package (serve-traffic decode slice).
+
+Same sub-package and module names as ``repro`` so the counterpart of a
+module is found by its path.  Imports ``torch`` only; the hand-written
+Hopper kernels under ``csrc/`` are compiled with ``nvcc`` at first use
+(``kernels/_build.py``), never at import time.
+"""
+
+__all__ = ["analysis", "backends", "configs", "core", "kernels", "launch",
+           "models", "serving"]

@@ -1,0 +1,8 @@
+"""Core library: quantization, the exact GEMM designs and their pricing.
+
+- quantization  : INT2/4/8 symmetric quantization
+- gemm_sims     : exact functional GEMMs + cycle models for the paper's units
+- ppa           : calibrated Nangate45 PPA model (paper Tables I-IV)
+- sparsity      : word/bit sparsity profiling (Table V, Eq. 1)
+- accounting    : end-to-end DLA energy/latency pricing of model workloads
+"""

@@ -1,0 +1,134 @@
+"""Hardware-in-the-loop energy/latency accounting for model execution.
+
+The paper prices a *single* GEMM unit; a real DLA runs a model as thousands of
+tiled GEMM invocations.  This module walks a model's GEMM workload — produced
+by the modeling layer via `GemmWorkloadRecorder` — and prices every matmul on
+a chosen unit design with its *measured* weight bit sparsity (Eq. 1), giving
+end-to-end per-token / per-batch energy, latency and an energy-per-MAC view.
+
+This is the "extend Table V + Fig. 3 to whole models" machinery: the paper
+profiles weights and plugs average sparsity into a 32x32 unit; we price each
+layer with its own block-max sparsity and the actual tile counts.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+
+from repro_torch.core import ppa
+from repro_torch.core.sparsity import SparsityStats
+
+__all__ = ["GemmCall", "GemmWorkloadRecorder", "ModelCost", "price_workload"]
+
+
+@dataclasses.dataclass(frozen=True)
+class GemmCall:
+    """One logical matmul: (m, k) @ (k, n_out), with the weight on the k side."""
+
+    name: str
+    m: int
+    k: int
+    n_out: int
+    bit_sparsity: float = 0.0   # block-max stat of the temporal (weight) operand
+    count: int = 1              # identical invocations (e.g. scanned layers)
+
+    @property
+    def macs(self) -> int:
+        return self.m * self.k * self.n_out * self.count
+
+
+class GemmWorkloadRecorder:
+    """Collects GemmCalls during an abstract forward pass."""
+
+    def __init__(self) -> None:
+        self.calls: list[GemmCall] = []
+
+    def record(self, name: str, m: int, k: int, n_out: int,
+               bit_sparsity: float = 0.0, count: int = 1) -> None:
+        self.calls.append(GemmCall(name, int(m), int(k), int(n_out),
+                                   float(bit_sparsity), int(count)))
+
+    def attach_sparsity(self, stats: dict[str, SparsityStats]) -> None:
+        """Overwrite per-call sparsity from profiled weight stats by name."""
+        updated = []
+        for c in self.calls:
+            s = stats.get(c.name)
+            if s is not None:
+                c = dataclasses.replace(c, bit_sparsity=s.bit_blockmax)
+            updated.append(c)
+        self.calls = updated
+
+
+@dataclasses.dataclass(frozen=True)
+class ModelCost:
+    """Priced workload on one DLA configuration."""
+
+    design: str
+    bits: int
+    unit_n: int
+    num_units: int
+    total_macs: int
+    wc_latency_us: float
+    dyn_latency_us: float
+    wc_energy_uj: float
+    dyn_energy_uj: float
+    per_layer: dict[str, tuple[float, float]]  # name -> (dyn_us, dyn_uj)
+
+    @property
+    def energy_per_mac_pj(self) -> float:
+        return self.dyn_energy_uj * 1e6 / max(self.total_macs, 1)
+
+    @property
+    def sparsity_saving(self) -> float:
+        """Fractional energy saved by Eq. 1 vs worst case."""
+        if self.wc_energy_uj == 0:
+            return 0.0
+        return 1.0 - self.dyn_energy_uj / self.wc_energy_uj
+
+
+def price_workload(calls: list[GemmCall], design="tubgemm",
+                   bits: int = 4, unit_n: int = 128,
+                   num_units: int = 1, grid=None) -> ModelCost:
+    """Price ``calls`` on a DLA built from ``design`` at ``bits`` width.
+
+    ``design`` is a name or a ``repro_torch.backends.GemmBackend`` (whose own
+    ``bits`` / ``pricing_design`` then win): CUDA kernel mirrors price as
+    their simulator sibling, uncalibrated designs fail in ppa with a clear
+    "no PPA calibration" error.
+
+    ``grid`` — tensor-parallel grids of DLA nodes are priced by a later
+    slice of the port; anything but ``None`` raises ``NotImplementedError``.
+    """
+    from repro_torch import backends
+    backend = (design if isinstance(design, backends.GemmBackend)
+               else backends.resolve(design, bits=bits))
+    if grid is not None:
+        raise NotImplementedError(
+            "grid pricing (GridCost / ppa.GridDLAModel tiling) is not ported "
+            "yet: it lands with backends/grid.py in a later slice")
+    design, bits = backend.pricing_design, backend.bits
+    dla = ppa.DLAModel(design=design, bits=bits, n=unit_n,
+                       num_units=num_units)
+    wc_ns = dyn_ns = wc_nj = dyn_nj = 0.0
+    per_layer: dict[str, tuple[float, float]] = {}
+    macs = 0
+    for c in calls:
+        l_wc = dla.matmul_latency_ns(c.m, c.k, c.n_out, 0.0) * c.count
+        l_dyn = dla.matmul_latency_ns(c.m, c.k, c.n_out, c.bit_sparsity) * c.count
+        e_wc = dla.matmul_energy_nj(c.m, c.k, c.n_out, 0.0) * c.count
+        e_dyn = dla.matmul_energy_nj(c.m, c.k, c.n_out, c.bit_sparsity) * c.count
+        wc_ns += l_wc
+        dyn_ns += l_dyn
+        wc_nj += e_wc
+        dyn_nj += e_dyn
+        prev = per_layer.get(c.name, (0.0, 0.0))
+        per_layer[c.name] = (prev[0] + l_dyn * 1e-3, prev[1] + e_dyn * 1e-3)
+        macs += c.macs
+    return ModelCost(
+        design=design, bits=bits, unit_n=unit_n, num_units=num_units,
+        total_macs=macs,
+        wc_latency_us=wc_ns * 1e-3, dyn_latency_us=dyn_ns * 1e-3,
+        wc_energy_uj=wc_nj * 1e-3, dyn_energy_uj=dyn_nj * 1e-3,
+        per_layer=per_layer,
+    )

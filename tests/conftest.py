@@ -24,6 +24,13 @@ import numpy as np
 import pytest
 
 
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers",
+        "gpu: needs a CUDA device (the hand-written kernels have no CPU "
+        "mode); skipped with a reason where torch.cuda.is_available() is False")
+
+
 @pytest.fixture(scope="session")
 def rng():
     return np.random.default_rng(0)

@@ -1,0 +1,89 @@
+"""The port stands alone: nothing under ``src/repro_torch`` (nor
+``chip_smoke.py``) imports ``jax`` or the ``repro`` package, and every
+module imports on a host without CUDA and without ``triton``."""
+
+import ast
+import importlib
+import pathlib
+import subprocess
+import sys
+
+import pytest
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+PKG = ROOT / "src" / "repro_torch"
+FILES = sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+FORBIDDEN = {"jax", "jaxlib", "repro", "flax", "triton"}
+
+
+def _imports(path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield alias.name
+        elif isinstance(node, ast.ImportFrom) and node.level == 0 and node.module:
+            yield node.module
+
+
+@pytest.mark.parametrize("path", FILES, ids=lambda p: str(p.relative_to(ROOT)))
+def test_no_jax_or_reference_imports(path):
+    bad = [name for name in _imports(path) if name.split(".")[0] in FORBIDDEN]
+    assert not bad, f"{path} imports {bad}"
+
+
+def _modules():
+    for path in sorted(PKG.rglob("*.py")):
+        rel = path.relative_to(PKG.parent).with_suffix("")
+        parts = rel.parts[:-1] if rel.name == "__init__" else rel.parts
+        yield ".".join(parts)
+
+
+@pytest.mark.parametrize("name", list(_modules()))
+def test_every_module_imports(name):
+    importlib.import_module(name)
+
+
+def test_package_imports_without_jax_cuda_or_triton():
+    # a fresh interpreter in which jax, repro and triton cannot be imported
+    code = (
+        "import sys\n"
+        "class Block:\n"
+        "    def find_spec(self, name, path=None, target=None):\n"
+        "        if name.split('.')[0] in ('jax', 'jaxlib', 'repro', 'triton'):\n"
+        "            raise ImportError('blocked: ' + name)\n"
+        "sys.meta_path.insert(0, Block())\n"
+        "import importlib, torch\n"
+        f"names = {list(_modules())!r}\n"
+        "for n in names:\n"
+        "    importlib.import_module(n)\n"
+        "assert not torch.cuda.is_initialized()\n"
+        "from repro_torch.kernels import _build\n"
+        "assert _build._LIB is None\n"
+        "print('ok', len(names))\n")
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                          text=True, timeout=300,
+                          env={"PYTHONPATH": str(PKG.parent), "PATH": "/usr/bin:/bin"})
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert proc.stdout.startswith("ok")
+
+
+def test_csrc_holds_the_three_kernels():
+    srcs = {p.name: p.read_text() for p in (PKG / "csrc").glob("*.cu")}
+    assert set(srcs) == {"unary_gemm.cu", "fused_paged_decode.cu"}
+    assert "__dp4a" in srcs["unary_gemm.cu"] and "n_slots" in srcs["unary_gemm.cu"]
+    assert 'extern "C" int unary_gemm_launch' in srcs["unary_gemm.cu"]
+    assert 'extern "C" int fused_paged_decode_launch' in srcs["fused_paged_decode.cu"]
+    for text in srcs.values():
+        assert "torch/extension.h" not in text and "cudaMalloc" not in text
+        assert "cudaDeviceSynchronize" not in text
+
+
+def test_chip_smoke_refuses_a_host_without_cuda():
+    import torch
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    proc = subprocess.run([sys.executable, str(ROOT / "chip_smoke.py")],
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode != 0
+    assert '"ok"' not in proc.stdout

@@ -1,0 +1,107 @@
+"""Port vs reference: the tubGEMM / tuGEMM slot-loop GEMMs.
+
+The port's plain slot loops (what its wrappers run on CPU tensors) must be
+EQUAL (tolerance 0) to the reference's Pallas kernels in interpret mode
+(``ops.tub_matmul`` / ``ops.tu_matmul``), to ``kernels/ref.py`` and to the
+integer GEMM; cycle reports equal too.  The CUDA kernels themselves are
+held to the same plain versions on the card by ``chip_smoke.py``.
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels import ops as ref_ops
+from repro.kernels import ref as ref_ref
+from repro_torch import backends as port_backends
+from repro_torch.kernels import ops as port_ops
+from repro_torch.kernels import ref as port_ref
+from repro_torch.kernels import unary_gemm as port_ug
+
+BITS = (2, 3, 4, 8)
+SHAPES = [(8, 16, 8), (5, 37, 11), (1, 130, 3), (33, 64, 70)]
+
+
+def _operands(bits, shape, seed=0):
+    m, k, n = shape
+    rng = np.random.default_rng(seed + bits * 7 + m)
+    v = 2 ** (bits - 1) - 1
+    a = rng.integers(-v, v + 1, size=(m, k)).astype(np.int8)
+    b = rng.integers(-128, 128, size=(k, n)).astype(np.int8)
+    return a, b
+
+
+@pytest.mark.parametrize("bits", BITS)
+@pytest.mark.parametrize("shape", SHAPES)
+@pytest.mark.parametrize("design", ["tub", "tu"])
+def test_plain_equals_reference_kernel(design, bits, shape):
+    a, b = _operands(bits, shape)
+    ref_fn = ref_ops.tub_matmul if design == "tub" else ref_ops.tu_matmul
+    port_fn = port_ops.tub_matmul if design == "tub" else port_ops.tu_matmul
+    block = (8, 128, 128)   # small M tile keeps interpret mode quick
+    ref_out, ref_cycles = ref_fn(jnp.asarray(a), jnp.asarray(b), bits=bits,
+                                 block=block, interpret=True)
+    out, cycles = port_fn(torch.from_numpy(a), torch.from_numpy(b), bits=bits)
+    assert out.dtype == torch.int32 and tuple(out.shape) == (shape[0], shape[2])
+    np.testing.assert_array_equal(np.asarray(ref_out), out.numpy())
+    assert int(ref_cycles) == cycles
+    np.testing.assert_array_equal(
+        out.numpy(), a.astype(np.int32) @ b.astype(np.int32))
+
+
+@pytest.mark.parametrize("bits", BITS)
+@pytest.mark.parametrize("shape", SHAPES[:3])
+def test_plain_equals_reference_ref(bits, shape):
+    a, b = _operands(bits, shape, seed=3)
+    ta, tb = torch.from_numpy(a), torch.from_numpy(b)
+    np.testing.assert_array_equal(
+        np.asarray(ref_ref.tub_gemm_ref(jnp.asarray(a), jnp.asarray(b), bits=bits)),
+        port_ref.tub_gemm_ref(ta, tb, bits=bits).numpy())
+    np.testing.assert_array_equal(
+        np.asarray(ref_ref.tu_gemm_ref(jnp.asarray(a), jnp.asarray(b), bits=bits)),
+        port_ref.tu_gemm_ref(ta, tb, bits=bits).numpy())
+
+
+@pytest.mark.parametrize("bits", BITS)
+def test_cycle_formulas_and_mirrors(bits):
+    from repro.kernels import unary_gemm as ref_ug
+    for k in (1, 64, 4096):
+        assert ref_ug.tub_wc_cycles(bits, k) == port_ug.tub_wc_cycles(bits, k)
+        assert ref_ug.tu_wc_cycles(bits, k) == port_ug.tu_wc_cycles(bits, k)
+    a, b = _operands(bits, (4, 24, 6), seed=9)
+    ta, tb = torch.from_numpy(a), torch.from_numpy(b)
+    want = a.astype(np.int32) @ b.astype(np.int32)
+    for mirror in ("tubgemm_cuda", "tugemm_cuda"):
+        be = port_backends.resolve(mirror, bits=bits)
+        np.testing.assert_array_equal(be.execute(ta, tb).numpy(), want)
+        out, cycles = be.stream(ta, tb)
+        np.testing.assert_array_equal(out.numpy(), want)
+        assert cycles == be.cycles(24)
+
+
+def test_wrappers_reject_bad_operands():
+    a = torch.zeros((2, 4), dtype=torch.int8)
+    with pytest.raises(TypeError):
+        port_ug.tub_gemm(a.to(torch.int32), torch.zeros((4, 2), dtype=torch.int8))
+    with pytest.raises(ValueError, match="K mismatch"):
+        port_ug.tu_gemm(a, torch.zeros((5, 2), dtype=torch.int8))
+    with pytest.raises(ValueError):
+        port_ug.tub_gemm(a, torch.zeros((4, 2), dtype=torch.int8), bits=9)
+    with pytest.raises(ValueError):
+        port_ug.tub_gemm(a[0], torch.zeros((4, 2), dtype=torch.int8))
+
+
+def test_cpu_tensors_never_count_as_launches():
+    port_ug.reset_launches()
+    a, b = _operands(4, (3, 8, 5))
+    port_ug.tub_gemm(torch.from_numpy(a), torch.from_numpy(b), bits=4)
+    port_ug.tu_gemm(torch.from_numpy(a), torch.from_numpy(b), bits=4)
+    assert port_ug.LAUNCHES == {"tub_gemm": 0, "tu_gemm": 0}
+
+
+@pytest.mark.parametrize("m,k,n,want", [
+    (8, 4096, 4096, 9), (8, 4096, 128256, 1), (512, 4096, 14336, 1),
+    (8, 64, 128, 1), (8, 4096, 1024, 33), (1, 1, 1, 1)])
+def test_split_plan(m, k, n, want):
+    assert port_ug.plan_splits(m, k, n, sm_count=132) == want
