@@ -7,9 +7,8 @@ together, with
 
 and the objects are linked into one shared library with a plain C interface
 (no PyTorch headers, so a build takes seconds), loaded with ``ctypes``.  The
-library lives in ``<repo>/build/`` (override with ``REPRO_TORCH_BUILD_DIR``)
-under a name derived from the sources' content, so an unchanged tree reuses
-it and an edited source rebuilds.  Nothing runs at import time.
+library lives in ``<repo>/build/`` under a name derived from the sources'
+content, so an unchanged tree reuses it and an edited source rebuilds.  Nothing runs at import time.
 """
 
 from __future__ import annotations
@@ -37,19 +36,15 @@ _BUILD_SECONDS: float | None = None
 
 
 def build_dir() -> Path:
-    override = os.environ.get("REPRO_TORCH_BUILD_DIR")
-    if override:
-        return Path(override)
     return Path(__file__).resolve().parents[3] / "build"
 
 
 def _find_nvcc() -> str:
-    for cand in (os.environ.get("NVCC"), shutil.which("nvcc"),
-                 "/usr/local/cuda/bin/nvcc"):
+    for cand in (shutil.which("nvcc"), "/usr/local/cuda/bin/nvcc"):
         if cand and Path(cand).exists():
             return cand
     raise RuntimeError(
-        "nvcc not found (looked at $NVCC, PATH and /usr/local/cuda/bin): the "
+        "nvcc not found (looked on PATH and in /usr/local/cuda/bin): the "
         "CUDA kernels can only be built on a machine with the CUDA toolkit")
 
 

@@ -43,7 +43,15 @@ def run_traffic_mode(args, cfg, params) -> int:
       request's integer codes a pure function of its own tokens); under the
       default per-tensor scale the check is informational,
     * under ``--decode-attention fused``: the continuous run replayed on the
-      gather oracle samples identical token streams (same strictness),
+      gather oracle samples identical token streams — a strict gate on the
+      float path only.  Under --execute-backend it is reported: the page
+      walk re-associates the float32 softmax (<= ``FUSED_LOGIT_TOL`` on a
+      logit), the next quantizer turns that into whole-code flips wherever
+      an activation sits on a rounding tie, and the number of such ties
+      grows with width x depth x steps (none seen at smoke size, a first
+      flip in every few decode steps at llama3-8b's widths, each moving its
+      row's logits by more than the argmax margin; ``chip_smoke.py`` counts
+      them),
     * the paged decode step equal to the contiguous ``decode_step``
       reference at fp32, and the fused page walk within ``FUSED_LOGIT_TOL``
       of the gather oracle.
@@ -100,22 +108,19 @@ def run_traffic_mode(args, cfg, params) -> int:
     ok = ok and complete and (same_tokens or not strict)
     if args.decode_attention == "fused":
         # replay the continuous run on the gather oracle: the fused page
-        # walk may move logits by <= FUSED_LOGIT_TOL, but the sampled token
-        # streams must be identical whenever the identity gate is strict
+        # walk may move logits by <= FUSED_LOGIT_TOL, but on the float path
+        # the sampled token streams must be identical
         gather_engine = ServingEngine(cfg, params, attention="gather",
+                                      weight_cache=engine.weight_cache,
                                       **engine_kw)
         with common_lib.activation_scaling(args.act_scale):
             rg = gather_engine.run(trace, "continuous")
         fused_same = rc.request_tokens == rg.request_tokens
-        # the kernel scores in float32 whatever the activation dtype, the
-        # oracle in the activation dtype: below float32 the two round at
-        # different places and the comparison is informational
-        fused_strict = strict and cfg.compute_dtype == "float32"
-        fnote = note if fused_strict or not strict else \
-            " (informational: activations below float32)"
+        fnote = (" (informational: quantizer rounding ties amplify the "
+                 "page walk's float32 re-association)" if quantized else "")
         print(f"fused vs gather decode token streams (continuous): "
               f"identical: {fused_same}{fnote}")
-        ok = ok and (fused_same or not fused_strict)
+        ok = ok and (fused_same or quantized)
     diff = paged_vs_contiguous_probe(cfg, params, page_size=args.page_size)
     tag = "exact" if diff == 0.0 else f"max |diff| {diff:.3e}"
     print(f"paged decode vs contiguous decode_step (fp32): {tag}")
@@ -140,12 +145,6 @@ def main(argv=None) -> int:
     ap.add_argument("--device", default="cuda",
                     help="torch device to serve on (default: cuda; 'cpu' "
                          "runs the kernels' plain versions)")
-    ap.add_argument("--compute-dtype", default="float32",
-                    choices=["float32", "bfloat16"],
-                    help="activation dtype (default float32: the token-"
-                         "stream identity gate between the online-softmax "
-                         "kernel and the gather oracle is strict only at "
-                         "float32; at bfloat16 it is reported, not gated)")
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--gemm-backend", default="tubgemm",
                     choices=["ugemm", "tugemm", "tubgemm", "bgemm"],
@@ -198,7 +197,10 @@ def main(argv=None) -> int:
         return 2
     cfg = (configs.get_smoke_config(args.arch) if args.smoke
            else configs.get_config(args.arch))
-    cfg = cfg.replace(compute_dtype=args.compute_dtype)
+    # this slice serves with float32 activations whatever the config says:
+    # the stream-identity gates compare float32 paths (bfloat16 serving
+    # arrives with a later slice)
+    cfg = cfg.replace(compute_dtype="float32")
     generator = torch.Generator(device=device)
     generator.manual_seed(0)
     params = model_lib.init_params(cfg, generator, device=device)

@@ -149,17 +149,20 @@ def _weight_codes(execution, backend, w2: torch.Tensor):
     Quantized at every call, exactly like the reference — unless the scope
     carries a ``weight_cache`` dict (the serving engine's does), in which
     case each distinct weight storage is quantized once and the identical
-    codes and scales are reused; parameters must not change while the cache
-    lives.
+    codes and scales are reused.  An entry holds the weight view beside its
+    codes, so the storage the key names cannot be freed and its address
+    handed to another tensor while the cache lives; parameters must not be
+    written in place meanwhile.
     """
     cache = execution.weight_cache
     if cache is None:
         return quantize(w2.to(torch.float32), bits=backend.bits)
     key = (w2.data_ptr(), tuple(w2.shape), w2.dtype, backend.bits)
-    wq = cache.get(key)
-    if wq is None:
-        wq = cache[key] = quantize(w2.to(torch.float32), bits=backend.bits)
-    return wq
+    entry = cache.get(key)
+    if entry is None:
+        entry = cache[key] = (w2, quantize(w2.to(torch.float32),
+                                           bits=backend.bits))
+    return entry[1]
 
 
 def _backend_matmul(execution, backend, site: str, w: torch.Tensor,

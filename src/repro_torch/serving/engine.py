@@ -244,7 +244,8 @@ class ServingEngine:
                  unit_n: int = 64, num_units: int = 64,
                  pricing_design: str | None = None, prompt_seed: int = 0,
                  packed: bool = False, attention: str = "fused",
-                 batched_prefill: bool = True, device="cuda"):
+                 batched_prefill: bool = True, device="cuda",
+                 weight_cache: dict | None = None):
         if cfg.attention != "gqa" or cfg.ssm is not None or cfg.rwkv is not None \
                 or cfg.family not in ("dense", "audio", "vlm") or cfg.is_moe:
             raise ValueError(
@@ -289,7 +290,9 @@ class ServingEngine:
         # Under a backend scope each weight is quantized once per engine
         # instead of at every dense call (codes and scales are identical to
         # the per-call path; parameters must not change under the engine).
-        self._weight_cache: dict = {}
+        # Engines over the same params and bits may share one cache: pass
+        # another engine's ``weight_cache``.
+        self.weight_cache: dict = {} if weight_cache is None else weight_cache
         #: optional ``callable(site, int32 GEMM output)`` the backend scope of
         #: :meth:`run` reports every contracted site to (None = off)
         self.on_gemm_output = None
@@ -379,7 +382,7 @@ class ServingEngine:
         if self.backend is not None:
             return backends_lib.use_backend(
                 self.backend, bits=self.bits, on_output=self.on_gemm_output,
-                weight_cache=self._weight_cache)
+                weight_cache=self.weight_cache)
         return contextlib.nullcontext()
 
     @torch.no_grad()

@@ -183,8 +183,9 @@ def test_weight_code_cache_is_bit_identical(setup):
         assert all(torch.equal(a, b) for a, b in zip(outs, runs[0][1]))
     from repro_torch.core.quantization import quantize
     wq = quantize(port_params["lm_head"], bits=4)
-    cached = cache[(port_params["lm_head"].data_ptr(), (64, 512),
-                    torch.float32, 4)]
+    kept, cached = cache[(port_params["lm_head"].data_ptr(), (64, 512),
+                          torch.float32, 4)]
+    assert kept.data_ptr() == port_params["lm_head"].data_ptr()
     assert torch.equal(wq.values, cached.values) and torch.equal(wq.scale, cached.scale)
 
 

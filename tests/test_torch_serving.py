@@ -202,6 +202,27 @@ def test_cuda_mirror_backend_and_prefill_grouping(setup):
     assert reps["mirror"].energy_uj == reps["sim"].energy_uj   # priced as sibling
 
 
+def test_engines_share_weight_cache(setup):
+    _, port_cfg, _, port_params = setup
+    trace = generate_trace(TrafficConfig(num_requests=4, arrival_rate=2.0, seed=1))
+    kw = dict(backend="tubgemm_cuda", bits=4, device="cpu")
+    first = ServingEngine(port_cfg, port_params, attention="fused", **kw)
+    with port_common.activation_scaling("per-row"):
+        rep = first.run(trace)
+    filled = dict(first.weight_cache)
+    assert len(filled) == 7 * port_cfg.num_layers + 1
+    second = ServingEngine(port_cfg, port_params, attention="gather",
+                           weight_cache=first.weight_cache, **kw)
+    own = ServingEngine(port_cfg, port_params, attention="gather", **kw)
+    assert second.weight_cache is first.weight_cache is not own.weight_cache
+    with port_common.activation_scaling("per-row"):
+        assert second.run(trace).request_tokens == rep.request_tokens
+        assert own.run(trace).request_tokens == rep.request_tokens
+    # the shared run reused every entry and quantized nothing anew
+    assert first.weight_cache.keys() == filled.keys()
+    assert all(first.weight_cache[k][1] is filled[k][1] for k in filled)
+
+
 def test_engine_argument_checks(setup):
     _, port_cfg, _, port_params = setup
     for kw in (dict(plan=object()), dict(grid=(2, 2)), dict(packed=True)):
