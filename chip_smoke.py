@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port's main path on one NVIDIA GPU and check it.
 
-    python3 chip_smoke.py            # everything, llama3-8b widths, 32 layers
+    python3 chip_smoke.py            # everything, llama3-8b widths
 
 Phases, each of which fails the run (non-zero exit) on its own:
 
@@ -17,18 +17,25 @@ Phases, each of which fails the run (non-zero exit) on its own:
    decode must sample identical token streams on the float path; under
    4-bit execution that comparison is reported, and one teacher-forced
    step through both engines counts the activation codes that flip;
-5. ``times``   — per-kernel CUDA-event timings beside the plain version, the
+5. ``train``   — the training path (``launch/train.py``): a card-vs-CPU
+   probe of one step on the smoke config in fp32, then 10 steps of
+   llama3-8b at its published widths cut to 8 layers (fp32 parameters,
+   bf16 compute, remat, batch 4 x 2048), gated on finite, falling loss and
+   on the flash kernels' launch counters; one more step traced;
+6. ``times``   — per-kernel CUDA-event timings beside the plain version, the
    roofline bound and, where one exists, the library call.
 
 Needs a CUDA device: without one (or without the package beside it) the
 script exits non-zero and prints no result.  ``--layers`` / ``--requests``
-cut depth and traffic for quick iterations; widths are never cut.
+cut the served model's depth and traffic, for quick iterations; widths are
+never cut.  The trained depth is fixed at ``TRAIN_LAYERS``.
 """
 
 from __future__ import annotations
 
 import argparse
 import dataclasses
+import gc
 import json
 import math
 import os
@@ -56,13 +63,18 @@ sys.path.insert(0, os.path.join(HERE, "src"))
 try:
     from repro_torch import backends, configs
     from repro_torch.core import gemm_sims
+    from repro_torch.data import DataConfig, SyntheticLM
     from repro_torch.kernels import _build
+    from repro_torch.kernels import flash_attention as flash_lib
     from repro_torch.kernels import paged_attention as paged_lib
     from repro_torch.kernels import paged_attention_fused as fused_lib
     from repro_torch.kernels import ref as ref_lib
     from repro_torch.kernels import unary_gemm as ug
+    from repro_torch.launch import steps as steps_lib
+    from repro_torch.launch import train as train_lib
     from repro_torch.models import model as model_lib
     from repro_torch.models.common import activation_scaling
+    from repro_torch.optim import AdamWConfig, adamw_init, cosine_schedule
     from repro_torch.serving import (FUSED_LOGIT_TOL, ServingEngine,
                                      TrafficConfig, fused_vs_gather_probe,
                                      generate_trace, paged_vs_contiguous_probe)
@@ -77,16 +89,28 @@ DEV = torch.device("cuda", 0)
 HBM_BYTES_PER_S = 3.35e12
 INT8_OPS_PER_S = 1979e12
 FP32_OPS_PER_S = 67e12
+BF16_OPS_PER_S = 989e12
 
 REPLACES = {
     "fused_paged_decode": "src/repro/kernels/paged_attention_fused.py:167",
     "tub_gemm": "src/repro/kernels/unary_gemm.py:142",
     "tu_gemm": "src/repro/kernels/unary_gemm.py:217",
+    "flash_fwd": "src/repro/kernels/flash_attention.py:95",
+    "flash_bwd_dq": "src/repro/kernels/flash_attention.py:230",
+    "flash_bwd_dkv": "src/repro/kernels/flash_attention.py:248",
 }
+FLASH = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
+ALL_PHASES = ("device", "kernels", "probes", "serve", "train", "times")
+TRAIN_STEPS = 10
+# fp32 parameters, gradients and AdamW moments cost 16 B a parameter: 32
+# layers of llama3-8b need ~128 GB, 8 layers (~2.8 B parameters) ~45 GB,
+# which leaves room on an 80 GB card for the activations of batch 4 x 2048
+TRAIN_LAYERS = 8
 SOURCE = {
     "fused_paged_decode": "src/repro_torch/csrc/fused_paged_decode.cu",
     "tub_gemm": "src/repro_torch/csrc/unary_gemm.cu",
     "tu_gemm": "src/repro_torch/csrc/unary_gemm.cu",
+    **{name: "src/repro_torch/csrc/flash_attention.cu" for name in FLASH},
 }
 
 
@@ -164,7 +188,8 @@ RAGGED_LENGTHS = (1, 16, 17, 255, 256, 500, 777, 1024)
 def phase_kernels() -> dict:
     gen = torch.Generator(device=DEV)
     gen.manual_seed(0)
-    errs = {"tub_gemm": 0.0, "tu_gemm": 0.0, "fused_paged_decode": 0.0}
+    errs = {"tub_gemm": 0.0, "tu_gemm": 0.0, "fused_paged_decode": 0.0,
+            **{name: 0.0 for name in FLASH}}
     # (M, K, N): decode sites, a prefill site (the 128256-wide lm_head cut to
     # a 4096-column slice: the plain slot loop and 128-slot tuGEMM at full
     # width would take minutes), and a ragged shape that exercises the masks.
@@ -254,9 +279,91 @@ def phase_kernels() -> dict:
         d = float((got - oracle).abs().max())
         errs["fused_paged_decode"] = max(errs["fused_paged_decode"], d)
         require(d <= 1e-4, f"fused decode H={h} KVH={kvh} page={page}: {d}")
+    _flash_kernels(gen, errs)
     log("kernels: " + json.dumps(
         [{"name": k, "max_abs_err": v} for k, v in errs.items()]))
     return errs
+
+
+# (BH, Sq, Skv, D): the training path's slabs (B=4 x H=32, S=2048, d=128),
+# a ragged length, Sq != Skv, and d=64
+FLASH_CASES = ((128, 2048, 2048, 128), (128, 2000, 2000, 128),
+               (16, 77, 130, 128), (16, 333, 333, 64))
+FLASH_TOL = {torch.float32: 1e-4, torch.bfloat16: 1e-2}   # x max|plain|
+# bf16 o, dQ, dK, dV also per element: |kernel - plain| <= FLASH_BF16_ROW_TOL
+# x (|plain| + max|plain| of its row), so that small later rows are held too;
+# 3 x the largest such ratio measured on an H100 over FLASH_CASES (3.9e-3)
+FLASH_BF16_ROW_TOL = 1.2e-2
+
+
+def _poisoned(gen, bh, n, d, dtype, pad=64):
+    """(bh, n, d) view of a buffer whose rows past n are NaN."""
+    buf = torch.randn((bh, n + pad, d), generator=gen, device=DEV).to(dtype)
+    buf[:, n:] = float("nan")
+    return buf[:, :n]
+
+
+def _row_relative_err(got, want) -> float:
+    """max over elements of |got - want| / (|want| + max |want| of its row);
+    a row that is zero in ``want`` must be zero in ``got``."""
+    want = want.float()
+    scale = want.abs() + want.abs().amax(dim=-1, keepdim=True)
+    return float(((got.float() - want).abs() / scale.clamp_min(1e-30)).max())
+
+
+def _flash_kernels(gen, errs: dict) -> None:
+    """Forward, dQ and dK/dV against their plain versions: fp32 and bf16,
+    causal and not, every shape of FLASH_CASES; the slabs' padded tails are
+    NaN, so a kernel that read one would fail the finiteness check."""
+    for dtype in (torch.float32, torch.bfloat16):
+        for (bh, sq, skv, d) in FLASH_CASES:
+            for causal in (True, False):
+                q = _poisoned(gen, bh, sq, d, dtype)
+                k = _poisoned(gen, bh, skv, d, dtype)
+                v = _poisoned(gen, bh, skv, d, dtype)
+                do = _poisoned(gen, bh, sq, d, dtype)
+                o, lse = flash_lib.flash_fwd(q, k, v, causal=causal)
+                delta = torch.sum(do.float() * o.float(), dim=-1)
+                dq = flash_lib.flash_bwd_dq(q, k, v, do, lse, delta, causal=causal)
+                dk, dv = flash_lib.flash_bwd_dkv(q, k, v, do, lse, delta,
+                                                 causal=causal)
+                torch.cuda.synchronize()
+                p_o, p_lse = flash_lib.flash_fwd_plain(q, k, v, causal=causal)
+                p_dq = flash_lib.flash_bwd_dq_plain(q, k, v, do, p_lse, delta,
+                                                    causal=causal)
+                p_dk, p_dv = flash_lib.flash_bwd_dkv_plain(q, k, v, do, p_lse,
+                                                           delta, causal=causal)
+                rel, row_rel = {}, {}
+                for name, kern, got, want in (
+                        ("o", "flash_fwd", o, p_o), ("lse", "flash_fwd", lse, p_lse),
+                        ("dq", "flash_bwd_dq", dq, p_dq),
+                        ("dk", "flash_bwd_dkv", dk, p_dk),
+                        ("dv", "flash_bwd_dkv", dv, p_dv)):
+                    require(bool(torch.isfinite(got.float()).all()),
+                            f"flash {name} not finite (a NaN-poisoned tail was read?)")
+                    err = float((got.float() - want.float()).abs().max())
+                    top = float(want.float().abs().max())
+                    rel[name] = err / top
+                    if dtype == torch.float32:
+                        errs[kern] = max(errs[kern], err)
+                    require(err <= FLASH_TOL[dtype] * top,
+                            f"flash {name} ({bh},{sq},{skv},{d}) {dtype} causal="
+                            f"{causal}: max |kernel-plain| {err:.3e} > "
+                            f"{FLASH_TOL[dtype]:g} x max|plain| {top:.3e}")
+                    if dtype == torch.bfloat16 and name != "lse":
+                        row_rel[name] = _row_relative_err(got, want)
+                        require(row_rel[name] <= FLASH_BF16_ROW_TOL,
+                                f"flash {name} ({bh},{sq},{skv},{d}) bf16 causal="
+                                f"{causal}: |kernel-plain| / (|plain| + row max"
+                                f" |plain|) {row_rel[name]:.3e} > "
+                                f"{FLASH_BF16_ROW_TOL:g}")
+                log(f"  flash BH={bh} Sq={sq} Skv={skv} d={d} "
+                    f"{str(dtype).split('.')[-1]} causal={causal}: max|kernel-plain|"
+                    f" / max|plain| " + ", ".join(f"{n} {r:.2e}" for n, r in rel.items())
+                    + f" (tol {FLASH_TOL[dtype]:g})"
+                    + ("; per row " + ", ".join(f"{n} {r:.2e}" for n, r in row_rel.items())
+                       + f" (tol {FLASH_BF16_ROW_TOL:g})" if row_rel else ""))
+                del q, k, v, do, o, lse, dq, dk, dv, p_o, p_lse, p_dq, p_dk, p_dv
 
 
 # ---------------------------------------------------------------------------
@@ -294,6 +401,17 @@ class _Digest:
         weights = (torch.arange(flat.numel(), device=flat.device) % 8191) + 1
         self.items.append((site, tuple(out.shape), int(flat.sum()),
                            int((flat * weights).sum())))
+
+
+def _device_rows(prof) -> list[tuple[float, str, int]]:
+    """(device µs, name, count) of what ran on the card: kernels, copies,
+    fills.  The host-side operators above them (``aten::mm``, an autograd
+    Function) report the same device time again, so only events whose device
+    type is CUDA are summed."""
+    from torch.autograd import DeviceType
+    rows = [(e.self_device_time_total, e.key, e.count) for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA]
+    return [r for r in rows if r[0] > 0]
 
 
 def _decode_step_profile(engine, cfg) -> None:
@@ -342,9 +460,7 @@ def _decode_step_profile(engine, cfg) -> None:
                 one_step()
             torch.cuda.synchronize()
             wall_us = (time.perf_counter() - t0) * 1e6
-        rows = [(getattr(e, "self_device_time_total", 0.0) or 0.0, e.key, e.count)
-                for e in prof.key_averages()]
-        rows = [r for r in rows if r[0] > 0]
+        rows = _device_rows(prof)
         busy_us = sum(r[0] for r in rows)
         require(busy_us > 0, "the profiler reported no device time for three "
                              "decode steps: device busy share not measured")
@@ -606,7 +722,148 @@ def phase_serve(layers: int, requests: int) -> dict:
 
 
 # ---------------------------------------------------------------------------
-# phase 5: times
+# phase 5: train
+# ---------------------------------------------------------------------------
+
+def _tree_leaves(tree, prefix=()):
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            yield from _tree_leaves(tree[k], prefix + (k,))
+    else:
+        yield "/".join(prefix), tree
+
+
+def _train_probe() -> None:
+    """One training step of the smoke config in fp32 on the card (flash
+    kernels) and on the CPU (plain versions), from identical parameters and
+    batch: loss within 1e-5 relative, every gradient leaf within 1e-4 x its
+    largest entry.  fp32 matmuls run without TF32 (set in main)."""
+    cfg = configs.get_smoke_config("llama3-8b").replace(
+        compute_dtype="float32", param_dtype="float32")
+    gen = torch.Generator(device="cpu")
+    gen.manual_seed(0)
+    cpu_params = model_lib.init_params(cfg, gen, device="cpu")
+    rng = np.random.default_rng(0)
+    batch = {k: torch.from_numpy(rng.integers(0, cfg.vocab_size, (2, 100))
+                                 .astype(np.int32)) for k in ("tokens", "targets")}
+    out = []
+    for dev in (DEV, torch.device("cpu")):
+        tree = steps_lib._trainable(_clone_tree(cpu_params, dev))
+        b = {k: v.to(dev) for k, v in batch.items()}
+        flash_lib.reset_launches()
+        loss, _, grads = steps_lib.loss_and_grads(cfg, tree, b)
+        launched = dict(flash_lib.LAUNCHES)
+        state = steps_lib.TrainState(params=tree, opt=adamw_init(tree, AdamWConfig()),
+                                     step=torch.zeros((), dtype=torch.int32))
+        _, metrics = steps_lib.make_train_step(cfg, AdamWConfig())(state, b)
+        out.append((float(loss), {k: g.cpu() for k, g in _tree_leaves(grads)},
+                    float(metrics["loss"]), float(metrics["grad_norm"]), launched))
+    (loss_g, grads_g, step_loss_g, gn_g, launched_g), \
+        (loss_c, grads_c, step_loss_c, gn_c, launched_c) = out
+    rel = abs(loss_g - loss_c) / abs(loss_c)
+    worst = max((float((grads_g[k] - grads_c[k]).abs().max())
+                 / max(float(grads_c[k].abs().max()), 1e-30), k) for k in grads_c)
+    log(f"  probe (smoke config, fp32, 2 x 100 tokens): loss card {loss_g:.7f} "
+        f"cpu {loss_c:.7f} (rel {rel:.2e}, tol 1e-5); worst gradient leaf "
+        f"{worst[1]} max|card-cpu| / max|cpu| {worst[0]:.2e} (tol 1e-4); train "
+        f"step loss rel {abs(step_loss_g - step_loss_c) / abs(step_loss_c):.2e}, "
+        f"grad_norm {gn_g:.6f} vs {gn_c:.6f}; card launches {launched_g}")
+    require(rel <= 1e-5, f"train probe: loss card {loss_g} vs cpu {loss_c}")
+    require(worst[0] <= 1e-4, f"train probe: gradient {worst[1]} off by {worst[0]}")
+    require(abs(step_loss_g - step_loss_c) <= 1e-5 * abs(step_loss_c)
+            and abs(gn_g - gn_c) <= 1e-4 * abs(gn_c), "train probe: step metrics")
+    require(launched_g == {n: cfg.num_layers for n in FLASH},
+            f"train probe: flash launches {launched_g} != {cfg.num_layers} each")
+    require(not any(launched_c.values()), "the CPU run launched a kernel")
+
+
+def _clone_tree(tree, dev):
+    if isinstance(tree, dict):
+        return {k: _clone_tree(v, dev) for k, v in tree.items()}
+    return tree.detach().to(dev, copy=True)
+
+
+def _train_step_profile(cfg, state, loop) -> None:
+    """One more step of the slice, traced with torch.profiler."""
+    from torch.profiler import ProfilerActivity, profile
+    step_fn = steps_lib.make_train_step(
+        cfg, AdamWConfig(lr=loop.lr),
+        cosine_schedule(loop.lr, loop.warmup, loop.steps))
+    batch_np = next(iter(SyntheticLM(DataConfig(
+        batch_size=loop.batch, seq_len=loop.seq + 1, vocab_size=cfg.vocab_size,
+        seed=loop.seed + 1))))
+    batch = {k: torch.from_numpy(v).to(DEV) for k, v in batch_np.items()}
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        state, _ = step_fn(state, batch)
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    rows = _device_rows(prof)
+    busy_us = sum(r[0] for r in rows)
+    require(busy_us > 0, "the profiler reported no device time for a training "
+                         "step: device busy share not measured")
+    log(f"  traced step: device busy {busy_us / 1e3:.2f} ms of {wall_us / 1e3:.2f} "
+        f"ms under the profiler = {100 * busy_us / wall_us:.1f} % busy, "
+        f"{100 - 100 * busy_us / wall_us:.1f} % idle")
+    for t, key, count in sorted(rows, reverse=True)[:12]:
+        log(f"    {t / 1e3:9.3f} ms  x{count:<6d} {key[:90]}")
+
+
+def phase_train(layers: int, steps: int) -> dict:
+    _train_probe()
+    cfg = configs.get_config("llama3-8b").replace(
+        num_layers=layers, param_dtype="float32", compute_dtype="bfloat16",
+        remat=True)
+    loop = train_lib.TrainLoopConfig(steps=steps, log_every=1, batch=4, seq=2048,
+                                     lr=3e-4, warmup=2, seed=0)
+    log(f"train: llama3-8b widths d_model={cfg.d_model} heads={cfg.num_heads} "
+        f"kv_heads={cfg.num_kv_heads} head_dim={cfg.resolved_head_dim} "
+        f"d_ff={cfg.d_ff} vocab={cfg.vocab_size}, layers={cfg.num_layers} (cut "
+        f"from 32: fp32 parameters + fp32 AdamW moments at 32 layers need "
+        f"~128 GB), fp32 parameters, bf16 compute, remat, batch "
+        f"{loop.batch} x {loop.seq}, AdamW defaults, cosine lr {loop.lr:g} "
+        f"warmup {loop.warmup}, {steps} steps, seed 0")
+    torch.cuda.reset_peak_memory_stats()
+    flash_lib.reset_launches()
+    t0 = time.perf_counter()
+    state, history, _ = train_lib.train(cfg, loop, device=DEV)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(flash_lib.LAUNCHES)
+    losses = [m["loss"] for _, m in history]
+    secs = [m["step_s"] for _, m in history]
+    n_params = model_lib.count_params(state.params)
+    peak = torch.cuda.max_memory_allocated()
+    med = statistics.median(secs[1:]) if len(secs) > 1 else secs[0]
+    tokens = loop.batch * loop.seq
+    log(f"  parameters {n_params / 1e9:.3f} B; losses "
+        + " ".join(f"{x:.4f}" for x in losses))
+    log(f"  step wall (host clock, a synchronise per step): first {secs[0]:.3f} s, "
+        f"median of the rest {med:.3f} s (min {min(secs[1:] or secs):.3f}, max "
+        f"{max(secs[1:] or secs):.3f}) = {tokens / med:.0f} tokens/s; train() "
+        f"wall {wall:.1f} s incl. init; peak max_memory_allocated "
+        f"{peak / 2**30:.2f} GiB")
+    log(f"  launches: flash_fwd {launches['flash_fwd']} (want 2 x layers x steps "
+        f"= {2 * layers * steps}), flash_bwd_dq {launches['flash_bwd_dq']}, "
+        f"flash_bwd_dkv {launches['flash_bwd_dkv']} (want layers x steps = "
+        f"{layers * steps})")
+    require(len(losses) == steps, "train() did not log every step")
+    require(all(math.isfinite(x) for x in losses), "a training loss is not finite")
+    require(losses[-1] < losses[0], f"loss did not fall: {losses[0]} -> {losses[-1]}")
+    require(launches["flash_fwd"] == 2 * layers * steps,
+            "flash_fwd launches != 2 x layers x steps (remat recomputes)")
+    require(launches["flash_bwd_dq"] == launches["flash_bwd_dkv"] == layers * steps,
+            "flash backward launches != layers x steps")
+    _train_step_profile(cfg, state, loop)
+    run = (f"{steps} training steps of llama3-8b, {layers} layers, batch "
+           f"{loop.batch} x {loop.seq}, bf16 compute, remat")
+    return {"launches": launches, "launches_run": {n: run for n in FLASH},
+            "step_s": med, "peak_gib": peak / 2**30}
+
+
+# ---------------------------------------------------------------------------
+# phase 6: times
 # ---------------------------------------------------------------------------
 
 _FLUSH = None
@@ -729,6 +986,81 @@ def phase_times(errs: dict, launches: dict, launches_run: dict,
     log(f"  fused_paged_decode: {ms:.4f} ms, plain walk {plain_ms:.3f} ms, "
         f"gather oracle {gather_ms:.4f} ms, bound {max(bytes_ms, ops_ms):.4f} ms "
         f"(bytes; {kv_bytes / 2**20:.1f} MiB of live K/V)")
+    rows.extend(_time_flash(gen, errs, launches, launches_run))
+    return rows
+
+
+def _time_flash(gen, errs: dict, launches: dict, launches_run: dict) -> list[dict]:
+    """The three flash kernels at the training path's shape in bf16: B=4 x
+    H=32 slabs, S=2048, d=128, causal; SDPA on the same tensors as the
+    library yardstick (forward; forward + backward for the two backward
+    kernels, whose work it computes together)."""
+    b, h, s, d = 4, 32, 2048, 128
+    bh, dt = b * h, torch.bfloat16
+    q, k, v, do = (torch.randn((bh, s, d), generator=gen, device=DEV).to(dt)
+                   for _ in range(4))
+    o, lse = flash_lib.flash_fwd(q, k, v, causal=True)
+    delta = torch.sum(do.float() * o.float(), dim=-1)
+    calls = {
+        "flash_fwd": (lambda: flash_lib.flash_fwd(q, k, v, causal=True),
+                      lambda: flash_lib.flash_fwd_plain(q, k, v, causal=True)),
+        "flash_bwd_dq": (
+            lambda: flash_lib.flash_bwd_dq(q, k, v, do, lse, delta, causal=True),
+            lambda: flash_lib.flash_bwd_dq_plain(q, k, v, do, lse, delta, causal=True)),
+        "flash_bwd_dkv": (
+            lambda: flash_lib.flash_bwd_dkv(q, k, v, do, lse, delta, causal=True),
+            lambda: flash_lib.flash_bwd_dkv_plain(q, k, v, do, lse, delta,
+                                                  causal=True)),
+    }
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    q4, k4, v4, do4 = (t.view(b, h, s, d) for t in (q, k, v, do))
+    qg, kg, vg = (t.detach().requires_grad_(True) for t in (q4, k4, v4))
+
+    def sdpa_fwd_bwd():
+        out = sdpa(qg, kg, vg, is_causal=True)
+        return torch.autograd.grad(out, (qg, kg, vg), do4)
+
+    lib_fwd = _time_ms(lambda: sdpa(q4, k4, v4, is_causal=True))
+    with torch.enable_grad():            # the times phase runs under no_grad
+        out_g = sdpa(qg, kg, vg, is_causal=True)
+        lib_fwd_bwd = _time_ms(sdpa_fwd_bwd)
+        lib_bwd = _time_ms(lambda: torch.autograd.grad(
+            out_g, (qg, kg, vg), do4, retain_graph=True))
+    del out_g
+    ops = flash_lib.flash_ops(bh, s, s, d, causal=True)
+    slab = bh * s * d * 2                     # one bf16 (BH, S, D) tensor
+    stats = bh * s * 4                        # one fp32 (BH, S) tensor
+    io_bytes = {"flash_fwd": 3 * slab + slab + stats,            # q,k,v -> o, lse
+                "flash_bwd_dq": 4 * slab + 2 * stats + slab,     # q,k,v,dO,lse,delta -> dQ
+                "flash_bwd_dkv": 4 * slab + 2 * stats + 2 * slab}
+    rows = []
+    for name in FLASH:
+        kern, plain = calls[name]
+        ms = _time_ms(kern)
+        plain_ms = _time_ms(plain, reps=5, warmup=1)
+        bytes_ms = io_bytes[name] / HBM_BYTES_PER_S * 1e3
+        ops_ms = ops[name] / BF16_OPS_PER_S * 1e3
+        library_ms = lib_fwd if name == "flash_fwd" else lib_fwd_bwd
+        rows.append({
+            "name": name, "route": "cuda", "source": SOURCE[name],
+            "replaces": REPLACES[name], "launches": launches.get(name, 0),
+            "launches_run": launches_run.get(name), "max_abs_err": errs[name],
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+            "library_ms": library_ms,
+            "library_call": ("scaled_dot_product_attention(is_causal=True) forward"
+                             if name == "flash_fwd" else
+                             "scaled_dot_product_attention(is_causal=True) forward "
+                             "+ backward"),
+            "library_bwd_only_ms": None if name == "flash_fwd" else lib_bwd,
+            "shape": f"BH={bh} (B={b} x H={h}) S={s} d={d} bf16 causal"})
+        log(f"  {name} BH={bh} S={s} d={d} bf16 causal: {ms:.3f} ms, plain "
+            f"{plain_ms:.3f} ms, bound {max(bytes_ms, ops_ms):.4f} ms "
+            f"({rows[-1]['bound_by']}; {ops[name] / 1e9:.1f} GFLOP, "
+            f"{io_bytes[name] / 2**20:.0f} MiB), SDPA "
+            f"{'forward' if name == 'flash_fwd' else 'forward + backward'} "
+            f"{library_ms:.3f} ms"
+            + ("" if name == "flash_fwd" else f" (backward alone {lib_bwd:.3f} ms)"))
     return rows
 
 
@@ -739,14 +1071,19 @@ def main() -> int:
     ap.add_argument("--layers", type=int, default=32,
                     help="depth of the served model (widths are never cut)")
     ap.add_argument("--requests", type=int, default=12)
-    ap.add_argument("--phases", default="device,kernels,probes,serve,times",
+    ap.add_argument("--phases", default=",".join(ALL_PHASES),
                     help="comma-separated subset, for iterating on one phase")
     args = ap.parse_args()
     phases = args.phases.split(",")
+    # fp32 products in full fp32 everywhere (the train probe compares card
+    # and CPU at 1e-5); both are PyTorch's defaults for matmuls, stated here
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
     t_start = time.perf_counter()
     errs = {"tub_gemm": math.nan, "tu_gemm": math.nan,
-            "fused_paged_decode": math.nan}
-    served: dict = {"launches": {}, "launches_run": {}}
+            "fused_paged_decode": math.nan, **{n: math.nan for n in FLASH}}
+    launches: dict = {}
+    launches_run: dict = {}
     rows: list[dict] = []
     try:
         with torch.no_grad():
@@ -760,15 +1097,27 @@ def main() -> int:
             if "serve" in phases:
                 log("phase serve")
                 served = phase_serve(args.layers, args.requests)
-                torch.cuda.empty_cache()
-            if "times" in phases:
-                log("phase times")
-                rows = phase_times(errs, served["launches"],
-                                   served["launches_run"], args.layers)
+                launches.update(served["launches"])
+                launches_run.update(served["launches_run"])
+                del served
+        # serve's engines and parameters are gone with its frame
+        gc.collect()
+        torch.cuda.empty_cache()
+        if "train" in phases:            # records gradients: outside no_grad
+            log("phase train")
+            trained = phase_train(TRAIN_LAYERS, TRAIN_STEPS)
+            launches.update(trained["launches"])
+            launches_run.update(trained["launches_run"])
+            gc.collect()
+            torch.cuda.empty_cache()
+        if "times" in phases:
+            log("phase times")
+            with torch.no_grad():
+                rows = phase_times(errs, launches, launches_run, args.layers)
     except Failed as exc:
         log(f"FAILED: {exc}")
         return 1
-    full = phases == ["device", "kernels", "probes", "serve", "times"]
+    full = phases == list(ALL_PHASES)
     if full:
         for row in rows:
             if not row["launches"] > 0:

@@ -26,7 +26,7 @@ __all__ = ["CSRC_DIR", "SOURCES", "build_dir", "load_library",
            "last_build_seconds", "check_launch"]
 
 CSRC_DIR = Path(__file__).resolve().parents[1] / "csrc"
-SOURCES = ("unary_gemm.cu", "fused_paged_decode.cu")
+SOURCES = ("unary_gemm.cu", "fused_paged_decode.cu", "flash_attention.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC")
 
@@ -99,6 +99,16 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.fused_paged_decode_launch.argtypes = [p, p, p, p, p, p,
                                               i, i, i, i, i, i, i, i, p]
     lib.fused_paged_decode_launch.restype = i
+    ll, f = ctypes.c_longlong, ctypes.c_float
+    lib.flash_fwd_launch.argtypes = [p, p, p, p, p, i, i, i, i, ll, ll, ll,
+                                     f, i, i, p]
+    lib.flash_fwd_launch.restype = i
+    lib.flash_bwd_dq_launch.argtypes = [p, p, p, p, p, p, p, i, i, i, i,
+                                        ll, ll, ll, ll, f, i, i, p]
+    lib.flash_bwd_dq_launch.restype = i
+    lib.flash_bwd_dkv_launch.argtypes = [p, p, p, p, p, p, p, p, i, i, i, i,
+                                         ll, ll, ll, ll, f, i, i, p]
+    lib.flash_bwd_dkv_launch.restype = i
 
 
 def load_library(verbose: bool = False) -> ctypes.CDLL:

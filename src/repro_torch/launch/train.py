@@ -1,0 +1,169 @@
+"""End-to-end training loop with fault tolerance, on one device.
+
+    PYTHONPATH=src python -m repro_torch.launch.train --arch llama3-8b --smoke \
+        --steps 20 --device cpu
+
+Runs on the card by default (``--device cuda``); on the card the no-cache
+attention of every layer goes through the hand-written flash kernels,
+forward and backward.  Features as in the reference: auto-resume from the
+latest COMPLETE checkpoint (the reference's on-disk layout, so a reference
+checkpoint resumes here), keep-k async checkpointing, straggler watchdog,
+retry of a step's gradient computation, and optional int8 gradient compression with error feedback.
+Training follows ``cfg.compute_dtype``.  Only ``--mesh single`` is ported.
+"""
+
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import logging
+import time
+
+import numpy as np
+import torch
+
+from repro_torch import configs
+from repro_torch.checkpoint import CheckpointManager
+from repro_torch.data import DataConfig, make_pipeline
+from repro_torch.launch import steps as steps_lib
+from repro_torch.models.model import require_device
+from repro_torch.optim import AdamWConfig, cosine_schedule
+from repro_torch.runtime import StepTimer, StragglerWatchdog, retry_with_backoff
+
+log = logging.getLogger("repro_torch.train")
+
+
+@dataclasses.dataclass
+class TrainLoopConfig:
+    steps: int = 100
+    log_every: int = 10
+    ckpt_every: int = 50
+    ckpt_dir: str | None = None
+    keep: int = 3
+    seed: int = 0
+    batch: int = 8
+    seq: int = 128
+    lr: float = 3e-4
+    warmup: int = 20
+    compress_grads: bool = False
+    inject_failures: float = 0.0    # probability of a synthetic step failure
+
+
+def train(cfg, loop: TrainLoopConfig, device="cuda"):
+    """Train ``cfg`` on one device.  Returns (state, history, watchdog).
+
+    ``history`` holds ``(step, metrics)`` at every ``log_every``-th step
+    (and the first), the metrics as floats plus ``step_s``, the step's wall
+    seconds.  On a CUDA device each step ends in a synchronise, so the
+    watchdog and ``step_s`` see the device's work, not its enqueueing.
+    """
+    device = require_device(device)
+    opt_cfg = AdamWConfig(lr=loop.lr, compress_grads=loop.compress_grads)
+    sched = cosine_schedule(loop.lr, loop.warmup, loop.steps)
+    step_fn = steps_lib.make_train_step(cfg, opt_cfg, sched)
+
+    data_cfg = DataConfig(batch_size=loop.batch, seq_len=loop.seq + 1,
+                          vocab_size=cfg.vocab_size, seed=loop.seed,
+                          embed_dim=cfg.d_model if cfg.frontend_stub else None)
+    data = make_pipeline(data_cfg)
+
+    mgr = CheckpointManager(loop.ckpt_dir, keep=loop.keep) if loop.ckpt_dir else None
+    generator = torch.Generator(device=device)
+    generator.manual_seed(loop.seed)
+    state = steps_lib.init_train_state(cfg, opt_cfg, generator, device)
+    start = 0
+    if mgr is not None and mgr.has_checkpoint():
+        state, start, _ = mgr.restore_latest(state)
+        log.info("auto-resumed from step %d", start)
+
+    watchdog = StragglerWatchdog()
+    rng = np.random.default_rng(loop.seed + 1)
+    history = []
+    for i in range(start, loop.steps):
+        batch_np = next(data)
+        batch = {k: torch.from_numpy(v).to(device) for k, v in batch_np.items()
+                 if k in ("tokens", "targets", "embeds")}
+        if cfg.frontend_stub:
+            batch.pop("tokens", None)
+
+        def attempt(grads_fn):
+            # Only the gradient computation is retried: it leaves the state
+            # untouched.  The in-place update runs once; a failure there
+            # ends the run, which then resumes from the latest checkpoint.
+            def once():
+                if loop.inject_failures and rng.random() < loop.inject_failures:
+                    raise RuntimeError("synthetic node failure (injected)")
+                out = grads_fn()
+                if device.type == "cuda":
+                    torch.cuda.synchronize(device)
+                return out
+            return retry_with_backoff(once, retries=3, base_delay=0.01)
+
+        with StepTimer(watchdog) as timer:
+            try:
+                state, metrics = step_fn(state, batch, attempt)
+            except BaseException:
+                if mgr is not None:
+                    mgr.wait()      # let a pending save finish before failing
+                raise
+            if device.type == "cuda":
+                torch.cuda.synchronize(device)
+        if (i + 1) % loop.log_every == 0 or i == start:
+            m = {k: float(v) for k, v in metrics.items()}
+            m["step_s"] = timer.elapsed
+            history.append((i + 1, m))
+            log.info("step %d loss=%.4f nll=%.4f gnorm=%.2f lr=%.2e",
+                     i + 1, m["loss"], m["nll"], m["grad_norm"], m["lr"])
+        if mgr is not None and (i + 1) % loop.ckpt_every == 0:
+            mgr.save(i + 1, state, extras={"loss": float(metrics["loss"])})
+    if mgr is not None:
+        mgr.save(loop.steps, state)
+        mgr.wait()
+    return state, history, watchdog
+
+
+def main(argv=None) -> int:
+    logging.basicConfig(level=logging.INFO,
+                        format="%(asctime)s %(name)s %(message)s")
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--arch", default="llama3-8b", choices=list(configs.ARCH_IDS))
+    ap.add_argument("--smoke", action="store_true",
+                    help="reduced same-family config (CPU-trainable)")
+    ap.add_argument("--steps", type=int, default=100)
+    ap.add_argument("--batch", type=int, default=8)
+    ap.add_argument("--seq", type=int, default=128)
+    ap.add_argument("--lr", type=float, default=3e-4)
+    ap.add_argument("--ckpt-dir", default=None)
+    ap.add_argument("--ckpt-every", type=int, default=50)
+    ap.add_argument("--compress-grads", action="store_true")
+    ap.add_argument("--inject-failures", type=float, default=0.0)
+    ap.add_argument("--mesh", default="single",
+                    choices=["single", "pod", "multipod"])
+    ap.add_argument("--device", default="cuda",
+                    help="torch device to train on (default: cuda; 'cpu' runs "
+                         "the kernels' plain versions)")
+    args = ap.parse_args(argv)
+
+    if args.mesh != "single":
+        raise NotImplementedError(
+            f"--mesh {args.mesh} needs a multi-device mesh, which the port does "
+            f"not have yet (ROADMAP Queue 1 item 12); use --mesh single")
+    cfg = (configs.get_smoke_config(args.arch) if args.smoke
+           else configs.get_config(args.arch))
+    loop = TrainLoopConfig(steps=args.steps, batch=args.batch, seq=args.seq,
+                           lr=args.lr, ckpt_dir=args.ckpt_dir,
+                           ckpt_every=args.ckpt_every,
+                           compress_grads=args.compress_grads,
+                           inject_failures=args.inject_failures)
+    t0 = time.time()
+    state, history, watchdog = train(cfg, loop, args.device)
+    if history:
+        first, last = history[0][1]["loss"], history[-1][1]["loss"]
+        print(f"trained {args.arch} ({'smoke' if args.smoke else 'full'}) on "
+              f"{args.device}: loss {first:.4f} -> {last:.4f} in "
+              f"{time.time()-t0:.1f}s ({watchdog.slow_steps} straggler steps)")
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

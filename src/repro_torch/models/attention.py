@@ -1,9 +1,12 @@
-"""GQA/MQA/MHA attention: full-sequence prefill and cached decode.
+"""GQA/MQA/MHA attention: full-sequence (train / no-cache) and cached decode.
 
 The contiguous KV cache is updated **in place** (the reference's functional
 ``dynamic_update_slice`` becomes an index write into the tensor it was
-handed); callers that need the old cache must clone it first.  MLA and the
-blockwise / flash prefill paths are not ported yet.
+handed); callers that need the old cache must clone it first.  The no-cache
+path dispatches like the reference's ``_mixed_attention``: on the card the
+hand-written flash kernels (:mod:`repro_torch.kernels.flash_attention`), on
+the CPU blockwise attention above ``BLOCKWISE_THRESHOLD`` and naive below.
+MLA is not ported yet.
 """
 
 from __future__ import annotations
@@ -17,9 +20,12 @@ from repro_torch.models.common import ParamDef, dense
 from repro_torch.models.config import ModelConfig
 
 __all__ = ["gqa_defs", "attention_defs", "init_kv_cache", "attention_fwd",
-           "naive_attention"]
+           "naive_attention", "blockwise_attention", "BLOCKWISE_THRESHOLD"]
 
 _MASK = -1e30
+BLOCKWISE_THRESHOLD = 8192   # chunked attention above this sequence length
+Q_CHUNK = 2048
+KV_CHUNK = 2048
 
 
 def gqa_defs(cfg: ModelConfig) -> dict:
@@ -82,6 +88,65 @@ def naive_attention(q, k, v, *, causal: bool, q_offset=0,
     return torch.einsum("bhqk,bkhd->bqhd", w.to(v.dtype), v)
 
 
+def blockwise_attention(q, k, v, *, causal: bool, q_chunk: int = Q_CHUNK,
+                        kv_chunk: int = KV_CHUNK) -> torch.Tensor:
+    """Flash-style online-softmax attention; never materializes (Sq, Skv).
+
+    Scores are taken in the operands' dtype and cast to float32, the running
+    state starts at ``-inf``, and masked scores are ``-1e30``; V is read as
+    float32 and the output cast to ``v.dtype`` -- the reference's order.
+    """
+    b, sq, h, d = q.shape
+    skv = k.shape[1]
+    dv = v.shape[-1]
+    q_chunk = min(q_chunk, sq)
+    kv_chunk = min(kv_chunk, skv)
+    if sq % q_chunk or skv % kv_chunk:
+        raise ValueError(f"seq lens ({sq},{skv}) must divide chunks "
+                         f"({q_chunk},{kv_chunk})")
+    dev = q.device
+    scale = 1.0 / torch.sqrt(torch.tensor(d, dtype=torch.float32, device=dev))
+    outs = []
+    for q0 in range(0, sq, q_chunk):
+        qblk = q[:, q0:q0 + q_chunk]
+        m = torch.full((b, h, q_chunk), -math.inf, dtype=torch.float32, device=dev)
+        l = torch.zeros((b, h, q_chunk), dtype=torch.float32, device=dev)
+        acc = torch.zeros((b, h, q_chunk, dv), dtype=torch.float32, device=dev)
+        for k0 in range(0, skv, kv_chunk):
+            kblk, vblk = k[:, k0:k0 + kv_chunk], v[:, k0:k0 + kv_chunk]
+            s = torch.einsum("bqhd,bkhd->bhqk", qblk, kblk).to(torch.float32)
+            s = s * scale
+            if causal:
+                qpos = q0 + torch.arange(q_chunk, device=dev)[:, None]
+                kpos = k0 + torch.arange(kv_chunk, device=dev)[None, :]
+                s = s.masked_fill(~(qpos >= kpos)[None, None], _MASK)
+            m_new = torch.maximum(m, s.amax(dim=-1))
+            p = torch.exp(s - m_new[..., None])
+            corr = torch.exp(m - m_new)
+            l = l * corr + p.sum(dim=-1)
+            acc = acc * corr[..., None] + torch.einsum(
+                "bhqk,bkhd->bhqd", p, vblk.to(torch.float32))
+            m = m_new
+        out = acc / torch.clamp(l[..., None], min=1e-30)
+        outs.append(out.permute(0, 2, 1, 3))                 # (B, qc, H, Dv)
+    return torch.cat(outs, dim=1).to(v.dtype)
+
+
+def _mixed_attention(q, k, v, *, causal: bool) -> torch.Tensor:
+    """Dispatch for full-sequence (no-cache) attention.
+
+    A CUDA tensor takes the flash kernels (score tiles stay on chip, the
+    backward is the two hand-written kernels); elsewhere blockwise above
+    ``BLOCKWISE_THRESHOLD`` and naive below, as the reference does off TPU.
+    """
+    if q.device.type == "cuda":
+        from repro_torch.kernels.flash_attention import flash_attention
+        return flash_attention(q, k, v, causal=causal)
+    if q.shape[1] > BLOCKWISE_THRESHOLD:
+        return blockwise_attention(q, k, v, causal=causal)
+    return naive_attention(q, k, v, causal=causal)
+
+
 def _repeat_kv(kv: torch.Tensor, h: int) -> torch.Tensor:
     kvh = kv.shape[2]
     if kvh == h:
@@ -125,8 +190,8 @@ def _gqa_fwd(params, x, cfg, *, positions, cache, cache_pos, kv_valid_len):
         out = naive_attention(q, k_full, v_full, causal=True,
                               q_offset=cache_pos, kv_valid_len=kv_valid_len)
     else:
-        out = naive_attention(q, _repeat_kv(k, h), _repeat_kv(v, h),
-                              causal=True)
+        out = _mixed_attention(q, _repeat_kv(k, h), _repeat_kv(v, h),
+                               causal=True)
     return _out_proj(params, out, cfg), new_cache
 
 

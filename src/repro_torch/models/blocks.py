@@ -11,6 +11,7 @@ from __future__ import annotations
 import dataclasses
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.backends.runtime import site_scope
 from repro_torch.models import attention as attn_lib
@@ -65,6 +66,17 @@ def layer_slice(stacked, i: int):
     return stacked[i]
 
 
+def _unstack(stacked, n: int) -> list:
+    """Every layer's view of a stacked (L, ...) tree, cut by one ``unbind``
+    per leaf (no copy).  Under autograd the stacked leaf then receives one
+    stacked gradient, where ``n`` separate slices would each backpropagate
+    a zero-filled full-size gradient to be summed."""
+    if isinstance(stacked, dict):
+        per_key = {k: _unstack(v, n) for k, v in stacked.items()}
+        return [{k: per_key[k][i] for k in stacked} for i in range(n)]
+    return torch.unbind(stacked[:n], 0)
+
+
 def _transformer_block(layer_params, x, cfg: ModelConfig, *, positions,
                        cache, cache_pos, kv_valid_len):
     h = rmsnorm(layer_params["ln1"], x, cfg.rms_eps)
@@ -90,12 +102,19 @@ def stack_fwd(params: dict, x: torch.Tensor, cfg: ModelConfig, *,
     """
     _check_family(cfg)
     lc = caches["attn"] if caches is not None else None
-    for i in range(cfg.num_layers):
+
+    def layer(lp, x, cache):
         with site_scope("layers"):
-            x, _ = _transformer_block(
-                layer_slice(params["layers"], i), x, cfg, positions=positions,
-                cache=None if lc is None else layer_slice(lc, i),
-                cache_pos=cache_pos, kv_valid_len=kv_valid_len)
+            return _transformer_block(
+                lp, x, cfg, positions=positions, cache=cache,
+                cache_pos=cache_pos, kv_valid_len=kv_valid_len)[0]
+
+    remat = cfg.remat and lc is None and torch.is_grad_enabled()
+    for i, lp in enumerate(_unstack(params["layers"], cfg.num_layers)):
+        if remat:
+            x = checkpoint(layer, lp, x, None, use_reentrant=False)
+        else:
+            x = layer(lp, x, None if lc is None else layer_slice(lc, i))
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     return x, caches, aux
 

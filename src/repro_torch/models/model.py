@@ -4,6 +4,7 @@ Entry points:
   * ``forward``       — logits for a full sequence (prefill without caches)
   * ``prefill``       — forward + populated KV caches
   * ``decode_step``   — one token with caches
+  * ``loss_fn``       — mean next-token cross-entropy (training)
 plus parameter/cache initialization and ``params_from_numpy``, which adopts
 the reference package's parameter tree (same keys, same stacked ``(L, ...)``
 layout) so both implementations can run on identical weights.
@@ -25,7 +26,7 @@ from repro_torch.models.config import ModelConfig
 __all__ = [
     "model_defs", "init_params", "params_from_numpy", "forward", "prefill",
     "decode_step", "init_caches", "count_params", "embed_in", "logits_out",
-    "require_device",
+    "require_device", "loss_fn",
 ]
 
 
@@ -169,6 +170,21 @@ def decode_step(params: dict, cfg: ModelConfig, tokens, *, caches, cache_pos):
         params, x, cfg, positions=positions, caches=caches,
         cache_pos=cache_pos, kv_valid_len=cache_pos + 1)
     return _logits_out(params, cfg, x), new_caches
+
+
+def loss_fn(params: dict, cfg: ModelConfig, tokens, targets, *,
+            aux_weight: float = 0.01, embeds=None):
+    """Mean next-token cross-entropy (+ aux).  targets: (B, S) int.
+
+    Logits are taken to float32, then ``logsumexp - gold``, averaged.
+    Returns ``(loss, {"nll": nll, "aux": aux})``.
+    """
+    logits, aux = forward(params, cfg, tokens, embeds=embeds)
+    logits = logits.to(torch.float32)
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, targets.long()[..., None])[..., 0]
+    nll = torch.mean(logz - gold)
+    return nll + aux_weight * aux, {"nll": nll, "aux": aux}
 
 
 def count_params(params) -> int:

@@ -7,13 +7,16 @@ time).  On a machine with an NVIDIA GPU and ``nvcc``:
     PYTHONPATH=src python -m pytest -q tests/test_torch_gpu.py
 
 Integer GEMMs must be EQUAL to the plain slot loop; the fused decode kernel
-within 1e-4 of the gather oracle at fp32 (online softmax re-associates).
+within 1e-4 of the gather oracle at fp32 (online softmax re-associates); the
+flash kernels within 1e-4 x max|plain| at fp32 and 1e-2 x max|plain| at
+bfloat16 (one rounding of an output element), per tensor.
 """
 
 import numpy as np
 import pytest
 import torch
 
+from repro_torch.kernels import flash_attention as flash_lib
 from repro_torch.kernels import paged_attention as paged_lib
 from repro_torch.kernels import paged_attention_fused as fused_lib
 from repro_torch.kernels import ref as ref_lib
@@ -87,3 +90,69 @@ def test_wrappers_raise_rather_than_fall_back(cuda):
         fused_lib.fused_paged_decode_attention(
             q, pool, pool, torch.zeros((1, 1), dtype=torch.int32, device=cuda),
             torch.ones((1,), dtype=torch.int32, device=cuda), num_heads=2)
+
+
+FLASH_TOL = {torch.float32: 1e-4, torch.bfloat16: 1e-2}   # x max|plain|
+# bf16 o, dQ, dK, dV per element, x (|plain| + max|plain| of its row), as in
+# chip_smoke.py
+FLASH_BF16_ROW_TOL = 1.2e-2
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("bh,sq,skv,d", [(3, 77, 77, 64), (2, 130, 50, 32),
+                                         (2, 64, 200, 128), (4, 100, 100, 16)])
+def test_flash_kernels_match_plain(cuda, dtype, causal, bh, sq, skv, d):
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(sq + skv + d)
+
+    def rand(n, pad=0):
+        # padded tails are NaN: the kernels must never read them
+        buf = torch.randn((bh, n + pad, d), generator=gen, device=cuda).to(dtype)
+        buf[:, n:] = float("nan")
+        return buf[:, :n]
+
+    q, k, v, do = rand(sq, 5), rand(skv, 7), rand(skv, 3), rand(sq, 2)
+    before = dict(flash_lib.LAUNCHES)
+    o, lse = flash_lib.flash_fwd(q, k, v, causal=causal)
+    delta = torch.sum(do.float() * o.float(), dim=-1)
+    dq = flash_lib.flash_bwd_dq(q, k, v, do, lse, delta, causal=causal)
+    dk, dv = flash_lib.flash_bwd_dkv(q, k, v, do, lse, delta, causal=causal)
+    torch.cuda.synchronize()
+    assert {n: flash_lib.LAUNCHES[n] - before[n] for n in before} == {
+        "flash_fwd": 1, "flash_bwd_dq": 1, "flash_bwd_dkv": 1}
+    p_o, p_lse = flash_lib.flash_fwd_plain(q, k, v, causal=causal)
+    p_dq = flash_lib.flash_bwd_dq_plain(q, k, v, do, p_lse, delta, causal=causal)
+    p_dk, p_dv = flash_lib.flash_bwd_dkv_plain(q, k, v, do, p_lse, delta,
+                                               causal=causal)
+    for name, got, want in (("o", o, p_o), ("lse", lse, p_lse), ("dq", dq, p_dq),
+                            ("dk", dk, p_dk), ("dv", dv, p_dv)):
+        assert bool(torch.isfinite(got.float()).all()), name
+        err = float((got.float() - want.float()).abs().max())
+        assert err <= FLASH_TOL[dtype] * float(want.float().abs().max()), (name, err)
+        if dtype == torch.bfloat16 and name != "lse":
+            w = want.float()
+            scale = w.abs() + w.abs().amax(dim=-1, keepdim=True)
+            excess = (got.float() - w).abs() - FLASH_BF16_ROW_TOL * scale
+            assert float(excess.max()) <= 0.0, (name, "per row")
+
+
+def test_flash_attention_autograd_launches_each_kernel_once(cuda):
+    q = torch.randn((2, 70, 4, 32), device=cuda, requires_grad=True)
+    flash_lib.reset_launches()
+    out = flash_lib.flash_attention(q, q, q, causal=True)
+    out.square().sum().backward()
+    assert flash_lib.LAUNCHES == {"flash_fwd": 1, "flash_bwd_dq": 1,
+                                  "flash_bwd_dkv": 1}
+    ref = q.detach().cpu().requires_grad_(True)
+    flash_lib.flash_attention(ref, ref, ref, causal=True).square().sum().backward()
+    assert float((q.grad.cpu() - ref.grad).abs().max()) <= 1e-4 * float(ref.grad.abs().max())
+
+
+def test_flash_wrappers_raise_rather_than_fall_back(cuda):
+    q = torch.zeros((1, 8, 48), device=cuda)          # head dim 48: not built
+    with pytest.raises(ValueError):
+        flash_lib.flash_fwd(q, q, q, causal=True)
+    h = torch.zeros((1, 8, 16), dtype=torch.float16, device=cuda)
+    with pytest.raises(TypeError):
+        flash_lib.flash_fwd(h, h, h, causal=True)

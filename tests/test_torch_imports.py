@@ -70,10 +70,22 @@ def test_package_imports_without_jax_cuda_or_triton():
 
 def test_csrc_holds_the_three_kernels():
     srcs = {p.name: p.read_text() for p in (PKG / "csrc").glob("*.cu")}
-    assert set(srcs) == {"unary_gemm.cu", "fused_paged_decode.cu"}
+    # six kernels: tub/tu GEMM, fused decode, flash forward, dQ and dK/dV
+    assert set(srcs) == {"unary_gemm.cu", "fused_paged_decode.cu",
+                         "flash_attention.cu"}
     assert "__dp4a" in srcs["unary_gemm.cu"] and "n_slots" in srcs["unary_gemm.cu"]
     assert 'extern "C" int unary_gemm_launch' in srcs["unary_gemm.cu"]
     assert 'extern "C" int fused_paged_decode_launch' in srcs["fused_paged_decode.cu"]
+    flash = srcs["flash_attention.cu"]
+    for launcher in ("flash_fwd_launch", "flash_bwd_dq_launch",
+                     "flash_bwd_dkv_launch"):
+        assert f'extern "C" int {launcher}' in flash
+    for kernel in ("flash_fwd_kernel", "flash_bwd_dq_kernel",
+                   "flash_bwd_dkv_kernel"):
+        assert f"__global__ void __launch_bounds__(NT)\n{kernel}" in flash
+    assert "__nv_bfloat16" in flash and "atomicAdd" not in flash
+    from repro_torch.kernels import _build
+    assert set(_build.SOURCES) == set(srcs)
     for text in srcs.values():
         assert "torch/extension.h" not in text and "cudaMalloc" not in text
         assert "cudaDeviceSynchronize" not in text
