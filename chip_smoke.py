@@ -17,18 +17,27 @@ Phases, each of which fails the run (non-zero exit) on its own:
    decode must sample identical token streams on the float path; under
    4-bit execution that comparison is reported, and one teacher-forced
    step through both engines counts the activation codes that flip;
-5. ``train``   — the training path (``launch/train.py``): a card-vs-CPU
+5. ``quant``   — the quantized-kernel inference path on the same weights:
+   ``ServingEngine`` over ``cfg.quant_kernel`` at 4 bits (no backend scope)
+   serving the same trace, gated on completion and on ``quant_gemm``'s
+   launch counter, after a card-vs-CPU probe on the smoke config; the 224
+   site weights packed into word stores (``pack_quantized``) and contracted
+   with ``packed_matmul``, equal to the materialising reference; and
+   ``ops.bit_sparsity_stats`` over every site weight within 1e-6 of
+   ``profile_tensor``;
+6. ``train``   — the training path (``launch/train.py``): a card-vs-CPU
    probe of one step on the smoke config in fp32, then 10 steps of
    llama3-8b at its published widths cut to 8 layers (fp32 parameters,
    bf16 compute, remat, batch 4 x 2048), gated on finite, falling loss and
    on the flash kernels' launch counters; one more step traced;
-6. ``times``   — per-kernel CUDA-event timings beside the plain version, the
+7. ``times``   — per-kernel CUDA-event timings beside the plain version, the
    roofline bound and, where one exists, the library call.
 
 Needs a CUDA device: without one (or without the package beside it) the
 script exits non-zero and prints no result.  ``--layers`` / ``--requests``
 cut the served model's depth and traffic, for quick iterations; widths are
-never cut.  The trained depth is fixed at ``TRAIN_LAYERS``.
+never cut (``quant`` serves the ``serve`` phase's model).  The trained depth
+is fixed at ``TRAIN_LAYERS``.
 """
 
 from __future__ import annotations
@@ -62,12 +71,19 @@ sys.path.insert(0, os.path.join(HERE, "src"))
 
 try:
     from repro_torch import backends, configs
-    from repro_torch.core import gemm_sims
+    from repro_torch.core import gemm_sims, packing
+    from repro_torch.core.accounting import packed_store_report
+    from repro_torch.core.quantization import quantize
+    from repro_torch.core.sparsity import profile_tensor
     from repro_torch.data import DataConfig, SyntheticLM
     from repro_torch.kernels import _build
+    from repro_torch.kernels import bitsparsity as bs_lib
     from repro_torch.kernels import flash_attention as flash_lib
+    from repro_torch.kernels import ops as ops_lib
+    from repro_torch.kernels import packed_gemm as pg_lib
     from repro_torch.kernels import paged_attention as paged_lib
     from repro_torch.kernels import paged_attention_fused as fused_lib
+    from repro_torch.kernels import quant_gemm as qg_lib
     from repro_torch.kernels import ref as ref_lib
     from repro_torch.kernels import unary_gemm as ug
     from repro_torch.launch import steps as steps_lib
@@ -98,9 +114,33 @@ REPLACES = {
     "flash_fwd": "src/repro/kernels/flash_attention.py:95",
     "flash_bwd_dq": "src/repro/kernels/flash_attention.py:230",
     "flash_bwd_dkv": "src/repro/kernels/flash_attention.py:248",
+    "packed_gemm": "src/repro/kernels/packed_gemm.py:124",
+    "quant_gemm": "src/repro/kernels/quant_gemm.py:125",
+    "block_stats": "src/repro/kernels/bitsparsity.py:57",
 }
 FLASH = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
-ALL_PHASES = ("device", "kernels", "probes", "serve", "train", "times")
+INT_GEMMS = ("quant_gemm", "packed_gemm")
+ALL_PHASES = ("device", "kernels", "probes", "serve", "quant", "train", "times")
+SITE_LEAVES = (("attn", "wq"), ("attn", "wk"), ("attn", "wv"), ("attn", "wo"),
+               ("mlp", "w_up"), ("mlp", "w_gate"), ("mlp", "w_down"))
+
+
+def site_shapes(cfg) -> tuple[tuple[int, int], ...]:
+    """(K, N) of the seven dense sites of a layer, in SITE_LEAVES order."""
+    d, q = cfg.d_model, cfg.num_heads * cfg.resolved_head_dim
+    kv = cfg.num_kv_heads * cfg.resolved_head_dim
+    return ((d, q), (d, kv), (d, kv), (q, d), (d, cfg.d_ff), (d, cfg.d_ff),
+            (cfg.d_ff, d))
+
+
+# llama3-8b's: (4096,4096), (4096,1024) x2, (4096,4096), (4096,14336) x2,
+# (14336,4096); four distinct shapes
+SITE_SHAPES = site_shapes(configs.get_config("llama3-8b"))
+UP_SHAPE = SITE_SHAPES[4]      # w_up: the headline shape of the times rows
+# the quant_kernel path's dense sites per layer: wo runs the float einsum
+# outside a backend scope, as in the reference (attention._out_proj)
+QUANT_SITES_PER_LAYER = 6
+QUANT_BITS = 4
 TRAIN_STEPS = 10
 # fp32 parameters, gradients and AdamW moments cost 16 B a parameter: 32
 # layers of llama3-8b need ~128 GB, 8 layers (~2.8 B parameters) ~45 GB,
@@ -111,7 +151,12 @@ SOURCE = {
     "tub_gemm": "src/repro_torch/csrc/unary_gemm.cu",
     "tu_gemm": "src/repro_torch/csrc/unary_gemm.cu",
     **{name: "src/repro_torch/csrc/flash_attention.cu" for name in FLASH},
+    "quant_gemm": "src/repro_torch/csrc/quant_gemm.cu",
+    "packed_gemm": "src/repro_torch/csrc/packed_gemm.cu",
+    "block_stats": "src/repro_torch/csrc/bitsparsity.cu",
 }
+KERNELS = ("fused_paged_decode", "tub_gemm", "tu_gemm", *FLASH, *INT_GEMMS,
+           "block_stats")
 
 
 class Failed(Exception):
@@ -188,8 +233,7 @@ RAGGED_LENGTHS = (1, 16, 17, 255, 256, 500, 777, 1024)
 def phase_kernels() -> dict:
     gen = torch.Generator(device=DEV)
     gen.manual_seed(0)
-    errs = {"tub_gemm": 0.0, "tu_gemm": 0.0, "fused_paged_decode": 0.0,
-            **{name: 0.0 for name in FLASH}}
+    errs = {name: 0.0 for name in KERNELS}
     # (M, K, N): decode sites, a prefill site (the 128256-wide lm_head cut to
     # a 4096-column slice: the plain slot loop and 128-slot tuGEMM at full
     # width would take minutes), and a ragged shape that exercises the masks.
@@ -280,6 +324,8 @@ def phase_kernels() -> dict:
         errs["fused_paged_decode"] = max(errs["fused_paged_decode"], d)
         require(d <= 1e-4, f"fused decode H={h} KVH={kvh} page={page}: {d}")
     _flash_kernels(gen, errs)
+    _int_gemm_kernels(gen, errs)
+    _block_stats_kernels(gen, errs)
     log("kernels: " + json.dumps(
         [{"name": k, "max_abs_err": v} for k, v in errs.items()]))
     return errs
@@ -364,6 +410,91 @@ def _flash_kernels(gen, errs: dict) -> None:
                     + ("; per row " + ", ".join(f"{n} {r:.2e}" for n, r in row_rel.items())
                        + f" (tol {FLASH_BF16_ROW_TOL:g})" if row_rel else ""))
                 del q, k, v, do, o, lse, dq, dk, dv, p_o, p_lse, p_dq, p_dk, p_dv
+
+
+def _full_codes(gen, shape, bits):
+    """Codes over the full signed range, -2^(bits-1) included."""
+    v = 1 << (bits - 1)
+    return torch.randint(-v, v, shape, generator=gen, device=DEV,
+                         dtype=torch.int32).to(torch.int8)
+
+
+# M of the packed GEMMs: decode rows (8 slots) and a long prompt's prefill
+# rows (the quant phase checks the trace's own prefill rows as well)
+INT_GEMM_ROWS = (8, 512)
+# ragged (M, K, N): K off the codes per word and the 64-wide K tile, M and N
+# off the row and 128-column tiles
+INT_GEMM_RAGGED = ((1, 4093, 1027), (33, 203, 77), (13, 100, 300))
+
+
+def _check_int_gemms(gen, errs: dict, m: int, k: int, n: int, bits: int,
+                     fuses=(False, True)) -> None:
+    """quant_gemm (K cut to a multiple of 8/bits) and packed_gemm against
+    their plain versions, int32 and fused float32: EQUAL, or fail."""
+    x = _full_codes(gen, (m, k), 8)
+    w = _full_codes(gen, (k, n), bits)
+    scales = torch.rand((1, n), generator=gen, device=DEV) * 1e-2 + 1e-4
+    kq = k - k % (8 // bits)
+    w_packed = ops_lib.pack_values(w[:kq], bits)
+    words = packing.pack_codes(w, bits)
+    for fuse in fuses:
+        for name, got, plain in (
+                ("quant_gemm",
+                 lambda: qg_lib.quant_gemm(x[:, :kq], w_packed, scales, bits=bits,
+                                           fuse_dequant=fuse),
+                 lambda: ref_lib.quant_gemm_ref(x[:, :kq], w_packed, scales,
+                                                bits=bits, fuse_dequant=fuse)),
+                ("packed_gemm",
+                 lambda: pg_lib.packed_gemm(x, words, scales, bits=bits, k=k,
+                                            fuse_dequant=fuse),
+                 lambda: ref_lib.packed_gemm_ref(x, words, scales, bits=bits,
+                                                 k=k, fuse_dequant=fuse))):
+            out = got()
+            torch.cuda.synchronize()
+            want = plain()
+            d = float((out.double() - want.double()).abs().max()) if out.numel() else 0.0
+            errs[name] = max(errs[name], d)
+            require(out.dtype == want.dtype and torch.equal(out, want),
+                    f"{name} ({m},{k},{n}) bits={bits} fuse={fuse}: max "
+                    f"|kernel-plain| {d} (want equal)")
+    # the integer oracle, independent of both plain versions
+    oracle = gemm_sims.bgemm_exact(x, w)
+    got = pg_lib.packed_gemm(x, words, bits=bits, k=k)
+    require(torch.equal(got, oracle), f"packed_gemm ({m},{k},{n}) bits={bits} "
+                                      f"differs from the integer GEMM")
+
+
+def _int_gemm_kernels(gen, errs: dict) -> None:
+    """The packed GEMMs at bits {2, 4, 8}, fused dequant on and off: the
+    path's site shapes at decode and prefill rows, and ragged shapes."""
+    shapes = [(m, k, n) for m in INT_GEMM_ROWS for (k, n) in
+              sorted(set(SITE_SHAPES))] + list(INT_GEMM_RAGGED)
+    for (m, k, n) in shapes:
+        for bits in (2, 4, 8):
+            _check_int_gemms(gen, errs, m, k, n, bits)
+    log(f"  quant_gemm, packed_gemm: {len(shapes)} shapes x bits 2/4/8 x "
+        f"fused on/off equal to their plain versions (int32 and float32)")
+
+
+# (M, N) of block_stats: the site weights, as (K, N), and ragged shapes
+BLOCK_STATS_SHAPES = (*sorted(set(SITE_SHAPES)), (1, 1), (33, 70),
+                      (1000, 777), (4095, 14337))
+
+
+def _block_stats_kernels(gen, errs: dict) -> None:
+    for (m, n) in BLOCK_STATS_SHAPES:
+        w = torch.randn((m, n), generator=gen, device=DEV)
+        q = quantize(w, bits=4, per_channel=False).values
+        maxes, zeros = bs_lib.block_stats(q)
+        torch.cuda.synchronize()
+        want_max, want_zero = ref_lib.block_stats_ref(q)
+        d = max(int((maxes - want_max).abs().max()),
+                int((zeros - want_zero).abs().max()))
+        errs["block_stats"] = max(errs["block_stats"], float(d))
+        require(torch.equal(maxes, want_max) and torch.equal(zeros, want_zero),
+                f"block_stats ({m},{n}): max |kernel-plain| {d} (want 0)")
+    log(f"  block_stats: {len(BLOCK_STATS_SHAPES)} shapes equal to the plain "
+        f"version")
 
 
 # ---------------------------------------------------------------------------
@@ -559,14 +690,16 @@ def _fused_gather_divergence(cfg, fused, gather, *, steps: int = 4,
         tok = torch.argmax(lg_g, dim=-1).to(torch.int32)[:, None]
 
 
-def phase_serve(layers: int, requests: int) -> dict:
+def served_model(layers: int):
+    """llama3-8b at its published widths, ``layers`` deep, fp32 parameters
+    and compute, weights from seed 0: the model the serve and quant phases
+    share."""
     cfg = configs.get_config("llama3-8b").replace(
         num_layers=layers, param_dtype="float32", compute_dtype="float32")
-    log(f"serve: llama3-8b widths d_model={cfg.d_model} heads={cfg.num_heads} "
-        f"kv_heads={cfg.num_kv_heads} head_dim={cfg.resolved_head_dim} "
-        f"d_ff={cfg.d_ff} vocab={cfg.vocab_size}, layers={cfg.num_layers}, "
-        f"fp32 parameters, seed 0")
-    torch.cuda.reset_peak_memory_stats()
+    log(f"served model: llama3-8b widths d_model={cfg.d_model} heads="
+        f"{cfg.num_heads} kv_heads={cfg.num_kv_heads} head_dim="
+        f"{cfg.resolved_head_dim} d_ff={cfg.d_ff} vocab={cfg.vocab_size}, "
+        f"layers={cfg.num_layers}, fp32 parameters, seed 0")
     gen = torch.Generator(device=DEV)
     gen.manual_seed(0)
     t0 = time.perf_counter()
@@ -575,12 +708,24 @@ def phase_serve(layers: int, requests: int) -> dict:
     n_params = model_lib.count_params(params)
     log(f"  parameters: {n_params / 1e9:.2f} B ({n_params * 4 / 2**30:.1f} GiB) "
         f"drawn in {time.perf_counter() - t0:.1f} s")
-    tcfg = TrafficConfig(num_requests=requests, arrival_rate=0.5,
-                         prompt_short=(16, 64), prompt_long=(256, 512),
-                         output_short=(8, 32), output_long=(64, 128), seed=0)
-    trace = generate_trace(tcfg)
-    kw = dict(backend="tubgemm_cuda", bits=4, max_batch=8, page_size=16,
-              max_seq_len=1024, device=DEV)
+    return cfg, params
+
+
+def serve_trace(requests: int):
+    return generate_trace(TrafficConfig(
+        num_requests=requests, arrival_rate=0.5, prompt_short=(16, 64),
+        prompt_long=(256, 512), output_short=(8, 32), output_long=(64, 128),
+        seed=0))
+
+
+SERVE_KW = dict(bits=4, max_batch=8, page_size=16, max_seq_len=1024)
+
+
+def phase_serve(cfg, params, requests: int) -> dict:
+    log(f"serve: tubgemm_cuda@4 per-row, fused decode, {requests} requests")
+    torch.cuda.reset_peak_memory_stats()
+    trace = serve_trace(requests)
+    kw = dict(backend="tubgemm_cuda", device=DEV, **SERVE_KW)
     sites = 7 * cfg.num_layers + 1
 
     t0 = time.perf_counter()
@@ -722,7 +867,204 @@ def phase_serve(layers: int, requests: int) -> dict:
 
 
 # ---------------------------------------------------------------------------
-# phase 5: train
+# phase 5: quant (cfg.quant_kernel, packed stores, bit-sparsity statistics)
+# ---------------------------------------------------------------------------
+
+def _quant_probe() -> None:
+    """The smoke config's ``quant_kernel`` forward (fp32, 4 bits) on the
+    card (quant_gemm kernel) and on the CPU (plain version), from identical
+    parameters and tokens: logits within 1e-4 (float32 attention and norms
+    sum in other orders), one launch per dense site on the card, none on
+    the CPU."""
+    cfg = configs.get_smoke_config("llama3-8b").replace(
+        compute_dtype="float32", param_dtype="float32", quant_bits=QUANT_BITS,
+        quant_kernel=True)
+    gen = torch.Generator(device="cpu")
+    gen.manual_seed(0)
+    cpu_params = model_lib.init_params(cfg, gen, device="cpu")
+    tokens = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (2, 17)).astype(np.int32))
+    out, launched = [], []
+    for dev in (DEV, torch.device("cpu")):
+        qg_lib.reset_launches()
+        logits, _ = model_lib.forward(_clone_tree(cpu_params, dev), cfg,
+                                      tokens.to(dev))
+        launched.append(qg_lib.LAUNCHES["quant_gemm"])
+        out.append(logits.float().cpu())
+    d = float((out[0] - out[1]).abs().max())
+    want = QUANT_SITES_PER_LAYER * cfg.num_layers
+    log(f"  probe (smoke config, quant_kernel@{QUANT_BITS}, fp32): max |card - "
+        f"cpu logit| {d:.3e} (tol 1e-4); quant_gemm launches card "
+        f"{launched[0]} (want {want}), cpu {launched[1]}")
+    require(bool(torch.isfinite(out[0]).all()), "quant probe: logits not finite")
+    require(d <= 1e-4, f"quant probe: card and cpu logits differ by {d}")
+    require(launched == [want, 0], f"quant probe: launches {launched}")
+
+
+def _site_weights(cfg, params):
+    """(name, (K, N) view) of the 224 dense-site weights, layer by layer."""
+    for i in range(cfg.num_layers):
+        for (blk, leaf), (k, n) in zip(SITE_LEAVES, site_shapes(cfg)):
+            yield f"layers/{i}/{blk}/{leaf}", params["layers"][blk][leaf][i].reshape(k, n)
+
+
+def _quant_serve(cfg, params, trace) -> tuple[dict, int]:
+    """Main path (a): the same trace through ``ServingEngine`` over
+    ``cfg.quant_kernel`` at 4 bits, no backend scope, fused decode."""
+    qcfg = cfg.replace(quant_bits=QUANT_BITS, quant_kernel=True)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    engine = ServingEngine(qcfg, params, attention="fused", device=DEV, **SERVE_KW)
+    torch.cuda.synchronize()
+    log(f"  engine built (weights profiled for Eq.-1 energy) in "
+        f"{time.perf_counter() - t0:.1f} s")
+    prefill_rows: set[int] = set()
+    kernel = qg_lib.quant_gemm
+
+    def recording(x, *args, **kw):            # the prefill rows the path runs
+        if x.shape[0] != engine.max_batch:
+            prefill_rows.add(int(x.shape[0]))
+        return kernel(x, *args, **kw)
+
+    qg_lib.quant_gemm = recording
+    ug.reset_launches()
+    fused_lib.reset_launches()
+    qg_lib.reset_launches()
+    try:
+        t0 = time.perf_counter()
+        rep = engine.run(trace, "continuous")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        qg_lib.quant_gemm = kernel
+    launches = {"quant_gemm": qg_lib.LAUNCHES["quant_gemm"],
+                "fused_paged_decode": fused_lib.LAUNCHES["fused_paged_decode"]}
+    calls = rep.decode_steps + rep.prefill_calls
+    want = QUANT_SITES_PER_LAYER * cfg.num_layers * calls
+    log(f"  [quant_kernel@{QUANT_BITS}, fused] requests {rep.requests}/{len(trace)}, "
+        f"tokens {rep.tokens}, steps {rep.steps}, decode steps "
+        f"{rep.decode_steps}, prefill calls {rep.prefill_calls} (rows "
+        f"{sorted(prefill_rows)}), tok/step {rep.throughput_tok_per_step:.3f}, "
+        f"p50 {rep.latency_p50:.1f}, p99 {rep.latency_p99:.1f}, occupancy "
+        f"{rep.occupancy:.3f}, energy {rep.energy_per_token_uj:.2f} uJ/token")
+    log(f"  wall {wall:.2f} s, {rep.decode_steps / wall:.2f} decode steps/s "
+        f"(prefill included in the wall), {rep.tokens / wall:.2f} tokens/s")
+    log(f"  launches: quant_gemm {launches['quant_gemm']} (= {QUANT_SITES_PER_LAYER}"
+        f" sites x {cfg.num_layers} layers x (decode steps + prefill calls) = "
+        f"{want}), fused {launches['fused_paged_decode']} (= layers x decode "
+        f"steps = {cfg.num_layers * rep.decode_steps})")
+    require(rep.requests == len(trace), "quant run: not every request completed")
+    require(all(len(rep.request_tokens[r.req_id]) == r.output_len
+                for r in trace), "quant run: a stream has the wrong length")
+    require(all(0 <= t < cfg.vocab_size for ts in rep.request_tokens.values()
+                for t in ts), "quant run: token id out of range")
+    require(launches["quant_gemm"] == want > 0,
+            "quant_gemm launch count != 6 sites x layers x model calls")
+    require(launches["fused_paged_decode"] == cfg.num_layers * rep.decode_steps,
+            "quant run: fused decode launch count != layers x decode steps")
+    require(ug.LAUNCHES["tub_gemm"] == ug.LAUNCHES["tu_gemm"] == 0,
+            "a unary GEMM kernel launched without a backend scope")
+    _decode_step_profile(engine, qcfg)
+    peak = torch.cuda.max_memory_allocated()
+    log(f"  peak torch.cuda.max_memory_allocated(): {peak / 2**30:.2f} GiB")
+    # the kernel at the trace's own prefill rows, every distinct site shape
+    gen = torch.Generator(device=DEV)
+    gen.manual_seed(5)
+    errs = {name: 0.0 for name in INT_GEMMS}
+    for m in sorted(prefill_rows):
+        for (k, n) in sorted(set(site_shapes(cfg))):
+            _check_int_gemms(gen, errs, m, k, n, QUANT_BITS, fuses=(True,))
+    log(f"  quant_gemm and packed_gemm equal to their plain versions at the "
+        f"trace's prefill rows {sorted(prefill_rows)} x the site shapes")
+    return launches, rep.decode_steps
+
+
+def _packed_stores(cfg, params) -> int:
+    """Main path (b): every site weight frozen as a 4-bit word store and
+    contracted at M = 8 with ``packed_matmul``, each output equal to the
+    materialising reference."""
+    stores = []
+    t0 = time.perf_counter()
+    for i in range(cfg.num_layers):
+        for (blk, leaf), (k, n) in zip(SITE_LEAVES, site_shapes(cfg)):
+            stores.append(packing.pack_quantized(
+                params["layers"][blk][leaf][i], bits=QUANT_BITS, k=k, n_out=n))
+    torch.cuda.synchronize()
+    # the served tree with each stacked site leaf replaced by its stores
+    layers = {key: dict(val) if isinstance(val, dict) else val
+              for key, val in params["layers"].items()}
+    for j, (blk, leaf) in enumerate(SITE_LEAVES):
+        layers[blk][leaf] = stores[j::len(SITE_LEAVES)]
+    report = packed_store_report({**params, "layers": layers})
+    log(f"  {len(stores)} site weights packed at {QUANT_BITS} bits in "
+        f"{time.perf_counter() - t0:.1f} s: packed sites {report.packed_sites}/"
+        f"{report.total_sites}, {report.packed_float32_bytes / 2**30:.2f} GiB fp32 "
+        f"-> {report.packed_stored_bytes / 2**30:.3f} GiB stored "
+        f"({report.packed_reduction:.2f}x); whole tree "
+        f"{report.float32_bytes / 2**30:.2f} -> {report.stored_bytes / 2**30:.2f} "
+        f"GiB ({report.reduction:.2f}x)")
+    require(report.packed_sites == len(stores) == 7 * cfg.num_layers,
+            "packed store report miscounted the sites")
+    gen = torch.Generator(device=DEV)
+    gen.manual_seed(6)
+    xs = {k: _full_codes(gen, (8, k), 8) for k in {s.k for s in stores}}
+    pg_lib.reset_launches()
+    outs = [pg_lib.packed_matmul(xs[s.k], s) for s in stores]
+    torch.cuda.synchronize()
+    launched = pg_lib.LAUNCHES["packed_gemm"]
+    for s, out in zip(stores, outs):
+        want = ref_lib.packed_gemm_ref(xs[s.k], s.packed, s.scale.reshape(1, -1),
+                                       bits=s.bits, k=s.k, fuse_dequant=True)
+        require(torch.equal(out, want), "packed_matmul differs from the "
+                                        "materialising reference")
+    log(f"  packed_matmul at M=8 over the {len(stores)} stores: {launched} "
+        f"launches, every output equal to the materialising reference")
+    require(launched == len(stores), "packed_gemm launches != stores")
+    return launched
+
+
+def _site_sparsity(cfg, params) -> int:
+    """Main path (c): the Eq.-1 statistics of every site weight's per-tensor
+    4-bit codes from the block_stats kernel, within 1e-6 of
+    ``profile_tensor`` on the same weight."""
+    bs_lib.reset_launches()
+    worst = 0.0
+    n_sites = 0
+    for name, w in _site_weights(cfg, params):
+        codes = quantize(w, bits=QUANT_BITS, per_channel=False).values
+        word, blk = ops_lib.bit_sparsity_stats(codes, bits=QUANT_BITS)
+        prof = profile_tensor(w, QUANT_BITS)
+        d = max(abs(word - prof.word), abs(blk - prof.bit_blockmax))
+        worst = max(worst, d)
+        n_sites += 1
+        require(d <= 1e-6, f"bit_sparsity_stats of {name} off profile_tensor by {d}")
+    launched = bs_lib.LAUNCHES["block_stats"]
+    log(f"  bit_sparsity_stats over the {n_sites} site weights: {launched} "
+        f"block_stats launches, max |kernel stats - profile_tensor| {worst:.2e} "
+        f"(tol 1e-6)")
+    require(launched == n_sites, "block_stats launches != site weights")
+    return launched
+
+
+def phase_quant(cfg, params, requests: int) -> dict:
+    _quant_probe()
+    trace = serve_trace(requests)
+    launches, _ = _quant_serve(cfg, params, trace)
+    launches_run = {
+        "quant_gemm": f"{len(trace)} requests under cfg.quant_kernel@{QUANT_BITS}"}
+    launches["packed_gemm"] = _packed_stores(cfg, params)
+    launches_run["packed_gemm"] = (f"packed_matmul at M=8 over the "
+                                   f"{7 * cfg.num_layers} site stores")
+    gc.collect()
+    launches["block_stats"] = _site_sparsity(cfg, params)
+    launches_run["block_stats"] = (f"bit_sparsity_stats over the "
+                                   f"{7 * cfg.num_layers} site weights")
+    del launches["fused_paged_decode"]       # the serve phase's count stands
+    return {"launches": launches, "launches_run": launches_run}
+
+
+# ---------------------------------------------------------------------------
+# phase 6: train
 # ---------------------------------------------------------------------------
 
 def _tree_leaves(tree, prefix=()):
@@ -863,7 +1205,7 @@ def phase_train(layers: int, steps: int) -> dict:
 
 
 # ---------------------------------------------------------------------------
-# phase 6: times
+# phase 7: times
 # ---------------------------------------------------------------------------
 
 _FLUSH = None
@@ -890,10 +1232,30 @@ def _time_ms(fn, reps: int = 20, warmup: int = 3) -> float:
     return statistics.median(times)
 
 
-def _gemm_bound(m: int, k: int, n: int) -> tuple[float, str]:
-    bytes_ms = (m * k + k * n + 4 * m * n) / HBM_BYTES_PER_S * 1e3
+def _gemm_bound(m: int, k: int, n: int, *, w_bytes: float | None = None,
+                extra_bytes: int = 0) -> tuple[float, str]:
+    """Least time of an int8 (M,K) x (K,N) -> 4-byte (M,N) product: its
+    bytes (the weight as stored: ``w_bytes``, K*N by default) at the HBM
+    rate, or its int8 operations at the tensor-core peak."""
+    w_bytes = k * n if w_bytes is None else w_bytes
+    bytes_ms = (m * k + w_bytes + 4 * m * n + extra_bytes) / HBM_BYTES_PER_S * 1e3
     ops_ms = 2.0 * m * k * n / INT8_OPS_PER_S * 1e3
     return (bytes_ms, "bytes") if bytes_ms >= ops_ms else (ops_ms, "operations")
+
+
+LIBRARY_INT_MM = "torch._int_mm on the unpacked int8 operands"
+LIBRARY_INT_MM_PADDED = LIBRARY_INT_MM + ", M padded to 32 rows (its smallest)"
+
+
+def _int_mm_ms(a: torch.Tensor, b: torch.Tensor) -> float | None:
+    """``torch._int_mm`` on the same int8 operands, the library yardstick;
+    M <= 16 is padded with zero rows to 32, the smallest M it takes."""
+    m = a.shape[0]
+    if m <= 16:
+        a = torch.cat([a, a.new_zeros((32 - m, a.shape[1]))])
+    if not gemm_sims._int_mm_eligible(a, b):
+        return None
+    return _time_ms(lambda: torch._int_mm(a, b))
 
 
 def _time_gemm(name: str, m: int, k: int, n: int, bits: int, gen) -> dict:
@@ -903,13 +1265,12 @@ def _time_gemm(name: str, m: int, k: int, n: int, bits: int, gen) -> dict:
     plain = ref_lib.tub_gemm_ref if name == "tub_gemm" else ref_lib.tu_gemm_ref
     ms = _time_ms(lambda: fn(a, b, bits=bits))
     plain_ms = _time_ms(lambda: plain(a, b, bits=bits), reps=5, warmup=1)
-    library_ms = None
-    if gemm_sims._int_mm_eligible(a, b):
-        library_ms = _time_ms(lambda: torch._int_mm(a, b))
+    library_ms = _int_mm_ms(a, b)
     bound_ms, bound_by = _gemm_bound(m, k, n)
     return {"shape": [m, k, n], "bits": bits, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": bound_by,
-            "library_ms": library_ms}
+            "library_ms": library_ms,
+            "library_call": LIBRARY_INT_MM_PADDED if m <= 16 else LIBRARY_INT_MM}
 
 
 def phase_times(errs: dict, launches: dict, launches_run: dict,
@@ -943,6 +1304,7 @@ def phase_times(errs: dict, launches: dict, launches_run: dict,
             "max_abs_err": errs[name], "ms": head["ms"],
             "plain_ms": head["plain_ms"], "bound_ms": head["bound_ms"],
             "bound_by": head["bound_by"], "library_ms": head["library_ms"],
+            "library_call": head["library_call"],
             "shape": "M=8 K=4096 N=14336 bits=4",
             "per_shape": per_shape})
         for r in per_shape:
@@ -987,7 +1349,109 @@ def phase_times(errs: dict, launches: dict, launches_run: dict,
         f"gather oracle {gather_ms:.4f} ms, bound {max(bytes_ms, ops_ms):.4f} ms "
         f"(bytes; {kv_bytes / 2**20:.1f} MiB of live K/V)")
     rows.extend(_time_flash(gen, errs, launches, launches_run))
+    rows.extend(_time_int_gemms(gen, errs, launches, launches_run, layers))
+    rows.append(_time_block_stats(gen, errs, launches, launches_run))
     return rows
+
+
+def _time_int_gemms(gen, errs: dict, launches: dict, launches_run: dict,
+                    layers: int) -> list[dict]:
+    """quant_gemm and packed_gemm at 4 bits with the fused dequant, as the
+    quant path runs them: decode rows (M = 8) and prefill rows (M = 512) at
+    the distinct site shapes; ``torch._int_mm`` on the unpacked int8
+    weights as the library yardstick."""
+    bits = QUANT_BITS
+    rows = []
+    for name in INT_GEMMS:
+        per_shape = []
+        for m in INT_GEMM_ROWS:
+            for (k, n) in sorted(set(SITE_SHAPES)):
+                x = _full_codes(gen, (m, k), 8)
+                w = _codes(gen, (k, n), bits)
+                scales = torch.rand((1, n), generator=gen, device=DEV) * 1e-2
+                if name == "quant_gemm":
+                    wp = ops_lib.pack_values(w, bits)
+                    kern = lambda: qg_lib.quant_gemm(x, wp, scales, bits=bits,
+                                                     fuse_dequant=True)
+                    plain = lambda: ref_lib.quant_gemm_ref(
+                        x, wp, scales, bits=bits, fuse_dequant=True)
+                    stored = wp.numel()
+                else:
+                    words = packing.pack_codes(w, bits)
+                    kern = lambda: pg_lib.packed_gemm(x, words, scales, bits=bits,
+                                                      k=k, fuse_dequant=True)
+                    plain = lambda: ref_lib.packed_gemm_ref(
+                        x, words, scales, bits=bits, k=k, fuse_dequant=True)
+                    stored = words.numel() * 4
+                bound_ms, bound_by = _gemm_bound(m, k, n, w_bytes=stored,
+                                                 extra_bytes=4 * n)
+                per_shape.append({
+                    "shape": [m, k, n], "bits": bits, "ms": _time_ms(kern),
+                    "plain_ms": _time_ms(plain, reps=5, warmup=1),
+                    "bound_ms": bound_ms, "bound_by": bound_by,
+                    "library_ms": _int_mm_ms(x, w),
+                    "library_call": (LIBRARY_INT_MM_PADDED if m <= 16
+                                     else LIBRARY_INT_MM)})
+                del x, w
+        by = {tuple(r["shape"]): r for r in per_shape}
+        head = by[(8, *UP_SHAPE)]
+        rows.append({
+            "name": name, "route": "cuda", "source": SOURCE[name],
+            "replaces": REPLACES[name], "launches": launches.get(name, 0),
+            "launches_run": launches_run.get(name), "max_abs_err": errs[name],
+            **{key: head[key] for key in ("ms", "plain_ms", "bound_ms",
+                                          "bound_by", "library_ms",
+                                          "library_call")},
+            "shape": f"M=8 K={UP_SHAPE[0]} N={UP_SHAPE[1]} bits={bits} "
+                     f"fused dequant",
+            "per_shape": per_shape})
+        for r in per_shape:
+            log(f"  {name} {tuple(r['shape'])} bits={bits} fused: {r['ms']:.4f} "
+                f"ms, plain {r['plain_ms']:.3f} ms, bound {r['bound_ms']:.4f} ms "
+                f"({r['bound_by']}), torch._int_mm {r['library_ms']:.4f} ms")
+        if name == "quant_gemm":
+            # a quant decode step: every site of each layer but wo
+            step = [(8, *kn) for (_, leaf), kn in zip(SITE_LEAVES, SITE_SHAPES)
+                    if leaf != "wo"]
+            log(f"  quant_gemm: the {len(step) * layers} launches of one "
+                f"{layers}-layer quant decode step, each timed alone with a "
+                f"cold L2, sum to {layers * sum(by[s]['ms'] for s in step):.2f} "
+                f"ms (their bounds to "
+                f"{layers * sum(by[s]['bound_ms'] for s in step):.2f} ms, "
+                f"torch._int_mm's to "
+                f"{layers * sum(by[s]['library_ms'] for s in step):.2f} ms)")
+    return rows
+
+
+def _time_block_stats(gen, errs: dict, launches: dict,
+                      launches_run: dict) -> dict:
+    """block_stats over site-shaped per-tensor 4-bit codes; its bound is
+    the code bytes read plus the two int32 statistics written."""
+    per_shape = []
+    for (m, n) in sorted(set(SITE_SHAPES)):
+        q = quantize(torch.randn((m, n), generator=gen, device=DEV),
+                     bits=QUANT_BITS, per_channel=False).values
+        tiles = -(-m // 32) * -(-n // 32)
+        bound_ms = (m * n + 2 * 4 * tiles) / HBM_BYTES_PER_S * 1e3
+        per_shape.append({
+            "shape": [m, n], "ms": _time_ms(lambda: bs_lib.block_stats(q)),
+            "plain_ms": _time_ms(lambda: ref_lib.block_stats_ref(q), reps=5,
+                                 warmup=1),
+            "bound_ms": bound_ms, "bound_by": "bytes", "library_ms": None})
+        del q
+    head = next(r for r in per_shape if r["shape"] == list(UP_SHAPE))
+    for r in per_shape:
+        log(f"  block_stats {tuple(r['shape'])}: {r['ms']:.4f} ms, plain "
+            f"{r['plain_ms']:.3f} ms, bound {r['bound_ms']:.4f} ms (bytes)")
+    return {"name": "block_stats", "route": "cuda", "source": SOURCE["block_stats"],
+            "replaces": REPLACES["block_stats"],
+            "launches": launches.get("block_stats", 0),
+            "launches_run": launches_run.get("block_stats"),
+            "max_abs_err": errs["block_stats"],
+            **{key: head[key] for key in ("ms", "plain_ms", "bound_ms",
+                                          "bound_by", "library_ms")},
+            "shape": f"M={UP_SHAPE[0]} N={UP_SHAPE[1]} int8 codes, 32x32 tiles",
+            "per_shape": per_shape}
 
 
 def _time_flash(gen, errs: dict, launches: dict, launches_run: dict) -> list[dict]:
@@ -1080,8 +1544,7 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     t_start = time.perf_counter()
-    errs = {"tub_gemm": math.nan, "tu_gemm": math.nan,
-            "fused_paged_decode": math.nan, **{n: math.nan for n in FLASH}}
+    errs = {name: math.nan for name in KERNELS}
     launches: dict = {}
     launches_run: dict = {}
     rows: list[dict] = []
@@ -1094,13 +1557,19 @@ def main() -> int:
             if "probes" in phases:
                 log("phase probes")
                 phase_probes()
-            if "serve" in phases:
-                log("phase serve")
-                served = phase_serve(args.layers, args.requests)
-                launches.update(served["launches"])
-                launches_run.update(served["launches_run"])
-                del served
-        # serve's engines and parameters are gone with its frame
+            if "serve" in phases or "quant" in phases:
+                cfg, params = served_model(args.layers)
+                for name, phase in (("serve", phase_serve), ("quant", phase_quant)):
+                    if name in phases:
+                        log(f"phase {name}")
+                        served = phase(cfg, params, args.requests)
+                        launches.update(served["launches"])
+                        launches_run.update(served["launches_run"])
+                        del served
+                        gc.collect()
+                        torch.cuda.empty_cache()
+                del cfg, params
+        # the served parameters and engines are gone
         gc.collect()
         torch.cuda.empty_cache()
         if "train" in phases:            # records gradients: outside no_grad
@@ -1119,6 +1588,10 @@ def main() -> int:
         return 1
     full = phases == list(ALL_PHASES)
     if full:
+        if sorted(row["name"] for row in rows) != sorted(KERNELS):
+            log(f"FAILED: the kernels line lists {[r['name'] for r in rows]}, "
+                f"want {list(KERNELS)}")
+            return 1
         for row in rows:
             if not row["launches"] > 0:
                 log(f"FAILED: kernel {row['name']} was never launched on the "

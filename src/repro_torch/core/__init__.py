@@ -1,6 +1,7 @@
 """Core library: quantization, the exact GEMM designs and their pricing.
 
 - quantization  : INT2/4/8 symmetric quantization
+- packing       : int2/4/8 codes packed into int32-word weight stores
 - gemm_sims     : exact functional GEMMs + cycle models for the paper's units
 - ppa           : calibrated Nangate45 PPA model (paper Tables I-IV)
 - sparsity      : word/bit sparsity profiling (Table V, Eq. 1)

@@ -19,7 +19,8 @@ import math
 from repro_torch.core import ppa
 from repro_torch.core.sparsity import SparsityStats
 
-__all__ = ["GemmCall", "GemmWorkloadRecorder", "ModelCost", "price_workload"]
+__all__ = ["GemmCall", "GemmWorkloadRecorder", "ModelCost",
+           "PackedStoreReport", "packed_store_report", "price_workload"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -132,3 +133,76 @@ def price_workload(calls: list[GemmCall], design="tubgemm",
         wc_energy_uj=wc_nj * 1e-3, dyn_energy_uj=dyn_nj * 1e-3,
         per_layer=per_layer,
     )
+
+
+@dataclasses.dataclass(frozen=True)
+class PackedStoreReport:
+    """Weight-memory footprint of a (possibly partially) bit-packed tree.
+
+    ``float32_bytes`` counts every weight leaf at fp32; ``stored_bytes``
+    counts packed leaves at their word+scale footprint and unpacked leaves
+    at fp32, so ``reduction`` is the end-to-end factor on the whole store
+    and ``packed_reduction`` the factor on just the packed sites.
+    """
+
+    float32_bytes: int
+    stored_bytes: int
+    packed_sites: int
+    total_sites: int
+    packed_float32_bytes: int
+    packed_stored_bytes: int
+
+    @property
+    def reduction(self) -> float:
+        return self.float32_bytes / max(self.stored_bytes, 1)
+
+    @property
+    def packed_reduction(self) -> float:
+        return self.packed_float32_bytes / max(self.packed_stored_bytes, 1)
+
+
+def _tree_leaves(tree):
+    from repro_torch.core import packing
+    if isinstance(tree, dict):
+        for key in sorted(tree):
+            yield from _tree_leaves(tree[key])
+    elif isinstance(tree, (list, tuple)) and not packing.is_packed(tree):
+        for leaf in tree:
+            yield from _tree_leaves(leaf)
+    else:
+        yield tree
+
+
+def packed_store_report(params) -> PackedStoreReport:
+    """Walk a nested-dict parameter tree and total the weight-store bytes
+    (packed vs fp32).
+
+    Counts every tensor leaf at fp32 (4 bytes an element) unless it is a
+    packed store; ``total_sites`` is the number of ``ndim >= 2`` leaves (the
+    GEMM-shaped ones that can be packed).
+    """
+    from repro_torch.core import packing
+
+    f32 = stored = 0
+    packed_sites = total_sites = 0
+    packed_f32 = packed_stored = 0
+    for leaf in _tree_leaves(params):
+        if packing.is_packed(leaf):
+            f32 += leaf.float32_bytes
+            stored += leaf.stored_bytes
+            packed_f32 += leaf.float32_bytes
+            packed_stored += leaf.stored_bytes
+            packed_sites += 1
+            total_sites += 1
+            continue
+        if not hasattr(leaf, "ndim"):
+            continue
+        nbytes = leaf.numel() * 4
+        f32 += nbytes
+        stored += nbytes
+        if leaf.ndim >= 2:
+            total_sites += 1
+    return PackedStoreReport(
+        float32_bytes=f32, stored_bytes=stored,
+        packed_sites=packed_sites, total_sites=total_sites,
+        packed_float32_bytes=packed_f32, packed_stored_bytes=packed_stored)

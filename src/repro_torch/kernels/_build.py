@@ -22,11 +22,14 @@ import threading
 import time
 from pathlib import Path
 
-__all__ = ["CSRC_DIR", "SOURCES", "build_dir", "load_library",
+__all__ = ["CSRC_DIR", "SOURCES", "HEADERS", "build_dir", "load_library",
            "last_build_seconds", "check_launch"]
 
 CSRC_DIR = Path(__file__).resolve().parents[1] / "csrc"
-SOURCES = ("unary_gemm.cu", "fused_paged_decode.cu", "flash_attention.cu")
+SOURCES = ("unary_gemm.cu", "fused_paged_decode.cu", "flash_attention.cu",
+           "quant_gemm.cu", "packed_gemm.cu", "bitsparsity.cu")
+#: headers the sources include (part of the build digest)
+HEADERS = ("int_gemm.cuh",)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC")
 
@@ -50,7 +53,7 @@ def _find_nvcc() -> str:
 
 def _digest() -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for name in SOURCES:
+    for name in SOURCES + HEADERS:
         h.update(name.encode())
         h.update((CSRC_DIR / name).read_bytes())
     return h.hexdigest()[:16]
@@ -109,6 +112,12 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.flash_bwd_dkv_launch.argtypes = [p, p, p, p, p, p, p, p, i, i, i, i,
                                          ll, ll, ll, ll, f, i, i, p]
     lib.flash_bwd_dkv_launch.restype = i
+    for name in ("quant_gemm_launch", "packed_gemm_launch"):
+        fn = getattr(lib, name)
+        fn.argtypes = [p, p, p, p, p, p, i, i, i, i, i, i, i, p]
+        fn.restype = i
+    lib.block_stats_launch.argtypes = [p, p, p, i, i, p]
+    lib.block_stats_launch.restype = i
 
 
 def load_library(verbose: bool = False) -> ctypes.CDLL:

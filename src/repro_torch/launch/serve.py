@@ -197,9 +197,12 @@ def main(argv=None) -> int:
         return 2
     cfg = (configs.get_smoke_config(args.arch) if args.smoke
            else configs.get_config(args.arch))
-    # this slice serves with float32 activations whatever the config says:
-    # the stream-identity gates compare float32 paths (bfloat16 serving
-    # arrives with a later slice)
+    # Serves with float32 activations whatever the config says.  At
+    # bfloat16 the strict float-path fused==gather gate cannot hold: the
+    # page walk (like the card's kernel) scores and normalises in float32,
+    # while the gather oracle rounds q.k and the softmax weights to
+    # bfloat16, enough to flip an argmax at random weights
+    # (tests/test_torch_serving.py::test_bf16_fused_vs_gather_cause).
     cfg = cfg.replace(compute_dtype="float32")
     generator = torch.Generator(device=device)
     generator.manual_seed(0)

@@ -15,6 +15,7 @@ import threading
 
 import torch
 
+from repro_torch.core import packing
 from repro_torch.core.quantization import quantize, quantize_per_row
 from repro_torch.models.config import ModelConfig
 
@@ -127,8 +128,12 @@ def dense(w: torch.Tensor, x: torch.Tensor, cfg: ModelConfig | None = None,
        operands are quantized to the backend's bit-width and the int tiles
        are contracted on the backend engine (simulated design or CUDA
        kernel), then dequantized back to the activation dtype.
-    2. (``cfg.quant_kernel``, the packed-integer kernel path, is not ported
-       yet and raises.)
+    2. ``cfg.quant_kernel`` — the packed-integer ``quant_gemm`` kernel (the
+       paper's PE array stand-in): the weight is quantized per channel at
+       ``cfg.quant_bits`` at every call, activations per tensor at
+       ``min(2 * quant_bits, 8)``, through ``kernels.ops.quantized_matmul``.
+       ``quant_backend="ugemm"`` (the stochastic LUT path) is not ported
+       and raises.
     3. The plain float matmul (default).
     """
     from repro_torch.backends import runtime as backend_runtime
@@ -137,9 +142,22 @@ def dense(w: torch.Tensor, x: torch.Tensor, cfg: ModelConfig | None = None,
         site = backend_runtime.current_site(name)
         return _backend_matmul(execution, execution.backend, site, w, x)
     if cfg is not None and cfg.quant_bits is not None and cfg.quant_kernel:
-        raise NotImplementedError(
-            "cfg.quant_kernel (the packed quant_gemm kernel path) is not "
-            "ported yet; it lands with the quant_gemm kernel slice")
+        if packing.is_packed(w):
+            raise TypeError(
+                "cfg.quant_kernel re-quantizes at cfg.quant_bits, which "
+                "would round already-packed codes a second time — execute "
+                "packed stores under use_backend at the store's width, or "
+                "keep float parameters for the quant-kernel path")
+        if cfg.quant_backend == "ugemm":
+            raise NotImplementedError(
+                "cfg.quant_kernel with quant_backend='ugemm' runs the "
+                "stochastic uGEMM LUT path, which arrives with the "
+                "stochastic slice")
+        from repro_torch.kernels import ops as kops
+        w2 = w.reshape(w.shape[0], -1) if w.ndim > 2 else w
+        wq = quantize(w2.to(torch.float32), bits=cfg.quant_bits)
+        out = kops.quantized_matmul(x, wq, act_bits=min(cfg.quant_bits * 2, 8))
+        return out.reshape(*x.shape[:-1], *w.shape[1:])
     return _plain_matmul(x, w)
 
 
@@ -175,11 +193,27 @@ def _backend_matmul(execution, backend, site: str, w: torch.Tensor,
     both quantization scales and cast back to the activation dtype.  The
     two dequant scales are applied sequentially (one multiply per port), in
     the reference's order: a pre-multiplied scale product rounds differently.
+
+    A :class:`~repro_torch.core.packing.PackedQuantized` weight skips the
+    weight quantize: its store holds exactly the codes and scales
+    ``quantize`` produced at pack time — iff the store's width matches the
+    backend's; a mismatch raises rather than re-quantizing.
     """
     x2 = x.reshape(-1, x.shape[-1])
-    w2 = w.reshape(w.shape[0], -1) if w.ndim > 2 else w
-    wq = _weight_codes(execution, backend, w2)
-    k, n_out = w2.shape[0], w2.shape[1]
+    if packing.is_packed(w):
+        if int(w.bits) != int(backend.bits):
+            raise ValueError(
+                f"site {site!r}: packed store holds {w.bits}-bit codes but "
+                f"the backend executes at {backend.bits}-bit — re-quantizing "
+                f"packed codes at a second width compounds quantization "
+                f"error; repack from the float parameters "
+                f"(packed-width-mismatch)")
+        wq = w.quantized()
+        k, n_out = w.k, w.n_out
+    else:
+        w2 = w.reshape(w.shape[0], -1) if w.ndim > 2 else w
+        wq = _weight_codes(execution, backend, w2)
+        k, n_out = w2.shape[0], w2.shape[1]
     if activation_scale_mode() == "per-row":
         xq = quantize_per_row(x2.to(torch.float32), bits=backend.bits)
     else:
@@ -193,6 +227,10 @@ def _backend_matmul(execution, backend, site: str, w: torch.Tensor,
 
 
 def _plain_matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    if packing.is_packed(w):
+        # float path over a packed leaf: dequantize the stored codes, the
+        # only float matrix the codes can honestly reconstruct
+        w = w.dequantize()
     wshape = w.shape
     w2 = w.reshape(wshape[0], -1)
     y = torch.matmul(x, w2.to(x.dtype))

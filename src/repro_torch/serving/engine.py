@@ -261,8 +261,10 @@ class ServingEngine:
                 "(backends/grid.py)")
         if packed:
             raise NotImplementedError(
-                "ServingEngine(packed=True) arrives with the packed-store "
-                "slice (core/packing.py, pack_weights, packed_gemm kernel)")
+                "ServingEngine(packed=True) waits for backends.pack_weights, "
+                "which finds the sites to pack with eval/planner.py's "
+                "discover_sites: both arrive with the plans slice "
+                "(core/packing.py stores and the packed_gemm kernel exist)")
         self.device = model_lib.require_device(device)
         if _params_device(params).type != self.device.type:
             raise ValueError(f"params live on {_params_device(params)}, "

@@ -9,14 +9,22 @@ time).  On a machine with an NVIDIA GPU and ``nvcc``:
 Integer GEMMs must be EQUAL to the plain slot loop; the fused decode kernel
 within 1e-4 of the gather oracle at fp32 (online softmax re-associates); the
 flash kernels within 1e-4 x max|plain| at fp32 and 1e-2 x max|plain| at
-bfloat16 (one rounding of an output element), per tensor.
+bfloat16 (one rounding of an output element), per tensor.  The packed
+integer GEMMs (quant_gemm, packed_gemm) must be EQUAL to their plain
+versions in int32 and in the fused float32 epilogue, and block_stats EQUAL
+too; each launch on a CUDA tensor must count.
 """
 
 import numpy as np
 import pytest
 import torch
 
+from repro_torch.core import packing
+from repro_torch.kernels import bitsparsity as bs_lib
 from repro_torch.kernels import flash_attention as flash_lib
+from repro_torch.kernels import ops as ops_lib
+from repro_torch.kernels import packed_gemm as pg_lib
+from repro_torch.kernels import quant_gemm as qg_lib
 from repro_torch.kernels import paged_attention as paged_lib
 from repro_torch.kernels import paged_attention_fused as fused_lib
 from repro_torch.kernels import ref as ref_lib
@@ -156,3 +164,59 @@ def test_flash_wrappers_raise_rather_than_fall_back(cuda):
     h = torch.zeros((1, 8, 16), dtype=torch.float16, device=cuda)
     with pytest.raises(TypeError):
         flash_lib.flash_fwd(h, h, h, causal=True)
+
+
+# (M, K, N): decode rows with split K, ragged everything, prefill-like rows
+INT_GEMM_SHAPES = [(8, 4096, 1024), (1, 200, 77), (33, 136, 300), (512, 256, 384)]
+
+
+@pytest.mark.parametrize("fuse", [False, True])
+@pytest.mark.parametrize("bits", [2, 4, 8])
+@pytest.mark.parametrize("shape", INT_GEMM_SHAPES)
+def test_packed_int_gemms_equal_plain(cuda, shape, bits, fuse):
+    m, k, n = shape
+    rng = np.random.default_rng(m + k + bits)
+    v = 1 << (bits - 1)
+    x = torch.from_numpy(rng.integers(-128, 128, (m, k)).astype(np.int8)).to(cuda)
+    codes = torch.from_numpy(rng.integers(-v, v, (k, n)).astype(np.int8)).to(cuda)
+    scales = torch.from_numpy(rng.uniform(1e-4, 1e-2, (1, n)).astype(np.float32)).to(cuda)
+    w_packed = ops_lib.pack_values(codes, bits)
+    before = qg_lib.LAUNCHES["quant_gemm"]
+    got = qg_lib.quant_gemm(x, w_packed, scales, bits=bits, fuse_dequant=fuse)
+    assert qg_lib.LAUNCHES["quant_gemm"] == before + 1
+    want = ref_lib.quant_gemm_ref(x, w_packed, scales, bits=bits, fuse_dequant=fuse)
+    assert torch.equal(got, want)
+    kk = k - 3                                 # K off the codes per word
+    words = packing.pack_codes(codes[:kk], bits)
+    before = pg_lib.LAUNCHES["packed_gemm"]
+    got = pg_lib.packed_gemm(x[:, :kk].contiguous(), words, scales, bits=bits,
+                             k=kk, fuse_dequant=fuse)
+    assert pg_lib.LAUNCHES["packed_gemm"] == before + 1
+    want = ref_lib.packed_gemm_ref(x[:, :kk], words, scales, bits=bits, k=kk,
+                                   fuse_dequant=fuse)
+    assert torch.equal(got, want)
+    if not fuse:
+        exact = (x[:, :kk].cpu().long() @ codes[:kk].cpu().long())
+        assert torch.equal(got.cpu().long(), exact)
+
+
+@pytest.mark.parametrize("shape", [(1, 1), (32, 32), (33, 70), (100, 129),
+                                   (4096, 1024), (14336, 4096)])
+def test_block_stats_kernel_equals_plain(cuda, shape):
+    rng = np.random.default_rng(shape[1])
+    q = rng.integers(-8, 8, shape)
+    q[rng.random(shape) < 0.3] = 0
+    q = torch.from_numpy(q.astype(np.int8)).to(cuda)
+    before = bs_lib.LAUNCHES["block_stats"]
+    maxes, zeros = bs_lib.block_stats(q)
+    assert bs_lib.LAUNCHES["block_stats"] == before + 1
+    want_max, want_zero = ref_lib.block_stats_ref(q)
+    assert torch.equal(maxes, want_max) and torch.equal(zeros, want_zero)
+
+
+def test_packed_wrappers_raise_rather_than_fall_back(cuda):
+    x = torch.zeros((2, 8), dtype=torch.int8, device=cuda)
+    with pytest.raises(ValueError):
+        qg_lib.quant_gemm(x, torch.zeros((4, 2), dtype=torch.int8), bits=4)
+    with pytest.raises(ValueError, match="tile"):
+        bs_lib.block_stats(x, tile=16)

@@ -70,9 +70,19 @@ def test_package_imports_without_jax_cuda_or_triton():
 
 def test_csrc_holds_the_three_kernels():
     srcs = {p.name: p.read_text() for p in (PKG / "csrc").glob("*.cu")}
-    # six kernels: tub/tu GEMM, fused decode, flash forward, dQ and dK/dV
+    # nine kernels: tub/tu GEMM, fused decode, flash forward, dQ and dK/dV,
+    # quant_gemm and packed_gemm (one template in int_gemm.cuh), block_stats
     assert set(srcs) == {"unary_gemm.cu", "fused_paged_decode.cu",
-                         "flash_attention.cu"}
+                         "flash_attention.cu", "quant_gemm.cu",
+                         "packed_gemm.cu", "bitsparsity.cu"}
+    header = (PKG / "csrc" / "int_gemm.cuh").read_text()
+    assert "__dp4a" in header and "__int2float_rn" in header
+    for name, launcher in (("quant_gemm.cu", "quant_gemm_launch"),
+                           ("packed_gemm.cu", "packed_gemm_launch"),
+                           ("bitsparsity.cu", "block_stats_launch")):
+        assert f'extern "C" int {launcher}' in srcs[name]
+    assert '#include "int_gemm.cuh"' in srcs["quant_gemm.cu"]
+    assert '#include "int_gemm.cuh"' in srcs["packed_gemm.cu"]
     assert "__dp4a" in srcs["unary_gemm.cu"] and "n_slots" in srcs["unary_gemm.cu"]
     assert 'extern "C" int unary_gemm_launch' in srcs["unary_gemm.cu"]
     assert 'extern "C" int fused_paged_decode_launch' in srcs["fused_paged_decode.cu"]
@@ -86,7 +96,8 @@ def test_csrc_holds_the_three_kernels():
     assert "__nv_bfloat16" in flash and "atomicAdd" not in flash
     from repro_torch.kernels import _build
     assert set(_build.SOURCES) == set(srcs)
-    for text in srcs.values():
+    assert _build.HEADERS == ("int_gemm.cuh",)
+    for text in [*srcs.values(), header]:
         assert "torch/extension.h" not in text and "cudaMalloc" not in text
         assert "cudaDeviceSynchronize" not in text
 

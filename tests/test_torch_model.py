@@ -205,6 +205,7 @@ def test_scopes_and_unported_options(setup):
     with pytest.raises(NotImplementedError):
         with port_backends.use_backend("tubgemm", bits=4, grid=(2, 2)):
             pass
-    with pytest.raises(NotImplementedError):
-        port_model.forward(port_params, port_cfg.replace(quant_bits=4, quant_kernel=True),
-                           torch.from_numpy(tokens))
+    with pytest.raises(NotImplementedError, match="ugemm"):
+        port_model.forward(port_params, port_cfg.replace(
+            quant_bits=4, quant_kernel=True, quant_backend="ugemm"),
+            torch.from_numpy(tokens))

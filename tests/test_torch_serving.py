@@ -10,7 +10,8 @@ FUSED_LOGIT_TOL; for a 6-request seeded trace the port's
 ``ServingEngine.run`` and the reference engine produce EQUAL events, steps
 and per-request token streams, and ``energy_uj`` within rel 1e-6 (identical
 Python pricing arithmetic fed float32-rounded sparsity statistics), on the
-float path and under ``tubgemm``@4 with per-row activation scaling.
+float path, under ``tubgemm``@4 with per-row activation scaling, and with
+``cfg.quant_kernel`` at 4 bits (no backend scope).
 """
 
 import dataclasses
@@ -155,9 +156,16 @@ def test_weight_walk_and_energy_model_equal(setup):
 # -- the slice as a whole -------------------------------------------------------------
 
 @pytest.mark.parametrize("backend,scheduler", [
-    (None, "continuous"), (None, "static"), ("tubgemm", "continuous")])
+    (None, "continuous"), (None, "static"), ("tubgemm", "continuous"),
+    ("quant_kernel", "continuous")])
 def test_engine_trace_equals_reference(setup, monkeypatch, backend, scheduler):
     ref_cfg, port_cfg, ref_params, port_params = setup
+    if backend == "quant_kernel":
+        # no backend scope: every dense site runs the packed quant_gemm
+        # kernel path at 4 bits (activations per tensor at 8)
+        ref_cfg = ref_cfg.replace(quant_bits=4, quant_kernel=True)
+        port_cfg = port_cfg.replace(quant_bits=4, quant_kernel=True)
+        backend = None
     monkeypatch.setattr(ref_engine_mod, "single_device_mesh", _auto_mesh)
     kw = dict(num_requests=6, arrival_rate=1.0, seed=0)
     ref_trace = ref_traffic.generate_trace(ref_traffic.TrafficConfig(**kw))
@@ -265,3 +273,89 @@ def test_serve_cli_refuses_missing_cuda():
         capture_output=True, text=True, timeout=600)
     assert proc.returncode == 2
     assert "no CUDA device" in proc.stdout
+
+
+# -- why the CLI serves in float32 (ROADMAP Queue 3) ----------------------------
+
+def _teacher_forced_gap(cfg, params, *, steps=4, prompt_len=12, batch=4):
+    """(max |dlogit|, smallest top-1/top-2 margin, argmax flips) over
+    ``steps`` decode steps run through a fused and a gather engine from
+    identical pools and tokens: both are fed the gather engine's argmax, and
+    the fused pools are reset to the gather pools after every step."""
+    engines = {a: ServingEngine(cfg, params, attention=a, device="cpu",
+                                max_batch=batch, page_size=8, max_seq_len=64)
+               for a in ("fused", "gather")}
+    prompts = torch.from_numpy(np.random.default_rng(3).integers(
+        0, cfg.vocab_size, (batch, prompt_len)).astype(np.int32))
+    logits, k_l, v_l = engines["gather"]._prefill(prompts)
+    tok = torch.argmax(logits[:, -1], dim=-1).to(torch.int32)[:, None]
+    caches = {name: eng.new_cache() for name, eng in engines.items()}
+    for cache in caches.values():
+        for i in range(batch):
+            cache.allocate(i, prompt_len + steps + 1)
+            cache.write_prefill(i, k_l[:, i], v_l[:, i])
+    bt = torch.from_numpy(np.stack([caches["gather"].block_table_row(i)
+                                    for i in range(batch)]))
+    active = torch.ones((batch,), dtype=torch.bool)
+    gap, margin, flips = 0.0, float("inf"), 0
+    for step in range(steps):
+        lengths = torch.full((batch,), prompt_len + step, dtype=torch.int32)
+        out = {}
+        for name, eng in engines.items():
+            c = caches[name]
+            lg, _, _, _ = eng._decode(eng.params, tok, c.k_pool, c.v_pool, bt,
+                                      lengths, active)
+            out[name] = lg[:, 0].float()
+        gap = max(gap, float((out["fused"] - out["gather"]).abs().max()))
+        top2 = out["gather"].topk(2, dim=-1).values
+        margin = min(margin, float((top2[:, 0] - top2[:, 1]).min()))
+        flips += int((out["fused"].argmax(-1) != out["gather"].argmax(-1)).sum())
+        caches["fused"].k_pool.copy_(caches["gather"].k_pool)
+        caches["fused"].v_pool.copy_(caches["gather"].v_pool)
+        tok = out["gather"].argmax(-1).to(torch.int32)[:, None]
+    return gap, margin, flips
+
+
+def test_bf16_fused_vs_gather_cause(setup):
+    """At bfloat16 the fused page walk and the gather oracle part by the
+    oracle's own bfloat16 roundings, not by the walk: the walk scores and
+    normalises in float32 (as the Pallas kernel and the CUDA kernel do),
+    the oracle rounds q.k and the softmax weights to bfloat16 (as the
+    reference's XLA lowering, its CPU serving default, mirrors).  That gap
+    is ~100x FUSED_LOGIT_TOL on the logits, so the CLI's strict float-path
+    fused==gather gate holds only in float32, where the CLI serves."""
+    from repro_torch.kernels import paged_attention as paged_lib
+    from repro_torch.kernels import paged_attention_fused as fused_lib
+    rng = np.random.default_rng(11)
+    batch, kvh, h, hd, page, blocks = 4, 2, 8, 16, 4, 6
+    num_pages = 1 + batch * blocks
+    bt = torch.from_numpy(rng.permutation(np.arange(1, num_pages)).astype(np.int32)
+                          .reshape(batch, blocks))
+    lens = torch.tensor([1, 5, 13, 24], dtype=torch.int32)
+    pk, pv = (torch.from_numpy(rng.standard_normal((num_pages, page, kvh, hd))
+                               .astype(np.float32)).to(torch.bfloat16)
+              for _ in range(2))
+    q = torch.from_numpy(rng.standard_normal((batch, 1, h, hd))
+                         .astype(np.float32)).to(torch.bfloat16)
+    args = (bt, lens)
+    fused = fused_lib.fused_decode_plain(q, pk, pv, *args, num_heads=h)
+    fused32 = fused_lib.fused_decode_plain(q.float(), pk.float(), pv.float(),
+                                           *args, num_heads=h)
+    gather = paged_lib.paged_decode_attention(q, pk, pv, *args, num_heads=h)
+    gather32 = paged_lib.paged_decode_attention(q.float(), pk.float(), pv.float(),
+                                                *args, num_heads=h)
+    # the walk is float32 arithmetic on the bfloat16 values, rounded once
+    assert torch.equal(fused, fused32.to(torch.bfloat16))
+    assert float((fused32 - gather32).abs().max()) <= FUSED_LOGIT_TOL
+    attn_gap = float((fused.float() - gather.float()).abs().max())
+    assert attn_gap > 10 * FUSED_LOGIT_TOL
+    # through the smoke model, teacher-forced
+    _, port_cfg, _, port_params = setup
+    gap32, margin32, flips32 = _teacher_forced_gap(port_cfg, port_params)
+    gap16, margin16, flips16 = _teacher_forced_gap(
+        port_cfg.replace(compute_dtype="bfloat16"), port_params)
+    print(f"\nbf16 attention gap {attn_gap:.3e}; teacher-forced max |dlogit| "
+          f"fp32 {gap32:.3e} (margin {margin32:.3e}, {flips32} flips), bf16 "
+          f"{gap16:.3e} (margin {margin16:.3e}, {flips16} flips)")
+    assert gap32 <= FUSED_LOGIT_TOL and flips32 == 0
+    assert gap16 > 10 * FUSED_LOGIT_TOL
