@@ -5,7 +5,9 @@
 
 Phases, each of which fails the run (non-zero exit) on its own:
 
-1. ``device``  — card name and power limit, build of the CUDA kernels;
+1. ``device``  — card name and power limit, build of the CUDA kernels, and
+   from ``cuobjdump`` of the built library the tensor-core instructions,
+   registers and local memory of each bf16 mma kernel (none may lack HMMA);
 2. ``kernels`` — every kernel against its plain PyTorch version (and the
    integer-GEMM / gather oracles) on the card, at the main path's shapes;
 3. ``probes``  — paged-vs-contiguous == 0.0 and fused-vs-gather <=
@@ -31,7 +33,8 @@ Phases, each of which fails the run (non-zero exit) on its own:
    bf16 compute, remat, batch 4 x 2048), gated on finite, falling loss and
    on the flash kernels' launch counters; one more step traced;
 7. ``times``   — per-kernel CUDA-event timings beside the plain version, the
-   roofline bound and, where one exists, the library call.
+   roofline bound and, where one exists, the library call (flash: TFLOP/s,
+   and SDPA's backward alone beside its forward + backward).
 
 Needs a CUDA device: without one (or without the package beside it) the
 script exits non-zero and prints no result.  ``--layers`` / ``--requests``
@@ -49,6 +52,8 @@ import json
 import math
 import os
 import statistics
+import re
+import shutil
 import subprocess
 import sys
 import time
@@ -176,7 +181,58 @@ def log(msg: str) -> None:
 # phase 1: device + build
 # ---------------------------------------------------------------------------
 
-def phase_device() -> None:
+# the bf16 instantiations that run on the tensor cores
+MMA_KERNELS = {"flash_fwd": "flash_fwd_mma_kernel",
+               "flash_bwd_dkv": "flash_bwd_dkv_mma_kernel"}
+
+
+def _cuobjdump(*args: str) -> str:
+    exe = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    out = subprocess.run([exe, *args, _build.load_library()._name],
+                         stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                         text=True, timeout=300)
+    require(out.returncode == 0, f"cuobjdump {' '.join(args)} failed: {out.stdout[-2000:]}")
+    return out.stdout
+
+
+def _tensor_core_report() -> dict:
+    """From the built library: per bf16 instantiation of the mma kernels the
+    count of tensor-core instructions (HMMA, HGMMA) in its SASS and its
+    registers, stack and local memory a thread (``cuobjdump -res-usage``).
+    Every instantiation must hold tensor-core instructions."""
+    pattern = re.compile(r"(%s)ILi(\d+)E" % "|".join(MMA_KERNELS.values()))
+    report = {name: {} for name in MMA_KERNELS}
+    by_kernel = {v: k for k, v in MMA_KERNELS.items()}
+    current = None
+    for line in _cuobjdump("-sass").splitlines():
+        if "Function :" in line:
+            hit = pattern.search(line)
+            current = (by_kernel[hit.group(1)], int(hit.group(2))) if hit else None
+            if current:
+                report[current[0]][current[1]] = {"hmma": 0}
+        elif current and re.search(r"\bH(G)?MMA\b", line):
+            report[current[0]][current[1]]["hmma"] += 1
+    current = None
+    for line in _cuobjdump("-res-usage").splitlines():
+        if "Function" in line:
+            hit = pattern.search(line)
+            current = (by_kernel[hit.group(1)], int(hit.group(2))) if hit else None
+        elif current and "REG:" in line:
+            use = dict((k, int(v)) for k, v in re.findall(r"(REG|STACK|SHARED|LOCAL):(\d+)", line))
+            report[current[0]].setdefault(current[1], {}).update(use)
+    for name, per_d in report.items():
+        for d in flash_lib.HEAD_DIMS:
+            require(per_d.get(d, {}).get("hmma", 0) > 0,
+                    f"{MMA_KERNELS[name]}<{d}> has no tensor-core instruction in "
+                    f"its SASS ({per_d.get(d)})")
+        log(f"  {name} bf16 (SASS of the built library): " + ", ".join(
+            f"d={d}: {u.get('hmma')} HMMA, {u.get('REG')} registers, stack "
+            f"{u.get('STACK')} B, local {u.get('LOCAL')} B"
+            for d, u in sorted(per_d.items())))
+    return report
+
+
+def phase_device() -> dict:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True, timeout=60)
@@ -192,6 +248,7 @@ def phase_device() -> None:
         f"{_build.build_dir()} in "
         f"{(built if built is not None else time.perf_counter() - t0):.1f} s"
         f"{'' if built is not None else ' (cached library)'}")
+    return _tensor_core_report()
 
 
 # ---------------------------------------------------------------------------
@@ -332,9 +389,10 @@ def phase_kernels() -> dict:
 
 
 # (BH, Sq, Skv, D): the training path's slabs (B=4 x H=32, S=2048, d=128),
-# a ragged length, Sq != Skv, and d=64
+# a ragged length, Sq != Skv, d=64, and Sq > Skv at d=16 with both lengths
+# one past and one short of the 64-wide tiles
 FLASH_CASES = ((128, 2048, 2048, 128), (128, 2000, 2000, 128),
-               (16, 77, 130, 128), (16, 333, 333, 64))
+               (16, 77, 130, 128), (16, 333, 333, 64), (16, 129, 63, 16))
 FLASH_TOL = {torch.float32: 1e-4, torch.bfloat16: 1e-2}   # x max|plain|
 # bf16 o, dQ, dK, dV also per element: |kernel - plain| <= FLASH_BF16_ROW_TOL
 # x (|plain| + max|plain| of its row), so that small later rows are held too;
@@ -1150,6 +1208,10 @@ def _train_step_profile(cfg, state, loop) -> None:
         f"{100 - 100 * busy_us / wall_us:.1f} % idle")
     for t, key, count in sorted(rows, reverse=True)[:12]:
         log(f"    {t / 1e3:9.3f} ms  x{count:<6d} {key[:90]}")
+    for name in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"):
+        t, n = (sum(r[i] for r in rows if f"{name}_" in r[1]) for i in (0, 2))
+        log(f"    {name}: {t / 1e3:.3f} ms of the step ({n} launches, "
+            f"{100 * t / busy_us:.1f} % of device busy)")
 
 
 def phase_train(layers: int, steps: int) -> dict:
@@ -1274,7 +1336,7 @@ def _time_gemm(name: str, m: int, k: int, n: int, bits: int, gen) -> dict:
 
 
 def phase_times(errs: dict, launches: dict, launches_run: dict,
-                layers: int) -> list[dict]:
+                layers: int, sass: dict) -> list[dict]:
     gen = torch.Generator(device=DEV)
     gen.manual_seed(1)
     # the main path's GEMM sites at bits=4: decode rows (M = 8) and a long
@@ -1348,7 +1410,7 @@ def phase_times(errs: dict, launches: dict, launches_run: dict,
     log(f"  fused_paged_decode: {ms:.4f} ms, plain walk {plain_ms:.3f} ms, "
         f"gather oracle {gather_ms:.4f} ms, bound {max(bytes_ms, ops_ms):.4f} ms "
         f"(bytes; {kv_bytes / 2**20:.1f} MiB of live K/V)")
-    rows.extend(_time_flash(gen, errs, launches, launches_run))
+    rows.extend(_time_flash(gen, errs, launches, launches_run, sass))
     rows.extend(_time_int_gemms(gen, errs, launches, launches_run, layers))
     rows.append(_time_block_stats(gen, errs, launches, launches_run))
     return rows
@@ -1454,11 +1516,13 @@ def _time_block_stats(gen, errs: dict, launches: dict,
             "per_shape": per_shape}
 
 
-def _time_flash(gen, errs: dict, launches: dict, launches_run: dict) -> list[dict]:
+def _time_flash(gen, errs: dict, launches: dict, launches_run: dict,
+                sass: dict) -> list[dict]:
     """The three flash kernels at the training path's shape in bf16: B=4 x
     H=32 slabs, S=2048, d=128, causal; SDPA on the same tensors as the
     library yardstick (forward; forward + backward for the two backward
-    kernels, whose work it computes together)."""
+    kernels, whose work it computes together, and its backward alone).
+    Rates are the function's operations (:func:`flash_ops`) over the time."""
     b, h, s, d = 4, 32, 2048, 128
     bh, dt = b * h, torch.bfloat16
     q, k, v, do = (torch.randn((bh, s, d), generator=gen, device=DEV).to(dt)
@@ -1517,8 +1581,11 @@ def _time_flash(gen, errs: dict, launches: dict, launches_run: dict) -> list[dic
                              "scaled_dot_product_attention(is_causal=True) forward "
                              "+ backward"),
             "library_bwd_only_ms": None if name == "flash_fwd" else lib_bwd,
+            "tflops": ops[name] / ms / 1e9,
+            "sass_bf16": {str(k): u for k, u in sorted(sass.get(name, {}).items())},
             "shape": f"BH={bh} (B={b} x H={h}) S={s} d={d} bf16 causal"})
-        log(f"  {name} BH={bh} S={s} d={d} bf16 causal: {ms:.3f} ms, plain "
+        log(f"  {name} BH={bh} S={s} d={d} bf16 causal: {ms:.3f} ms = "
+            f"{ops[name] / ms / 1e9:.1f} TFLOP/s, plain "
             f"{plain_ms:.3f} ms, bound {max(bytes_ms, ops_ms):.4f} ms "
             f"({rows[-1]['bound_by']}; {ops[name] / 1e9:.1f} GFLOP, "
             f"{io_bytes[name] / 2**20:.0f} MiB), SDPA "
@@ -1550,7 +1617,7 @@ def main() -> int:
     rows: list[dict] = []
     try:
         with torch.no_grad():
-            phase_device()
+            sass = phase_device()
             if "kernels" in phases:
                 log("phase kernels")
                 errs = phase_kernels()
@@ -1582,7 +1649,7 @@ def main() -> int:
         if "times" in phases:
             log("phase times")
             with torch.no_grad():
-                rows = phase_times(errs, launches, launches_run, args.layers)
+                rows = phase_times(errs, launches, launches_run, args.layers, sass)
     except Failed as exc:
         log(f"FAILED: {exc}")
         return 1

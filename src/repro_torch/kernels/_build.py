@@ -29,7 +29,7 @@ CSRC_DIR = Path(__file__).resolve().parents[1] / "csrc"
 SOURCES = ("unary_gemm.cu", "fused_paged_decode.cu", "flash_attention.cu",
            "quant_gemm.cu", "packed_gemm.cu", "bitsparsity.cu")
 #: headers the sources include (part of the build digest)
-HEADERS = ("int_gemm.cuh",)
+HEADERS = ("int_gemm.cuh", "mma_bf16.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC")
 

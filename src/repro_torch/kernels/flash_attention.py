@@ -5,13 +5,19 @@ Replaces the TPU kernels of ``repro/kernels/flash_attention.py`` —
 ``_dkv_kernel`` (the two-kernel backward with in-kernel recompute of P from
 the saved logsumexp and ``delta = rowsum(dO * O)``) — with
 ``csrc/flash_attention.cu``: one block per (slab, 64-row tile) looping over
-the other axis with fp32 online-softmax state in registers, tiles staged
-through shared memory, causal tiles above the diagonal never visited.
+the other axis with fp32 online-softmax state in registers, causal tiles
+above the diagonal never visited.
 
 Bound on an H100: the score and product operations (4, 6 and 8 x BH x Sq x
 Skv x D, halved when causal) against the bf16 tensor cores — see
-:func:`flash_ops`.  This first version multiplies on the CUDA cores in fp32;
-tensor-core (``mma``/``wgmma``) tiles are later work.
+:func:`flash_ops`.  In bfloat16 the forward and dK/dV run on the tensor
+cores (``csrc/mma_bf16.cuh``): bf16 tiles filled by 16-byte ``cp.async``
+through a two-stage ring, ``ldmatrix`` fragments, ``mma.sync.m16n8k16``
+with fp32 accumulators, and P (dS) handed from one product's accumulators
+to the next product's operands in registers.  Those copies need each slab
+16-byte aligned, so a bf16 tensor that is not raises ``ValueError`` rather
+than falling back.  The dQ kernel and every float32 kernel multiply on the
+CUDA cores in fp32 (tensor cores would take fp32 only as TF32).
 
 Beside each kernel sits its plain PyTorch version with the reference's
 rounding points: scores in fp32, times the scale, ``-1e30`` where masked; P
@@ -167,6 +173,18 @@ def _check(name, q, k, v, *extra):
                          f"{tuple(k.shape)}")
 
 
+def _check_cp_async(name, *tensors):
+    """The bf16 tensor-core kernels copy 16-byte chunks with ``cp.async``:
+    every slab must start 16-byte aligned (data_ptr, and a slab stride that
+    is a multiple of 8 elements)."""
+    for t_name, t in tensors:
+        if t.data_ptr() % 16 or t.stride(0) % 8:
+            raise ValueError(
+                f"{name}: bf16 {t_name} must start 16-byte aligned with a slab "
+                f"stride that is a multiple of 8 elements (data_ptr "
+                f"{t.data_ptr():#x}, strides {t.stride()})")
+
+
 def _stats(name, t, bh, sq):
     if t.dtype != torch.float32 or t.shape != (bh, sq) or not t.is_contiguous():
         raise ValueError(f"{name} wants a contiguous float32 ({bh}, {sq}) tensor")
@@ -181,6 +199,8 @@ def flash_fwd(q, k, v, *, causal: bool):
     if q.device.type != "cuda":
         return flash_fwd_plain(q, k, v, causal=causal)
     _check("flash_fwd", q, k, v)
+    if q.dtype == torch.bfloat16:
+        _check_cp_async("flash_fwd", ("q", q), ("k", k), ("v", v))
     bh, sq, d = q.shape
     o = torch.empty((bh, sq, d), dtype=q.dtype, device=q.device)
     lse = torch.empty((bh, sq), dtype=torch.float32, device=q.device)
@@ -228,6 +248,8 @@ def flash_bwd_dkv(q, k, v, do, lse, delta, *, causal: bool):
         raise ValueError(f"flash_bwd_dkv: do {tuple(do.shape)} != q {tuple(q.shape)}")
     _stats("flash_bwd_dkv: lse", lse, bh, sq)
     _stats("flash_bwd_dkv: delta", delta, bh, sq)
+    if q.dtype == torch.bfloat16:
+        _check_cp_async("flash_bwd_dkv", ("q", q), ("k", k), ("v", v), ("do", do))
     skv = k.shape[1]
     dk = torch.empty((bh, skv, d), dtype=k.dtype, device=k.device)
     dv = torch.empty((bh, skv, d), dtype=v.dtype, device=v.device)

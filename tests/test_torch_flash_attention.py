@@ -134,6 +134,28 @@ def test_cpu_tensors_never_launch_a_kernel():
                                    "flash_bwd_dkv": 0}
 
 
+@pytest.mark.parametrize("layout", ["fresh", "reshaped", "data_ptr", "slab_stride"])
+def test_cp_async_alignment_check(layout):
+    """What the bf16 tensor-core kernels' 16-byte copies need of a slab,
+    decided from data_ptr and strides alone (so testable on the CPU): the
+    (BH, S, D) reshapes of ``flash_attention`` always pass."""
+    bh, s, d = 3, 20, 16
+    if layout == "fresh":
+        t = torch.zeros((bh, s, d), dtype=torch.bfloat16)
+    elif layout == "reshaped":
+        t = torch.zeros((1, s, bh, d), dtype=torch.bfloat16)
+        t = t.transpose(1, 2).reshape(bh, s, d)
+    elif layout == "data_ptr":
+        t = torch.zeros(bh * s * d + 1, dtype=torch.bfloat16)[1:].view(bh, s, d)
+    else:
+        t = torch.zeros((bh, s * d + 4), dtype=torch.bfloat16)[:, :s * d].view(bh, s, d)
+    if layout in ("fresh", "reshaped"):
+        port_flash._check_cp_async("flash_fwd", ("q", t))
+    else:
+        with pytest.raises(ValueError, match="16-byte aligned"):
+            port_flash._check_cp_async("flash_fwd", ("q", t))
+
+
 def test_flash_ops_counts_visible_pairs():
     for sq, skv in ((5, 5), (3, 7), (7, 3)):
         pairs = sum(1 for i in range(sq) for j in range(skv) if i >= j)

@@ -96,8 +96,15 @@ def test_csrc_holds_the_three_kernels():
     assert "__nv_bfloat16" in flash and "atomicAdd" not in flash
     from repro_torch.kernels import _build
     assert set(_build.SOURCES) == set(srcs)
-    assert _build.HEADERS == ("int_gemm.cuh",)
-    for text in [*srcs.values(), header]:
+    assert _build.HEADERS == ("int_gemm.cuh", "mma_bf16.cuh")
+    mma = (PKG / "csrc" / "mma_bf16.cuh").read_text()
+    for ptx in ("cp.async.cg.shared.global", "ldmatrix.sync.aligned.m8n8.x4.trans",
+                "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32"):
+        assert ptx in mma
+    assert '#include "mma_bf16.cuh"' in flash
+    for kernel in ("flash_fwd_mma_kernel", "flash_bwd_dkv_mma_kernel"):
+        assert f"__global__ void __launch_bounds__(MMA_NT)\n{kernel}" in flash
+    for text in [*srcs.values(), header, mma]:
         assert "torch/extension.h" not in text and "cudaMalloc" not in text
         assert "cudaDeviceSynchronize" not in text
 
