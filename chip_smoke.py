@@ -7,7 +7,8 @@ Phases, each of which fails the run (non-zero exit) on its own:
 
 1. ``device``  — card name and power limit, build of the CUDA kernels, and
    from ``cuobjdump`` of the built library the tensor-core instructions,
-   registers and local memory of each bf16 mma kernel (none may lack HMMA);
+   registers and local memory of each tensor-core kernel (the bf16 flash
+   kernels' HMMA, tuGEMM's IMMA; none may lack them, none may spill);
 2. ``kernels`` — every kernel against its plain PyTorch version (and the
    integer-GEMM / gather oracles) on the card, at the main path's shapes;
 3. ``probes``  — paged-vs-contiguous == 0.0 and fused-vs-gather <=
@@ -15,7 +16,8 @@ Phases, each of which fails the run (non-zero exit) on its own:
 4. ``serve``   — ``ServingEngine`` at llama3-8b's published widths serving a
    seeded trace under ``tubgemm_cuda`` + fused decode, gated on completion
    and on the kernels' launch counters; a short ``tugemm_cuda`` run whose
-   integer site outputs must equal ``tubgemm_cuda``'s; fused and gather
+   integer site outputs must equal ``tubgemm_cuda``'s on the same requests
+   (both walls printed); fused and gather
    decode must sample identical token streams on the float path; under
    4-bit execution that comparison is reported, and one teacher-forced
    step through both engines counts the activation codes that flip;
@@ -181,9 +183,13 @@ def log(msg: str) -> None:
 # phase 1: device + build
 # ---------------------------------------------------------------------------
 
-# the bf16 instantiations that run on the tensor cores
+# the kernels that run on the tensor cores: the bf16 instantiation of each
+# flash kernel (tensor-core instruction HMMA, per head dim) and tuGEMM's int8
+# slot loop (IMMA, per row-block width)
 MMA_KERNELS = {"flash_fwd": "flash_fwd_mma_kernel",
-               "flash_bwd_dkv": "flash_bwd_dkv_mma_kernel"}
+               "flash_bwd_dq": "flash_bwd_dq_mma_kernel",
+               "flash_bwd_dkv": "flash_bwd_dkv_mma_kernel",
+               "tu_gemm": "unary_mma_kernel"}
 
 
 def _cuobjdump(*args: str) -> str:
@@ -195,40 +201,65 @@ def _cuobjdump(*args: str) -> str:
     return out.stdout
 
 
+def _mma_instance(line: str):
+    """(name, key) of the tensor-core kernel a cuobjdump ``Function`` line
+    names, else None; the key is the head dim for flash, the rows per block
+    for tu (from its template arguments: rows = WARPS_M * WM * 8)."""
+    hit = _MMA_PATTERN.search(line)
+    if not hit:
+        return None
+    name = _BY_KERNEL[hit.group(1)]
+    args = [int(x) for x in re.findall(r"Li(\d+)E", hit.group(2))]
+    return name, (args[0] if name in FLASH else args[3] * args[1] * 8)
+
+
+_BY_KERNEL = {v: k for k, v in MMA_KERNELS.items()}
+# mangled names: flash_fwd_mma_kernelILi128EE..., and for tu
+# unary_mma_kernelI<pulse builder>Li2ELi1ELi4ELi1EE... (WN, WM, WARPS_N, WARPS_M)
+_MMA_PATTERN = re.compile(r"(%s)I((?:[^L]\w*?E)?(?:Li\d+E)+)E" % "|".join(MMA_KERNELS.values()))
+
+
 def _tensor_core_report() -> dict:
-    """From the built library: per bf16 instantiation of the mma kernels the
-    count of tensor-core instructions (HMMA, HGMMA) in its SASS and its
-    registers, stack and local memory a thread (``cuobjdump -res-usage``).
-    Every instantiation must hold tensor-core instructions."""
-    pattern = re.compile(r"(%s)ILi(\d+)E" % "|".join(MMA_KERNELS.values()))
+    """From the built library: per instantiation of the tensor-core kernels
+    the count of tensor-core instructions in its SASS (HMMA or HGMMA for
+    bf16 flash, IMMA for tu) and its registers, stack and local memory a
+    thread (``cuobjdump -res-usage``).  Every instantiation must hold
+    tensor-core instructions and use no stack and no local memory."""
     report = {name: {} for name in MMA_KERNELS}
-    by_kernel = {v: k for k, v in MMA_KERNELS.items()}
     current = None
     for line in _cuobjdump("-sass").splitlines():
         if "Function :" in line:
-            hit = pattern.search(line)
-            current = (by_kernel[hit.group(1)], int(hit.group(2))) if hit else None
+            current = _mma_instance(line)
             if current:
                 report[current[0]][current[1]] = {"hmma": 0}
-        elif current and re.search(r"\bH(G)?MMA\b", line):
+        elif current and re.search(
+                r"\bIMMA\b" if current[0] == "tu_gemm" else r"\bH(G)?MMA\b", line):
             report[current[0]][current[1]]["hmma"] += 1
     current = None
     for line in _cuobjdump("-res-usage").splitlines():
         if "Function" in line:
-            hit = pattern.search(line)
-            current = (by_kernel[hit.group(1)], int(hit.group(2))) if hit else None
+            current = _mma_instance(line)
         elif current and "REG:" in line:
             use = dict((k, int(v)) for k, v in re.findall(r"(REG|STACK|SHARED|LOCAL):(\d+)", line))
             report[current[0]].setdefault(current[1], {}).update(use)
-    for name, per_d in report.items():
-        for d in flash_lib.HEAD_DIMS:
-            require(per_d.get(d, {}).get("hmma", 0) > 0,
-                    f"{MMA_KERNELS[name]}<{d}> has no tensor-core instruction in "
-                    f"its SASS ({per_d.get(d)})")
-        log(f"  {name} bf16 (SASS of the built library): " + ", ".join(
-            f"d={d}: {u.get('hmma')} HMMA, {u.get('REG')} registers, stack "
-            f"{u.get('STACK')} B, local {u.get('LOCAL')} B"
-            for d, u in sorted(per_d.items())))
+    for name, per_key in report.items():
+        tu = name == "tu_gemm"
+        keys, label = ((8, 16, 32, 64), "rows") if tu else (flash_lib.HEAD_DIMS, "d")
+        op = "IMMA" if tu else "HMMA"
+        for key in keys:
+            use = per_key.get(key, {})
+            require(use.get("hmma", 0) > 0,
+                    f"{MMA_KERNELS[name]} ({label}={key}) has no {op} in its SASS ({use})")
+            require(use.get("STACK", 0) == 0 and use.get("LOCAL", 0) == 0,
+                    f"{MMA_KERNELS[name]} ({label}={key}) spills: {use}")
+        if tu:    # what tu's split plan reads: blocks an SM holds at once
+            for key, use in per_key.items():
+                use["resident"] = ug._tu_resident_blocks(key, 0)
+        log(f"  {name} {'int8' if tu else 'bf16'} (SASS of the built library): "
+            + ", ".join(f"{label}={k}: {u.get('hmma')} {op}, {u.get('REG')} registers, "
+                        f"stack {u.get('STACK')} B, local {u.get('LOCAL')} B"
+                        + (f", {u['resident']} blocks resident an SM" if tu else "")
+                        for k, u in sorted(per_key.items())))
     return report
 
 
@@ -455,6 +486,24 @@ def _flash_kernels(gen, errs: dict) -> None:
                             f"{causal}: max |kernel-plain| {err:.3e} > "
                             f"{FLASH_TOL[dtype]:g} x max|plain| {top:.3e}")
                     if dtype == torch.bfloat16 and name != "lse":
+                        if name == "dq" and causal:
+                            # query 0 sees key 0 alone, so its dS = P (dP -
+                            # delta) cancels exactly: its dQ row is fp32
+                            # rounding noise in kernel and plain alike, held
+                            # to 64 fp32 ulps of the cancelling terms' scale
+                            # (as in tests/test_torch_gpu.py), the other rows
+                            # to the per-row check
+                            bound = 64 * 2.0 ** -23 * d ** 0.5 * float(
+                                do.float().abs().max() * v.float().abs().max()
+                                * torch.maximum(q.float().abs().max(),
+                                                k.float().abs().max()))
+                            err0 = float((got[:, 0].float() - want[:, 0].float())
+                                         .abs().max())
+                            require(err0 <= bound,
+                                    f"flash dq ({bh},{sq},{skv},{d}) bf16 causal: "
+                                    f"query 0's cancelled row off by {err0:.3e} > "
+                                    f"{bound:.3e}")
+                            got, want = got[:, 1:], want[:, 1:]
                         row_rel[name] = _row_relative_err(got, want)
                         require(row_rel[name] <= FLASH_BF16_ROW_TOL,
                                 f"flash {name} ({bh},{sq},{skv},{d}) bf16 causal="
@@ -836,9 +885,11 @@ def phase_serve(cfg, params, requests: int) -> dict:
     tu_engine.on_gemm_output = tu_digest
     ug.reset_launches()
     fused_lib.reset_launches()
+    t0 = time.perf_counter()
     with activation_scaling("per-row"):
         rep_tu = tu_engine.run(short, "continuous")
     torch.cuda.synchronize()
+    wall_tu = time.perf_counter() - t0
     launches["tu_gemm"] = ug.LAUNCHES["tu_gemm"]
     require(rep_tu.requests == len(short), "tugemm_cuda run incomplete")
     require(launches["tu_gemm"] == sites * (rep_tu.decode_steps + rep_tu.prefill_calls)
@@ -850,8 +901,11 @@ def phase_serve(cfg, params, requests: int) -> dict:
     # ---- comparisons (their launches are not counted above)
     tub_digest = _Digest()
     engine.on_gemm_output = tub_digest
+    t0 = time.perf_counter()
     with activation_scaling("per-row"):
         rep_tub_short = engine.run(short, "continuous")
+    torch.cuda.synchronize()
+    wall_tub_short = time.perf_counter() - t0
     engine.on_gemm_output = None
     require(rep_tub_short.request_tokens == rep_tu.request_tokens,
             "tugemm_cuda and tubgemm_cuda sampled different tokens")
@@ -861,6 +915,10 @@ def phase_serve(cfg, params, requests: int) -> dict:
     log(f"  [tugemm_cuda@4, {len(short)} requests] {launches['tu_gemm']} "
         f"launches; all {len(tu_digest.items)} integer site outputs equal "
         f"tubgemm_cuda's on the same inputs")
+    log(f"  [{len(short)} requests, {rep_tu.decode_steps} decode steps, prefill "
+        f"included, host clock, both recording site outputs] wall tugemm_cuda "
+        f"{wall_tu:.3f} s (the engine's first run), tubgemm_cuda "
+        f"{wall_tub_short:.3f} s")
 
     # fused vs gather.  Strict on the float path, as in the serving CLI:
     # there the two differ by float32 re-association only.  Under 4-bit
@@ -1274,7 +1332,10 @@ _FLUSH = None
 
 
 def _time_ms(fn, reps: int = 20, warmup: int = 3) -> float:
-    """Median CUDA-event time of one call, L2 flushed before each call."""
+    """Median CUDA-event time of one call, L2 flushed before each call.  A
+    spin of about half a millisecond on the card after the flush lets the
+    host queue the call before the start event runs, so a slow host's
+    wrapper time does not show up as device time."""
     global _FLUSH
     if _FLUSH is None:
         _FLUSH = torch.empty(256 * 2**20, dtype=torch.uint8, device=DEV)
@@ -1284,6 +1345,7 @@ def _time_ms(fn, reps: int = 20, warmup: int = 3) -> float:
     times = []
     for _ in range(reps):
         _FLUSH.zero_()
+        torch.cuda._sleep(1_000_000)
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()

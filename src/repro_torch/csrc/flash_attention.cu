@@ -23,19 +23,19 @@
 // What bounds it on an H100: operations (4, 6 and 8 x BH x Sq x Skv x D
 // multiply-adds counted as 2, halved when causal) against the bf16 tensor
 // cores.  Two designs:
-//  - bf16 forward and dK/dV (flash_*_mma_kernel): tensor cores.  bf16 tiles
-//    padded against bank conflicts, filled by 16-byte cp.async through a
-//    two-stage ring so the next tile loads under this one's products;
-//    ldmatrix fragments; mma.sync.m16n8k16 with fp32 accumulators.  The
-//    first product's accumulators are the second's A operand once packed to
-//    bf16 (the reference's rounding point), so P and dS stay in registers.
-//    dK/dV forms S^T = K Q^T and dP^T = V dO^T directly, so P^T and dS^T
-//    come out in that layout.  The reference's rounding points are exactly
-//    the tensor cores' operand types; only the order of the fp32 sums moves.
-//  - fp32 (every kernel) and bf16 dQ: CUDA cores in fp32 (each thread a
-//    4 x 4 block of the score tile and 4 rows x D/16 columns of the output),
-//    tiles staged as fp32 with rows padded by one float.  Tensor cores take
-//    fp32 only as TF32, which would break the fp32 contract.
+//  - bf16 (flash_*_mma_kernel): tensor cores.  bf16 tiles padded against
+//    bank conflicts, filled by 16-byte cp.async through a two-stage ring so
+//    the next tile loads under this one's products; ldmatrix fragments;
+//    mma.sync.m16n8k16 with fp32 accumulators.  The first product's
+//    accumulators are the second's A operand once packed to bf16 (the
+//    reference's rounding point), so P and dS stay in registers.  dK/dV
+//    forms S^T = K Q^T and dP^T = V dO^T directly, so P^T and dS^T come out
+//    in that layout.  The reference's rounding points are exactly the tensor
+//    cores' operand types; only the order of the fp32 sums moves.
+//  - fp32: CUDA cores in fp32 (each thread a 4 x 4 block of the score tile
+//    and 4 rows x D/16 columns of the output), tiles staged as fp32 with
+//    rows padded by one float.  Tensor cores take fp32 only as TF32, which
+//    would break the fp32 contract.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -54,27 +54,14 @@ constexpr int NT = 256;         // threads: ty = tid / 16 (16 values), tx = tid 
 constexpr int PS = BK + 1;      // pitch of a (BQ, BK) tile of P or dS
 constexpr float NEG_INF = -1e30f;
 
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
-
-template <typename T> __device__ __forceinline__ T from_f32(float x);
-template <> __device__ __forceinline__ float from_f32<float>(float x) { return x; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
-// round an fp32 value to T and back (a rounding point of the reference)
-template <typename T> __device__ __forceinline__ float round_to(float x) {
-  return to_f32(from_f32<T>(x));
-}
-
-// Stage rows [0, valid) of a (rows, D) tile at `src` into shared memory as
-// fp32 with row pitch `pitch`; rows past `valid` are zero and never read.
-template <typename T, int D>
-__device__ __forceinline__ void load_tile(float* dst, int pitch, const T* __restrict__ src,
+// Stage rows [0, valid) of a (rows, D) fp32 tile at `src` into shared memory
+// with row pitch `pitch`; rows past `valid` are zero and never read.
+template <int D>
+__device__ __forceinline__ void load_tile(float* dst, int pitch, const float* __restrict__ src,
                                           int rows, int valid) {
   for (int e = threadIdx.x; e < rows * D; e += NT) {
     const int r = e / D, c = e % D;
-    dst[r * pitch + c] = r < valid ? to_f32(src[(size_t)r * D + c]) : 0.0f;
+    dst[r * pitch + c] = r < valid ? src[(size_t)r * D + c] : 0.0f;
   }
 }
 
@@ -135,7 +122,7 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const float* kb = k + bh * k_bs;
   const float* vb = v + bh * v_bs;
   const int q_valid = min(BQ, sq - q0);
-  load_tile<float, D>(q_s, P, q + bh * q_bs + (size_t)q0 * D, BQ, q_valid);
+  load_tile<D>(q_s, P, q + bh * q_bs + (size_t)q0 * D, BQ, q_valid);
 
   float m[4], l[4], acc[4][NJ];
 #pragma unroll
@@ -150,8 +137,8 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
   for (int k0 = 0; k0 < kend; k0 += BK) {
     __syncthreads();                       // the previous tile is consumed
     const int k_valid = min(BK, skv - k0);
-    load_tile<float, D>(k_s, P, kb + (size_t)k0 * D, BK, k_valid);
-    load_tile<float, D>(v_s, D, vb + (size_t)k0 * D, BK, k_valid);
+    load_tile<D>(k_s, P, kb + (size_t)k0 * D, BK, k_valid);
+    load_tile<D>(v_s, D, vb + (size_t)k0 * D, BK, k_valid);
     __syncthreads();
 
     float s[4][4] = {};
@@ -212,13 +199,13 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
 // dQ: grid (ceil(Sq / BQ), BH)
 // smem: q_s, do_s [BQ][D+1], k_s, v_s [BK][D+1], ds_s [BQ][BK+1]
 // ---------------------------------------------------------------------------
-template <typename T, int D>
+template <int D>
 __global__ void __launch_bounds__(NT)
-flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-                    const T* __restrict__ dout, const float* __restrict__ lse,
-                    const float* __restrict__ delta, T* __restrict__ dq, int sq, int skv,
-                    long long q_bs, long long k_bs, long long v_bs, long long do_bs,
-                    float scale, int causal) {
+flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                    const float* __restrict__ v, const float* __restrict__ dout,
+                    const float* __restrict__ lse, const float* __restrict__ delta,
+                    float* __restrict__ dq, int sq, int skv, long long q_bs, long long k_bs,
+                    long long v_bs, long long do_bs, float scale, int causal) {
   constexpr int P = D + 1, NJ = D / 16;
   extern __shared__ float smem[];
   float* q_s = smem;
@@ -229,11 +216,11 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
 
   const int bh = blockIdx.y, q0 = blockIdx.x * BQ;
   const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
-  const T* kb = k + bh * k_bs;
-  const T* vb = v + bh * v_bs;
+  const float* kb = k + bh * k_bs;
+  const float* vb = v + bh * v_bs;
   const int q_valid = min(BQ, sq - q0);
-  load_tile<T, D>(q_s, P, q + bh * q_bs + (size_t)q0 * D, BQ, q_valid);
-  load_tile<T, D>(do_s, P, dout + bh * do_bs + (size_t)q0 * D, BQ, q_valid);
+  load_tile<D>(q_s, P, q + bh * q_bs + (size_t)q0 * D, BQ, q_valid);
+  load_tile<D>(do_s, P, dout + bh * do_bs + (size_t)q0 * D, BQ, q_valid);
   float lse_r[4], delta_r[4], acc[4][NJ];
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
@@ -247,8 +234,8 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
   for (int k0 = 0; k0 < kend; k0 += BK) {
     __syncthreads();
     const int k_valid = min(BK, skv - k0);
-    load_tile<T, D>(k_s, P, kb + (size_t)k0 * D, BK, k_valid);
-    load_tile<T, D>(v_s, P, vb + (size_t)k0 * D, BK, k_valid);
+    load_tile<D>(k_s, P, kb + (size_t)k0 * D, BK, k_valid);
+    load_tile<D>(v_s, P, vb + (size_t)k0 * D, BK, k_valid);
     __syncthreads();
 
     float s[4][4] = {}, dp[4][4] = {};
@@ -263,7 +250,7 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
                                                                           : s[i][j] * scale;
         const float p = expf(sv - lse_r[i]);
         const float ds = p * (dp[i][j] - delta_r[i]) * scale;
-        ds_s[(ty + 16 * i) * PS + tx + 16 * j] = round_to<T>(ds);
+        ds_s[(ty + 16 * i) * PS + tx + 16 * j] = ds;
       }
     }
     __syncthreads();
@@ -281,14 +268,14 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
     }
   }
 
-  T* dqb = dq + (size_t)bh * sq * D;
+  float* dqb = dq + (size_t)bh * sq * D;
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int r = ty + 16 * i;
     if (r >= q_valid) continue;
 #pragma unroll
     for (int j = 0; j < NJ; ++j)
-      dqb[(size_t)(q0 + r) * D + tx + 16 * j] = from_f32<T>(acc[i][j]);
+      dqb[(size_t)(q0 + r) * D + tx + 16 * j] = acc[i][j];
   }
 }
 
@@ -321,8 +308,8 @@ flash_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const float* qb = q + bh * q_bs;
   const float* dob = dout + bh * do_bs;
   const int k_valid = min(BK, skv - k0);
-  load_tile<float, D>(k_s, P, k + bh * k_bs + (size_t)k0 * D, BK, k_valid);
-  load_tile<float, D>(v_s, P, v + bh * v_bs + (size_t)k0 * D, BK, k_valid);
+  load_tile<D>(k_s, P, k + bh * k_bs + (size_t)k0 * D, BK, k_valid);
+  load_tile<D>(v_s, P, v + bh * v_bs + (size_t)k0 * D, BK, k_valid);
   // thread owns key rows ty + 16 i and columns tx + 16 j of dK and dV
   float dk_acc[4][NJ], dv_acc[4][NJ];
 #pragma unroll
@@ -334,8 +321,8 @@ flash_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
   for (int qs = causal ? (k0 / BQ) * BQ : 0; qs < sq; qs += BQ) {
     __syncthreads();
     const int q_valid = min(BQ, sq - qs);
-    load_tile<float, D>(q_s, P, qb + (size_t)qs * D, BQ, q_valid);
-    load_tile<float, D>(do_s, P, dob + (size_t)qs * D, BQ, q_valid);
+    load_tile<D>(q_s, P, qb + (size_t)qs * D, BQ, q_valid);
+    load_tile<D>(do_s, P, dob + (size_t)qs * D, BQ, q_valid);
     for (int r = threadIdx.x; r < BQ; r += NT) {
       lse_s[r] = r < q_valid ? lse[(size_t)bh * sq + qs + r] : 0.0f;
       delta_s[r] = r < q_valid ? delta[(size_t)bh * sq + qs + r] : 0.0f;
@@ -547,6 +534,170 @@ flash_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* _
   }
 }
 
+// dQ: grid (BH, ceil(Sq / BQ)), query tiles longest-first when causal.  Each
+// warp owns 16 query rows, as in the forward: per 64-key tile S = Q K^T and
+// dP = dO V^T, P = exp(S scale - lse), dS = P (dP - delta) scale in fp32, and
+// dQ += bf16(dS) K with dS packed from the accumulators into the A fragment
+// and K entering through ldmatrix.trans.  dQ alone is 64 accumulators a
+// thread at d=128, so the Q and dO fragments are re-read from shared memory
+// per product rather than kept in registers.
+// smem: q_s, do_s [BQ][D+8], k_s, v_s [2][BK][D+8] (bf16), lse_s, delta_s
+// [BQ] (fp32)
+template <int D>
+__global__ void __launch_bounds__(MMA_NT)
+flash_bwd_dq_mma_kernel(const __nv_bfloat16* __restrict__ q,
+                        const __nv_bfloat16* __restrict__ k,
+                        const __nv_bfloat16* __restrict__ v,
+                        const __nv_bfloat16* __restrict__ dout, const float* __restrict__ lse,
+                        const float* __restrict__ delta, __nv_bfloat16* __restrict__ dq, int sq,
+                        int skv, long long q_bs, long long k_bs, long long v_bs,
+                        long long do_bs, float scale, float scale_log2, int causal) {
+  using namespace mma_bf16;
+  constexpr int P = pitch<D>(), KD = D / 16, ND = D / 8, NS = BK / 8;
+  extern __shared__ __align__(16) unsigned char mma_smem[];
+  __nv_bfloat16* q_s = reinterpret_cast<__nv_bfloat16*>(mma_smem);
+  __nv_bfloat16* do_s = q_s + BQ * P;
+  __nv_bfloat16* k_s = do_s + BQ * P;
+  __nv_bfloat16* v_s = k_s + 2 * BK * P;
+  float* lse_s = reinterpret_cast<float*>(v_s + 2 * BK * P);
+  float* delta_s = lse_s + BQ;
+
+  const int bh = blockIdx.x;
+  const int qt = causal ? gridDim.y - 1 - blockIdx.y : blockIdx.y;
+  const int q0 = qt * BQ, q_valid = min(BQ, sq - q0);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int row0 = q0 + warp * 16 + g;         // query of c0, c1; row0 + 8 of c2, c3
+  const __nv_bfloat16* kb = k + bh * k_bs;
+  const __nv_bfloat16* vb = v + bh * v_bs;
+  // causal: keys up to the tile's last valid query only
+  const int kend = causal ? min(skv, q0 + q_valid) : skv;
+  const int n_tiles = (kend + BK - 1) / BK;
+
+  load_tile_async<BQ, D, MMA_NT>(q_s, q + bh * q_bs + (size_t)q0 * D, q_valid);
+  load_tile_async<BQ, D, MMA_NT>(do_s, dout + bh * do_bs + (size_t)q0 * D, q_valid);
+  {
+    const int r = threadIdx.x & (BQ - 1);
+    const bool ok = r < q_valid;
+    const float* src = (threadIdx.x < BQ ? lse : delta) + (size_t)bh * sq + q0;
+    cp_async_4((threadIdx.x < BQ ? lse_s : delta_s) + r, ok ? src + r : src, ok);
+  }
+  cp_async_commit();
+  load_tile_async<BK, D, MMA_NT>(k_s, kb, min(BK, skv));
+  load_tile_async<BK, D, MMA_NT>(v_s, vb, min(BK, skv));
+  cp_async_commit();
+  cp_async_wait<1>();                        // Q, dO and the row statistics have landed
+  __syncthreads();
+  float lse2[2], dl[2];                        // lse in log2 units, delta; rows row0, row0 + 8
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    lse2[h] = lse_s[warp * 16 + g + 8 * h] * LOG2E;
+    dl[h] = delta_s[warp * 16 + g + 8 * h];
+  }
+
+  float acc[ND][4];
+#pragma unroll
+  for (int j = 0; j < ND; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[j][e] = 0.0f;
+
+  for (int it = 0; it < n_tiles; ++it) {
+    const int k0 = it * BK;
+    if (it + 1 < n_tiles) {                  // prefetch the next K/V tile
+      const int k1 = k0 + BK, nv = min(BK, skv - k1), st = (it + 1) & 1;
+      load_tile_async<BK, D, MMA_NT>(k_s + st * BK * P, kb + (size_t)k1 * D, nv);
+      load_tile_async<BK, D, MMA_NT>(v_s + st * BK * P, vb + (size_t)k1 * D, nv);
+    }
+    cp_async_commit();
+    cp_async_wait<1>();                      // this tile has landed
+    __syncthreads();
+    const __nv_bfloat16* ks = k_s + (it & 1) * BK * P;
+    const __nv_bfloat16* vs = v_s + (it & 1) * BK * P;
+
+    // S = Q K^T: 16 rows x 64 keys a warp
+    float s[NS][4];
+#pragma unroll
+    for (int j = 0; j < NS; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[j][e] = 0.0f;
+#pragma unroll
+    for (int kd = 0; kd < KD; ++kd) {
+      uint32_t a[4];
+      ldsm_x4(a, a_frag_addr<D>(q_s, warp * 16, kd * 16, lane));
+#pragma unroll
+      for (int np = 0; np < NS / 2; ++np) {
+        uint32_t b[4];
+        ldsm_x4(b, b_frag_addr_nk<D>(ks, np * 16, kd * 16, lane));
+        mma_16816(s[2 * np], a, b[0], b[1]);
+        mma_16816(s[2 * np + 1], a, b[2], b[3]);
+      }
+    }
+    // P = exp(S scale - lse); mask only a tile that crosses the diagonal or
+    // the end of K
+    const bool edge = k0 + BK > skv || (causal && k0 + BK - 1 > q0);
+#pragma unroll
+    for (int j = 0; j < NS; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float x = s[j][e] * scale_log2;
+        if (edge) {
+          const int kpos = k0 + j * 8 + 2 * t + (e & 1), qpos = row0 + (e >> 1) * 8;
+          if (kpos >= skv || (causal && qpos < kpos)) x = NEG_INF;
+        }
+        s[j][e] = exp2f(x - lse2[e >> 1]);
+      }
+    // dP = dO V^T
+    float dp[NS][4];
+#pragma unroll
+    for (int j = 0; j < NS; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) dp[j][e] = 0.0f;
+#pragma unroll
+    for (int kd = 0; kd < KD; ++kd) {
+      uint32_t a[4];
+      ldsm_x4(a, a_frag_addr<D>(do_s, warp * 16, kd * 16, lane));
+#pragma unroll
+      for (int np = 0; np < NS / 2; ++np) {
+        uint32_t b[4];
+        ldsm_x4(b, b_frag_addr_nk<D>(vs, np * 16, kd * 16, lane));
+        mma_16816(dp[2 * np], a, b[0], b[1]);
+        mma_16816(dp[2 * np + 1], a, b[2], b[3]);
+      }
+    }
+    // dS = P (dP - delta) scale, in place of dP
+#pragma unroll
+    for (int j = 0; j < NS; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) dp[j][e] = s[j][e] * (dp[j][e] - dl[e >> 1]) * scale;
+    // dQ += bf16(dS) K, dS straight from the accumulators
+#pragma unroll
+    for (int kk = 0; kk < NS / 2; ++kk) {
+      uint32_t a[4];
+      acc_to_a(a, dp[2 * kk], dp[2 * kk + 1]);
+#pragma unroll
+      for (int dpair = 0; dpair < ND / 2; ++dpair) {
+        uint32_t b[4];
+        ldsm_x4_trans(b, b_frag_addr_kn<D>(ks, kk * 16, dpair * 16, lane));
+        mma_16816(acc[2 * dpair], a, b[0], b[1]);
+        mma_16816(acc[2 * dpair + 1], a, b[2], b[3]);
+      }
+    }
+    __syncthreads();                         // this stage is free for the prefetch
+  }
+  cp_async_wait<0>();                        // no copy outlives the block
+
+  __nv_bfloat16* dqb = dq + (size_t)bh * sq * D;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int r = row0 + 8 * h;
+    if (r >= sq) continue;
+#pragma unroll
+    for (int j = 0; j < ND; ++j)
+      *reinterpret_cast<uint32_t*>(dqb + (size_t)r * D + j * 8 + 2 * t) =
+          pack_bf16x2(acc[j][2 * h], acc[j][2 * h + 1]);
+  }
+}
+
 // dK/dV: grid (BH, ceil(Skv / BK)).  Each warp owns 16 keys and forms the
 // transposed products, so P^T and dS^T come out in the accumulator layout
 // and feed the next product from registers; a 64-row Q/dO tile is taken in
@@ -728,6 +879,10 @@ flash_bwd_dkv_mma_kernel(const __nv_bfloat16* __restrict__ q,
 template <int D> constexpr size_t fwd_mma_smem() {
   return sizeof(__nv_bfloat16) * (size_t)(BQ + 4 * BK) * mma_bf16::pitch<D>();
 }
+template <int D> constexpr size_t dq_mma_smem() {
+  return sizeof(__nv_bfloat16) * (size_t)(2 * BQ + 4 * BK) * mma_bf16::pitch<D>() +
+         sizeof(float) * 2 * BQ;
+}
 template <int D> constexpr size_t dkv_mma_smem() {
   return sizeof(__nv_bfloat16) * (size_t)(2 * BK + 4 * BQ) * mma_bf16::pitch<D>() +
          sizeof(float) * 4 * BQ;
@@ -786,14 +941,23 @@ cudaError_t bwd_dq(const void* q, const void* k, const void* v, const void* dout
                    long long q_bs, long long k_bs, long long v_bs, long long do_bs, float scale,
                    int causal, cudaStream_t stream) {
   static bool ready = false;
-  return launch(flash_bwd_dq_kernel<T, D>, ready, dim3((sq + BQ - 1) / BQ, bh), NT,
-                dq_smem<D>(), stream, static_cast<const T*>(q), static_cast<const T*>(k),
-                static_cast<const T*>(v), static_cast<const T*>(dout),
-                static_cast<const float*>(lse), static_cast<const float*>(delta),
-                static_cast<T*>(dq), sq, skv, q_bs, k_bs, v_bs, do_bs, scale, causal);
+  const int nq = (sq + BQ - 1) / BQ;
+  const T *qt = static_cast<const T*>(q), *kt = static_cast<const T*>(k),
+          *vt = static_cast<const T*>(v), *dot = static_cast<const T*>(dout);
+  const float *lsef = static_cast<const float*>(lse), *deltaf = static_cast<const float*>(delta);
+  if constexpr (std::is_same_v<T, __nv_bfloat16>) {
+    if (nq > 65535) return cudaErrorInvalidValue;
+    return launch(flash_bwd_dq_mma_kernel<D>, ready, dim3(bh, nq), MMA_NT, dq_mma_smem<D>(),
+                  stream, qt, kt, vt, dot, lsef, deltaf, static_cast<T*>(dq), sq, skv, q_bs,
+                  k_bs, v_bs, do_bs, scale, scale * LOG2E, causal);
+  } else {
+    return launch(flash_bwd_dq_kernel<D>, ready, dim3(nq, bh), NT, dq_smem<D>(), stream, qt, kt,
+                  vt, dot, lsef, deltaf, static_cast<T*>(dq), sq, skv, q_bs, k_bs, v_bs, do_bs,
+                  scale, causal);
+  }
 }
 
-// bf16 runs the tensor-core kernel, fp32 the CUDA-core one (as fwd)
+// bf16 runs the tensor-core kernel, fp32 the CUDA-core one (as fwd, bwd_dq)
 template <typename T, int D>
 cudaError_t bwd_dkv(const void* q, const void* k, const void* v, const void* dout,
                     const void* lse, const void* delta, void* dk, void* dv, int bh, int sq,
@@ -821,8 +985,8 @@ bool bad_shape(int bh, int sq, int skv) {
   return bh <= 0 || bh > 65535 || sq <= 0 || skv <= 0;
 }
 
-// dispatch on (dtype code, head dim): 0 = float32, 1 = bfloat16 (fwd and
-// bwd_dkv send bfloat16 on to the mma kernels)
+// dispatch on (dtype code, head dim): 0 = float32, 1 = bfloat16 (every
+// kernel sends bfloat16 on to its mma version)
 #define FLASH_DISPATCH(FN, ...)                                                       \
   switch (dtype * 1000 + d) {                                                         \
     case 16: return (int)FN<float, 16>(__VA_ARGS__);                                  \

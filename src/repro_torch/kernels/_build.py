@@ -99,6 +99,8 @@ def _declare(lib: ctypes.CDLL) -> None:
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.unary_gemm_launch.argtypes = [i, p, p, p, i, i, i, i, i, p]
     lib.unary_gemm_launch.restype = i
+    lib.unary_tu_resident_blocks.argtypes = [i, ctypes.POINTER(i)]
+    lib.unary_tu_resident_blocks.restype = i
     lib.fused_paged_decode_launch.argtypes = [p, p, p, p, p, p,
                                               i, i, i, i, i, i, i, i, p]
     lib.fused_paged_decode_launch.restype = i

@@ -10,14 +10,14 @@ above the diagonal never visited.
 
 Bound on an H100: the score and product operations (4, 6 and 8 x BH x Sq x
 Skv x D, halved when causal) against the bf16 tensor cores — see
-:func:`flash_ops`.  In bfloat16 the forward and dK/dV run on the tensor
-cores (``csrc/mma_bf16.cuh``): bf16 tiles filled by 16-byte ``cp.async``
-through a two-stage ring, ``ldmatrix`` fragments, ``mma.sync.m16n8k16``
-with fp32 accumulators, and P (dS) handed from one product's accumulators
-to the next product's operands in registers.  Those copies need each slab
-16-byte aligned, so a bf16 tensor that is not raises ``ValueError`` rather
-than falling back.  The dQ kernel and every float32 kernel multiply on the
-CUDA cores in fp32 (tensor cores would take fp32 only as TF32).
+:func:`flash_ops`.  In bfloat16 all three kernels run on the tensor cores
+(``csrc/mma_bf16.cuh``): bf16 tiles filled by 16-byte ``cp.async`` through
+a two-stage ring, ``ldmatrix`` fragments, ``mma.sync.m16n8k16`` with fp32
+accumulators, and P (dS) handed from one product's accumulators to the
+next product's operands in registers.  Those copies need each slab 16-byte
+aligned, so a bf16 tensor that is not raises ``ValueError`` rather than
+falling back.  Every float32 kernel multiplies on the CUDA cores in fp32
+(tensor cores would take fp32 only as TF32).
 
 Beside each kernel sits its plain PyTorch version with the reference's
 rounding points: scores in fp32, times the scale, ``-1e30`` where masked; P
@@ -225,6 +225,8 @@ def flash_bwd_dq(q, k, v, do, lse, delta, *, causal: bool):
         raise ValueError(f"flash_bwd_dq: do {tuple(do.shape)} != q {tuple(q.shape)}")
     _stats("flash_bwd_dq: lse", lse, bh, sq)
     _stats("flash_bwd_dq: delta", delta, bh, sq)
+    if q.dtype == torch.bfloat16:
+        _check_cp_async("flash_bwd_dq", ("q", q), ("k", k), ("v", v), ("do", do))
     dq = torch.empty((bh, sq, d), dtype=q.dtype, device=q.device)
     lib = _build.load_library()
     with torch.cuda.device(q.device):

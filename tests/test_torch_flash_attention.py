@@ -7,6 +7,8 @@ go through both.  Tolerances are the reference's own
 online softmax and the tile walk re-associate sums), bfloat16 3e-2.
 """
 
+import inspect
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -134,11 +136,13 @@ def test_cpu_tensors_never_launch_a_kernel():
                                    "flash_bwd_dkv": 0}
 
 
+@pytest.mark.parametrize("wrapper", ["flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"])
 @pytest.mark.parametrize("layout", ["fresh", "reshaped", "data_ptr", "slab_stride"])
-def test_cp_async_alignment_check(layout):
+def test_cp_async_alignment_check(layout, wrapper):
     """What the bf16 tensor-core kernels' 16-byte copies need of a slab,
     decided from data_ptr and strides alone (so testable on the CPU): the
-    (BH, S, D) reshapes of ``flash_attention`` always pass."""
+    (BH, S, D) reshapes of ``flash_attention`` always pass.  Every wrapper
+    checks its bf16 operands before it launches."""
     bh, s, d = 3, 20, 16
     if layout == "fresh":
         t = torch.zeros((bh, s, d), dtype=torch.bfloat16)
@@ -149,11 +153,13 @@ def test_cp_async_alignment_check(layout):
         t = torch.zeros(bh * s * d + 1, dtype=torch.bfloat16)[1:].view(bh, s, d)
     else:
         t = torch.zeros((bh, s * d + 4), dtype=torch.bfloat16)[:, :s * d].view(bh, s, d)
+    source = inspect.getsource(getattr(port_flash, wrapper))
+    assert f'_check_cp_async("{wrapper}", ("q", q)' in source
     if layout in ("fresh", "reshaped"):
-        port_flash._check_cp_async("flash_fwd", ("q", t))
+        port_flash._check_cp_async(wrapper, ("q", t))
     else:
-        with pytest.raises(ValueError, match="16-byte aligned"):
-            port_flash._check_cp_async("flash_fwd", ("q", t))
+        with pytest.raises(ValueError, match=f"{wrapper}: bf16 q must start 16-byte aligned"):
+            port_flash._check_cp_async(wrapper, ("q", t))
 
 
 def test_flash_ops_counts_visible_pairs():

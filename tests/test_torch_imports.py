@@ -102,8 +102,16 @@ def test_csrc_holds_the_three_kernels():
                 "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32"):
         assert ptx in mma
     assert '#include "mma_bf16.cuh"' in flash
-    for kernel in ("flash_fwd_mma_kernel", "flash_bwd_dkv_mma_kernel"):
+    for kernel in ("flash_fwd_mma_kernel", "flash_bwd_dq_mma_kernel",
+                   "flash_bwd_dkv_mma_kernel"):
         assert f"__global__ void __launch_bounds__(MMA_NT)\n{kernel}" in flash
+    # tuGEMM's slot loop on the int8 tensor cores beside tub's dp4a kernel
+    unary = srcs["unary_gemm.cu"]
+    assert '#include "mma_bf16.cuh"' in unary
+    assert "__global__ void __launch_bounds__(MMA_NT)\nunary_mma_kernel" in unary
+    assert "__global__ void __launch_bounds__(NTHREADS)\nunary_gemm_kernel" in unary
+    assert "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32" in unary
+    assert "struct TuPulses" in unary and "launch_mma<TuPulses" in unary
     for text in [*srcs.values(), header, mma]:
         assert "torch/extension.h" not in text and "cudaMalloc" not in text
         assert "cudaDeviceSynchronize" not in text

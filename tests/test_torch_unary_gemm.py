@@ -105,3 +105,44 @@ def test_cpu_tensors_never_count_as_launches():
     (8, 64, 128, 1), (8, 4096, 1024, 33), (1, 1, 1, 1)])
 def test_split_plan(m, k, n, want):
     assert port_ug.plan_splits(m, k, n, sm_count=132) == want
+
+
+@pytest.mark.parametrize("m,k,n,resident,want", [
+    (8, 4096, 14336, 5, 5), (8, 4096, 4096, 5, 20), (8, 4096, 1024, 5, 64),
+    (8, 14336, 4096, 5, 20), (8, 4096, 128256, 5, 1), (512, 4096, 14336, 3, 1),
+    (512, 4096, 1024, 3, 6), (13, 203, 77, 5, 4), (1, 1, 1, 5, 1),
+    (8, 4096, 14336, 4, 4), (512, 4096, 1024, 4, 8), (32, 4096, 4096, 4, 16)])
+def test_tu_split_plan(m, k, n, resident, want):
+    """tu's plan: the most K slices (at most the 64-wide K tiles) that keep
+    the grid within one wave of the instance's resident blocks on 132 SMs
+    (an H100 SXM holds 5/5/4/3 blocks of the 8/16/32/64-row instances)."""
+    assert port_ug.plan_tu_splits(m, k, n, sm_count=132, resident=resident) == want
+    blocks = -(-m // port_ug._block_rows(m)) * -(-n // 128)
+    assert want == 1 or blocks * want <= resident * 132
+
+
+def _bytes(words: np.ndarray) -> np.ndarray:
+    return words[..., None].view(np.uint8).reshape(*words.shape, 4)
+
+
+def test_tu_pulse_word_arithmetic():
+    """The identity the tu tensor-core kernel builds its pulses with (csrc/
+    unary_gemm.cu:TuPulses), on every int8 code and every slot: per byte,
+    |a| + 127 - i has bit 7 set exactly when i < |a|, with no carry or
+    borrow between the bytes of a word, so replicating bit 7 over its byte
+    and masking with sign(a) as an int8 gives the pulse [i < |a|] sign(a)."""
+    codes = np.arange(-128, 128, dtype=np.int64)
+    words = (codes.reshape(-1, 4) & 0xFF) @ (1 << (8 * np.arange(4)))
+    words = words.astype(np.uint32)
+    neg = np.where(_bytes(words) >= 128, 0xFF, 0).astype(np.uint8)
+    neg = neg.reshape(-1).view(np.uint32)                    # 0xff where a < 0
+    mag = ((words ^ neg) + (neg & 0x01010101) + 0x7F7F7F7F).astype(np.uint32)
+    sgn = neg | np.uint32(0x01010101)
+    mag_bytes = _bytes(mag).reshape(-1).astype(np.int64)
+    np.testing.assert_array_equal(mag_bytes, np.abs(codes) + 127)
+    for slot in range(128):
+        s = (mag - np.uint32(slot * 0x01010101)).astype(np.uint32)
+        gate = np.where(_bytes(s) >= 128, 0xFF, 0).astype(np.uint8)
+        pulse = gate.reshape(-1).view(np.uint32) & sgn
+        got = _bytes(pulse).reshape(-1).view(np.int8).astype(np.int64)
+        np.testing.assert_array_equal(got, (slot < np.abs(codes)) * np.sign(codes))
