@@ -8,7 +8,8 @@ Phases, each of which fails the run (non-zero exit) on its own:
 1. ``device``  — card name and power limit, build of the CUDA kernels, and
    from ``cuobjdump`` of the built library the tensor-core instructions,
    registers and local memory of each tensor-core kernel (the bf16 flash
-   kernels' HMMA, tuGEMM's IMMA; none may lack them, none may spill);
+   kernels' HMMA; the IMMA of tuGEMM's, tubGEMM's and quant_gemm's int8
+   kernels; none may lack them, none may spill);
 2. ``kernels`` — every kernel against its plain PyTorch version (and the
    integer-GEMM / gather oracles) on the card, at the main path's shapes;
 3. ``probes``  — paged-vs-contiguous == 0.0 and fused-vs-gather <=
@@ -184,12 +185,18 @@ def log(msg: str) -> None:
 # ---------------------------------------------------------------------------
 
 # the kernels that run on the tensor cores: the bf16 instantiation of each
-# flash kernel (tensor-core instruction HMMA, per head dim) and tuGEMM's int8
-# slot loop (IMMA, per row-block width)
+# flash kernel (tensor-core instruction HMMA, per head dim), the int8 slot
+# loop of tuGEMM and tubGEMM (IMMA, per row-block width; one template, told
+# apart by its pulse builder) and quant_gemm's int8 kernel (IMMA, per bit
+# width and row-block width)
 MMA_KERNELS = {"flash_fwd": "flash_fwd_mma_kernel",
                "flash_bwd_dq": "flash_bwd_dq_mma_kernel",
                "flash_bwd_dkv": "flash_bwd_dkv_mma_kernel",
-               "tu_gemm": "unary_mma_kernel"}
+               "tu_gemm": "unary_mma_kernel", "tub_gemm": "unary_mma_kernel",
+               "quant_gemm": "int_mma_kernel"}
+INT8_MMA = ("tu_gemm", "tub_gemm", "quant_gemm")
+MMA_ROWS = (8, 16, 32, 64)         # rows a block of the int8 instances
+PULSES = {"TubPulses": "tub_gemm", "TuPulses": "tu_gemm"}
 
 
 def _cuobjdump(*args: str) -> str:
@@ -203,28 +210,53 @@ def _cuobjdump(*args: str) -> str:
 
 def _mma_instance(line: str):
     """(name, key) of the tensor-core kernel a cuobjdump ``Function`` line
-    names, else None; the key is the head dim for flash, the rows per block
-    for tu (from its template arguments: rows = WARPS_M * WM * 8)."""
+    names, else None.  The key is the head dim for flash; for the unary slot
+    loop (template arguments Pulses, WN, WM, WARPS_N, WARPS_M) the rows per
+    block, WARPS_M * WM * 8, and its pulse builder names the design; for
+    quant_gemm (BITS, WN, WM, WARPS_N, WARPS_M) the pair (bits, rows)."""
     hit = _MMA_PATTERN.search(line)
     if not hit:
         return None
-    name = _BY_KERNEL[hit.group(1)]
-    args = [int(x) for x in re.findall(r"Li(\d+)E", hit.group(2))]
-    return name, (args[0] if name in FLASH else args[3] * args[1] * 8)
+    kernel, targs = hit.group(1), hit.group(2)
+    args = [int(x) for x in re.findall(r"Li(\d+)E", targs)]
+    if kernel == "unary_mma_kernel":
+        name = next(v for k, v in PULSES.items() if k in targs)
+        return name, args[3] * args[1] * 8
+    if kernel == "int_mma_kernel":
+        return "quant_gemm", (args[0], args[4] * args[2] * 8)
+    return _BY_KERNEL[kernel], args[0]
 
 
-_BY_KERNEL = {v: k for k, v in MMA_KERNELS.items()}
-# mangled names: flash_fwd_mma_kernelILi128EE..., and for tu
-# unary_mma_kernelI<pulse builder>Li2ELi1ELi4ELi1EE... (WN, WM, WARPS_N, WARPS_M)
-_MMA_PATTERN = re.compile(r"(%s)I((?:[^L]\w*?E)?(?:Li\d+E)+)E" % "|".join(MMA_KERNELS.values()))
+_BY_KERNEL = {v: k for k, v in MMA_KERNELS.items() if k in FLASH}
+# mangled names: flash_fwd_mma_kernelILi128EE..., for the slot loop
+# unary_mma_kernelINS_8TuPulsesELi2ELi1ELi4ELi1EE... and for quant_gemm
+# int_mma_kernelILi4ELi2ELi1ELi4ELi1EE...
+_MMA_PATTERN = re.compile(r"(%s)I((?:[^L]\w*?E)?(?:Li\d+E)+)E"
+                          % "|".join(sorted(set(MMA_KERNELS.values()))))
+
+
+def _mma_keys(name: str) -> tuple:
+    if name == "quant_gemm":
+        return tuple((bits, rows) for bits in (2, 4, 8) for rows in MMA_ROWS)
+    return MMA_ROWS if name in INT8_MMA else flash_lib.HEAD_DIMS
+
+
+def _resident(name: str, key) -> int:
+    """Blocks of the int8 instance one SM holds at once: what its split plan
+    reads (the CUDA occupancy calculator, through the library)."""
+    if name == "quant_gemm":
+        bits, rows = key
+        return _build.resident_blocks("quant_gemm_resident_blocks", 0, rows, bits)
+    return _build.resident_blocks("unary_resident_blocks", 0, ug._MODE[name], key)
 
 
 def _tensor_core_report() -> dict:
     """From the built library: per instantiation of the tensor-core kernels
     the count of tensor-core instructions in its SASS (HMMA or HGMMA for
-    bf16 flash, IMMA for tu) and its registers, stack and local memory a
-    thread (``cuobjdump -res-usage``).  Every instantiation must hold
-    tensor-core instructions and use no stack and no local memory."""
+    bf16 flash, IMMA for the int8 kernels) and its registers, stack and
+    local memory a thread (``cuobjdump -res-usage``).  Every instantiation
+    must hold tensor-core instructions and use no stack and no local
+    memory; beside each int8 instance the blocks one SM holds."""
     report = {name: {} for name in MMA_KERNELS}
     current = None
     for line in _cuobjdump("-sass").splitlines():
@@ -233,7 +265,7 @@ def _tensor_core_report() -> dict:
             if current:
                 report[current[0]][current[1]] = {"hmma": 0}
         elif current and re.search(
-                r"\bIMMA\b" if current[0] == "tu_gemm" else r"\bH(G)?MMA\b", line):
+                r"\bIMMA\b" if current[0] in INT8_MMA else r"\bH(G)?MMA\b", line):
             report[current[0]][current[1]]["hmma"] += 1
     current = None
     for line in _cuobjdump("-res-usage").splitlines():
@@ -243,22 +275,22 @@ def _tensor_core_report() -> dict:
             use = dict((k, int(v)) for k, v in re.findall(r"(REG|STACK|SHARED|LOCAL):(\d+)", line))
             report[current[0]].setdefault(current[1], {}).update(use)
     for name, per_key in report.items():
-        tu = name == "tu_gemm"
-        keys, label = ((8, 16, 32, 64), "rows") if tu else (flash_lib.HEAD_DIMS, "d")
-        op = "IMMA" if tu else "HMMA"
-        for key in keys:
+        int8 = name in INT8_MMA
+        label = ("bits, rows" if name == "quant_gemm" else "rows") if int8 else "d"
+        op = "IMMA" if int8 else "HMMA"
+        for key in _mma_keys(name):
             use = per_key.get(key, {})
             require(use.get("hmma", 0) > 0,
-                    f"{MMA_KERNELS[name]} ({label}={key}) has no {op} in its SASS ({use})")
+                    f"{MMA_KERNELS[name]} for {name} ({label}={key}) has no {op} in its "
+                    f"SASS ({use})")
             require(use.get("STACK", 0) == 0 and use.get("LOCAL", 0) == 0,
-                    f"{MMA_KERNELS[name]} ({label}={key}) spills: {use}")
-        if tu:    # what tu's split plan reads: blocks an SM holds at once
-            for key, use in per_key.items():
-                use["resident"] = ug._tu_resident_blocks(key, 0)
-        log(f"  {name} {'int8' if tu else 'bf16'} (SASS of the built library): "
+                    f"{MMA_KERNELS[name]} for {name} ({label}={key}) spills: {use}")
+            if int8:
+                use["resident"] = _resident(name, key)
+        log(f"  {name} {'int8' if int8 else 'bf16'} (SASS of the built library): "
             + ", ".join(f"{label}={k}: {u.get('hmma')} {op}, {u.get('REG')} registers, "
                         f"stack {u.get('STACK')} B, local {u.get('LOCAL')} B"
-                        + (f", {u['resident']} blocks resident an SM" if tu else "")
+                        + (f", {u['resident']} blocks resident an SM" if int8 else "")
                         for k, u in sorted(per_key.items())))
     return report
 
@@ -346,6 +378,21 @@ def phase_kernels() -> dict:
                         f"{name} ({m},{k},{n}) bits={bits}: max |kernel-plain| "
                         f"{d_plain}, max |kernel-int GEMM| {d_oracle} (want 0)")
                 require(cycles == cyc(bits, k), f"{name} cycle report")
+    # every int8 code at 8 bits, -128 included (magnitude 128: tub's v1 = 64
+    # fires in all 64 slots, tu's |a| in all 128)
+    for (m, k, n) in ((8, 4096, 4096), (13, 203, 77)):
+        a = _full_codes(gen, (m, k), 8)
+        a[:, :2] = -128
+        b = _full_codes(gen, (k, n), 8)
+        oracle = gemm_sims.bgemm_exact(a, b)
+        for name, fn, plain in (("tub_gemm", ug.tub_gemm, ref_lib.tub_gemm_ref),
+                                ("tu_gemm", ug.tu_gemm, ref_lib.tu_gemm_ref)):
+            out, _ = fn(a, b, bits=8)
+            torch.cuda.synchronize()
+            d = max(int((out.long() - oracle.long()).abs().max()),
+                    int((out.long() - plain(a, b, bits=8).long()).abs().max()))
+            errs[name] = max(errs[name], float(d))
+            require(d == 0, f"{name} ({m},{k},{n}) on every int8 code: max |d| {d}")
     # full-width lm_head at decode rows, checked against the integer oracle
     a = _codes(gen, (8, 4096), 4)
     b = torch.randint(-7, 8, (4096, 128256), generator=gen, device=DEV,
@@ -652,9 +699,11 @@ def _device_rows(prof) -> list[tuple[float, str, int]]:
     return [r for r in rows if r[0] > 0]
 
 
-def _decode_step_profile(engine, cfg) -> None:
+def _decode_step_profile(engine, cfg, kernels: dict[str, str]) -> None:
     """Steady-state decode step of the main path: 8 active slots at context
-    300, timed with a synchronise per step, then traced for three steps."""
+    300, timed with a synchronise per step, then traced for three steps;
+    ``kernels`` maps each hand-written kernel of the path to a piece of its
+    traced name, whose device time and launches a step are printed."""
     dev = engine.device
     b = engine.max_batch
     cache = engine.new_cache()
@@ -708,6 +757,10 @@ def _decode_step_profile(engine, cfg) -> None:
             f"{100 - 100 * busy_us / wall_us:.1f} % idle")
         for t, key, count in sorted(rows, reverse=True)[:10]:
             log(f"    {t / 3e3:8.3f} ms/step  x{count // 3:<5d} {key[:90]}")
+        for name, piece in kernels.items():
+            t, n = (sum(r[i] for r in rows if piece in r[1]) for i in (0, 2))
+            log(f"    {name}: {t / 3e3:.3f} ms/step ({n // 3} launches a step, "
+                f"{100 * t / busy_us:.1f} % of device busy)")
 
 
 def _fused_gather_divergence(cfg, fused, gather, *, steps: int = 4,
@@ -972,7 +1025,8 @@ def phase_serve(cfg, params, requests: int) -> dict:
     _fused_gather_divergence(cfg, engine, gather)
     del gather
 
-    _decode_step_profile(engine, cfg)
+    _decode_step_profile(engine, cfg, {"tub_gemm": "TubPulses",
+                                       "fused_paged_decode": "fused_paged_decode_kernel"})
     peak = torch.cuda.max_memory_allocated()
     log(f"  peak torch.cuda.max_memory_allocated(): {peak / 2**30:.2f} GiB")
     launches_run = {
@@ -1080,7 +1134,8 @@ def _quant_serve(cfg, params, trace) -> tuple[dict, int]:
             "quant run: fused decode launch count != layers x decode steps")
     require(ug.LAUNCHES["tub_gemm"] == ug.LAUNCHES["tu_gemm"] == 0,
             "a unary GEMM kernel launched without a backend scope")
-    _decode_step_profile(engine, qcfg)
+    _decode_step_profile(engine, qcfg, {"quant_gemm": "int_mma_kernel",
+                                        "fused_paged_decode": "fused_paged_decode_kernel"})
     peak = torch.cuda.max_memory_allocated()
     log(f"  peak torch.cuda.max_memory_allocated(): {peak / 2**30:.2f} GiB")
     # the kernel at the trace's own prefill rows, every distinct site shape
@@ -1433,9 +1488,15 @@ def phase_times(errs: dict, launches: dict, launches_run: dict,
             "per_shape": per_shape})
         for r in per_shape:
             lib = "n/a" if r["library_ms"] is None else f"{r['library_ms']:.4f}"
+            # the slot schedule's own least time: every slot one int8 product
+            m, k, n = r["shape"]
+            n_slots = (max(1, 2 ** (r["bits"] - 2)) if name == "tub_gemm"
+                       else 2 ** (r["bits"] - 1))
+            slot_bound_ms = n_slots * 2.0 * m * k * n / INT8_OPS_PER_S * 1e3
             log(f"  {name} {tuple(r['shape'])} bits=4: {r['ms']:.4f} ms, plain "
                 f"{r['plain_ms']:.3f} ms, bound {r['bound_ms']:.4f} ms "
-                f"({r['bound_by']}), torch._int_mm {lib} ms")
+                f"({r['bound_by']}), slot schedule's bound "
+                f"{slot_bound_ms:.4f} ms, torch._int_mm {lib} ms")
         log(f"  {name}: the {7 * layers + 1} launches of one {layers}-layer "
             f"decode step, each timed alone with a cold L2, sum to "
             f"{layers * per_layer + by[(8, 4096, 128256)]['ms']:.2f} ms (their "

@@ -1,33 +1,41 @@
-// Packed low-bit integer GEMM for Hopper (sm_90a): the template behind
+// Packed low-bit integer GEMMs for Hopper (sm_90a): the kernels behind
 // quant_gemm.cu (int8-container weights, 8/bits values per byte) and
 // packed_gemm.cu (int32-word weight stores, 32/bits codes per word).
 //
 //   x (M,K) int8 codes  @  unpack(w) (K,N)  ->  (M,N) int32, or with the
 //   fused dequant epilogue float32(acc) * scales[n]   (one rounding)
 //
-// Only the unpack differs between the two kernels; both sign-extend a
-// bits-wide field j of an unsigned container v as
-//   (int32_t)(v << (32 - bits*(j+1))) >> (32 - bits)
-// (a left shift on unsigned, then an arithmetic right shift on int), lowest
-// field first, so -2^(bits-1) survives.
+// Two kernels, one per weight format:
 //
-// Layout of one block: a (BM x 128) output tile, BM = 8*TM, walked over K in
-// tiles of 64.  Per K tile the x tile lands in shared memory as words of
-// four consecutive k of one row; the weight tile is unpacked on its way into
-// shared memory into words of four consecutive k of one column; each thread
-// then owns TM rows x 4 columns and contracts one dp4a per (row, column,
-// four k).  Products are exact int32 (K <= 14336 at 8 bits stays below
-// 2^31).
+//  - int_mma_kernel (int8 container, quant_gemm): the int8 tensor cores.
+//    It computes out^T = unpack(w)^T . x^T with mma.sync.m16n8k32 s8
+//    (mma_int8.cuh): the mma's 16-row side takes 16 output columns and its
+//    8-column side 8 rows of x, so a decode step's 8 rows fill it with no
+//    padding.  A block walks a (BM x 128) output tile over K in tiles of 64.
+//    The packed weight rows of a tile (64 * bits/8 rows of 128 bytes) arrive
+//    through a four-stage ring of 16-byte cp.async copies and are unpacked
+//    once in shared memory into k-packed column words, which are exactly
+//    the A fragments; the x words, loaded one tile ahead in registers, are
+//    the B fragments.  Every mma then reads the same unpacked words.
+//  - int_gemm_kernel (int32 words, packed_gemm): dp4a on the CUDA cores.
+//    Per K tile the x tile lands in shared memory as words of four
+//    consecutive k of one row; the weight tile is unpacked on its way into
+//    shared memory into words of four consecutive k of one column; each
+//    thread then owns TM rows x 4 columns and contracts one dp4a per (row,
+//    column, four k).
 //
-// What bounds it on an H100: at decode (M = 8) the packed weight bytes,
+// Both sign-extend bits-wide fields lowest first, so -2^(bits-1) survives.
+// Products are exact int32 (K <= 14336 at 8 bits stays below 2^31).
+//
+// What bounds them on an H100: at decode (M = 8) the packed weight bytes,
 // K*N*bits/8 read once, i.e. memory.  Narrow outputs are split over K across
 // blockIdx.z so that the grid fills the SMs.  Under a split each block adds
 // its partial sums into an int32 workspace with atomicAdd (exact in any
 // order), fences, and takes a ticket from the tile's counter; the block that
 // draws the last ticket reads the finished sums back (from L2) and alone
 // runs the epilogue, so the fused float32 output is bit-exact.  At prefill
-// rows dp4a throughput bounds it; wgmma, TMA and a pipelined K loop are
-// later work.
+// rows the multiply rate bounds them: the int8 tensor cores for the
+// container, dp4a for the words.
 //
 // Ragged M, N, K are masked in the loads and stores: no operand is read
 // past its end and there is no host padding.
@@ -37,15 +45,23 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "mma_int8.cuh"   // word loads, byte transpose, mma.m16n8k32 (+ cp.async)
+
 // Everything has internal linkage: each including .cu file gets its own copy
 // and instantiates only its own weight format.
 namespace int_gemm {
 namespace {
 
+using namespace mma_int8;
+
 constexpr int BN = 128;        // output columns per block
 constexpr int BK = 64;         // k per shared-memory tile
 constexpr int KW = BK / 4;     // k quads per tile
-constexpr int NTHREADS = 256;  // 32 column quads x 8 row groups
+constexpr int NTHREADS = 256;  // dp4a: 32 column quads x 8 row groups
+constexpr int MMA_NT = 128;    // tensor cores: 4 warps
+constexpr int STAGES = 4;      // weight tiles in the cp.async ring
+constexpr int WT_PITCH = BN + 8;   // words: fragment loads hit 32 banks
+constexpr int XS_PITCH = KW + 4;   // words: likewise
 
 // field j (bits wide) of the unsigned container v, sign-extended
 template <int BITS>
@@ -53,70 +69,54 @@ __device__ __forceinline__ int sext_field(uint32_t v, int j) {
   return (int32_t)(v << (32 - BITS * (j + 1))) >> (32 - BITS);
 }
 
+// field j (bits wide) of each of the four bytes of v, sign-extended within
+// its byte: f ^ h - h per byte, with h = 2^(bits-1) (no borrow between bytes)
+template <int BITS>
+__device__ __forceinline__ uint32_t sext_bytes(uint32_t v, int j) {
+  constexpr uint32_t mask = ((1u << BITS) - 1) * 0x01010101u;
+  constexpr uint32_t half = (1u << (BITS - 1)) * 0x01010101u;
+  return __vsub4(((v >> (BITS * j)) & mask) ^ half, half);
+}
+
 __device__ __forceinline__ uint32_t pack4(int c0, int c1, int c2, int c3) {
   return ((uint32_t)c0 & 0xffu) | (((uint32_t)c1 & 0xffu) << 8) |
          (((uint32_t)c2 & 0xffu) << 16) | (((uint32_t)c3 & 0xffu) << 24);
 }
 
-// Four consecutive k (4*kq .. 4*kq+3) of weight column n as dp4a bytes.
-// WORDS = false: int8 container, (K*BITS/8, N), 8/BITS values per byte.
-// WORDS = true : int32 words, (ceil(K/cpw), N), cpw = 32/BITS codes a word.
-// `rows` is the store's row count; rows past it read as zero codes.
-template <bool WORDS, int BITS>
-__device__ __forceinline__ uint32_t load_w_quad(const void* __restrict__ w,
-                                                int kq, int n, int N,
-                                                int rows) {
-  if (WORDS) {
-    constexpr int CPW = 32 / BITS;
-    const int r = (4 * kq) / CPW;
-    if (r >= rows) return 0u;
-    const uint32_t v =
-        (uint32_t)static_cast<const int32_t*>(w)[(size_t)r * N + n];
-    if (BITS == 8) return v;  // four 8-bit lanes, low first: already dp4a order
-    const int j0 = (4 * kq) % CPW;
-    return pack4(sext_field<BITS>(v, j0), sext_field<BITS>(v, j0 + 1),
-                 sext_field<BITS>(v, j0 + 2), sext_field<BITS>(v, j0 + 3));
-  } else {
-    const int8_t* wp = static_cast<const int8_t*>(w);
-    if (BITS == 8) {
-      uint32_t out = 0u;
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int r = 4 * kq + i;
-        if (r < rows) out |= (uint32_t)(uint8_t)wp[(size_t)r * N + n] << (8 * i);
-      }
-      return out;
-    } else if (BITS == 4) {
-      int c[4];
-#pragma unroll
-      for (int i = 0; i < 2; ++i) {
-        const int r = 2 * kq + i;
-        const uint32_t b = r < rows ? (uint32_t)(uint8_t)wp[(size_t)r * N + n] : 0u;
-        c[2 * i] = sext_field<4>(b, 0);      // low nibble first
-        c[2 * i + 1] = sext_field<4>(b, 1);
-      }
-      return pack4(c[0], c[1], c[2], c[3]);
-    } else {  // BITS == 2: one byte holds the four k
-      const int r = kq;
-      const uint32_t b = r < rows ? (uint32_t)(uint8_t)wp[(size_t)r * N + n] : 0u;
-      return pack4(sext_field<2>(b, 0), sext_field<2>(b, 1),
-                   sext_field<2>(b, 2), sext_field<2>(b, 3));
-    }
-  }
+// Four consecutive k (4*kq .. 4*kq+3) of weight column n as dp4a bytes, from
+// the int32 words (ceil(K/cpw), N), cpw = 32/BITS codes a word.  `rows` is
+// the store's row count; rows past it read as zero codes.
+template <int BITS>
+__device__ __forceinline__ uint32_t load_w_quad(const int32_t* __restrict__ w, int kq, int n,
+                                                int N, int rows) {
+  constexpr int CPW = 32 / BITS;
+  const int r = (4 * kq) / CPW;
+  if (r >= rows) return 0u;
+  const uint32_t v = (uint32_t)w[(size_t)r * N + n];
+  if (BITS == 8) return v;  // four 8-bit lanes, low first: already dp4a order
+  const int j0 = (4 * kq) % CPW;
+  return pack4(sext_field<BITS>(v, j0), sext_field<BITS>(v, j0 + 1),
+               sext_field<BITS>(v, j0 + 2), sext_field<BITS>(v, j0 + 3));
 }
 
-__device__ __forceinline__ uint32_t load_x_word(const int8_t* __restrict__ x,
-                                                int m, int k, int M, int K,
-                                                int k_end, bool aligned) {
-  // four consecutive k of row m, zero outside [0,M) x [.., k_end)
-  if (m >= M) return 0u;
-  const int8_t* p = x + (size_t)m * K + k;
-  if (aligned && k + 3 < k_end) return *reinterpret_cast<const uint32_t*>(p);
-  uint32_t v = 0u;
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-    if (k + i < k_end) v |= (uint32_t)(uint8_t)p[i] << (8 * i);
-  return v;
+// Four k-packed column words (columns 4 nq .. 4 nq + 3, k 4 kw .. 4 kw + 3)
+// from a raw int8-container tile: `s4` is word nq of packed row kw * BITS/2,
+// and the tile's rows are BN / 4 words apart.  8 bits: four rows of one k
+// each; 4 bits: two rows of two k (low nibble first); 2 bits: one row of
+// four k (low crumb first).
+template <int BITS>
+__device__ __forceinline__ uint4 unpack_quads(const uint32_t* s4) {
+  constexpr int ROW = BN / 4;
+  if constexpr (BITS == 8) {
+    return transpose4x4(s4[0], s4[ROW], s4[2 * ROW], s4[3 * ROW]);
+  } else if constexpr (BITS == 4) {
+    return transpose4x4(sext_bytes<4>(s4[0], 0), sext_bytes<4>(s4[0], 1),
+                        sext_bytes<4>(s4[ROW], 0), sext_bytes<4>(s4[ROW], 1));
+  } else {
+    static_assert(BITS == 2, "the container packs 2, 4 or 8 bits");
+    return transpose4x4(sext_bytes<2>(s4[0], 0), sext_bytes<2>(s4[0], 1),
+                        sext_bytes<2>(s4[0], 2), sext_bytes<2>(s4[0], 3));
+  }
 }
 
 __device__ __forceinline__ void store_out(void* out, bool fuse,
@@ -128,9 +128,12 @@ __device__ __forceinline__ void store_out(void* out, bool fuse,
     static_cast<int32_t*>(out)[idx] = acc;
 }
 
-template <int TM, bool WORDS, int BITS>
+// ---------------------------------------------------------------------------
+// int32-word stores on dp4a (packed_gemm)
+// ---------------------------------------------------------------------------
+template <int TM, int BITS>
 __global__ void __launch_bounds__(NTHREADS)
-int_gemm_kernel(const int8_t* __restrict__ x, const void* __restrict__ w,
+int_gemm_kernel(const int8_t* __restrict__ x, const int32_t* __restrict__ w,
                 const float* __restrict__ scales, void* __restrict__ out,
                 int32_t* __restrict__ ws, int32_t* __restrict__ counters,
                 int M, int K, int N, int w_rows, int k_per_split, bool fuse) {
@@ -156,14 +159,13 @@ int_gemm_kernel(const int8_t* __restrict__ x, const void* __restrict__ w,
   for (int kt = k_begin; kt < k_end; kt += BK) {
     for (int idx = tid; idx < BM * KW; idx += NTHREADS) {
       const int r = idx / KW, q = idx % KW;
-      x_s[r][q] = load_x_word(x, m0 + r, kt + 4 * q, M, K, k_end, x_aligned);
+      x_s[r][q] = load_word(x, m0 + r, kt + 4 * q, M, k_end, K, x_aligned);
     }
     // neighbouring threads take neighbouring columns: coalesced row loads
     for (int idx = tid; idx < KW * BN; idx += NTHREADS) {
       const int q = idx / BN, c = idx % BN;
       const int n = n0 + c;
-      w_s[q][c] = n < N ? load_w_quad<WORDS, BITS>(w, kt / 4 + q, n, N, w_rows)
-                        : 0u;
+      w_s[q][c] = n < N ? load_w_quad<BITS>(w, kt / 4 + q, n, N, w_rows) : 0u;
     }
     __syncthreads();
 #pragma unroll 4
@@ -231,48 +233,254 @@ int_gemm_kernel(const int8_t* __restrict__ x, const void* __restrict__ w,
   }
 }
 
-template <int TM, bool WORDS, int BITS>
-cudaError_t launch_tm(const int8_t* x, const void* w, const float* scales,
-                      void* out, int32_t* ws, int32_t* counters, int M, int K,
-                      int N, int w_rows, int splits, bool fuse,
-                      cudaStream_t stream) {
+template <int TM, int BITS>
+cudaError_t launch_tm(const int8_t* x, const int32_t* w, const float* scales, void* out,
+                      int32_t* ws, int32_t* counters, int M, int K, int N, int w_rows,
+                      int splits, bool fuse, cudaStream_t stream) {
   constexpr int BM = 8 * TM;
-  const int k_tiles = (K + BK - 1) / BK;
-  if (splits < 1) splits = 1;
-  if (splits > k_tiles) splits = k_tiles > 0 ? k_tiles : 1;
-  const int tiles_per_split = (k_tiles + splits - 1) / splits;
-  const int k_per_split = (tiles_per_split > 0 ? tiles_per_split : 1) * BK;
-  const int z = k_tiles > 0 ? (k_tiles + tiles_per_split - 1) / tiles_per_split : 1;
+  int z;
+  const int k_per_split = k_slice(K, BK, splits, z);
   if (z > 1 && (ws == nullptr || counters == nullptr)) return cudaErrorInvalidValue;
   dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM, z);
-  int_gemm_kernel<TM, WORDS, BITS><<<grid, NTHREADS, 0, stream>>>(
+  int_gemm_kernel<TM, BITS><<<grid, NTHREADS, 0, stream>>>(
       x, w, scales, out, ws, counters, M, K, N, w_rows, k_per_split, fuse);
   return cudaGetLastError();
 }
 
-template <bool WORDS, int BITS>
-cudaError_t launch_bits(const int8_t* x, const void* w, const float* scales,
-                        void* out, int32_t* ws, int32_t* counters, int M, int K,
-                        int N, int w_rows, int splits, bool fuse,
-                        cudaStream_t s) {
-  if (M <= 8)
-    return launch_tm<1, WORDS, BITS>(x, w, scales, out, ws, counters, M, K, N,
-                                     w_rows, splits, fuse, s);
-  if (M <= 16)
-    return launch_tm<2, WORDS, BITS>(x, w, scales, out, ws, counters, M, K, N,
-                                     w_rows, splits, fuse, s);
-  if (M <= 32)
-    return launch_tm<4, WORDS, BITS>(x, w, scales, out, ws, counters, M, K, N,
-                                     w_rows, splits, fuse, s);
-  return launch_tm<8, WORDS, BITS>(x, w, scales, out, ws, counters, M, K, N,
-                                   w_rows, splits, fuse, s);
+// the dp4a instance for M rows: 8, 16, 32 or 64 rows a block
+template <int BITS>
+cudaError_t launch_words(const int8_t* x, const void* w, const float* scales, void* out,
+                         int32_t* ws, int32_t* counters, int M, int K, int N, int w_rows,
+                         int splits, bool fuse, cudaStream_t s) {
+  const int32_t* wp = static_cast<const int32_t*>(w);
+  if (M <= 8) return launch_tm<1, BITS>(x, wp, scales, out, ws, counters, M, K, N, w_rows, splits, fuse, s);
+  if (M <= 16) return launch_tm<2, BITS>(x, wp, scales, out, ws, counters, M, K, N, w_rows, splits, fuse, s);
+  if (M <= 32) return launch_tm<4, BITS>(x, wp, scales, out, ws, counters, M, K, N, w_rows, splits, fuse, s);
+  return launch_tm<8, BITS>(x, wp, scales, out, ws, counters, M, K, N, w_rows, splits, fuse, s);
 }
 
-// Entry shared by both C interfaces.  With splits > 1 the caller hands in a
-// zeroed int32 workspace of M*N and a zeroed counter per output tile
-// (ceil(N/128) * ceil(M/BM)); with splits == 1 both may be null.  `scales`
-// is read only when `fuse`.  Launches on `stream`, allocates nothing, does
-// not synchronise, and returns cudaGetLastError().
+// ---------------------------------------------------------------------------
+// int8-container weights on the int8 tensor cores (quant_gemm)
+// ---------------------------------------------------------------------------
+// One block: BN = 128 output columns x BM = WARPS_M * WM * 8 rows; warp w
+// owns WN 16-column tiles x WM 8-row tiles of out^T.  Per K tile of 64: the
+// raw packed tile (landed by cp.async, STAGES - 1 tiles ahead) is unpacked
+// into wt, the x tile (loaded into registers one tile ahead) is stored to
+// xs, and then, per 32 k, one mma per fragment pair.
+// smem: raw [STAGES][RR][BN] bytes, wt [KW][WT_PITCH] words, xs [BM][XS_PITCH] words
+template <int BITS, int WN, int WM, int WARPS_N, int WARPS_M>
+__global__ void __launch_bounds__(MMA_NT)
+int_mma_kernel(const int8_t* __restrict__ x, const int8_t* __restrict__ w,
+               const float* __restrict__ scales, void* __restrict__ out,
+               int32_t* __restrict__ ws, int32_t* __restrict__ counters, int M, int K, int N,
+               int w_rows, int k_per_split, bool fuse, int w_vec) {
+  using namespace mma_bf16;
+  constexpr int BM = WARPS_M * WM * 8;
+  constexpr int RR = BK * BITS / 8;            // packed rows per K tile
+  constexpr int X_WORDS = BM * KW / MMA_NT;    // x words a thread loads per K tile
+  static_assert(WARPS_N * WARPS_M * 32 == MMA_NT && WARPS_N * WN * 16 == BN, "tile shape");
+  static_assert((BM * KW) % MMA_NT == 0 && (RR * BN / 16) % MMA_NT == 0,
+                "whole words and chunks per thread");
+  extern __shared__ __align__(16) unsigned char smem[];
+  unsigned char* raw = smem;
+  uint32_t* wt = reinterpret_cast<uint32_t*>(raw + STAGES * RR * BN);
+  uint32_t* xs = wt + KW * WT_PITCH;
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int wn = (warp % WARPS_N) * WN * 16, wm = (warp / WARPS_N) * WM * 8;
+  const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
+  const int k_begin = blockIdx.z * k_per_split;
+  const int k_end = min(K, k_begin + k_per_split);
+  const int r_end = min(w_rows, k_end * BITS / 8);   // this split's packed rows end
+  const int n_tiles = k_end > k_begin ? (k_end - k_begin + BK - 1) / BK : 0;
+  const bool x_aligned = (K % 4 == 0) && ((reinterpret_cast<uintptr_t>(x) & 3) == 0);
+  const bool w_aligned = (N % 4 == 0) && ((reinterpret_cast<uintptr_t>(w) & 3) == 0);
+
+  // raw weight tile `it` into its ring stage: 16-byte cp.async when the rows
+  // are 16-byte aligned (w_vec: N % 16 == 0), else plain word loads
+  auto fill_w = [&](int it) {
+    unsigned char* dst = raw + (it % STAGES) * RR * BN;
+    const int r0 = (k_begin + it * BK) * BITS / 8;
+    if (w_vec) {
+#pragma unroll
+      for (int i = 0; i < RR * BN / 16 / MMA_NT; ++i) {
+        const int c = tid + i * MMA_NT, r = c / (BN / 16), col = (c % (BN / 16)) * 16;
+        const bool ok = r0 + r < r_end && n0 + col < N;
+        cp_async_16(dst + r * BN + col, ok ? w + (size_t)(r0 + r) * N + n0 + col : w, ok);
+      }
+    } else {
+      // kept rolled (see the epilogue's note on spills)
+#pragma unroll 1
+      for (int q = tid; q < RR * BN / 4; q += MMA_NT) {
+        const int r = q / (BN / 4), col = (q % (BN / 4)) * 4;
+        *reinterpret_cast<uint32_t*>(dst + r * BN + col) =
+            load_word(w, r0 + r, n0 + col, r_end, N, N, w_aligned);
+      }
+    }
+  };
+  uint32_t x_next[X_WORDS];                    // the next x tile, in flight
+
+#pragma unroll
+  for (int st = 0; st < STAGES - 1; ++st) {
+    if (st < n_tiles) fill_w(st);
+    cp_async_commit();
+  }
+  if (n_tiles > 0)
+    load_tile_words<X_WORDS, MMA_NT, KW>(x_next, x, m0, k_begin, M, K, k_end, x_aligned);
+
+  int32_t acc[WN][WM][4];
+#pragma unroll
+  for (int i = 0; i < WN; ++i)
+#pragma unroll
+    for (int j = 0; j < WM; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0;
+
+  for (int it = 0; it < n_tiles; ++it) {
+    cp_async_wait<STAGES - 2>();             // tile `it` has landed (this thread's copies)
+    __syncthreads();                         // ... everyone's; the last tile's products are done
+    if (it + STAGES - 1 < n_tiles) fill_w(it + STAGES - 1);
+    cp_async_commit();
+    const uint32_t* src = reinterpret_cast<const uint32_t*>(raw + (it % STAGES) * RR * BN);
+#pragma unroll
+    for (int i = 0; i < KW * (BN / 4) / MMA_NT; ++i) {
+      const int blk = tid + i * MMA_NT, kw = blk / (BN / 4), nq = blk % (BN / 4);
+      *reinterpret_cast<uint4*>(wt + kw * WT_PITCH + 4 * nq) =
+          unpack_quads<BITS>(src + kw * (BITS / 2) * (BN / 4) + nq);
+    }
+#pragma unroll
+    for (int i = 0; i < X_WORDS; ++i) {
+      const int idx = tid + i * MMA_NT;
+      xs[(idx / KW) * XS_PITCH + idx % KW] = x_next[i];
+    }
+    if (it + 1 < n_tiles)                    // lands under this tile's products
+      load_tile_words<X_WORDS, MMA_NT, KW>(x_next, x, m0, k_begin + (it + 1) * BK, M, K,
+                                           k_end, x_aligned);
+    __syncthreads();
+
+#pragma unroll
+    for (int ks = 0; ks < BK / 32; ++ks) {
+      // A = unpack(w)^T: 16 output columns x 32 k per tile
+      uint32_t af[WN][4];
+#pragma unroll
+      for (int i = 0; i < WN; ++i) {
+        const uint32_t* p0 = wt + (ks * 8 + t) * WT_PITCH + wn + i * 16 + g;
+        af[i][0] = p0[0];
+        af[i][1] = p0[8];
+        af[i][2] = p0[4 * WT_PITCH];
+        af[i][3] = p0[4 * WT_PITCH + 8];
+      }
+      // B = x^T: 32 k x 8 rows of x per tile
+#pragma unroll
+      for (int j = 0; j < WM; ++j) {
+        const uint32_t* p1 = xs + (wm + j * 8 + g) * XS_PITCH + ks * 8 + t;
+        const uint32_t b0 = p1[0], b1 = p1[4];
+#pragma unroll
+        for (int i = 0; i < WN; ++i) mma_16832(acc[i][j], af[i], b0, b1);
+      }
+    }
+  }
+  cp_async_wait<0>();                        // no copy outlives the block
+
+  // acc[i][j][e] is out[m][n] for n = wn + 16 i + g (+ 8 for e >= 2) and
+  // m = wm + 8 j + 2 t (+ 1 for odd e).  Unsplit, each result is stored;
+  // split over K, the partial sums go into the workspace, and the block that
+  // draws the tile's last ticket stores the finished sums, as in
+  // int_gemm_kernel.  Written out here, with the word-load loop above kept
+  // rolled: ptxas for sm_90a spilled 4 bytes in one instance or
+  // another when either was changed (the epilogue shared with
+  // int_gemm_kernel through a lambda, or that loop unrolled).
+  const bool split = gridDim.z > 1;
+#pragma unroll
+  for (int i = 0; i < WN; ++i)
+#pragma unroll
+    for (int j = 0; j < WM; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int n = n0 + wn + i * 16 + g + (e >> 1) * 8;
+        const int m = m0 + wm + j * 8 + 2 * t + (e & 1);
+        if (m >= M || n >= N) continue;
+        if (split) atomicAdd(ws + (size_t)m * N + n, acc[i][j][e]);
+        else store_out(out, fuse, scales, (size_t)m * N + n, n, acc[i][j][e]);
+      }
+  if (!split) return;
+  __threadfence();
+  __syncthreads();
+  __shared__ int is_last;
+  if (tid == 0)
+    is_last = atomicAdd(counters + blockIdx.y * gridDim.x + blockIdx.x, 1) == (int)gridDim.z - 1;
+  __syncthreads();
+  if (!is_last) return;
+  __threadfence();
+#pragma unroll
+  for (int i = 0; i < WN; ++i)
+#pragma unroll
+    for (int j = 0; j < WM; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int n = n0 + wn + i * 16 + g + (e >> 1) * 8;
+        const int m = m0 + wm + j * 8 + 2 * t + (e & 1);
+        if (m >= M || n >= N) continue;
+        const size_t idx = (size_t)m * N + n;
+        store_out(out, fuse, scales, idx, n, __ldcg(ws + idx));
+      }
+}
+
+// Launches the instance, or, with `resident` set, launches nothing and
+// stores how many of its blocks one SM holds at once.
+template <int BITS, int WN, int WM, int WARPS_N, int WARPS_M>
+cudaError_t launch_mma(const int8_t* x, const int8_t* w, const float* scales, void* out,
+                       int32_t* ws, int32_t* counters, int M, int K, int N, int w_rows,
+                       int splits, bool fuse, cudaStream_t stream, int* resident) {
+  constexpr int BM = WARPS_M * WM * 8;
+  constexpr size_t smem = (size_t)STAGES * (BK * BITS / 8) * BN +
+                          sizeof(uint32_t) * ((size_t)KW * WT_PITCH + (size_t)BM * XS_PITCH);
+  static_assert(smem <= 48 * 1024 - 16, "static shared-memory window (no opt-in)");
+  auto kernel = int_mma_kernel<BITS, WN, WM, WARPS_N, WARPS_M>;
+  if (resident) return cudaOccupancyMaxActiveBlocksPerMultiprocessor(resident, kernel, MMA_NT, smem);
+  int z;
+  const int k_per_split = k_slice(K, BK, splits, z);
+  if (z > 1 && (ws == nullptr || counters == nullptr)) return cudaErrorInvalidValue;
+  const int w_vec = N % 16 == 0 && (reinterpret_cast<uintptr_t>(w) & 15) == 0;
+  dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM, z);
+  kernel<<<grid, MMA_NT, smem, stream>>>(x, w, scales, out, ws, counters, M, K, N, w_rows,
+                                         k_per_split, fuse, w_vec);
+  return cudaGetLastError();
+}
+
+// the tensor-core instance for M rows: 8, 16, 32 or 64 rows a block
+template <int BITS>
+cudaError_t launch_container(const int8_t* x, const void* w, const float* scales, void* out,
+                             int32_t* ws, int32_t* counters, int M, int K, int N, int w_rows,
+                             int splits, bool fuse, cudaStream_t s, int* resident = nullptr) {
+  const int8_t* wp = static_cast<const int8_t*>(w);
+  if (M <= 8)
+    return launch_mma<BITS, 2, 1, 4, 1>(x, wp, scales, out, ws, counters, M, K, N, w_rows, splits, fuse, s, resident);
+  if (M <= 16)
+    return launch_mma<BITS, 2, 2, 4, 1>(x, wp, scales, out, ws, counters, M, K, N, w_rows, splits, fuse, s, resident);
+  if (M <= 32)
+    return launch_mma<BITS, 2, 4, 4, 1>(x, wp, scales, out, ws, counters, M, K, N, w_rows, splits, fuse, s, resident);
+  return launch_mma<BITS, 4, 4, 2, 2>(x, wp, scales, out, ws, counters, M, K, N, w_rows, splits, fuse, s, resident);
+}
+
+template <bool WORDS, int BITS>
+cudaError_t launch_bits(const int8_t* x, const void* w, const float* scales, void* out,
+                        int32_t* ws, int32_t* counters, int M, int K, int N, int w_rows,
+                        int splits, bool fuse, cudaStream_t s) {
+  if constexpr (WORDS)
+    return launch_words<BITS>(x, w, scales, out, ws, counters, M, K, N, w_rows, splits, fuse, s);
+  else
+    return launch_container<BITS>(x, w, scales, out, ws, counters, M, K, N, w_rows, splits, fuse, s);
+}
+
+// Entry shared by both C interfaces: WORDS selects the int32-word kernel
+// (packed_gemm), else the int8-container one (quant_gemm).  With splits > 1
+// the caller hands in a zeroed int32 workspace of M*N and a zeroed counter
+// per output tile (ceil(N/128) * ceil(M/rows a block)); with splits == 1
+// both may be null.  `scales` is read only when `fuse`.  Launches on
+// `stream`, allocates nothing, does not synchronise, and returns
+// cudaGetLastError().
 template <bool WORDS>
 int launch(const void* x, const void* w, const void* scales, void* out,
            void* ws, void* counters, int M, int K, int N, int w_rows, int bits,

@@ -11,9 +11,9 @@
 // codes a word, lane j of word r holding k = r*cpw + j (low lanes first);
 // the padding lanes of the last word hold zero codes.  Neither the float
 // weight nor the int8 code matrix ever exists in device memory: each K tile
-// is sign-extended on its way into shared memory.  The kernel body, its
-// bound and its split-K epilogue are in int_gemm.cuh (shared with
-// quant_gemm.cu; only the unpack differs).
+// is sign-extended on its way into shared memory.  The kernel
+// (int_gemm_kernel, dp4a), its bound and its split-K epilogue are in
+// int_gemm.cuh, beside quant_gemm's tensor-core kernel.
 
 #include "int_gemm.cuh"
 

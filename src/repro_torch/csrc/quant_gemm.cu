@@ -8,9 +8,9 @@
 //   x (M,K) int8  @  unpack(w_packed) (K,N)  ->  (M,N) int32 or float32
 //
 // w_packed is (K*bits/8, N) int8 with 8/bits consecutive k of one column in
-// a byte, low nibble/crumb first (ops.pack_values).  The kernel body, its
-// bound and its split-K epilogue are in int_gemm.cuh (shared with
-// packed_gemm.cu; only the unpack differs).
+// a byte, low nibble/crumb first (ops.pack_values).  The kernel
+// (int_mma_kernel, on the int8 tensor cores), its bound and its split-K
+// epilogue are in int_gemm.cuh.
 
 #include "int_gemm.cuh"
 
@@ -23,4 +23,21 @@ extern "C" int quant_gemm_launch(const void* x, const void* w_packed,
                                  void* stream) {
   return int_gemm::launch<false>(x, w_packed, scales, out, ws, counters, M, K,
                                  N, w_rows, bits, splits, fuse, stream);
+}
+
+// How many blocks of the instance that M rows and `bits` select one SM of
+// the current device holds at once (registers, shared memory, threads), into
+// *blocks; returns the CUDA error code.  The host's split plan reads it.
+extern "C" int quant_gemm_resident_blocks(int M, int bits, int* blocks) {
+  using int_gemm::launch_container;
+  const auto query = [&](auto launch_bits) {
+    return (int)launch_bits(nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, M, 0, 0, 0,
+                            1, false, nullptr, blocks);
+  };
+  switch (bits) {
+    case 2: return query(launch_container<2>);
+    case 4: return query(launch_container<4>);
+    case 8: return query(launch_container<8>);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }

@@ -11,266 +11,99 @@
 // The slot loop is literal: every slot forms its pulse operand and executes its
 // own multiply-accumulate; nothing collapses the slots into one a*b product.
 //
-// Both kernels walk a (BM x 128) output tile over K in tiles of 64 and keep
-// B transposed in shared memory, each 32-bit word holding four consecutive k
-// of one column (a 4 x 4 byte transpose through __byte_perm).  Two designs:
-//
-//  - tubGEMM, unary_gemm_kernel (CUDA cores): per K tile the A tile is
-//    decomposed ONCE into per-byte planes in shared memory (v1, v0, sign
-//    mask); a slot's pulses for four k are built with per-byte SIMD
-//    intrinsics and contracted with one dp4a per output column.
-//  - tuGEMM, unary_mma_kernel (int8 tensor cores): a k-packed word is
-//    exactly an s8 fragment register of mma.sync.m16n8k32, so every slot is
-//    one mma per fragment pair with exact int32 accumulation.  It computes
-//    out^T = B^T . pulses^T: the mma's 16-row side takes 16 output columns
-//    and its 8-column side 8 rows of A, so a decode step's 8 rows waste
-//    nothing.  B arrives through a four-stage ring of 16-byte cp.async
-//    copies; each tile is transposed once into shared memory, and its
-//    fragments are read once per 32 k and reused by every slot.  The pulse
-//    builder is a template parameter (TuPulses), so tub's can plug in later.
+// Both designs run on the int8 tensor cores, as instances of one kernel,
+// unary_mma_kernel, whose pulse builder is a template parameter (TuPulses,
+// TubPulses).  A k-packed word is exactly an s8 fragment register of
+// mma.sync.m16n8k32 (mma_int8.cuh), so every slot is one mma per fragment
+// pair with exact int32 accumulation.  The kernel computes
+// out^T = B^T . pulses^T: the mma's 16-row side takes 16 output columns and
+// its 8-column side 8 rows of A, so a decode step's 8 rows waste nothing.
+// A block walks a (BM x 128) output tile over K in tiles of 64.  B arrives
+// through a four-stage ring of 16-byte cp.async copies; each tile is
+// transposed once into shared memory (each 32-bit word four consecutive k of
+// one column, a 4 x 4 byte transpose through __byte_perm), and its fragments
+// are read once per 32 k and reused by every slot.  The A tile is decomposed
+// once per K tile into the policy's pulse planes.
 //
 // What bounds it on an H100: at decode (M = 8) the weight codes, K*N bytes
 // read once, i.e. memory; K is split across blockIdx.z (int32 atomicAdd is
 // exact in any order) so that narrow N still fills the SMs.  At prefill
-// (M = 512) or many slots (tu at 8 bits runs 128 slots) the multiply rate
-// bounds it: dp4a for tub, the int8 tensor cores for tu.
+// (M = 512) or many slots (tu at 8 bits runs 128 slots) the int8 tensor-core
+// rate on the slot schedule bounds it: n_slots * 2*M*K*N operations.
 //
 // Ragged M, N, K are masked in the loads and stores; there is no host padding.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include "mma_bf16.cuh"   // cp.async helpers
+#include "mma_int8.cuh"   // word loads, byte transpose, mma.m16n8k32 (+ cp.async)
 
 namespace {
 
-constexpr int BN = 128;        // output columns per block
-constexpr int BK = 64;         // k per shared-memory tile
-constexpr int KW = BK / 4;     // k words per tile
-constexpr int NTHREADS = 256;  // 32 column-quads x 8 row groups
+using namespace mma_int8;
 
-constexpr int MODE_TUB = 0;
-constexpr int MODE_TU = 1;
-
-__device__ __forceinline__ uint32_t load_a_word(const int8_t* __restrict__ a,
-                                                int m, int k, int M, int K,
-                                                int k_end, bool aligned) {
-  // four consecutive k of row m, zero outside [0,M) x [.., k_end)
-  if (m >= M) return 0u;
-  const int8_t* p = a + (size_t)m * K + k;
-  if (aligned && k + 3 < k_end) return *reinterpret_cast<const uint32_t*>(p);
-  uint32_t w = 0u;
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-    if (k + i < k_end) w |= (uint32_t)(uint8_t)p[i] << (8 * i);
-  return w;
-}
-
-__device__ __forceinline__ uint32_t load_b_word(const int8_t* __restrict__ b,
-                                                int k, int n, int N, int k_end,
-                                                bool aligned) {
-  // four consecutive n of row k, zero outside
-  if (k >= k_end || n >= N) return 0u;
-  const int8_t* p = b + (size_t)k * N + n;
-  if (aligned && n + 3 < N) return *reinterpret_cast<const uint32_t*>(p);
-  uint32_t w = 0u;
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-    if (n + i < N) w |= (uint32_t)(uint8_t)p[i] << (8 * i);
-  return w;
-}
-
-// Four rows r0..r3 of four bytes (consecutive k, consecutive n) -> four
-// words, one per column, each holding that column's four k (low byte first).
-__device__ __forceinline__ uint4 transpose4x4(uint32_t r0, uint32_t r1, uint32_t r2,
-                                             uint32_t r3) {
-  const uint32_t t0 = __byte_perm(r0, r1, 0x5140);
-  const uint32_t t1 = __byte_perm(r2, r3, 0x5140);
-  const uint32_t t2 = __byte_perm(r0, r1, 0x7362);
-  const uint32_t t3 = __byte_perm(r2, r3, 0x7362);
-  return make_uint4(__byte_perm(t0, t1, 0x5410), __byte_perm(t0, t1, 0x7632),
-                    __byte_perm(t2, t3, 0x5410), __byte_perm(t2, t3, 0x7632));
-}
-
-// tubGEMM on the CUDA cores
-template <int TM>
-__global__ void __launch_bounds__(NTHREADS)
-unary_gemm_kernel(const int8_t* __restrict__ a, const int8_t* __restrict__ b,
-                  int32_t* __restrict__ out, int M, int K, int N, int n_slots,
-                  int k_per_split) {
-  constexpr int BM = 8 * TM;
-  // A planes, one word = four consecutive k of one row
-  __shared__ uint32_t a_mag[BM][KW];   // v1
-  __shared__ uint32_t a_odd[BM][KW];   // v0
-  __shared__ uint32_t a_neg[BM][KW];   // 0xff where a < 0
-  // B transposed: b_t[kw][n] = four consecutive k of column n
-  __shared__ __align__(16) uint32_t b_t[KW][BN];
-
-  const int tid = threadIdx.x;
-  const int tx = tid & 31;   // column quad: columns 4*tx .. 4*tx+3
-  const int ty = tid >> 5;   // row group: rows ty*TM .. ty*TM+TM-1
-  const int m0 = blockIdx.y * BM;
-  const int n0 = blockIdx.x * BN;
-  const int k_begin = blockIdx.z * k_per_split;
-  const int k_end = min(K, k_begin + k_per_split);
-
-  const bool a_aligned = (K % 4 == 0) && ((reinterpret_cast<uintptr_t>(a) & 3) == 0);
-  const bool b_aligned = (N % 4 == 0) && ((reinterpret_cast<uintptr_t>(b) & 3) == 0);
-
-  int32_t acc[TM][4];
-#pragma unroll
-  for (int i = 0; i < TM; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0;
-
-  for (int kt = k_begin; kt < k_end; kt += BK) {
-    // ---- A tile: decompose once per K tile into the per-byte planes ----
-    for (int idx = tid; idx < BM * KW; idx += NTHREADS) {
-      const int r = idx / KW, kw = idx % KW;
-      const uint32_t w = load_a_word(a, m0 + r, kt + 4 * kw, M, K, k_end, a_aligned);
-      const uint32_t neg = __vcmplts4(w, 0u);   // 0xff where the byte is < 0
-      const uint32_t mag = __vabs4(w);          // |a| per byte (128 stays 128)
-      a_mag[r][kw] = (mag >> 1) & 0x7f7f7f7fu;  // v1 = |a| / 2
-      a_odd[r][kw] = mag & 0x01010101u;         // v0 = |a| % 2
-      a_neg[r][kw] = neg;
-    }
-    // ---- B tile: 4(k) x 4(n) byte blocks, transposed into k-packed words ----
-    for (int blk = tid; blk < KW * (BN / 4); blk += NTHREADS) {
-      const int kw = blk / (BN / 4), nq = blk % (BN / 4);
-      const int k = kt + 4 * kw, n = n0 + 4 * nq;
-      const uint32_t r0 = load_b_word(b, k + 0, n, N, k_end, b_aligned);
-      const uint32_t r1 = load_b_word(b, k + 1, n, N, k_end, b_aligned);
-      const uint32_t r2 = load_b_word(b, k + 2, n, N, k_end, b_aligned);
-      const uint32_t r3 = load_b_word(b, k + 3, n, N, k_end, b_aligned);
-      *reinterpret_cast<uint4*>(&b_t[kw][4 * nq]) = transpose4x4(r0, r1, r2, r3);
-    }
-    __syncthreads();
-
-    // ---- the slot schedule ----
-#pragma unroll 2
-    for (int kw = 0; kw < KW; ++kw) {
-      const uint4 bc = *reinterpret_cast<const uint4*>(&b_t[kw][4 * tx]);
-#pragma unroll
-      for (int i = 0; i < TM; ++i) {
-        const int r = ty * TM + i;
-        const uint32_t mag = a_mag[r][kw];
-        const uint32_t neg = a_neg[r][kw];
-        const uint32_t odd = a_odd[r][kw];
-        for (int t = 0; t < n_slots; ++t) {
-          const uint32_t tw = (uint32_t)t * 0x01010101u;
-          // weight-2 slots while t < v1; the odd bit rides slot 0
-          uint32_t gate = __vcmpgtu4(mag, tw) & 0x02020202u;
-          if (t == 0) gate |= odd;
-          // apply the sign per byte: (g ^ neg) - neg
-          const int pulse = (int)__vsub4(gate ^ neg, neg);
-          acc[i][0] = __dp4a(pulse, (int)bc.x, acc[i][0]);
-          acc[i][1] = __dp4a(pulse, (int)bc.y, acc[i][1]);
-          acc[i][2] = __dp4a(pulse, (int)bc.z, acc[i][2]);
-          acc[i][3] = __dp4a(pulse, (int)bc.w, acc[i][3]);
-        }
-      }
-    }
-    __syncthreads();
-  }
-
-  // ---- epilogue: masked store, or exact int32 atomics under split-K ----
-  const bool split = gridDim.z > 1;
-#pragma unroll
-  for (int i = 0; i < TM; ++i) {
-    const int m = m0 + ty * TM + i;
-    if (m >= M) continue;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int n = n0 + 4 * tx + j;
-      if (n >= N) continue;
-      int32_t* dst = out + (size_t)m * N + n;
-      if (split) atomicAdd(dst, acc[i][j]);
-      else *dst = acc[i][j];
-    }
-  }
-}
-
-// the K splits: `splits` (clamped to [1, k_tiles]) slices of whole 64-wide
-// K tiles; returns the k per slice and sets `z` to the number of slices
-int k_slice(int K, int splits, int& z) {
-  const int k_tiles = (K + BK - 1) / BK;
-  if (splits < 1) splits = 1;
-  if (splits > k_tiles) splits = k_tiles > 0 ? k_tiles : 1;
-  const int tiles_per_split = (k_tiles + splits - 1) / splits;
-  z = k_tiles > 0 ? (k_tiles + tiles_per_split - 1) / tiles_per_split : 1;
-  return (tiles_per_split > 0 ? tiles_per_split : 1) * BK;
-}
-
-template <int TM>
-cudaError_t launch_tub(const int8_t* a, const int8_t* b, int32_t* out, int M, int K, int N,
-                       int n_slots, int splits, cudaStream_t stream) {
-  constexpr int BM = 8 * TM;
-  int z;
-  const int kps = k_slice(K, splits, z);
-  dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM, z);
-  unary_gemm_kernel<TM><<<grid, NTHREADS, 0, stream>>>(a, b, out, M, K, N, n_slots, kps);
-  return cudaGetLastError();
-}
-
-// ---------------------------------------------------------------------------
-// tuGEMM on the int8 tensor cores
-// ---------------------------------------------------------------------------
+constexpr int BN = 128;                      // output columns per block
+constexpr int BK = 64;                       // k per shared-memory tile
+constexpr int KW = BK / 4;                   // k words per tile
 constexpr int MMA_NT = 128;                  // 4 warps
 constexpr int STAGES = 4;                    // B tiles in the cp.async ring
 constexpr int BT_PITCH = BN + 8;             // words: fragment loads hit 32 banks
 constexpr int PL_PITCH = KW + 4;             // words: likewise
 
-// 0xff in each byte whose bit 7 is set, else 0x00 (prmt's sign-replicate mode)
-__device__ __forceinline__ uint32_t byte_signs(uint32_t x) {
-  uint32_t r;
-  asm("prmt.b32 %0, %1, %1, 0xBA98;\n" : "=r"(r) : "r"(x));
-  return r;
-}
+constexpr int MODE_TUB = 0;
+constexpr int MODE_TU = 1;
 
-// tuGEMM's pulse builder.  Planes of a word of four codes: |a| + 127 per
-// byte (at most 255: no carry between bytes) and sign(a) as an int8 (+1 or
-// -1).  For slot i, |a| + 127 - i has bit 7 set exactly when i < |a| (and
-// never borrows, since i <= 127), so the pulse word [i < |a|] * sign(a) is
-// three instructions.  A zero code gives no pulse in any slot.
+// A pulse builder turns a word of four codes into PLANES plane words once
+// per K tile (`planes`), and each slot's plane words into that slot's pulse
+// word, four int8 pulses (`pulses`, `slot` = the slot number in every byte,
+// slot * 0x01010101).  With FIRST set, slot 0 takes `first` instead.
+//
+// |a| per byte, in both builders: (a ^ neg) + (neg & 1), with neg = 0xff
+// where a < 0.  The xor leaves at most 0x7f in a negative byte, so the +1
+// never carries, and -128 stays magnitude 128 (no saturation).
+
+// tuGEMM's pulse builder.  Planes: |a| + 127 per byte (at most 255: no
+// carry between bytes) and sign(a) as an int8 (+1 or -1).  For slot i,
+// |a| + 127 - i has bit 7 set exactly when i < |a| (and never borrows, since
+// i <= 127), so the pulse word [i < |a|] * sign(a) is three instructions.
+// A zero code gives no pulse in any slot.
 struct TuPulses {
   static constexpr int PLANES = 2;
+  static constexpr bool FIRST = false;
   __device__ static void planes(uint32_t a, uint32_t (&p)[PLANES]) {
     const uint32_t neg = byte_signs(a);                        // 0xff where a < 0
     p[0] = (a ^ neg) + (neg & 0x01010101u) + 0x7f7f7f7fu;     // |a| + 127
     p[1] = neg | 0x01010101u;                                  // sign(a)
   }
-  // `slot` is i in every byte (i * 0x01010101)
   __device__ static uint32_t pulses(const uint32_t (&p)[PLANES], uint32_t slot) {
     return byte_signs(p[0] - slot) & p[1];
   }
 };
 
-// d += a . b on the tensor cores: (16 x 32 s8) x (32 x 8 s8) -> 16 x 8 s32, exact.
-// Fragments (lane = 4 g + t), each register four consecutive k, low byte first:
-//   a0 (row g, k 4t..)  a1 (row g+8, k 4t..)  a2 (row g, k 16+4t..)  a3 (row g+8, k 16+4t..)
-//   b0 (column g, k 4t..)  b1 (column g, k 16+4t..)
-//   d0, d1 (row g, columns 2t, 2t+1)  d2, d3 (row g+8, columns 2t, 2t+1)
-__device__ __forceinline__ void mma_16832(int32_t (&d)[4], const uint32_t (&a)[4], uint32_t b0,
-                                          uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 {%0, %1, %2, %3}, "
-      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// A words idx = threadIdx.x + i * MMA_NT (row idx / KW, k word idx % KW) of
-// the K tile at kt
-template <int A_WORDS>
-__device__ __forceinline__ void load_a_tile(uint32_t (&w)[A_WORDS], const int8_t* __restrict__ a,
-                                            int m0, int kt, int M, int K, int k_end,
-                                            bool aligned) {
-#pragma unroll
-  for (int i = 0; i < A_WORDS; ++i) {
-    const int idx = threadIdx.x + i * MMA_NT;
-    w[i] = load_a_word(a, m0 + idx / KW, kt + 4 * (idx % KW), M, K, k_end, aligned);
+// tubGEMM's pulse builder, |a| = 2 v1 + v0.  Planes: v1 + 127 per byte (v1
+// <= 64, so at most 191: no carry), 2 sign(a) as an int8 (+2 or -2), and the
+// whole slot-0 pulse word (2 [v1 > 0] + v0) sign(a), in -3..3 per byte.  For
+// slot t >= 1 (t <= 63), v1 + 127 - t has bit 7 set exactly when t < v1, as
+// in tu, so a later slot's pulse word is three instructions too.
+struct TubPulses {
+  static constexpr int PLANES = 3;
+  static constexpr bool FIRST = true;
+  __device__ static void planes(uint32_t a, uint32_t (&p)[PLANES]) {
+    const uint32_t neg = byte_signs(a);                        // 0xff where a < 0
+    const uint32_t mag = (a ^ neg) + (neg & 0x01010101u);     // |a|
+    const uint32_t v1 = (mag >> 1) & 0x7f7f7f7fu;
+    p[0] = v1 + 0x7f7f7f7fu;                                   // v1 + 127
+    p[1] = __vsub4(0x02020202u ^ neg, neg);                    // 2 sign(a)
+    // slot 0: the weight-2 pulse while 0 < v1, plus the odd bit v0, signed
+    // per byte as (g ^ neg) - neg
+    const uint32_t gate = (__vcmpgtu4(v1, 0u) & 0x02020202u) | (mag & 0x01010101u);
+    p[2] = __vsub4(gate ^ neg, neg);
   }
-}
+  __device__ static uint32_t pulses(const uint32_t (&p)[PLANES], uint32_t slot) {
+    return byte_signs(p[0] - slot) & p[1];
+  }
+  __device__ static uint32_t first(const uint32_t (&p)[PLANES]) { return p[2]; }
+};
 
 // One block: BN = 128 output columns x BM = WARPS_M * WM * 8 rows; warp w
 // owns WN 16-column tiles x WM 8-row tiles of out^T.  Per K tile of 64:
@@ -321,7 +154,7 @@ unary_mma_kernel(const int8_t* __restrict__ a, const int8_t* __restrict__ b,
       for (int w = tid; w < BK * BN / 4; w += MMA_NT) {
         const int r = w / (BN / 4), col = (w % (BN / 4)) * 4;
         *reinterpret_cast<uint32_t*>(dst + r * BN + col) =
-            load_b_word(b, kt + r, n0 + col, N, k_end, b_aligned);
+            load_word(b, kt + r, n0 + col, k_end, N, N, b_aligned);
       }
     }
   };
@@ -332,7 +165,7 @@ unary_mma_kernel(const int8_t* __restrict__ a, const int8_t* __restrict__ b,
     if (st < n_tiles) fill_b(st);
     cp_async_commit();
   }
-  if (n_tiles > 0) load_a_tile<A_WORDS>(a_next, a, m0, k_begin, M, K, k_end, a_aligned);
+  if (n_tiles > 0) load_tile_words<A_WORDS, MMA_NT, KW>(a_next, a, m0, k_begin, M, K, k_end, a_aligned);
 
   int32_t acc[WN][WM][4];
 #pragma unroll
@@ -364,7 +197,7 @@ unary_mma_kernel(const int8_t* __restrict__ a, const int8_t* __restrict__ b,
       for (int j = 0; j < NPL; ++j) pl[(j * BM + idx / KW) * PL_PITCH + idx % KW] = p[j];
     }
     if (it + 1 < n_tiles)                    // lands under this tile's products
-      load_a_tile<A_WORDS>(a_next, a, m0, k_begin + (it + 1) * BK, M, K, k_end, a_aligned);
+      load_tile_words<A_WORDS, MMA_NT, KW>(a_next, a, m0, k_begin + (it + 1) * BK, M, K, k_end, a_aligned);
     __syncthreads();
 
 #pragma unroll
@@ -389,7 +222,17 @@ unary_mma_kernel(const int8_t* __restrict__ a, const int8_t* __restrict__ b,
           for (int q = 0; q < NPL; ++q)
             pw[j][h][q] = pl[(q * BM + wm + j * 8 + g) * PL_PITCH + ks * 8 + 4 * h + t];
       // the slot schedule: each slot its own pulses and its own products
-      for (int slot = 0; slot < n_slots; ++slot) {
+      int slot = 0;
+      if constexpr (Pulses::FIRST) {         // slot 0 from its own plane
+#pragma unroll
+        for (int j = 0; j < WM; ++j) {
+          const uint32_t b0 = Pulses::first(pw[j][0]), b1 = Pulses::first(pw[j][1]);
+#pragma unroll
+          for (int i = 0; i < WN; ++i) mma_16832(acc[i][j], af[i], b0, b1);
+        }
+        slot = 1;
+      }
+      for (; slot < n_slots; ++slot) {
         const uint32_t sw = (uint32_t)slot * 0x01010101u;
 #pragma unroll
         for (int j = 0; j < WM; ++j) {
@@ -439,20 +282,30 @@ cudaError_t launch_mma(const int8_t* a, const int8_t* b, int32_t* out, int M, in
   ready = true;
   if (resident) return cudaOccupancyMaxActiveBlocksPerMultiprocessor(resident, kernel, MMA_NT, smem);
   int z;
-  const int kps = k_slice(K, splits, z);
+  const int kps = k_slice(K, BK, splits, z);
   const int b_vec = N % 16 == 0 && (reinterpret_cast<uintptr_t>(b) & 15) == 0;
   dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM, z);
   kernel<<<grid, MMA_NT, smem, stream>>>(a, b, out, M, K, N, n_slots, kps, b_vec);
   return cudaGetLastError();
 }
 
-// tuGEMM's instance for M rows: rows per block 8, 16, 32, 64 as tub's
-cudaError_t launch_tu(const int8_t* a, const int8_t* b, int32_t* out, int M, int K, int N,
-                      int n_slots, int splits, cudaStream_t s, int* resident) {
-  if (M <= 8) return launch_mma<TuPulses, 2, 1, 4, 1>(a, b, out, M, K, N, n_slots, splits, s, resident);
-  if (M <= 16) return launch_mma<TuPulses, 2, 2, 4, 1>(a, b, out, M, K, N, n_slots, splits, s, resident);
-  if (M <= 32) return launch_mma<TuPulses, 2, 4, 4, 1>(a, b, out, M, K, N, n_slots, splits, s, resident);
-  return launch_mma<TuPulses, 4, 4, 2, 2>(a, b, out, M, K, N, n_slots, splits, s, resident);
+// The design's instance for M rows: 8, 16, 32 or 64 rows a block
+template <class Pulses>
+cudaError_t launch_rows(const int8_t* a, const int8_t* b, int32_t* out, int M, int K, int N,
+                        int n_slots, int splits, cudaStream_t s, int* resident) {
+  if (M <= 8) return launch_mma<Pulses, 2, 1, 4, 1>(a, b, out, M, K, N, n_slots, splits, s, resident);
+  if (M <= 16) return launch_mma<Pulses, 2, 2, 4, 1>(a, b, out, M, K, N, n_slots, splits, s, resident);
+  if (M <= 32) return launch_mma<Pulses, 2, 4, 4, 1>(a, b, out, M, K, N, n_slots, splits, s, resident);
+  return launch_mma<Pulses, 4, 4, 2, 2>(a, b, out, M, K, N, n_slots, splits, s, resident);
+}
+
+cudaError_t launch(int mode, const int8_t* a, const int8_t* b, int32_t* out, int M, int K,
+                   int N, int n_slots, int splits, cudaStream_t s, int* resident) {
+  if (mode == MODE_TUB)
+    return launch_rows<TubPulses>(a, b, out, M, K, N, n_slots, splits, s, resident);
+  if (mode == MODE_TU)
+    return launch_rows<TuPulses>(a, b, out, M, K, N, n_slots, splits, s, resident);
+  return cudaErrorInvalidValue;
 }
 
 }  // namespace
@@ -466,27 +319,15 @@ extern "C" int unary_gemm_launch(int mode, const void* a, const void* b,
                                  void* out, int M, int K, int N, int n_slots,
                                  int splits, void* stream) {
   if (M <= 0 || N <= 0) return 0;
-  if (mode != MODE_TUB && mode != MODE_TU) return (int)cudaErrorInvalidValue;
   if (n_slots < 1 || n_slots > 128) return (int)cudaErrorInvalidValue;
-  const int8_t* ap = static_cast<const int8_t*>(a);
-  const int8_t* bp = static_cast<const int8_t*>(b);
-  int32_t* op = static_cast<int32_t*>(out);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t err;
-  if (mode == MODE_TUB) {
-    if (M <= 8) err = launch_tub<1>(ap, bp, op, M, K, N, n_slots, splits, s);
-    else if (M <= 16) err = launch_tub<2>(ap, bp, op, M, K, N, n_slots, splits, s);
-    else if (M <= 32) err = launch_tub<4>(ap, bp, op, M, K, N, n_slots, splits, s);
-    else err = launch_tub<8>(ap, bp, op, M, K, N, n_slots, splits, s);
-  } else {
-    err = launch_tu(ap, bp, op, M, K, N, n_slots, splits, s, nullptr);
-  }
-  return (int)err;
+  return (int)launch(mode, static_cast<const int8_t*>(a), static_cast<const int8_t*>(b),
+                     static_cast<int32_t*>(out), M, K, N, n_slots, splits,
+                     static_cast<cudaStream_t>(stream), nullptr);
 }
 
-// How many blocks of the tuGEMM instance that M rows select one SM of the
-// current device holds at once (registers, shared memory, threads), into
+// How many blocks of the instance that `mode` and M rows select one SM of
+// the current device holds at once (registers, shared memory, threads), into
 // *blocks; returns the CUDA error code.  The host's split plan reads it.
-extern "C" int unary_tu_resident_blocks(int M, int* blocks) {
-  return (int)launch_tu(nullptr, nullptr, nullptr, M, 0, 0, 1, 1, nullptr, blocks);
+extern "C" int unary_resident_blocks(int mode, int M, int* blocks) {
+  return (int)launch(mode, nullptr, nullptr, nullptr, M, 0, 0, 1, 1, nullptr, blocks);
 }

@@ -14,6 +14,7 @@ content, so an unchanged tree reuses it and an edited source rebuilds.  Nothing 
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -22,16 +23,23 @@ import threading
 import time
 from pathlib import Path
 
+import torch
+
 __all__ = ["CSRC_DIR", "SOURCES", "HEADERS", "build_dir", "load_library",
-           "last_build_seconds", "check_launch"]
+           "last_build_seconds", "check_launch", "resident_blocks",
+           "TILE_N", "TILE_K", "block_rows", "plan_splits"]
 
 CSRC_DIR = Path(__file__).resolve().parents[1] / "csrc"
 SOURCES = ("unary_gemm.cu", "fused_paged_decode.cu", "flash_attention.cu",
            "quant_gemm.cu", "packed_gemm.cu", "bitsparsity.cu")
 #: headers the sources include (part of the build digest)
-HEADERS = ("int_gemm.cuh", "mma_bf16.cuh")
+HEADERS = ("int_gemm.cuh", "mma_bf16.cuh", "mma_int8.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC")
+
+#: output-column and K tile of the GEMM kernels (csrc/unary_gemm.cu,
+#: csrc/int_gemm.cuh)
+TILE_N, TILE_K = 128, 64
 
 _LOCK = threading.Lock()
 _LIB: ctypes.CDLL | None = None
@@ -99,8 +107,10 @@ def _declare(lib: ctypes.CDLL) -> None:
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.unary_gemm_launch.argtypes = [i, p, p, p, i, i, i, i, i, p]
     lib.unary_gemm_launch.restype = i
-    lib.unary_tu_resident_blocks.argtypes = [i, ctypes.POINTER(i)]
-    lib.unary_tu_resident_blocks.restype = i
+    for name in ("unary_resident_blocks", "quant_gemm_resident_blocks"):
+        fn = getattr(lib, name)
+        fn.argtypes = [i, i, ctypes.POINTER(i)]
+        fn.restype = i
     lib.fused_paged_decode_launch.argtypes = [p, p, p, p, p, p,
                                               i, i, i, i, i, i, i, i, p]
     lib.fused_paged_decode_launch.restype = i
@@ -150,3 +160,41 @@ def check_launch(code: int, what: str) -> None:
     if code != 0:
         raise RuntimeError(f"{what}: CUDA launch failed with error code "
                            f"{code} (cudaGetLastError)")
+
+
+@functools.lru_cache(maxsize=None)
+def resident_blocks(entry: str, device: int, *args: int) -> int:
+    """Blocks of a kernel instance that one SM of CUDA device ``device``
+    holds at once, as the CUDA occupancy calculator counts them (registers,
+    shared memory, threads): the C entry ``entry(*args, &blocks)``.  Raises
+    if the query fails or no block fits."""
+    blocks = ctypes.c_int(0)
+    with torch.cuda.device(device):
+        code = getattr(load_library(), entry)(*args, ctypes.byref(blocks))
+    check_launch(code, f"{entry}{args}")
+    if blocks.value < 1:
+        raise RuntimeError(f"{entry}{args}: no block fits on an SM")
+    return blocks.value
+
+
+def block_rows(m: int) -> int:
+    """Rows one block of a GEMM kernel covers for ``m`` rows: its instance's
+    tile (8/16/32/64), which the split-K ticket counters count too."""
+    return 8 if m <= 8 else 16 if m <= 16 else 32 if m <= 32 else 64
+
+
+def plan_splits(m: int, k: int, n: int, sm_count: int, resident: int) -> int:
+    """How many ways a tensor-core GEMM kernel (``tub_gemm``, ``tu_gemm``,
+    ``quant_gemm``) splits K.
+
+    One block covers ``(block_rows(m), TILE_N)`` outputs and ``resident``
+    of them fit an SM at once (the instance's registers and shared memory,
+    :func:`resident_blocks`).  At decode the kernels stream the weights, so
+    the plan takes the most K slices that still fit the grid in one wave
+    of resident blocks (never more than there are K tiles).  1 means no
+    split.
+    """
+    blocks = -(-m // block_rows(m)) * -(-n // TILE_N)
+    k_tiles = max(1, -(-k // TILE_K))
+    fit = resident * sm_count // max(blocks, 1)
+    return max(1, min(fit, k_tiles))

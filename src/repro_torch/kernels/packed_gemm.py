@@ -2,8 +2,11 @@
 wrapper + plain version.
 
 Replaces the TPU kernel ``repro/kernels/packed_gemm.py:packed_gemm_kernel``
-with ``csrc/packed_gemm.cu`` (body in ``csrc/int_gemm.cuh``, shared with
-``quant_gemm``).  Weights travel as the int32 words
+with ``csrc/packed_gemm.cu`` (``int_gemm_kernel``, ``dp4a`` on the CUDA
+cores, in ``csrc/int_gemm.cuh`` beside ``quant_gemm``'s tensor-core kernel;
+launch path in :mod:`repro_torch.kernels.quant_gemm`, split plan
+:func:`plan_dp4a_splits`).
+Weights travel as the int32 words
 :func:`repro_torch.core.packing.pack_codes` emits (16 / 8 / 4 codes a word
 at 2 / 4 / 8 bits) and are sign-extended inside the K loop; neither the
 float weight nor the int8 code matrix exists in device memory.  int32
@@ -19,11 +22,12 @@ from __future__ import annotations
 import torch
 
 from repro_torch.core import packing
+from repro_torch.kernels._build import TILE_K, TILE_N, block_rows
 from repro_torch.kernels.quant_gemm import check_operands, launch_int_gemm
 from repro_torch.kernels.ref import packed_gemm_ref
 
 __all__ = ["packed_gemm", "packed_matmul", "unpack_words", "LAUNCHES",
-           "reset_launches"]
+           "reset_launches", "plan_dp4a_splits"]
 
 #: kernel launches since the last :func:`reset_launches`
 LAUNCHES = {"packed_gemm": 0}
@@ -32,6 +36,19 @@ LAUNCHES = {"packed_gemm": 0}
 def reset_launches() -> None:
     for k in LAUNCHES:
         LAUNCHES[k] = 0
+
+
+def plan_dp4a_splits(m: int, k: int, n: int, sm_count: int) -> int:
+    """How many ways the ``dp4a`` word-store kernel splits K.
+
+    One block covers ``(block_rows(m), TILE_N)`` outputs; with fewer than
+    two blocks per SM the K loop is cut into that many slices (never more
+    than there are K tiles).  1 means no split.
+    """
+    blocks = -(-m // block_rows(m)) * -(-n // TILE_N)
+    k_tiles = max(1, -(-k // TILE_K))
+    want = -(-2 * sm_count // max(blocks, 1))
+    return max(1, min(want, k_tiles))
 
 
 def unpack_words(words: torch.Tensor, bits: int) -> torch.Tensor:
@@ -65,8 +82,11 @@ def packed_gemm(x: torch.Tensor, words: torch.Tensor,
             f"word-count mismatch: store has {words.shape[0]} words, "
             f"k={k} at {bits}-bit needs {-(-k // cpw)}")
     if x.device.type == "cuda":
+        sm_count = torch.cuda.get_device_properties(x.device).multi_processor_count
+        splits = plan_dp4a_splits(x.shape[0], k, words.shape[1], sm_count)
         out = launch_int_gemm("packed_gemm_launch", x, words, scales, k=k,
-                              bits=bits, fuse_dequant=fuse_dequant)
+                              bits=bits, splits=splits,
+                              fuse_dequant=fuse_dequant)
         LAUNCHES["packed_gemm"] += 1
         return out
     return packed_gemm_ref(x, words, scales, bits=bits, k=k,

@@ -6,12 +6,18 @@ with ``csrc/quant_gemm.cu`` (body in ``csrc/int_gemm.cuh``).  ``x:(M,K) int8
 @ unpack(w_packed):(K,N)`` with ``w_packed`` (K*bits/8, N) int8, 2 or 4
 values a byte at 4 or 2 bits, low nibble/crumb first; int32 accumulate and,
 with ``fuse_dequant``, the per-channel float32 epilogue ``float32(acc) *
-scales`` — one rounding, bit-equal to the plain version.
+scales`` — one rounding, bit-equal to the plain version.  The kernel runs
+on the int8 tensor cores (``int_mma_kernel``: ``out^T = unpack(w)^T .
+x^T`` with ``mma.sync.m16n8k32``, each packed tile unpacked once in shared
+memory into the A fragments).
 
 Bound on an H100: at decode (M = 8) the packed weight bytes (memory); the
-kernel splits K across blocks for narrow outputs and finishes each output
-tile in the block that adds its last partial sum (a ticket counter), so the
-fused output is exact.
+kernel splits K across blocks for narrow outputs (the plan the tensor-core
+GEMMs share, :func:`repro_torch.kernels._build.plan_splits`, from the
+instance's resident blocks) and finishes each output tile in the block
+that adds its last partial sum (a ticket counter), so the fused output is
+exact.  This module also holds the launch path (:func:`launch_int_gemm`)
+that the ``dp4a`` word-store kernel behind ``packed_gemm`` shares.
 
 A CPU tensor runs :func:`repro_torch.kernels.ref.quant_gemm_ref`; a CUDA
 tensor launches the kernel or raises — there is no fallback.
@@ -22,10 +28,11 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.kernels._build import block_rows, plan_splits
 from repro_torch.kernels.ref import quant_gemm_ref, unpack_values_ref
-from repro_torch.kernels.unary_gemm import _block_rows, _BN, plan_splits
 
-__all__ = ["quant_gemm", "unpack_values", "LAUNCHES", "reset_launches"]
+__all__ = ["quant_gemm", "unpack_values", "LAUNCHES", "reset_launches",
+           "plan_splits"]
 
 #: kernel launches since the last :func:`reset_launches`
 LAUNCHES = {"quant_gemm": 0}
@@ -46,11 +53,11 @@ unpack_values = unpack_values_ref
 
 def launch_int_gemm(fn_name: str, x: torch.Tensor, w: torch.Tensor,
                     scales: torch.Tensor | None, *, k: int, bits: int,
-                    fuse_dequant: bool) -> torch.Tensor:
+                    splits: int, fuse_dequant: bool) -> torch.Tensor:
     """Launch one of the two packed GEMM kernels of ``csrc/int_gemm.cuh``
-    (C entry ``fn_name``) on CUDA tensors: output, split-K workspace and
-    ticket counters are allocated here, the launch goes to the current
-    stream; raises if the launch fails."""
+    (C entry ``fn_name``) on CUDA tensors, K split ``splits`` ways: output,
+    split-K workspace and ticket counters are allocated here, the launch
+    goes to the current stream; raises if the launch fails."""
     m, n = x.shape[0], w.shape[1]
     x = x.contiguous()
     w = w.contiguous()
@@ -58,11 +65,9 @@ def launch_int_gemm(fn_name: str, x: torch.Tensor, w: torch.Tensor,
                       device=x.device)
     if m == 0 or n == 0:
         return out
-    sm_count = torch.cuda.get_device_properties(x.device).multi_processor_count
-    splits = plan_splits(m, k, n, sm_count)
     ws = counters = None
     if splits > 1:
-        tiles = -(-m // _block_rows(m)) * -(-n // _BN)
+        tiles = -(-m // block_rows(m)) * -(-n // _build.TILE_N)
         scratch = torch.zeros(m * n + tiles, dtype=torch.int32, device=x.device)
         ws, counters = scratch[: m * n], scratch[m * n:]
     if fuse_dequant:
@@ -119,8 +124,13 @@ def quant_gemm(x: torch.Tensor, w_packed: torch.Tensor,
         raise ValueError(f"K mismatch: x has K={x.shape[1]}, w_packed unpacks "
                          f"to {w_packed.shape[0] * pack}")
     if x.device.type == "cuda":
-        out = launch_int_gemm("quant_gemm_launch", x, w_packed, scales,
-                              k=x.shape[1], bits=bits,
+        m, k, n = x.shape[0], x.shape[1], w_packed.shape[1]
+        sm_count = torch.cuda.get_device_properties(x.device).multi_processor_count
+        resident = _build.resident_blocks("quant_gemm_resident_blocks",
+                                          x.device.index, block_rows(m), bits)
+        out = launch_int_gemm("quant_gemm_launch", x, w_packed, scales, k=k,
+                              bits=bits,
+                              splits=plan_splits(m, k, n, sm_count, resident),
                               fuse_dequant=fuse_dequant)
         LAUNCHES["quant_gemm"] += 1
         return out

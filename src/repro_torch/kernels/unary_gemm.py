@@ -3,17 +3,20 @@
 Replaces the TPU kernels ``repro/kernels/unary_gemm.py:tub_gemm_kernel`` and
 ``tu_gemm_kernel`` with ``csrc/unary_gemm.cu``.  ``(M,K) int8 w-bit codes x
 (K,N) int8 -> (M,N) int32``, bit-identical to integer GEMM, executed on the
-unit's literal slot schedule — per K tile the A tile is decomposed once into
-``(v1, v0, sign)`` (tub) or ``(|a| + 127, sign)`` (tu), then every slot forms
-its pulse operand and executes its own multiply-accumulate: ``dp4a`` on the
-CUDA cores for tub, one int8 ``mma.sync.m16n8k32`` per fragment pair on the
-tensor cores for tu (``out^T = B^T . pulses^T``, B through a ``cp.async``
-ring).
+unit's literal slot schedule.  Both designs run on the int8 tensor cores,
+as two instances of one kernel (``unary_mma_kernel``): per K tile the A tile
+is decomposed once into the design's pulse planes — ``(v1 + 127, 2 sign,
+slot-0 pulse)`` for tub, ``(|a| + 127, sign)`` for tu — then every slot
+forms its pulse operand in registers and executes its own
+multiply-accumulate, one int8 ``mma.sync.m16n8k32`` per fragment pair
+(``out^T = B^T . pulses^T``, B through a ``cp.async`` ring).
 
 Bound on an H100: at decode (M = 8) the ``K*N`` weight-code bytes (memory);
-at prefill widths or many slots the multiply rate.  Both split K across
-blocks (exact int32 atomics) so narrow outputs still fill the SMs, each with
-its own plan (:func:`plan_splits`, :func:`plan_tu_splits`).
+at prefill widths or many slots the tensor-core rate on the slot schedule.
+K is split across blocks (exact int32 atomics) so that narrow outputs still
+fill the SMs, by the plan the tensor-core GEMMs share
+(:func:`repro_torch.kernels._build.plan_splits`), which reads each
+instance's resident blocks from the CUDA occupancy calculator.
 
 A CPU tensor runs the plain slot loop of :mod:`repro_torch.kernels.ref`; a
 CUDA tensor launches the kernel or raises — there is no fallback.  Alongside
@@ -23,21 +26,18 @@ host-side constant of the simulated unit, not a device measurement.
 
 from __future__ import annotations
 
-import ctypes
-import functools
-
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.kernels._build import block_rows, plan_splits
 from repro_torch.kernels.ref import tu_gemm_ref, tub_gemm_ref
 
 __all__ = ["tub_gemm", "tub_wc_cycles", "tu_gemm", "tu_wc_cycles",
-           "LAUNCHES", "reset_launches", "plan_splits", "plan_tu_splits"]
+           "LAUNCHES", "reset_launches", "plan_splits"]
 
 #: kernel launches per wrapper since the last :func:`reset_launches`
 LAUNCHES = {"tub_gemm": 0, "tu_gemm": 0}
 
-_BN, _BK = 128, 64   # the kernels' output-column and K tile (csrc/unary_gemm.cu)
 _MODE = {"tub_gemm": 0, "tu_gemm": 1}
 
 
@@ -57,53 +57,6 @@ def tu_wc_cycles(bits: int, common_dim: int) -> int:
     replays B's full L-slot stream, per outer-product step — ``K * L^2``.
     Equals ``wc_cycles("tugemm", ...)``."""
     return common_dim * (2 ** (bits - 1)) ** 2
-
-
-def _block_rows(m: int) -> int:
-    return 8 if m <= 8 else 16 if m <= 16 else 32 if m <= 32 else 64
-
-
-def plan_splits(m: int, k: int, n: int, sm_count: int) -> int:
-    """How many ways the kernel splits K so that the grid fills the card.
-
-    One block covers ``(_block_rows(m), 128)`` outputs; with fewer than two
-    blocks per SM the K loop is cut into that many slices (never more than
-    there are K tiles).  1 means no split: the output needs no zeroing.
-    """
-    blocks = -(-m // _block_rows(m)) * -(-n // _BN)
-    k_tiles = max(1, -(-k // _BK))
-    want = -(-2 * sm_count // max(blocks, 1))
-    return max(1, min(want, k_tiles))
-
-
-def plan_tu_splits(m: int, k: int, n: int, sm_count: int, resident: int) -> int:
-    """How many ways the tu tensor-core kernel splits K.
-
-    Its blocks cover the same ``(_block_rows(m), 128)`` outputs as tub's,
-    but several fit an SM at once (``resident``: the instance's blocks one
-    SM holds, from its registers and shared memory), and at decode the
-    kernel streams B: the plan takes the most K slices that still fit the
-    grid in one wave of resident blocks (never more than there are K
-    tiles).  1 means no split.
-    """
-    blocks = -(-m // _block_rows(m)) * -(-n // _BN)
-    k_tiles = max(1, -(-k // _BK))
-    fit = resident * sm_count // max(blocks, 1)
-    return max(1, min(fit, k_tiles))
-
-
-@functools.lru_cache(maxsize=None)
-def _tu_resident_blocks(block_rows: int, device: int) -> int:
-    """Blocks of the tu instance for ``block_rows`` that one SM of the card
-    holds at once, as the CUDA occupancy calculator counts them."""
-    blocks = ctypes.c_int(0)
-    with torch.cuda.device(device):
-        code = _build.load_library().unary_tu_resident_blocks(block_rows,
-                                                               ctypes.byref(blocks))
-    _build.check_launch(code, "tu_gemm occupancy query")
-    if blocks.value < 1:
-        raise RuntimeError(f"tu_gemm ({block_rows} rows a block) fits no block on an SM")
-    return blocks.value
 
 
 def _check(name: str, a: torch.Tensor, b: torch.Tensor, bits: int) -> None:
@@ -126,11 +79,9 @@ def _launch(name: str, a: torch.Tensor, b: torch.Tensor, n_slots: int) -> torch.
     m, k = a.shape
     n = b.shape[1]
     sm_count = torch.cuda.get_device_properties(a.device).multi_processor_count
-    if name == "tu_gemm":
-        resident = _tu_resident_blocks(_block_rows(m), a.device.index)
-        splits = plan_tu_splits(m, k, n, sm_count, resident)
-    else:
-        splits = plan_splits(m, k, n, sm_count)
+    resident = _build.resident_blocks("unary_resident_blocks", a.device.index,
+                                      _MODE[name], block_rows(m))
+    splits = plan_splits(m, k, n, sm_count, resident)
     alloc = torch.zeros if splits > 1 else torch.empty
     out = alloc((m, n), dtype=torch.int32, device=a.device)
     if m == 0 or n == 0:

@@ -6,13 +6,15 @@ time).  On a machine with an NVIDIA GPU and ``nvcc``:
 
     PYTHONPATH=src python -m pytest -q tests/test_torch_gpu.py
 
-Integer GEMMs must be EQUAL to the plain slot loop; the fused decode kernel
+Integer GEMMs must be EQUAL to the plain slot loop (tu and tub on the int8
+tensor cores, every int8 code included); the fused decode kernel
 within 1e-4 of the gather oracle at fp32 (online softmax re-associates); the
 flash kernels within 1e-4 x max|plain| at fp32 and 1e-2 x max|plain| at
 bfloat16 (one rounding of an output element), per tensor; a bf16 slab that
 the tensor-core kernels' 16-byte copies cannot take raises.  The packed
-integer GEMMs (quant_gemm, packed_gemm) must be EQUAL to their plain
-versions in int32 and in the fused float32 epilogue, and block_stats EQUAL
+integer GEMMs (quant_gemm on the int8 tensor cores, packed_gemm on dp4a)
+must be EQUAL to their plain versions in int32 and in the fused float32
+epilogue, under the planned split K, none and 3, and block_stats EQUAL
 too; each launch on a CUDA tensor must count.
 """
 
@@ -59,26 +61,49 @@ def test_unary_gemm_kernels_equal_plain(cuda, bits, shape):
         assert torch.equal(out, plain(a, b, bits=bits))
 
 
+@pytest.mark.parametrize("design", ["tu", "tub"])
 @pytest.mark.parametrize("splits", [None, 1, 3], ids=["planned", "unsplit", "split3"])
 @pytest.mark.parametrize("bits", range(2, 9))
 @pytest.mark.parametrize("m", [1, 7, 8, 9, 16, 17, 64, 512])
 @pytest.mark.parametrize("k,n", [(203, 77), (256, 384), (1001, 144)])
-def test_tu_gemm_tensor_cores_exact(cuda, monkeypatch, k, n, m, bits, splits):
-    """The int8 tensor-core slot loop EQUAL to the plain slot loop and to the
-    integer GEMM: every row-block width (M 1..512), K off the 64-wide tile
-    and off 4, N off the 128-wide tile and off 16 (plain word loads) or on
-    it (cp.async), every bit width, with the planned split K, none, and 3."""
+def test_tu_gemm_tensor_cores_exact(cuda, monkeypatch, k, n, m, bits, splits, design):
+    """The int8 tensor-core slot loop, with tu's and with tub's pulse
+    builder, EQUAL to the plain slot loop and to the integer GEMM: every
+    row-block width (M 1..512), K off the 64-wide tile and off 4, N off the
+    128-wide tile and off 16 (plain word loads) or on it (cp.async), every
+    bit width, with the planned split K, none, and 3."""
     if splits is not None:
-        monkeypatch.setattr(ug, "plan_tu_splits", lambda *shape: splits)
+        monkeypatch.setattr(ug, "plan_splits", lambda *shape: splits)
+    fn, plain, name = ((ug.tu_gemm, ref_lib.tu_gemm_ref, "tu_gemm") if design == "tu"
+                       else (ug.tub_gemm, ref_lib.tub_gemm_ref, "tub_gemm"))
     rng = np.random.default_rng(1000 * bits + m + k)
     v = 2 ** (bits - 1) - 1
     a = torch.from_numpy(rng.integers(-v, v + 1, (m, k)).astype(np.int8)).to(cuda)
     b = torch.from_numpy(rng.integers(-128, 128, (k, n)).astype(np.int8)).to(cuda)
-    before = ug.LAUNCHES["tu_gemm"]
-    out, _ = ug.tu_gemm(a, b, bits=bits)
+    before = ug.LAUNCHES[name]
+    out, _ = fn(a, b, bits=bits)
     torch.cuda.synchronize()
-    assert ug.LAUNCHES["tu_gemm"] == before + 1
-    assert torch.equal(out, ref_lib.tu_gemm_ref(a, b, bits=bits))
+    assert ug.LAUNCHES[name] == before + 1
+    assert torch.equal(out, plain(a, b, bits=bits))
+    assert torch.equal(out.cpu(), gemm_sims.bgemm_exact(a.cpu(), b.cpu()))
+
+
+@pytest.mark.parametrize("design", ["tu", "tub"])
+@pytest.mark.parametrize("m,k,n", [(8, 256, 384), (13, 203, 77), (64, 1001, 144)])
+def test_unary_gemm_every_int8_code(cuda, design, m, k, n):
+    """At 8 bits every int8 code, -128 included: its magnitude stays 128
+    (tub's v1 = 64 fires in all 64 slots, tu's |a| in all 128), so both
+    kernels equal their plain slot loops and the integer GEMM."""
+    fn, plain = ((ug.tu_gemm, ref_lib.tu_gemm_ref) if design == "tu"
+                 else (ug.tub_gemm, ref_lib.tub_gemm_ref))
+    rng = np.random.default_rng(m + k + n)
+    a = rng.integers(-128, 128, (m, k)).astype(np.int8)
+    a[:, :3] = -128
+    a = torch.from_numpy(a).to(cuda)
+    b = torch.from_numpy(rng.integers(-128, 128, (k, n)).astype(np.int8)).to(cuda)
+    out, _ = fn(a, b, bits=8)
+    torch.cuda.synchronize()
+    assert torch.equal(out, plain(a, b, bits=8))
     assert torch.equal(out.cpu(), gemm_sims.bgemm_exact(a.cpu(), b.cpu()))
 
 
@@ -288,6 +313,36 @@ def test_packed_int_gemms_equal_plain(cuda, shape, bits, fuse):
     if not fuse:
         exact = (x[:, :kk].cpu().long() @ codes[:kk].cpu().long())
         assert torch.equal(got.cpu().long(), exact)
+
+
+@pytest.mark.parametrize("splits", [None, 1, 3], ids=["planned", "unsplit", "split3"])
+@pytest.mark.parametrize("fuse", [False, True])
+@pytest.mark.parametrize("bits", [2, 4, 8])
+@pytest.mark.parametrize("m", [1, 7, 8, 9, 16, 17, 64, 512])
+@pytest.mark.parametrize("k,n", [(203, 77), (256, 384), (1001, 144)])
+def test_quant_gemm_tensor_cores_exact(cuda, monkeypatch, k, n, m, bits, fuse, splits):
+    """The int8 tensor-core quant_gemm EQUAL to its plain version, int32 and
+    fused float32: every row-block width (M 1..512), K (cut to a multiple
+    of 8/bits) off the 64-wide tile and, at 8 and 4 bits, off 4 (x word
+    loads byte by byte), N off the 128-wide tile and off 16 (plain word
+    loads) or on it (cp.async), with the planned split K, none, and 3."""
+    if splits is not None:
+        monkeypatch.setattr(qg_lib, "plan_splits", lambda *shape: splits)
+    k -= k % (8 // bits)
+    rng = np.random.default_rng(100 * bits + m + k)
+    v = 1 << (bits - 1)
+    x = torch.from_numpy(rng.integers(-128, 128, (m, k)).astype(np.int8)).to(cuda)
+    codes = torch.from_numpy(rng.integers(-v, v, (k, n)).astype(np.int8)).to(cuda)
+    scales = torch.from_numpy(rng.uniform(1e-4, 1e-2, (1, n)).astype(np.float32)).to(cuda)
+    w_packed = ops_lib.pack_values(codes, bits)
+    before = qg_lib.LAUNCHES["quant_gemm"]
+    got = qg_lib.quant_gemm(x, w_packed, scales, bits=bits, fuse_dequant=fuse)
+    torch.cuda.synchronize()
+    assert qg_lib.LAUNCHES["quant_gemm"] == before + 1
+    want = ref_lib.quant_gemm_ref(x, w_packed, scales, bits=bits, fuse_dequant=fuse)
+    assert got.dtype == want.dtype and torch.equal(got, want)
+    if not fuse:
+        assert torch.equal(got.cpu(), gemm_sims.bgemm_exact(x.cpu(), codes.cpu()))
 
 
 @pytest.mark.parametrize("shape", [(1, 1), (32, 32), (33, 70), (100, 129),

@@ -70,20 +70,24 @@ def test_package_imports_without_jax_cuda_or_triton():
 
 def test_csrc_holds_the_three_kernels():
     srcs = {p.name: p.read_text() for p in (PKG / "csrc").glob("*.cu")}
-    # nine kernels: tub/tu GEMM, fused decode, flash forward, dQ and dK/dV,
-    # quant_gemm and packed_gemm (one template in int_gemm.cuh), block_stats
+    # nine kernels: tub/tu GEMM (one int8 tensor-core template), fused
+    # decode, flash forward, dQ and dK/dV, quant_gemm (int8 tensor cores) and
+    # packed_gemm (dp4a), both in int_gemm.cuh, block_stats
     assert set(srcs) == {"unary_gemm.cu", "fused_paged_decode.cu",
                          "flash_attention.cu", "quant_gemm.cu",
                          "packed_gemm.cu", "bitsparsity.cu"}
     header = (PKG / "csrc" / "int_gemm.cuh").read_text()
     assert "__dp4a" in header and "__int2float_rn" in header
+    assert "int_mma_kernel" in header and "mma_16832" in header
     for name, launcher in (("quant_gemm.cu", "quant_gemm_launch"),
                            ("packed_gemm.cu", "packed_gemm_launch"),
                            ("bitsparsity.cu", "block_stats_launch")):
         assert f'extern "C" int {launcher}' in srcs[name]
     assert '#include "int_gemm.cuh"' in srcs["quant_gemm.cu"]
     assert '#include "int_gemm.cuh"' in srcs["packed_gemm.cu"]
-    assert "__dp4a" in srcs["unary_gemm.cu"] and "n_slots" in srcs["unary_gemm.cu"]
+    unary = srcs["unary_gemm.cu"]
+    assert "__dp4a" not in unary and "n_slots" in unary and "mma_16832" in unary
+    assert "struct TuPulses" in unary and "struct TubPulses" in unary
     assert 'extern "C" int unary_gemm_launch' in srcs["unary_gemm.cu"]
     assert 'extern "C" int fused_paged_decode_launch' in srcs["fused_paged_decode.cu"]
     flash = srcs["flash_attention.cu"]
@@ -96,7 +100,7 @@ def test_csrc_holds_the_three_kernels():
     assert "__nv_bfloat16" in flash and "atomicAdd" not in flash
     from repro_torch.kernels import _build
     assert set(_build.SOURCES) == set(srcs)
-    assert _build.HEADERS == ("int_gemm.cuh", "mma_bf16.cuh")
+    assert _build.HEADERS == ("int_gemm.cuh", "mma_bf16.cuh", "mma_int8.cuh")
     mma = (PKG / "csrc" / "mma_bf16.cuh").read_text()
     for ptx in ("cp.async.cg.shared.global", "ldmatrix.sync.aligned.m8n8.x4.trans",
                 "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32"):
@@ -105,14 +109,19 @@ def test_csrc_holds_the_three_kernels():
     for kernel in ("flash_fwd_mma_kernel", "flash_bwd_dq_mma_kernel",
                    "flash_bwd_dkv_mma_kernel"):
         assert f"__global__ void __launch_bounds__(MMA_NT)\n{kernel}" in flash
-    # tuGEMM's slot loop on the int8 tensor cores beside tub's dp4a kernel
+    # tuGEMM's and tubGEMM's slot loop and quant_gemm on the int8 tensor
+    # cores, through the shared int8 header (which takes mma_bf16's cp.async)
+    int8 = (PKG / "csrc" / "mma_int8.cuh").read_text()
+    assert "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32" in int8
+    assert '#include "mma_bf16.cuh"' in int8
     unary = srcs["unary_gemm.cu"]
-    assert '#include "mma_bf16.cuh"' in unary
+    assert '#include "mma_int8.cuh"' in unary and '#include "mma_int8.cuh"' in header
     assert "__global__ void __launch_bounds__(MMA_NT)\nunary_mma_kernel" in unary
-    assert "__global__ void __launch_bounds__(NTHREADS)\nunary_gemm_kernel" in unary
-    assert "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32" in unary
-    assert "struct TuPulses" in unary and "launch_mma<TuPulses" in unary
-    for text in [*srcs.values(), header, mma]:
+    assert "unary_gemm_kernel" not in unary
+    assert "launch_rows<TuPulses>" in unary and "launch_rows<TubPulses>" in unary
+    assert "__global__ void __launch_bounds__(MMA_NT)\nint_mma_kernel" in header
+    assert "__global__ void __launch_bounds__(NTHREADS)\nint_gemm_kernel" in header
+    for text in [*srcs.values(), header, mma, int8]:
         assert "torch/extension.h" not in text and "cudaMalloc" not in text
         assert "cudaDeviceSynchronize" not in text
 

@@ -41,6 +41,7 @@ from repro_torch.kernels import ops as port_ops
 from repro_torch.kernels import packed_gemm as port_pg
 from repro_torch.kernels import quant_gemm as port_qg
 from repro_torch.kernels import ref as port_ref
+from repro_torch.kernels import unary_gemm as port_ug
 from repro_torch.models import model as port_model
 
 TOL = 1e-4
@@ -86,6 +87,85 @@ def test_unpack_words_equals_reference(bits):
     got = port_pg.unpack_words(torch.from_numpy(np.array(words)), bits)
     assert got.dtype == torch.int32
     _eq(ref_pg.unpack_words(words, bits), got)
+
+
+def _words(b):
+    """(..., 4) uint8 -> uint32 words, low byte first."""
+    return np.ascontiguousarray(b, dtype=np.uint8).view(np.uint32)[..., 0]
+
+
+def _word_bytes(w):
+    return np.asarray(w, dtype=np.uint32)[..., None].view(np.uint8)
+
+
+def _byte_perm(x, y, sel):
+    """__byte_perm(x, y, sel) without the sign-replicate mode: result byte i
+    is byte (sel >> 4 i) & 7 of the eight bytes y:x."""
+    pool = np.concatenate([_word_bytes(x), _word_bytes(y)], axis=-1)
+    return _words(pool[..., [(sel >> (4 * i)) & 7 for i in range(4)]])
+
+
+def _transpose4x4(r0, r1, r2, r3):
+    """csrc/mma_int8.cuh:transpose4x4, selector for selector."""
+    t0, t1 = _byte_perm(r0, r1, 0x5140), _byte_perm(r2, r3, 0x5140)
+    t2, t3 = _byte_perm(r0, r1, 0x7362), _byte_perm(r2, r3, 0x7362)
+    return (_byte_perm(t0, t1, 0x5410), _byte_perm(t0, t1, 0x7632),
+            _byte_perm(t2, t3, 0x5410), _byte_perm(t2, t3, 0x7632))
+
+
+def _sext_bytes(v, bits, j):
+    """csrc/int_gemm.cuh:sext_bytes: field j of each byte, sign-extended
+    within the byte by f ^ h - h (__vsub4, per byte with wrap-around)."""
+    mask = ((1 << bits) - 1) * 0x01010101
+    half = (1 << (bits - 1)) * 0x01010101
+    f = (np.asarray(v, dtype=np.uint32) >> np.uint32(bits * j)) & np.uint32(mask)
+    d = (_word_bytes(f ^ np.uint32(half)).astype(np.int64)
+         - _word_bytes(np.uint32(half)).astype(np.int64)) & 0xFF
+    return _words(d.astype(np.uint8))
+
+
+@pytest.mark.parametrize("bits", BITS)
+def test_quant_gemm_fragment_unpack(bits):
+    """The tensor-core quant_gemm unpacks each packed tile in shared memory
+    into k-packed column words, the mma's A fragments (csrc/int_gemm.cuh:
+    unpack_quads): word kw of column n holds k 4 kw .. 4 kw + 3 of that
+    column.  Every byte value of the container, at 2/4/8 bits, through that
+    arithmetic equals unpack_values_ref."""
+    packed = np.arange(256, dtype=np.uint8).reshape(64, 4)   # 4 columns
+    packed[1::2] = packed[1::2, ::-1]                        # vary columns per row
+    rows = _words(packed)                                    # one word per row
+    k = 64 * 8 // bits
+    got = np.zeros((k, 4), dtype=np.int8)
+    for kw in range(k // 4):
+        r = kw * bits // 2                  # the kernel's packed row of kw
+        if bits == 8:
+            cols = _transpose4x4(*rows[r:r + 4])
+        elif bits == 4:
+            cols = _transpose4x4(_sext_bytes(rows[r], 4, 0), _sext_bytes(rows[r], 4, 1),
+                                 _sext_bytes(rows[r + 1], 4, 0),
+                                 _sext_bytes(rows[r + 1], 4, 1))
+        else:
+            cols = _transpose4x4(*(_sext_bytes(rows[r], 2, j) for j in range(4)))
+        for n, word in enumerate(cols):
+            got[4 * kw: 4 * kw + 4, n] = _word_bytes(word).view(np.int8)
+    want = port_ref.unpack_values_ref(torch.from_numpy(packed.view(np.int8)), bits, axis=0)
+    np.testing.assert_array_equal(got, want.numpy())
+
+
+@pytest.mark.parametrize("m,k,n,resident,want", [
+    (8, 4096, 14336, 8, 9), (16, 4096, 14336, 8, 9), (8, 4096, 4096, 8, 33),
+    (8, 4096, 1024, 8, 64), (8, 14336, 4096, 8, 33), (512, 4096, 14336, 4, 1),
+    (512, 4096, 1024, 4, 8), (1, 4093, 1027, 8, 64), (33, 203, 77, 6, 4),
+    (1, 1, 1, 8, 1)])
+def test_quant_split_plan(m, k, n, resident, want):
+    """quant_gemm's plan, the one the tensor-core GEMMs share, at its own
+    instances' resident blocks: the most K slices (at most the 64-wide K
+    tiles) that keep the grid within one wave on 132 SMs; the ticket
+    counters count the same tiles."""
+    assert port_qg.plan_splits is port_ug.plan_splits
+    assert port_qg.plan_splits(m, k, n, sm_count=132, resident=resident) == want
+    blocks = -(-m // port_qg.block_rows(m)) * -(-n // 128)
+    assert want == 1 or blocks * want <= resident * 132
 
 
 @pytest.mark.parametrize("fuse", [False, True])

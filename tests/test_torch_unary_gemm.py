@@ -16,6 +16,7 @@ from repro.kernels import ops as ref_ops
 from repro.kernels import ref as ref_ref
 from repro_torch import backends as port_backends
 from repro_torch.kernels import ops as port_ops
+from repro_torch.kernels import packed_gemm as port_pg
 from repro_torch.kernels import ref as port_ref
 from repro_torch.kernels import unary_gemm as port_ug
 
@@ -104,7 +105,8 @@ def test_cpu_tensors_never_count_as_launches():
     (8, 4096, 4096, 9), (8, 4096, 128256, 1), (512, 4096, 14336, 1),
     (8, 64, 128, 1), (8, 4096, 1024, 33), (1, 1, 1, 1)])
 def test_split_plan(m, k, n, want):
-    assert port_ug.plan_splits(m, k, n, sm_count=132) == want
+    """The dp4a word-store kernel's plan (packed_gemm): two blocks an SM."""
+    assert port_pg.plan_dp4a_splits(m, k, n, sm_count=132) == want
 
 
 @pytest.mark.parametrize("m,k,n,resident,want", [
@@ -113,11 +115,12 @@ def test_split_plan(m, k, n, want):
     (512, 4096, 1024, 3, 6), (13, 203, 77, 5, 4), (1, 1, 1, 5, 1),
     (8, 4096, 14336, 4, 4), (512, 4096, 1024, 4, 8), (32, 4096, 4096, 4, 16)])
 def test_tu_split_plan(m, k, n, resident, want):
-    """tu's plan: the most K slices (at most the 64-wide K tiles) that keep
-    the grid within one wave of the instance's resident blocks on 132 SMs
-    (an H100 SXM holds 5/5/4/3 blocks of the 8/16/32/64-row instances)."""
-    assert port_ug.plan_tu_splits(m, k, n, sm_count=132, resident=resident) == want
-    blocks = -(-m // port_ug._block_rows(m)) * -(-n // 128)
+    """The slot loop's plan, one for tu and tub: the most K slices (at most
+    the 64-wide K tiles) that keep the grid within one wave of the
+    instance's resident blocks on 132 SMs (an H100 SXM holds 5/5/4/3 blocks
+    of tu's 8/16/32/64-row instances)."""
+    assert port_ug.plan_splits(m, k, n, sm_count=132, resident=resident) == want
+    blocks = -(-m // port_ug.block_rows(m)) * -(-n // 128)
     assert want == 1 or blocks * want <= resident * 132
 
 
@@ -146,3 +149,43 @@ def test_tu_pulse_word_arithmetic():
         pulse = gate.reshape(-1).view(np.uint32) & sgn
         got = _bytes(pulse).reshape(-1).view(np.int8).astype(np.int64)
         np.testing.assert_array_equal(got, (slot < np.abs(codes)) * np.sign(codes))
+
+
+def _vsub4(x, y):
+    """__vsub4: per-byte subtraction with wrap-around."""
+    d = (_bytes(x).astype(np.int64) - _bytes(y).astype(np.int64)) & 0xFF
+    return d.astype(np.uint8).reshape(-1).view(np.uint32)
+
+
+def _byte_signs(x):
+    """prmt's sign-replicate mode: 0xff in each byte whose bit 7 is set."""
+    return np.where(_bytes(x) >= 128, 0xFF, 0).astype(np.uint8).reshape(-1).view(np.uint32)
+
+
+def test_tub_pulse_word_arithmetic():
+    """The planes tub's tensor-core slot loop builds its pulses from (csrc/
+    unary_gemm.cu:TubPulses), on every int8 code and every slot 0..63: per
+    byte, |a| = (a ^ neg) + (neg & 1) without carry (-128 stays 128), and
+    v1 + 127 - t has bit 7 set exactly when t < v1 with no borrow, so slot
+    t >= 1's pulse word byte_signs(p0 - t) & p1 and slot 0's plane p2 are
+    (2 [t < v1] + [t == 0] v0) sign(a), per byte."""
+    codes = np.arange(-128, 128, dtype=np.int64)
+    words = ((codes.reshape(-1, 4) & 0xFF) @ (1 << (8 * np.arange(4)))).astype(np.uint32)
+    one = np.uint32(0x01010101)
+    neg = _byte_signs(words)
+    mag = ((words ^ neg) + (neg & one)).astype(np.uint32)
+    np.testing.assert_array_equal(_bytes(mag).reshape(-1), np.abs(codes))
+    v1 = (mag >> 1) & np.uint32(0x7F7F7F7F)
+    p0 = (v1 + np.uint32(0x7F7F7F7F)).astype(np.uint32)
+    p1 = _vsub4(np.uint32(0x02020202) ^ neg, neg)
+    above = np.where(_bytes(v1) > 0, 0xFF, 0).astype(np.uint8).reshape(-1).view(np.uint32)
+    gate = (above & np.uint32(0x02020202)) | (mag & one)      # __vcmpgtu4(v1, 0)
+    p2 = _vsub4(gate ^ neg, neg)
+    mag_v1, mag_v0 = np.abs(codes) // 2, np.abs(codes) % 2
+    np.testing.assert_array_equal(_bytes(p0).reshape(-1).astype(np.int64), mag_v1 + 127)
+    for slot in range(64):
+        pulse = p2 if slot == 0 else _byte_signs(
+            (p0 - np.uint32(slot) * one).astype(np.uint32)) & p1
+        got = _bytes(pulse).reshape(-1).view(np.int8).astype(np.int64)
+        want = (2 * (slot < mag_v1) + (slot == 0) * mag_v0) * np.sign(codes)
+        np.testing.assert_array_equal(got, want, err_msg=f"slot {slot}")
