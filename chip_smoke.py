@@ -8,10 +8,11 @@ Phases, each of which fails the run (non-zero exit) on its own:
 1. ``device``  — card name and power limit, build of the CUDA kernels, and
    from ``cuobjdump`` of the built library the tensor-core instructions,
    registers and local memory of each tensor-core kernel (the bf16 flash
-   kernels' HMMA; the IMMA of tuGEMM's, tubGEMM's and quant_gemm's int8
-   kernels; none may lack them, none may spill);
+   kernels' HMMA; the IMMA of tuGEMM's, tubGEMM's, quant_gemm's and
+   packed_gemm's int8 kernels; none may lack them, none may spill);
 2. ``kernels`` — every kernel against its plain PyTorch version (and the
-   integer-GEMM / gather oracles) on the card, at the main path's shapes;
+   integer-GEMM / gather oracles) on the card, at the main path's shapes
+   (fused decode also at forced split counts and head dims 96, 256, 512);
 3. ``probes``  — paged-vs-contiguous == 0.0 and fused-vs-gather <=
    FUSED_LOGIT_TOL on the smoke config at fp32, on the card;
 4. ``serve``   — ``ServingEngine`` at llama3-8b's published widths serving a
@@ -37,7 +38,8 @@ Phases, each of which fails the run (non-zero exit) on its own:
    on the flash kernels' launch counters; one more step traced;
 7. ``times``   — per-kernel CUDA-event timings beside the plain version, the
    roofline bound and, where one exists, the library call (flash: TFLOP/s,
-   and SDPA's backward alone beside its forward + backward).
+   and SDPA's backward alone beside its forward + backward; fused decode
+   also unsplit and at the serve step's geometry, on its log lines).
 
 Needs a CUDA device: without one (or without the package beside it) the
 script exits non-zero and prints no result.  ``--layers`` / ``--requests``
@@ -49,6 +51,7 @@ is fixed at ``TRAIN_LAYERS``.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import gc
 import json
@@ -187,14 +190,15 @@ def log(msg: str) -> None:
 # the kernels that run on the tensor cores: the bf16 instantiation of each
 # flash kernel (tensor-core instruction HMMA, per head dim), the int8 slot
 # loop of tuGEMM and tubGEMM (IMMA, per row-block width; one template, told
-# apart by its pulse builder) and quant_gemm's int8 kernel (IMMA, per bit
-# width and row-block width)
+# apart by its pulse builder) and the packed GEMMs' int8 kernel (IMMA, per
+# bit width and row-block width; one template, its WORDS flag telling
+# packed_gemm's word stores from quant_gemm's container)
 MMA_KERNELS = {"flash_fwd": "flash_fwd_mma_kernel",
                "flash_bwd_dq": "flash_bwd_dq_mma_kernel",
                "flash_bwd_dkv": "flash_bwd_dkv_mma_kernel",
                "tu_gemm": "unary_mma_kernel", "tub_gemm": "unary_mma_kernel",
-               "quant_gemm": "int_mma_kernel"}
-INT8_MMA = ("tu_gemm", "tub_gemm", "quant_gemm")
+               "quant_gemm": "int_mma_kernel", "packed_gemm": "int_mma_kernel"}
+INT8_MMA = ("tu_gemm", "tub_gemm", "quant_gemm", "packed_gemm")
 MMA_ROWS = (8, 16, 32, 64)         # rows a block of the int8 instances
 PULSES = {"TubPulses": "tub_gemm", "TuPulses": "tu_gemm"}
 
@@ -213,7 +217,8 @@ def _mma_instance(line: str):
     names, else None.  The key is the head dim for flash; for the unary slot
     loop (template arguments Pulses, WN, WM, WARPS_N, WARPS_M) the rows per
     block, WARPS_M * WM * 8, and its pulse builder names the design; for
-    quant_gemm (BITS, WN, WM, WARPS_N, WARPS_M) the pair (bits, rows)."""
+    the packed GEMMs (WORDS, BITS, WN, WM, WARPS_N, WARPS_M) the pair (bits,
+    rows), WORDS naming packed_gemm (true) or quant_gemm (false)."""
     hit = _MMA_PATTERN.search(line)
     if not hit:
         return None
@@ -223,20 +228,21 @@ def _mma_instance(line: str):
         name = next(v for k, v in PULSES.items() if k in targs)
         return name, args[3] * args[1] * 8
     if kernel == "int_mma_kernel":
-        return "quant_gemm", (args[0], args[4] * args[2] * 8)
+        name = "packed_gemm" if "Lb1E" in targs else "quant_gemm"
+        return name, (args[0], args[4] * args[2] * 8)
     return _BY_KERNEL[kernel], args[0]
 
 
 _BY_KERNEL = {v: k for k, v in MMA_KERNELS.items() if k in FLASH}
 # mangled names: flash_fwd_mma_kernelILi128EE..., for the slot loop
-# unary_mma_kernelINS_8TuPulsesELi2ELi1ELi4ELi1EE... and for quant_gemm
-# int_mma_kernelILi4ELi2ELi1ELi4ELi1EE...
-_MMA_PATTERN = re.compile(r"(%s)I((?:[^L]\w*?E)?(?:Li\d+E)+)E"
+# unary_mma_kernelINS_8TuPulsesELi2ELi1ELi4ELi1EE... and for the packed
+# GEMMs int_mma_kernelILb0ELi4ELi2ELi1ELi4ELi1EE... (Lb1E: packed_gemm)
+_MMA_PATTERN = re.compile(r"(%s)I((?:[^L]\w*?E)?(?:Lb[01]E)?(?:Li\d+E)+)E"
                           % "|".join(sorted(set(MMA_KERNELS.values()))))
 
 
 def _mma_keys(name: str) -> tuple:
-    if name == "quant_gemm":
+    if name in INT_GEMMS:
         return tuple((bits, rows) for bits in (2, 4, 8) for rows in MMA_ROWS)
     return MMA_ROWS if name in INT8_MMA else flash_lib.HEAD_DIMS
 
@@ -244,9 +250,9 @@ def _mma_keys(name: str) -> tuple:
 def _resident(name: str, key) -> int:
     """Blocks of the int8 instance one SM holds at once: what its split plan
     reads (the CUDA occupancy calculator, through the library)."""
-    if name == "quant_gemm":
+    if name in INT_GEMMS:
         bits, rows = key
-        return _build.resident_blocks("quant_gemm_resident_blocks", 0, rows, bits)
+        return _build.resident_blocks(f"{name}_resident_blocks", 0, rows, bits)
     return _build.resident_blocks("unary_resident_blocks", 0, ug._MODE[name], key)
 
 
@@ -276,7 +282,7 @@ def _tensor_core_report() -> dict:
             report[current[0]].setdefault(current[1], {}).update(use)
     for name, per_key in report.items():
         int8 = name in INT8_MMA
-        label = ("bits, rows" if name == "quant_gemm" else "rows") if int8 else "d"
+        label = ("bits, rows" if name in INT_GEMMS else "rows") if int8 else "d"
         op = "IMMA" if int8 else "HMMA"
         for key in _mma_keys(name):
             use = per_key.get(key, {})
@@ -350,6 +356,67 @@ def _decode_case(gen, lengths, *, pool_dtype, q_dtype=torch.float32,
 RAGGED_LENGTHS = (1, 16, 17, 255, 256, 500, 777, 1024)
 
 
+@contextlib.contextmanager
+def _decode_splits(n):
+    """Force the fused decode kernel's split count to ``n`` (None: keep its
+    plan).  The wrapper reads its plan through the module global
+    ``plan_decode_splits``, which this replaces for the block's duration."""
+    planned = fused_lib.plan_decode_splits
+    if n is not None:
+        fused_lib.plan_decode_splits = lambda *shape: n
+    try:
+        yield
+    finally:
+        fused_lib.plan_decode_splits = planned
+
+
+def _check_fused_decode(gen, errs: dict, lengths, *, pool_dtype,
+                        q_dtype=torch.float32, splits=None, **geom) -> None:
+    """The fused decode kernel (split as planned, or ``splits`` ways) on
+    NaN-poisoned dead pages against the gather oracle on clean pools and
+    the plain walk over the same split ranges; two launches bitwise equal.
+    Tolerances are absolute, (vs gather oracle, vs plain walk).  With a
+    bfloat16 query the oracle also rounds K/V products and softmax weights
+    to bfloat16, so only the plain walk (same rounding points as the
+    kernel) holds the kernel there: the two may differ by the last
+    rounding of one float32 value, one bfloat16 ulp of that element."""
+    q, pk, pv, pkp, pvp, bt, lens = _decode_case(
+        gen, lengths, pool_dtype=pool_dtype, q_dtype=q_dtype, **geom)
+    h, hd = q.shape[2], q.shape[3]
+    with _decode_splits(splits):
+        got = fused_lib.fused_paged_decode_attention(q, pkp, pvp, bt, lens,
+                                                     num_heads=h)
+        torch.cuda.synchronize()
+        again = fused_lib.fused_paged_decode_attention(q, pkp, pvp, bt, lens,
+                                                       num_heads=h)
+    require(bool(torch.isfinite(got.float()).all()),
+            "fused decode read a dead (NaN-poisoned) page")
+    require(torch.equal(got, again), "fused decode: two launches differ")
+    oracle = paged_lib.paged_decode_attention(q, pk, pv, bt, lens, num_heads=h)
+    plain = fused_lib.fused_decode_plain(q, pkp, pvp, bt, lens, num_heads=h,
+                                         splits=splits or 1)
+    d_oracle = float((got.float() - oracle.float()).abs().max())
+    d_plain = float((got.float() - plain.float()).abs().max())
+    if q_dtype == torch.float32:
+        errs["fused_paged_decode"] = max(errs["fused_paged_decode"], d_oracle,
+                                         d_plain)
+        tol, plain_ok, plain_tol = 1e-4, d_plain <= 1e-4, "0.0001"
+    else:
+        ulp = plain.float().abs() * 2.0 ** -7 + 1e-6
+        tol = 2e-2
+        plain_ok = bool(((got.float() - plain.float()).abs() <= ulp).all())
+        plain_tol = "one bfloat16 ulp of each element"
+    what = (f"fused decode pools={str(pool_dtype).split('.')[-1]} "
+            f"q={str(q_dtype).split('.')[-1]} B={q.shape[0]} H={h} "
+            f"KVH={pk.shape[2]} hd={hd} page={pk.shape[1]} "
+            f"splits={'planned' if splits is None else splits}")
+    log(f"  {what}: max |kernel-gather oracle| {d_oracle:.3e} (tol {tol:g}), "
+        f"max |kernel-plain walk| {d_plain:.3e} (tol {plain_tol})")
+    require(d_oracle <= tol and plain_ok,
+            f"{what} disagrees: vs oracle {d_oracle} (tol {tol}), vs plain walk "
+            f"{d_plain} (tol {plain_tol})")
+
+
 def phase_kernels() -> dict:
     gen = torch.Generator(device=DEV)
     gen.manual_seed(0)
@@ -405,59 +472,26 @@ def phase_kernels() -> dict:
         require(d == 0, f"{name} (8,4096,128256) vs int GEMM: max |d| {d}")
     del a, b, oracle
 
-    # fused decode: B=8, H=32, KVH=8, hd=128, page=16, ragged lengths
-    # tolerances are absolute, (vs gather oracle, vs plain walk).  With a
-    # bfloat16 query the oracle also rounds K/V products and softmax weights
-    # to bfloat16, so only the plain walk (same rounding points as the
-    # kernel) holds the kernel there: the two may differ by the last
-    # rounding of one float32 value, one bfloat16 ulp of that element.
-    for pool_dtype, q_dtype, tol, tol_plain in (
-            (torch.float32, torch.float32, 1e-4, 1e-4),
-            (torch.bfloat16, torch.float32, 1e-4, 1e-4),
-            (torch.bfloat16, torch.bfloat16, 2e-2, None)):
-        q, pk, pv, pkp, pvp, bt, lens = _decode_case(
-            gen, RAGGED_LENGTHS, pool_dtype=pool_dtype, q_dtype=q_dtype)
-        got = fused_lib.fused_paged_decode_attention(
-            q, pkp, pvp, bt, lens, num_heads=32)       # poisoned dead pages
-        torch.cuda.synchronize()
-        require(bool(torch.isfinite(got.float()).all()),
-                "fused decode read a dead (NaN-poisoned) page")
-        oracle = paged_lib.paged_decode_attention(q, pk, pv, bt, lens,
-                                                  num_heads=32)
-        plain = fused_lib.fused_decode_plain(q, pkp, pvp, bt, lens,
-                                             num_heads=32)
-        d_oracle = float((got.float() - oracle.float()).abs().max())
-        d_plain = float((got.float() - plain.float()).abs().max())
-        if q_dtype == torch.float32:
-            errs["fused_paged_decode"] = max(errs["fused_paged_decode"],
-                                             d_oracle, d_plain)
-        if tol_plain is None:
-            ulp = plain.float().abs() * 2.0 ** -7 + 1e-6
-            plain_ok = bool(((got.float() - plain.float()).abs() <= ulp).all())
-            plain_tol = "one bfloat16 ulp of each element"
-        else:
-            plain_ok = d_plain <= tol_plain
-            plain_tol = f"{tol_plain:g}"
-        log(f"  fused decode pools={str(pool_dtype).split('.')[-1]} "
-            f"q={str(q_dtype).split('.')[-1]}: max |kernel-gather oracle| "
-            f"{d_oracle:.3e} (tol {tol:g}), max |kernel-plain walk| "
-            f"{d_plain:.3e} (tol {plain_tol})")
-        require(d_oracle <= tol and plain_ok,
-                f"fused decode disagrees (pools {pool_dtype}, q {q_dtype}): "
-                f"vs oracle {d_oracle} (tol {tol}), vs plain walk {d_plain} "
-                f"(tol {plain_tol})")
-    # small odd geometry: page 3, GQA 1 and 4, hd 64
+    # fused decode: B=8, H=32, KVH=8, hd=128, page=16, ragged lengths, the
+    # page axis split as planned; then forced split counts (the whole walk in
+    # one block, two halves, a page a split), head dims 96, 256 and 512 (the
+    # wide rows' instance), and small odd geometry (page 3, GQA 1 and 4, hd 64)
+    combos = ((torch.float32, torch.float32), (torch.bfloat16, torch.float32),
+              (torch.bfloat16, torch.bfloat16))
+    for pool_dtype, q_dtype in combos:
+        _check_fused_decode(gen, errs, RAGGED_LENGTHS, pool_dtype=pool_dtype,
+                            q_dtype=q_dtype)
+    for splits in (1, 2, 1024 // 16):
+        for pool_dtype in (torch.float32, torch.bfloat16):
+            _check_fused_decode(gen, errs, RAGGED_LENGTHS, pool_dtype=pool_dtype,
+                                splits=splits)
+    for hd in (96, 256, 512):
+        for pool_dtype, q_dtype in combos:
+            _check_fused_decode(gen, errs, RAGGED_LENGTHS, pool_dtype=pool_dtype,
+                                q_dtype=q_dtype, hd=hd)
     for (h, kvh, page) in ((4, 4, 3), (8, 2, 3), (4, 1, 8)):
-        q, pk, pv, pkp, pvp, bt, lens = _decode_case(
-            gen, (1, 3, 4, 23), pool_dtype=torch.float32, batch=4, h=h,
-            kvh=kvh, hd=64, page=page, max_len=24)
-        got = fused_lib.fused_paged_decode_attention(q, pkp, pvp, bt, lens,
-                                                     num_heads=h)
-        oracle = paged_lib.paged_decode_attention(q, pk, pv, bt, lens,
-                                                  num_heads=h)
-        d = float((got - oracle).abs().max())
-        errs["fused_paged_decode"] = max(errs["fused_paged_decode"], d)
-        require(d <= 1e-4, f"fused decode H={h} KVH={kvh} page={page}: {d}")
+        _check_fused_decode(gen, errs, (1, 3, 4, 23), pool_dtype=torch.float32,
+                            batch=4, h=h, kvh=kvh, hd=64, page=page, max_len=24)
     _flash_kernels(gen, errs)
     _int_gemm_kernels(gen, errs)
     _block_stats_kernels(gen, errs)
@@ -1026,7 +1060,7 @@ def phase_serve(cfg, params, requests: int) -> dict:
     del gather
 
     _decode_step_profile(engine, cfg, {"tub_gemm": "TubPulses",
-                                       "fused_paged_decode": "fused_paged_decode_kernel"})
+                                       "fused_paged_decode": "fused_decode_split_kernel"})
     peak = torch.cuda.max_memory_allocated()
     log(f"  peak torch.cuda.max_memory_allocated(): {peak / 2**30:.2f} GiB")
     launches_run = {
@@ -1135,7 +1169,7 @@ def _quant_serve(cfg, params, trace) -> tuple[dict, int]:
     require(ug.LAUNCHES["tub_gemm"] == ug.LAUNCHES["tu_gemm"] == 0,
             "a unary GEMM kernel launched without a backend scope")
     _decode_step_profile(engine, qcfg, {"quant_gemm": "int_mma_kernel",
-                                        "fused_paged_decode": "fused_paged_decode_kernel"})
+                                        "fused_paged_decode": "fused_decode_split_kernel"})
     peak = torch.cuda.max_memory_allocated()
     log(f"  peak torch.cuda.max_memory_allocated(): {peak / 2**30:.2f} GiB")
     # the kernel at the trace's own prefill rows, every distinct site shape
@@ -1533,10 +1567,52 @@ def phase_times(errs: dict, launches: dict, launches_run: dict,
     log(f"  fused_paged_decode: {ms:.4f} ms, plain walk {plain_ms:.3f} ms, "
         f"gather oracle {gather_ms:.4f} ms, bound {max(bytes_ms, ops_ms):.4f} ms "
         f"(bytes; {kv_bytes / 2**20:.1f} MiB of live K/V)")
+    _decode_split_sweep(q, pk, pv, bt, lens, "the same")
+    # the serve step's geometry: 8 slots at context 300 (+ the token this
+    # step writes), page 16, 64-page block table; log lines only
+    serve_lens = (301,) * 8
+    q, pk, pv, _, _, bt, lens = _decode_case(gen, serve_lens,
+                                             pool_dtype=torch.float32)
+    step_ms = _time_ms(lambda: fused_lib.fused_paged_decode_attention(
+        q, pk, pv, bt, lens, num_heads=32))
+    step_bytes = (fused_lib.fused_decode_bytes_moved(
+        serve_lens, page_size=16, num_kv_heads=8, head_dim=128, dtype_bytes=4)
+        + 2 * q.numel() * 4 + bt.numel() * 4 + lens.numel() * 4)
+    log(f"  fused_paged_decode at the serve step's geometry (B=8 x 301 tokens, "
+        f"fp32): {step_ms:.4f} ms, bound {step_bytes / HBM_BYTES_PER_S * 1e3:.4f} "
+        f"ms (bytes; {step_bytes / 2**20:.1f} MiB)")
+    _decode_split_sweep(q, pk, pv, bt, lens, "the serve step's geometry")
+    q, pk, pv, _, _, bt, lens = _decode_case(gen, RAGGED_LENGTHS,
+                                             pool_dtype=torch.bfloat16)
+    _decode_split_sweep(q, pk, pv, bt, lens, "ragged lengths, bf16 pools")
     rows.extend(_time_flash(gen, errs, launches, launches_run, sass))
     rows.extend(_time_int_gemms(gen, errs, launches, launches_run, layers))
     rows.append(_time_block_stats(gen, errs, launches, launches_run))
     return rows
+
+
+def _decode_split_sweep(q, pk, pv, bt, lens, what: str) -> None:
+    """Log the fused decode's time at its planned split count and at forced
+    counts 1 (unsplit) to 64 (a page a split): whether the one-wave plan is
+    the best count.  Log line only."""
+    batch, _, h, hd = q.shape
+    kvh, max_blocks = pk.shape[2], bt.shape[1]
+    lanes, chunks, gtile = fused_lib.decode_geometry(hd, pk.element_size())
+    resident = _build.resident_blocks(
+        "fused_paged_decode_resident_blocks", 0, hd, lanes, chunks, gtile,
+        0 if pk.dtype == torch.float32 else 1)
+    rows = kvh * -(-(h // kvh) // gtile)
+    sm_count = torch.cuda.get_device_properties(0).multi_processor_count
+    plan = fused_lib.split_geometry(max_blocks, fused_lib.plan_decode_splits(
+        batch, rows, max_blocks, sm_count, resident))[1]
+    times = []
+    for n in (None, 1, 2, 4, 8, 16, 32, 64):
+        with _decode_splits(n):
+            ms = _time_ms(lambda: fused_lib.fused_paged_decode_attention(
+                q, pk, pv, bt, lens, num_heads=h))
+        times.append(f"{'plan' if n is None else n}:{ms:.4f}")
+    log(f"  fused_paged_decode split sweep, {what} (plan {plan} splits at "
+        f"{resident} blocks an SM): ms by split count " + " ".join(times))
 
 
 def _time_int_gemms(gen, errs: dict, launches: dict, launches_run: dict,

@@ -10,10 +10,11 @@
 // words is the (ceil(K/cpw), N) int32 store pack_codes emits, cpw = 32/bits
 // codes a word, lane j of word r holding k = r*cpw + j (low lanes first);
 // the padding lanes of the last word hold zero codes.  Neither the float
-// weight nor the int8 code matrix ever exists in device memory: each K tile
-// is sign-extended on its way into shared memory.  The kernel
-// (int_gemm_kernel, dp4a), its bound and its split-K epilogue are in
-// int_gemm.cuh, beside quant_gemm's tensor-core kernel.
+// weight nor the int8 code matrix ever exists in device memory: each 64-k
+// tile of words lands raw in shared memory and is unpacked there once into
+// the A fragments of the int8 tensor cores.  The kernel (int_mma_kernel
+// with WORDS = true, the template quant_gemm's int8 container runs on), its
+// bound and its split-K epilogue are in int_gemm.cuh.
 
 #include "int_gemm.cuh"
 
@@ -26,4 +27,11 @@ extern "C" int packed_gemm_launch(const void* x, const void* words,
                                   void* stream) {
   return int_gemm::launch<true>(x, words, scales, out, ws, counters, M, K, N,
                                 w_rows, bits, splits, fuse, stream);
+}
+
+// How many blocks of the instance that M rows and `bits` select one SM of
+// the current device holds at once, into *blocks; returns the CUDA error
+// code.  The host's split plan reads it.
+extern "C" int packed_gemm_resident_blocks(int M, int bits, int* blocks) {
+  return int_gemm::resident_blocks<true>(M, bits, blocks);
 }

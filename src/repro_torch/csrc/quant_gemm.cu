@@ -10,7 +10,7 @@
 // w_packed is (K*bits/8, N) int8 with 8/bits consecutive k of one column in
 // a byte, low nibble/crumb first (ops.pack_values).  The kernel
 // (int_mma_kernel, on the int8 tensor cores), its bound and its split-K
-// epilogue are in int_gemm.cuh.
+// epilogue are in int_gemm.cuh, shared with packed_gemm.cu.
 
 #include "int_gemm.cuh"
 
@@ -29,15 +29,5 @@ extern "C" int quant_gemm_launch(const void* x, const void* w_packed,
 // the current device holds at once (registers, shared memory, threads), into
 // *blocks; returns the CUDA error code.  The host's split plan reads it.
 extern "C" int quant_gemm_resident_blocks(int M, int bits, int* blocks) {
-  using int_gemm::launch_container;
-  const auto query = [&](auto launch_bits) {
-    return (int)launch_bits(nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, M, 0, 0, 0,
-                            1, false, nullptr, blocks);
-  };
-  switch (bits) {
-    case 2: return query(launch_container<2>);
-    case 4: return query(launch_container<4>);
-    case 8: return query(launch_container<8>);
-    default: return (int)cudaErrorInvalidValue;
-  }
+  return int_gemm::resident_blocks<false>(M, bits, blocks);
 }

@@ -107,13 +107,16 @@ def _declare(lib: ctypes.CDLL) -> None:
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.unary_gemm_launch.argtypes = [i, p, p, p, i, i, i, i, i, p]
     lib.unary_gemm_launch.restype = i
-    for name in ("unary_resident_blocks", "quant_gemm_resident_blocks"):
+    for name in ("unary_resident_blocks", "quant_gemm_resident_blocks",
+                 "packed_gemm_resident_blocks"):
         fn = getattr(lib, name)
         fn.argtypes = [i, i, ctypes.POINTER(i)]
         fn.restype = i
-    lib.fused_paged_decode_launch.argtypes = [p, p, p, p, p, p,
-                                              i, i, i, i, i, i, i, i, p]
+    lib.fused_paged_decode_launch.argtypes = [p, p, p, p, p, p, p, p,
+                                              i, i, i, i, i, i, i, i, i, i, i, i, i, p]
     lib.fused_paged_decode_launch.restype = i
+    lib.fused_paged_decode_resident_blocks.argtypes = [i, i, i, i, i, ctypes.POINTER(i)]
+    lib.fused_paged_decode_resident_blocks.restype = i
     ll, f = ctypes.c_longlong, ctypes.c_float
     lib.flash_fwd_launch.argtypes = [p, p, p, p, p, i, i, i, i, ll, ll, ll,
                                      f, i, i, p]
@@ -185,7 +188,7 @@ def block_rows(m: int) -> int:
 
 def plan_splits(m: int, k: int, n: int, sm_count: int, resident: int) -> int:
     """How many ways a tensor-core GEMM kernel (``tub_gemm``, ``tu_gemm``,
-    ``quant_gemm``) splits K.
+    ``quant_gemm``, ``packed_gemm``) splits K.
 
     One block covers ``(block_rows(m), TILE_N)`` outputs and ``resident``
     of them fit an SM at once (the instance's registers and shared memory,

@@ -2,15 +2,17 @@
 wrapper + plain version.
 
 Replaces the TPU kernel ``repro/kernels/packed_gemm.py:packed_gemm_kernel``
-with ``csrc/packed_gemm.cu`` (``int_gemm_kernel``, ``dp4a`` on the CUDA
-cores, in ``csrc/int_gemm.cuh`` beside ``quant_gemm``'s tensor-core kernel;
-launch path in :mod:`repro_torch.kernels.quant_gemm`, split plan
-:func:`plan_dp4a_splits`).
-Weights travel as the int32 words
-:func:`repro_torch.core.packing.pack_codes` emits (16 / 8 / 4 codes a word
-at 2 / 4 / 8 bits) and are sign-extended inside the K loop; neither the
-float weight nor the int8 code matrix exists in device memory.  int32
-accumulate, optional per-channel float32 dequant epilogue.
+with ``csrc/packed_gemm.cu``: ``int_mma_kernel`` of ``csrc/int_gemm.cuh``
+with its word format (``WORDS``), the kernel ``quant_gemm``'s int8
+container runs on, on the int8 tensor cores (``mma.sync.m16n8k32``).
+Weights travel as the int32 words :func:`repro_torch.core.packing.pack_codes`
+emits (16 / 8 / 4 codes a word at 2 / 4 / 8 bits); each 64-k tile of words
+lands raw in shared memory and is unpacked there once into the A
+fragments, so neither the float weight nor the int8 code matrix exists in
+device memory.  int32 accumulate, optional per-channel float32 dequant
+epilogue.  The launch path (:func:`repro_torch.kernels.quant_gemm.launch_int_gemm`)
+and the split-K plan (:func:`repro_torch.kernels._build.plan_splits`, at
+this kernel's own instances' resident blocks) are ``quant_gemm``'s.
 
 A CPU tensor runs the materialising
 :func:`repro_torch.kernels.ref.packed_gemm_ref` (``unpack_codes``, then
@@ -22,12 +24,13 @@ from __future__ import annotations
 import torch
 
 from repro_torch.core import packing
-from repro_torch.kernels._build import TILE_K, TILE_N, block_rows
+from repro_torch.kernels import _build
+from repro_torch.kernels._build import block_rows, plan_splits
 from repro_torch.kernels.quant_gemm import check_operands, launch_int_gemm
 from repro_torch.kernels.ref import packed_gemm_ref
 
 __all__ = ["packed_gemm", "packed_matmul", "unpack_words", "LAUNCHES",
-           "reset_launches", "plan_dp4a_splits"]
+           "reset_launches", "plan_splits"]
 
 #: kernel launches since the last :func:`reset_launches`
 LAUNCHES = {"packed_gemm": 0}
@@ -36,19 +39,6 @@ LAUNCHES = {"packed_gemm": 0}
 def reset_launches() -> None:
     for k in LAUNCHES:
         LAUNCHES[k] = 0
-
-
-def plan_dp4a_splits(m: int, k: int, n: int, sm_count: int) -> int:
-    """How many ways the ``dp4a`` word-store kernel splits K.
-
-    One block covers ``(block_rows(m), TILE_N)`` outputs; with fewer than
-    two blocks per SM the K loop is cut into that many slices (never more
-    than there are K tiles).  1 means no split.
-    """
-    blocks = -(-m // block_rows(m)) * -(-n // TILE_N)
-    k_tiles = max(1, -(-k // TILE_K))
-    want = -(-2 * sm_count // max(blocks, 1))
-    return max(1, min(want, k_tiles))
 
 
 def unpack_words(words: torch.Tensor, bits: int) -> torch.Tensor:
@@ -82,10 +72,13 @@ def packed_gemm(x: torch.Tensor, words: torch.Tensor,
             f"word-count mismatch: store has {words.shape[0]} words, "
             f"k={k} at {bits}-bit needs {-(-k // cpw)}")
     if x.device.type == "cuda":
+        m, n = x.shape[0], words.shape[1]
         sm_count = torch.cuda.get_device_properties(x.device).multi_processor_count
-        splits = plan_dp4a_splits(x.shape[0], k, words.shape[1], sm_count)
+        resident = _build.resident_blocks("packed_gemm_resident_blocks",
+                                          x.device.index, block_rows(m), bits)
         out = launch_int_gemm("packed_gemm_launch", x, words, scales, k=k,
-                              bits=bits, splits=splits,
+                              bits=bits,
+                              splits=plan_splits(m, k, n, sm_count, resident),
                               fuse_dequant=fuse_dequant)
         LAUNCHES["packed_gemm"] += 1
         return out

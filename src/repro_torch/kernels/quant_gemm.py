@@ -17,7 +17,7 @@ GEMMs share, :func:`repro_torch.kernels._build.plan_splits`, from the
 instance's resident blocks) and finishes each output tile in the block
 that adds its last partial sum (a ticket counter), so the fused output is
 exact.  This module also holds the launch path (:func:`launch_int_gemm`)
-that the ``dp4a`` word-store kernel behind ``packed_gemm`` shares.
+that ``packed_gemm`` shares: its word stores run on the same kernel.
 
 A CPU tensor runs :func:`repro_torch.kernels.ref.quant_gemm_ref`; a CUDA
 tensor launches the kernel or raises — there is no fallback.
@@ -54,10 +54,11 @@ unpack_values = unpack_values_ref
 def launch_int_gemm(fn_name: str, x: torch.Tensor, w: torch.Tensor,
                     scales: torch.Tensor | None, *, k: int, bits: int,
                     splits: int, fuse_dequant: bool) -> torch.Tensor:
-    """Launch one of the two packed GEMM kernels of ``csrc/int_gemm.cuh``
-    (C entry ``fn_name``) on CUDA tensors, K split ``splits`` ways: output,
-    split-K workspace and ticket counters are allocated here, the launch
-    goes to the current stream; raises if the launch fails."""
+    """Launch the packed GEMM kernel of ``csrc/int_gemm.cuh`` through the
+    C entry ``fn_name`` (the int8 container's or the word store's) on CUDA
+    tensors, K split ``splits`` ways: output, split-K workspace and ticket
+    counters are allocated here, the launch goes to the current stream;
+    raises if the launch fails."""
     m, n = x.shape[0], w.shape[1]
     x = x.contiguous()
     w = w.contiguous()

@@ -7,12 +7,15 @@ time).  On a machine with an NVIDIA GPU and ``nvcc``:
     PYTHONPATH=src python -m pytest -q tests/test_torch_gpu.py
 
 Integer GEMMs must be EQUAL to the plain slot loop (tu and tub on the int8
-tensor cores, every int8 code included); the fused decode kernel
-within 1e-4 of the gather oracle at fp32 (online softmax re-associates); the
+tensor cores, every int8 code included); the fused decode kernel, its page
+axis split as planned, once, twice or a page a split, within 1e-4 of the
+gather oracle and of the plain walk at fp32 (online softmax re-associates;
+the log-sum-exp merge too) and within one bf16 ulp of the plain walk with a
+bf16 query, never reading a dead page, bitwise equal across launches; the
 flash kernels within 1e-4 x max|plain| at fp32 and 1e-2 x max|plain| at
 bfloat16 (one rounding of an output element), per tensor; a bf16 slab that
 the tensor-core kernels' 16-byte copies cannot take raises.  The packed
-integer GEMMs (quant_gemm on the int8 tensor cores, packed_gemm on dp4a)
+integer GEMMs (quant_gemm and packed_gemm, both on the int8 tensor cores)
 must be EQUAL to their plain versions in int32 and in the fused float32
 epilogue, under the planned split K, none and 3, and block_stats EQUAL
 too; each launch on a CUDA tensor must count.
@@ -107,34 +110,82 @@ def test_unary_gemm_every_int8_code(cuda, design, m, k, n):
     assert torch.equal(out.cpu(), gemm_sims.bgemm_exact(a.cpu(), b.cpu()))
 
 
-@pytest.mark.parametrize("page,gqa", [(3, 1), (4, 2), (8, 4), (16, 4)])
-def test_fused_decode_kernel_matches_oracle(cuda, page, gqa):
-    rng = np.random.default_rng(page + gqa)
-    batch, kvh, hd, max_blocks = 4, 2, 64, 5
+# (pools, q) dtypes of the fused decode checks
+DECODE_DTYPES = {"fp32": (torch.float32, torch.float32),
+                 "bf16_pools": (torch.bfloat16, torch.float32),
+                 "bf16": (torch.bfloat16, torch.bfloat16)}
+RAGGED_LENGTHS = [1, 16, 17, 255, 256, 500, 777, 1024]
+# (page, gqa, batch, kvh, max_blocks, lengths): odd pages and GQA widths,
+# and llama3-8b's serve geometry with lengths to 1024 at page 16
+DECODE_CASES = {
+    "page3-gqa1": (3, 1, 4, 2, 5, [1, 3, 4, 15]),
+    "page4-gqa2": (4, 2, 4, 2, 5, [1, 4, 5, 20]),
+    "page8-gqa4": (8, 4, 4, 2, 5, [1, 8, 9, 40]),
+    "page16-gqa4": (16, 4, 4, 2, 5, [1, 16, 17, 80]),
+    "page16-b8-to1024": (16, 4, 8, 8, 64, RAGGED_LENGTHS)}
+
+
+@pytest.mark.parametrize("dtype", list(DECODE_DTYPES))
+@pytest.mark.parametrize("hd", [64, 96, 128, 256, 512])
+@pytest.mark.parametrize("splits", [None, 1, 2, "max"],
+                         ids=["planned", "unsplit", "split2", "split_max"])
+@pytest.mark.parametrize("case", list(DECODE_CASES))
+def test_fused_decode_kernel_matches_oracle(cuda, monkeypatch, case, splits, hd, dtype):
+    """The split-KV kernel against the gather oracle (clean pools) and the
+    plain walk (over the same split ranges when the plan is forced, whole
+    when planned), on NaN-poisoned dead pages; two
+    launches bitwise equal; then three calls in a row on other batches (a
+    ticket counter left non-zero would leave an output unmerged)."""
+    page, gqa, batch, kvh, max_blocks, lengths = DECODE_CASES[case]
+    pool_dtype, q_dtype = DECODE_DTYPES[dtype]
+    rng = np.random.default_rng(page + gqa + hd)
     h = kvh * gqa
     num_pages = 1 + batch * max_blocks
     bt = torch.from_numpy(rng.permutation(np.arange(1, num_pages)).astype(np.int32)
                           .reshape(batch, max_blocks)).to(cuda)
-    lens = torch.tensor([1, page, page + 1, max_blocks * page], dtype=torch.int32,
-                        device=cuda)
-    pk = torch.from_numpy(rng.standard_normal((num_pages, page, kvh, hd))
-                          .astype(np.float32)).to(cuda)
-    pv = torch.from_numpy(rng.standard_normal((num_pages, page, kvh, hd))
-                          .astype(np.float32)).to(cuda)
-    q = torch.from_numpy(rng.standard_normal((batch, 1, h, hd)).astype(np.float32)).to(cuda)
-    oracle = paged_lib.paged_decode_attention(q, pk, pv, bt, lens, num_heads=h)
+    lens = torch.tensor(lengths, dtype=torch.int32, device=cuda)
+
+    def rand(shape, dt):
+        return torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to(cuda).to(dt)
+
+    pk = rand((num_pages, page, kvh, hd), pool_dtype)
+    pv = rand((num_pages, page, kvh, hd), pool_dtype)
+    q = rand((batch, 1, h, hd), q_dtype)
     dead = torch.ones(num_pages, dtype=torch.bool, device=cuda)
     for i in range(batch):
         dead[bt[i, : -(-int(lens[i]) // page)].long()] = False
-    pk[dead] = float("nan")
-    pv[dead] = float("nan")
-    before = fused_lib.LAUNCHES["fused_paged_decode"]
-    got = fused_lib.fused_paged_decode_attention(q, pk, pv, bt, lens, num_heads=h)
-    assert fused_lib.LAUNCHES["fused_paged_decode"] == before + 1
-    assert bool(torch.isfinite(got).all())
-    assert float((got - oracle).abs().max()) <= 1e-4
-    plain = fused_lib.fused_decode_plain(q, pk, pv, bt, lens, num_heads=h)
-    assert float((got - plain).abs().max()) <= 1e-4
+    pkp, pvp = pk.clone(), pv.clone()
+    pkp[dead] = float("nan")
+    pvp[dead] = float("nan")
+    n = max_blocks if splits == "max" else splits
+    if n is not None:
+        monkeypatch.setattr(fused_lib, "plan_decode_splits", lambda *shape: n)
+
+    def check(sel):
+        qs, bts, ls = q[sel].contiguous(), bt[sel].contiguous(), lens[sel].contiguous()
+        before = fused_lib.LAUNCHES["fused_paged_decode"]
+        got = fused_lib.fused_paged_decode_attention(qs, pkp, pvp, bts, ls, num_heads=h)
+        torch.cuda.synchronize()
+        assert fused_lib.LAUNCHES["fused_paged_decode"] == before + 1
+        assert got.dtype == q_dtype and bool(torch.isfinite(got.float()).all())
+        plain = fused_lib.fused_decode_plain(qs, pkp, pvp, bts, ls, num_heads=h,
+                                             splits=n or 1).float()
+        oracle = paged_lib.paged_decode_attention(qs, pk, pv, bts, ls,
+                                                  num_heads=h).float()
+        d_plain = (got.float() - plain).abs()
+        d_oracle = float((got.float() - oracle).abs().max())
+        if q_dtype == torch.float32:
+            assert float(d_plain.max()) <= 1e-4 and d_oracle <= 1e-4, (d_plain.max(), d_oracle)
+        else:   # one bfloat16 ulp of the plain walk, as in chip_smoke.py
+            assert bool((d_plain <= plain.abs() * 2.0 ** -7 + 1e-6).all())
+            assert d_oracle <= 2e-2
+        return got
+
+    first = check(slice(None))
+    again = fused_lib.fused_paged_decode_attention(q, pkp, pvp, bt, lens, num_heads=h)
+    assert torch.equal(first, again), "two launches differ"
+    check(slice(0, batch // 2))
+    check(slice(1, batch))
 
 
 def test_wrappers_raise_rather_than_fall_back(cuda):
@@ -340,6 +391,36 @@ def test_quant_gemm_tensor_cores_exact(cuda, monkeypatch, k, n, m, bits, fuse, s
     torch.cuda.synchronize()
     assert qg_lib.LAUNCHES["quant_gemm"] == before + 1
     want = ref_lib.quant_gemm_ref(x, w_packed, scales, bits=bits, fuse_dequant=fuse)
+    assert got.dtype == want.dtype and torch.equal(got, want)
+    if not fuse:
+        assert torch.equal(got.cpu(), gemm_sims.bgemm_exact(x.cpu(), codes.cpu()))
+
+
+@pytest.mark.parametrize("splits", [None, 1, 3], ids=["planned", "unsplit", "split3"])
+@pytest.mark.parametrize("fuse", [False, True])
+@pytest.mark.parametrize("bits", [2, 4, 8])
+@pytest.mark.parametrize("m", [1, 7, 8, 9, 16, 17, 64, 512])
+@pytest.mark.parametrize("k,n", [(203, 77), (256, 384), (1001, 144), (100, 132)])
+def test_packed_gemm_tensor_cores_exact(cuda, monkeypatch, k, n, m, bits, fuse, splits):
+    """packed_gemm on the int8 tensor cores EQUAL to its plain version,
+    int32 and fused float32, and to the integer GEMM: every row-block width
+    (M 1..512), K off the 64-wide tile and off the codes per word (203, 1001,
+    100 at 2/4 bits) or on both (256), N off 4 (masked word loads: 77) or on
+    it (cp.async: 132 off 16, 144 and 384 on it), with the planned split K,
+    none, and 3."""
+    if splits is not None:
+        monkeypatch.setattr(pg_lib, "plan_splits", lambda *shape: splits)
+    rng = np.random.default_rng(200 * bits + m + k)
+    v = 1 << (bits - 1)
+    x = torch.from_numpy(rng.integers(-128, 128, (m, k)).astype(np.int8)).to(cuda)
+    codes = torch.from_numpy(rng.integers(-v, v, (k, n)).astype(np.int8)).to(cuda)
+    scales = torch.from_numpy(rng.uniform(1e-4, 1e-2, (1, n)).astype(np.float32)).to(cuda)
+    words = packing.pack_codes(codes, bits)
+    before = pg_lib.LAUNCHES["packed_gemm"]
+    got = pg_lib.packed_gemm(x, words, scales, bits=bits, k=k, fuse_dequant=fuse)
+    torch.cuda.synchronize()
+    assert pg_lib.LAUNCHES["packed_gemm"] == before + 1
+    want = ref_lib.packed_gemm_ref(x, words, scales, bits=bits, k=k, fuse_dequant=fuse)
     assert got.dtype == want.dtype and torch.equal(got, want)
     if not fuse:
         assert torch.equal(got.cpu(), gemm_sims.bgemm_exact(x.cpu(), codes.cpu()))

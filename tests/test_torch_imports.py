@@ -71,13 +71,15 @@ def test_package_imports_without_jax_cuda_or_triton():
 def test_csrc_holds_the_three_kernels():
     srcs = {p.name: p.read_text() for p in (PKG / "csrc").glob("*.cu")}
     # nine kernels: tub/tu GEMM (one int8 tensor-core template), fused
-    # decode, flash forward, dQ and dK/dV, quant_gemm (int8 tensor cores) and
-    # packed_gemm (dp4a), both in int_gemm.cuh, block_stats
+    # decode (split KV walk), flash forward, dQ and dK/dV, quant_gemm and
+    # packed_gemm (one int8 tensor-core template in int_gemm.cuh, two weight
+    # formats), block_stats
     assert set(srcs) == {"unary_gemm.cu", "fused_paged_decode.cu",
                          "flash_attention.cu", "quant_gemm.cu",
                          "packed_gemm.cu", "bitsparsity.cu"}
     header = (PKG / "csrc" / "int_gemm.cuh").read_text()
-    assert "__dp4a" in header and "__int2float_rn" in header
+    assert "__dp4a" not in header and "int_gemm_kernel" not in header
+    assert "__int2float_rn" in header
     assert "int_mma_kernel" in header and "mma_16832" in header
     for name, launcher in (("quant_gemm.cu", "quant_gemm_launch"),
                            ("packed_gemm.cu", "packed_gemm_launch"),
@@ -89,7 +91,11 @@ def test_csrc_holds_the_three_kernels():
     assert "__dp4a" not in unary and "n_slots" in unary and "mma_16832" in unary
     assert "struct TuPulses" in unary and "struct TubPulses" in unary
     assert 'extern "C" int unary_gemm_launch' in srcs["unary_gemm.cu"]
-    assert 'extern "C" int fused_paged_decode_launch' in srcs["fused_paged_decode.cu"]
+    decode = srcs["fused_paged_decode.cu"]
+    assert 'extern "C" int fused_paged_decode_launch' in decode
+    assert 'extern "C" int fused_paged_decode_resident_blocks' in decode
+    assert "__global__ void __launch_bounds__(NT)\nfused_decode_split_kernel" in decode
+    assert "atomicAdd(counters" in decode and "fused_paged_decode_kernel" not in decode
     flash = srcs["flash_attention.cu"]
     for launcher in ("flash_fwd_launch", "flash_bwd_dq_launch",
                      "flash_bwd_dkv_launch"):
@@ -120,7 +126,14 @@ def test_csrc_holds_the_three_kernels():
     assert "unary_gemm_kernel" not in unary
     assert "launch_rows<TuPulses>" in unary and "launch_rows<TubPulses>" in unary
     assert "__global__ void __launch_bounds__(MMA_NT)\nint_mma_kernel" in header
-    assert "__global__ void __launch_bounds__(NTHREADS)\nint_gemm_kernel" in header
+    # both weight formats on one template: the word store reaches it too
+    assert "template <bool WORDS, int BITS, int WN, int WM, int WARPS_N, int WARPS_M>" in header
+    assert "int_gemm::launch<true>" in srcs["packed_gemm.cu"]
+    assert "int_mma_kernel" in srcs["packed_gemm.cu"]
+    assert "int_gemm::launch<false>" in srcs["quant_gemm.cu"]
+    assert 'extern "C" int packed_gemm_resident_blocks' in srcs["packed_gemm.cu"]
+    for text in srcs.values():
+        assert "__dp4a" not in text
     for text in [*srcs.values(), header, mma, int8]:
         assert "torch/extension.h" not in text and "cudaMalloc" not in text
         assert "cudaDeviceSynchronize" not in text

@@ -37,6 +37,7 @@ from repro.models import model as ref_model
 from repro_torch import configs as port_configs
 from repro_torch.core import packing as port_packing
 from repro_torch.core import quantization as port_quant
+from repro_torch.kernels import _build
 from repro_torch.kernels import ops as port_ops
 from repro_torch.kernels import packed_gemm as port_pg
 from repro_torch.kernels import quant_gemm as port_qg
@@ -150,6 +151,54 @@ def test_quant_gemm_fragment_unpack(bits):
             got[4 * kw: 4 * kw + 4, n] = _word_bytes(word).view(np.int8)
     want = port_ref.unpack_values_ref(torch.from_numpy(packed.view(np.int8)), bits, axis=0)
     np.testing.assert_array_equal(got, want.numpy())
+
+
+@pytest.mark.parametrize("bits", BITS)
+def test_packed_gemm_fragment_unpack(bits):
+    """The tensor-core packed_gemm unpacks each raw word of a word store in
+    shared memory into k-packed column words, the mma's A fragments (csrc/
+    int_gemm.cuh:unpack_word): word row r of column n holds k = r cpw ..
+    r cpw + cpw - 1, and fragment word j of it k 4 (r cpw / 4 + j) .. + 3.
+    Every byte value sits in every byte position of some word; at 2/4/8
+    bits that arithmetic, selector for selector, equals unpack_codes."""
+    base = np.arange(256, dtype=np.int64)
+    raw = np.stack([(base + 67 * p) % 256 for p in range(4)], axis=-1)   # (256, 4) bytes
+    for p in range(4):                      # every value in every position
+        assert sorted(raw[:, p]) == list(range(256))
+    words = _words(raw.astype(np.uint8)).reshape(64, 4)   # 64 word rows x 4 columns
+    cpw = 32 // bits
+    got = np.zeros((64 * cpw, 4), dtype=np.int8)
+    for r in range(64):
+        v = words[r]
+        if bits == 8:
+            frags = [v]
+        elif bits == 4:
+            lo, hi = _sext_bytes(v, 4, 0), _sext_bytes(v, 4, 1)
+            frags = [_byte_perm(lo, hi, 0x5140), _byte_perm(lo, hi, 0x7362)]
+        else:
+            frags = list(_transpose4x4(*(_sext_bytes(v, 2, j) for j in range(4))))
+        for j, f in enumerate(frags):
+            kw = r * cpw // 4 + j
+            got[4 * kw: 4 * kw + 4] = _word_bytes(f).view(np.int8).T
+    want = port_packing.unpack_codes(torch.from_numpy(words.view(np.int32)), bits,
+                                     64 * cpw, axis=0)
+    np.testing.assert_array_equal(got, want.numpy())
+
+
+@pytest.mark.parametrize("m,k,n,resident,want", [
+    (8, 4096, 14336, 8, 9), (8, 4096, 14336, 6, 7), (512, 4096, 14336, 3, 1),
+    (512, 4096, 1024, 4, 8), (8, 4096, 4096, 8, 33), (8, 14336, 4096, 8, 33),
+    (1, 37, 3, 12, 1), (33, 100, 11, 5, 2)])
+def test_packed_split_plan(m, k, n, resident, want):
+    """packed_gemm's plan is the one the int8 tensor-core GEMMs share
+    (_build.plan_splits), at its own instances' resident blocks: the most K
+    slices (at most the 64-wide K tiles of the logical K) that keep the grid
+    within one wave on 132 SMs."""
+    assert port_pg.plan_splits is _build.plan_splits
+    assert "plan_dp4a_splits" not in vars(port_pg)
+    assert port_pg.plan_splits(m, k, n, sm_count=132, resident=resident) == want
+    blocks = -(-m // _build.block_rows(m)) * -(-n // 128)
+    assert want == 1 or blocks * want <= resident * 132
 
 
 @pytest.mark.parametrize("m,k,n,resident,want", [

@@ -16,7 +16,6 @@ from repro.kernels import ops as ref_ops
 from repro.kernels import ref as ref_ref
 from repro_torch import backends as port_backends
 from repro_torch.kernels import ops as port_ops
-from repro_torch.kernels import packed_gemm as port_pg
 from repro_torch.kernels import ref as port_ref
 from repro_torch.kernels import unary_gemm as port_ug
 
@@ -99,14 +98,6 @@ def test_cpu_tensors_never_count_as_launches():
     port_ug.tub_gemm(torch.from_numpy(a), torch.from_numpy(b), bits=4)
     port_ug.tu_gemm(torch.from_numpy(a), torch.from_numpy(b), bits=4)
     assert port_ug.LAUNCHES == {"tub_gemm": 0, "tu_gemm": 0}
-
-
-@pytest.mark.parametrize("m,k,n,want", [
-    (8, 4096, 4096, 9), (8, 4096, 128256, 1), (512, 4096, 14336, 1),
-    (8, 64, 128, 1), (8, 4096, 1024, 33), (1, 1, 1, 1)])
-def test_split_plan(m, k, n, want):
-    """The dp4a word-store kernel's plan (packed_gemm): two blocks an SM."""
-    assert port_pg.plan_dp4a_splits(m, k, n, sm_count=132) == want
 
 
 @pytest.mark.parametrize("m,k,n,resident,want", [
