@@ -12,7 +12,10 @@ Phases, each of which fails the run (non-zero exit) on its own:
    packed_gemm's int8 kernels; none may lack them, none may spill);
 2. ``kernels`` — every kernel against its plain PyTorch version (and the
    integer-GEMM / gather oracles) on the card, at the main path's shapes
-   (fused decode also at forced split counts and head dims 96, 256, 512);
+   (fused decode also at forced split counts and head dims 96, 256, 512;
+   flash also at head dims 96 and 256; block_stats at every tile 1..128, on
+   int8 codes with -128, on zeros and past 65,535 tile rows, with its two
+   fused sums);
 3. ``probes``  — paged-vs-contiguous == 0.0 and fused-vs-gather <=
    FUSED_LOGIT_TOL on the smoke config at fp32, on the card;
 4. ``serve``   — ``ServingEngine`` at llama3-8b's published widths serving a
@@ -38,8 +41,10 @@ Phases, each of which fails the run (non-zero exit) on its own:
    on the flash kernels' launch counters; one more step traced;
 7. ``times``   — per-kernel CUDA-event timings beside the plain version, the
    roofline bound and, where one exists, the library call (flash: TFLOP/s,
-   and SDPA's backward alone beside its forward + backward; fused decode
-   also unsplit and at the serve step's geometry, on its log lines).
+   and SDPA's backward alone beside its forward + backward, at head dims
+   128, 96 and 256; fused decode also unsplit and at the serve step's
+   geometry, on its log lines; block_stats at every tile and with an L2 the
+   flush left clean).
 
 Needs a CUDA device: without one (or without the package beside it) the
 script exits non-zero and prints no result.  ``--layers`` / ``--requests``
@@ -502,9 +507,12 @@ def phase_kernels() -> dict:
 
 # (BH, Sq, Skv, D): the training path's slabs (B=4 x H=32, S=2048, d=128),
 # a ragged length, Sq != Skv, d=64, and Sq > Skv at d=16 with both lengths
-# one past and one short of the 64-wide tiles
+# one past and one short of the 64-wide tiles; head dims 96 (phi3-mini) and
+# 256 (gemma-7b) at a ragged length and both Sq != Skv
 FLASH_CASES = ((128, 2048, 2048, 128), (128, 2000, 2000, 128),
-               (16, 77, 130, 128), (16, 333, 333, 64), (16, 129, 63, 16))
+               (16, 77, 130, 128), (16, 333, 333, 64), (16, 129, 63, 16),
+               (32, 1000, 1000, 96), (16, 129, 63, 96), (32, 777, 777, 256),
+               (16, 77, 130, 256), (16, 129, 63, 256))
 FLASH_TOL = {torch.float32: 1e-4, torch.bfloat16: 1e-2}   # x max|plain|
 # bf16 o, dQ, dK, dV also per element: |kernel - plain| <= FLASH_BF16_ROW_TOL
 # x (|plain| + max|plain| of its row), so that small later rows are held too;
@@ -664,25 +672,45 @@ def _int_gemm_kernels(gen, errs: dict) -> None:
         f"fused on/off equal to their plain versions (int32 and float32)")
 
 
-# (M, N) of block_stats: the site weights, as (K, N), and ragged shapes
+# (M, N) of block_stats: the site weights, as (K, N), ragged shapes, and
+# more than 65,535 tile rows at every tile
 BLOCK_STATS_SHAPES = (*sorted(set(SITE_SHAPES)), (1, 1), (33, 70),
-                      (1000, 777), (4095, 14337))
+                      (1000, 777), (4095, 14337), (2_100_000, 32))
 
 
 def _block_stats_kernels(gen, errs: dict) -> None:
+    """block_stats at every tile 1..128 EQUAL to the plain version, on
+    per-tensor 4-bit codes of a weight, on the full int8 range (-128
+    included) and on zeros; the launch's two sums equal the statistics'."""
+    cases = 0
     for (m, n) in BLOCK_STATS_SHAPES:
         w = torch.randn((m, n), generator=gen, device=DEV)
-        q = quantize(w, bits=4, per_channel=False).values
-        maxes, zeros = bs_lib.block_stats(q)
-        torch.cuda.synchronize()
-        want_max, want_zero = ref_lib.block_stats_ref(q)
-        d = max(int((maxes - want_max).abs().max()),
-                int((zeros - want_zero).abs().max()))
-        errs["block_stats"] = max(errs["block_stats"], float(d))
-        require(torch.equal(maxes, want_max) and torch.equal(zeros, want_zero),
-                f"block_stats ({m},{n}): max |kernel-plain| {d} (want 0)")
-    log(f"  block_stats: {len(BLOCK_STATS_SHAPES)} shapes equal to the plain "
-        f"version")
+        inputs = {"4-bit codes": quantize(w, bits=4, per_channel=False).values,
+                  "int8 codes": _full_codes(gen, (m, n), 8),
+                  "zeros": torch.zeros((m, n), dtype=torch.int8, device=DEV)}
+        inputs["int8 codes"].view(-1)[::7] = -128
+        del w
+        for what, q in inputs.items():
+            for tile in bs_lib.TILES:
+                maxes, zeros, sums = bs_lib.block_stats_with_sums(q, tile=tile)
+                torch.cuda.synchronize()
+                want_max, want_zero = ref_lib.block_stats_ref(q, tile)
+                d = max(int((maxes - want_max).abs().max()),
+                        int((zeros - want_zero).abs().max()))
+                errs["block_stats"] = max(errs["block_stats"], float(d))
+                require(torch.equal(maxes, want_max) and torch.equal(zeros, want_zero),
+                        f"block_stats ({m},{n}) {what} tile={tile}: max "
+                        f"|kernel-plain| {d} (want 0)")
+                want_sums = [int(want_max.sum(dtype=torch.int64)),
+                             int(want_zero.sum(dtype=torch.int64))]
+                require(sums.tolist() == want_sums,
+                        f"block_stats ({m},{n}) {what} tile={tile}: sums "
+                        f"{sums.tolist()} != {want_sums}")
+                cases += 1
+        del inputs
+    log(f"  block_stats: {len(BLOCK_STATS_SHAPES)} shapes x (4-bit, int8 "
+        f"with -128, zeros) x tiles {list(bs_lib.TILES)} = {cases} cases equal "
+        f"to the plain version, fused sums equal")
 
 
 # ---------------------------------------------------------------------------
@@ -1228,16 +1256,22 @@ def _packed_stores(cfg, params) -> int:
     return launched
 
 
-def _site_sparsity(cfg, params) -> int:
+def _site_sparsity(cfg, params) -> tuple[int, float]:
     """Main path (c): the Eq.-1 statistics of every site weight's per-tensor
     4-bit codes from the block_stats kernel, within 1e-6 of
-    ``profile_tensor`` on the same weight."""
+    ``profile_tensor`` on the same weight.  Returns the launches and the
+    host wall of the ``bit_sparsity_stats`` calls alone (each ends in its
+    one device-to-host read)."""
     bs_lib.reset_launches()
     worst = 0.0
     n_sites = 0
+    wall = 0.0
     for name, w in _site_weights(cfg, params):
         codes = quantize(w, bits=QUANT_BITS, per_channel=False).values
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
         word, blk = ops_lib.bit_sparsity_stats(codes, bits=QUANT_BITS)
+        wall += time.perf_counter() - t0
         prof = profile_tensor(w, QUANT_BITS)
         d = max(abs(word - prof.word), abs(blk - prof.bit_blockmax))
         worst = max(worst, d)
@@ -1245,10 +1279,10 @@ def _site_sparsity(cfg, params) -> int:
         require(d <= 1e-6, f"bit_sparsity_stats of {name} off profile_tensor by {d}")
     launched = bs_lib.LAUNCHES["block_stats"]
     log(f"  bit_sparsity_stats over the {n_sites} site weights: {launched} "
-        f"block_stats launches, max |kernel stats - profile_tensor| {worst:.2e} "
-        f"(tol 1e-6)")
+        f"block_stats launches, wall {wall:.4f} s ({wall / n_sites * 1e3:.3f} ms "
+        f"a call), max |kernel stats - profile_tensor| {worst:.2e} (tol 1e-6)")
     require(launched == n_sites, "block_stats launches != site weights")
-    return launched
+    return launched, wall
 
 
 def phase_quant(cfg, params, requests: int) -> dict:
@@ -1261,9 +1295,10 @@ def phase_quant(cfg, params, requests: int) -> dict:
     launches_run["packed_gemm"] = (f"packed_matmul at M=8 over the "
                                    f"{7 * cfg.num_layers} site stores")
     gc.collect()
-    launches["block_stats"] = _site_sparsity(cfg, params)
+    launches["block_stats"], wall = _site_sparsity(cfg, params)
     launches_run["block_stats"] = (f"bit_sparsity_stats over the "
-                                   f"{7 * cfg.num_layers} site weights")
+                                   f"{7 * cfg.num_layers} site weights, wall "
+                                   f"{wall:.4f} s")
     del launches["fused_paged_decode"]       # the serve phase's count stands
     return {"launches": launches, "launches_run": launches_run}
 
@@ -1420,11 +1455,13 @@ def phase_train(layers: int, steps: int) -> dict:
 _FLUSH = None
 
 
-def _time_ms(fn, reps: int = 20, warmup: int = 3) -> float:
+def _time_ms(fn, reps: int = 20, warmup: int = 3, clean_l2: bool = False) -> float:
     """Median CUDA-event time of one call, L2 flushed before each call.  A
     spin of about half a millisecond on the card after the flush lets the
     host queue the call before the start event runs, so a slow host's
-    wrapper time does not show up as device time."""
+    wrapper time does not show up as device time.  The flush writes a
+    256 MiB buffer, so the call also pays for writing back the dirty lines it
+    evicts; with ``clean_l2`` the flush reads the buffer instead."""
     global _FLUSH
     if _FLUSH is None:
         _FLUSH = torch.empty(256 * 2**20, dtype=torch.uint8, device=DEV)
@@ -1433,7 +1470,10 @@ def _time_ms(fn, reps: int = 20, warmup: int = 3) -> float:
     torch.cuda.synchronize()
     times = []
     for _ in range(reps):
-        _FLUSH.zero_()
+        if clean_l2:
+            _FLUSH.sum(dtype=torch.int64)
+        else:
+            _FLUSH.zero_()
         torch.cuda._sleep(1_000_000)
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
@@ -1704,6 +1744,18 @@ def _time_block_stats(gen, errs: dict, launches: dict,
     for r in per_shape:
         log(f"  block_stats {tuple(r['shape'])}: {r['ms']:.4f} ms, plain "
             f"{r['plain_ms']:.3f} ms, bound {r['bound_ms']:.4f} ms (bytes)")
+    # the other tiles at the headline shape, and tile 32 with an L2 that the
+    # flush left clean: how much of the time is the write-back of the
+    # flush's dirty lines (log lines only)
+    q = quantize(torch.randn(UP_SHAPE, generator=gen, device=DEV),
+                 bits=QUANT_BITS, per_channel=False).values
+    log(f"  block_stats {UP_SHAPE} by tile: " + ", ".join(
+        f"{t}: {_time_ms(lambda: bs_lib.block_stats(q, tile=t)):.4f} ms"
+        for t in bs_lib.TILES))
+    clean = _time_ms(lambda: bs_lib.block_stats(q), clean_l2=True)
+    log(f"  block_stats {UP_SHAPE} tile 32, the L2 flushed by a read (clean): "
+        f"{clean:.4f} ms (written, as above: {head['ms']:.4f} ms)")
+    del q
     return {"name": "block_stats", "route": "cuda", "source": SOURCE["block_stats"],
             "replaces": REPLACES["block_stats"],
             "launches": launches.get("block_stats", 0),
@@ -1715,14 +1767,17 @@ def _time_block_stats(gen, errs: dict, launches: dict,
             "per_shape": per_shape}
 
 
-def _time_flash(gen, errs: dict, launches: dict, launches_run: dict,
-                sass: dict) -> list[dict]:
-    """The three flash kernels at the training path's shape in bf16: B=4 x
-    H=32 slabs, S=2048, d=128, causal; SDPA on the same tensors as the
-    library yardstick (forward; forward + backward for the two backward
-    kernels, whose work it computes together, and its backward alone).
-    Rates are the function's operations (:func:`flash_ops`) over the time."""
-    b, h, s, d = 4, 32, 2048, 128
+FLASH_TIMED_HEAD_DIMS = (128, 96, 256)    # 128: the training path's; the table's row
+
+
+def _time_flash_at(gen, d: int, with_plain: bool) -> dict:
+    """The three bf16 flash kernels on B=4 x H=32 slabs, S=2048, head dim
+    ``d``, causal, each beside its bound and SDPA on the same tensors
+    (forward; forward + backward for the two backward kernels, whose work it
+    computes together, and its backward alone); the plain versions too when
+    ``with_plain``.  Rates are the function's operations (:func:`flash_ops`)
+    over the time."""
+    b, h, s = 4, 32, 2048
     bh, dt = b * h, torch.bfloat16
     q, k, v, do = (torch.randn((bh, s, d), generator=gen, device=DEV).to(dt)
                    for _ in range(4))
@@ -1760,37 +1815,57 @@ def _time_flash(gen, errs: dict, launches: dict, launches_run: dict,
     io_bytes = {"flash_fwd": 3 * slab + slab + stats,            # q,k,v -> o, lse
                 "flash_bwd_dq": 4 * slab + 2 * stats + slab,     # q,k,v,dO,lse,delta -> dQ
                 "flash_bwd_dkv": 4 * slab + 2 * stats + 2 * slab}
-    rows = []
+    out = {}
     for name in FLASH:
         kern, plain = calls[name]
         ms = _time_ms(kern)
-        plain_ms = _time_ms(plain, reps=5, warmup=1)
+        plain_ms = _time_ms(plain, reps=5, warmup=1) if with_plain else None
         bytes_ms = io_bytes[name] / HBM_BYTES_PER_S * 1e3
         ops_ms = ops[name] / BF16_OPS_PER_S * 1e3
         library_ms = lib_fwd if name == "flash_fwd" else lib_fwd_bwd
-        rows.append({
-            "name": name, "route": "cuda", "source": SOURCE[name],
-            "replaces": REPLACES[name], "launches": launches.get(name, 0),
-            "launches_run": launches_run.get(name), "max_abs_err": errs[name],
-            "ms": ms, "plain_ms": plain_ms, "bound_ms": max(bytes_ms, ops_ms),
+        out[name] = {
+            "d": d, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": max(bytes_ms, ops_ms),
             "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
             "library_ms": library_ms,
-            "library_call": ("scaled_dot_product_attention(is_causal=True) forward"
-                             if name == "flash_fwd" else
-                             "scaled_dot_product_attention(is_causal=True) forward "
-                             "+ backward"),
             "library_bwd_only_ms": None if name == "flash_fwd" else lib_bwd,
-            "tflops": ops[name] / ms / 1e9,
-            "sass_bf16": {str(k): u for k, u in sorted(sass.get(name, {}).items())},
-            "shape": f"BH={bh} (B={b} x H={h}) S={s} d={d} bf16 causal"})
+            "tflops": ops[name] / ms / 1e9}
         log(f"  {name} BH={bh} S={s} d={d} bf16 causal: {ms:.3f} ms = "
             f"{ops[name] / ms / 1e9:.1f} TFLOP/s, plain "
-            f"{plain_ms:.3f} ms, bound {max(bytes_ms, ops_ms):.4f} ms "
-            f"({rows[-1]['bound_by']}; {ops[name] / 1e9:.1f} GFLOP, "
+            + (f"{plain_ms:.3f} ms" if with_plain else "not timed")
+            + f", bound {max(bytes_ms, ops_ms):.4f} ms "
+            f"({out[name]['bound_by']}; {ops[name] / 1e9:.1f} GFLOP, "
             f"{io_bytes[name] / 2**20:.0f} MiB), SDPA "
             f"{'forward' if name == 'flash_fwd' else 'forward + backward'} "
             f"{library_ms:.3f} ms"
             + ("" if name == "flash_fwd" else f" (backward alone {lib_bwd:.3f} ms)"))
+    del q, k, v, do, o, lse, delta, q4, k4, v4, do4, qg, kg, vg
+    return out
+
+
+def _time_flash(gen, errs: dict, launches: dict, launches_run: dict,
+                sass: dict) -> list[dict]:
+    """The three flash kernels' rows: the training path's shape (d=128) on
+    the row, head dims 96 and 256 beside it (``per_head_dim``)."""
+    by_d = {d: _time_flash_at(gen, d, with_plain=d == 128)
+            for d in FLASH_TIMED_HEAD_DIMS}
+    rows = []
+    for name in FLASH:
+        head = by_d[128][name]
+        rows.append({
+            "name": name, "route": "cuda", "source": SOURCE[name],
+            "replaces": REPLACES[name], "launches": launches.get(name, 0),
+            "launches_run": launches_run.get(name), "max_abs_err": errs[name],
+            **{key: head[key] for key in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                          "library_ms", "library_bwd_only_ms",
+                                          "tflops")},
+            "library_call": ("scaled_dot_product_attention(is_causal=True) forward"
+                             if name == "flash_fwd" else
+                             "scaled_dot_product_attention(is_causal=True) forward "
+                             "+ backward"),
+            "sass_bf16": {str(k): u for k, u in sorted(sass.get(name, {}).items())},
+            "shape": "BH=128 (B=4 x H=32) S=2048 d=128 bf16 causal",
+            "per_head_dim": [by_d[d][name] for d in FLASH_TIMED_HEAD_DIMS if d != 128]})
     return rows
 
 

@@ -3,7 +3,7 @@
 // Replaces the TPU kernels of repro/kernels/flash_attention.py: _fwd_kernel
 // (pallas_call at :95), _dq_kernel (:230) and _dkv_kernel (:248).  q (BH,Sq,D),
 // k and v (BH,Skv,D), all float32 or all bfloat16, rows of D contiguous and
-// each (S,D) slab at its own stride; D in {16, 32, 64, 128}.  Scores are
+// each (S,D) slab at its own stride; D in {16, 32, 64, 96, 128, 256}.  Scores are
 // q.k in fp32, times `scale`, -1e30 where a key is masked (causal: qpos >=
 // kpos, both counted from 0; and every key at or past Skv); fp32 online
 // softmax; P is rounded to the operands' type before P.V, dS before dS.K and
@@ -36,6 +36,20 @@
 //    and 4 rows x D/16 columns of the output), tiles staged as fp32 with
 //    rows padded by one float.  Tensor cores take fp32 only as TF32, which
 //    would break the fp32 contract.
+//
+// Head dim 256 needs more than one SM's 232,448 bytes of shared memory or
+// 255 registers a thread in three instances, so those split their work
+// without changing the 64-wide tiles (the plain versions walk the same):
+//  - fp32 dQ stages K and V in one buffer in turn (V for dP, then K for S
+//    and dS.K), fp32 dK/dV Q and dO in one buffer (dO for dP, Q for S and
+//    dS^T.Q, dO again for P^T.dO): one more tile load an iteration.
+//  - bf16 (all three kernels): 8 warps, the two warps of a pair share 16
+//    rows and each owns half of D's output columns, so the accumulators are
+//    D/4 fp32 registers a thread per output (dK/dV: 2 x D/8 at D <= 128 is
+//    D, above the limit at 256).  Both warps of a pair form the same S and
+//    dP (and run the same online softmax, so they agree bit for bit); the
+//    forward re-reads Q's fragments from shared memory there instead of
+//    holding them.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -197,8 +211,19 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
 
 // ---------------------------------------------------------------------------
 // dQ: grid (ceil(Sq / BQ), BH)
-// smem: q_s, do_s [BQ][D+1], k_s, v_s [BK][D+1], ds_s [BQ][BK+1]
+// smem: q_s, do_s [BQ][D+1], k_s, v_s [BK][D+1], ds_s [BQ][BK+1]; where
+// that is too much (dq_one_kv), K and V take one buffer in turn
 // ---------------------------------------------------------------------------
+constexpr size_t MAX_SMEM = 232448;   // dynamic shared memory a block, sm_90
+
+template <int D> __host__ __device__ constexpr bool dq_one_kv() {
+  return sizeof(float) * ((size_t)2 * BQ * (D + 1) + 2 * BK * (D + 1) + BQ * PS) > MAX_SMEM;
+}
+template <int D> __host__ __device__ constexpr bool dkv_one_qdo() {
+  return sizeof(float) * ((size_t)2 * BK * (D + 1) + 2 * BQ * (D + 1) + 2 * BQ * PS + 2 * BQ) >
+         MAX_SMEM;
+}
+
 template <int D>
 __global__ void __launch_bounds__(NT)
 flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
@@ -207,11 +232,12 @@ flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
                     float* __restrict__ dq, int sq, int skv, long long q_bs, long long k_bs,
                     long long v_bs, long long do_bs, float scale, int causal) {
   constexpr int P = D + 1, NJ = D / 16;
+  constexpr bool ONE_KV = dq_one_kv<D>();
   extern __shared__ float smem[];
   float* q_s = smem;
   float* do_s = q_s + BQ * P;
   float* k_s = do_s + BQ * P;
-  float* v_s = k_s + BK * P;
+  float* v_s = ONE_KV ? k_s : k_s + BK * P;
   float* ds_s = v_s + BK * P;
 
   const int bh = blockIdx.y, q0 = blockIdx.x * BQ;
@@ -234,13 +260,22 @@ flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
   for (int k0 = 0; k0 < kend; k0 += BK) {
     __syncthreads();
     const int k_valid = min(BK, skv - k0);
-    load_tile<D>(k_s, P, kb + (size_t)k0 * D, BK, k_valid);
-    load_tile<D>(v_s, P, vb + (size_t)k0 * D, BK, k_valid);
-    __syncthreads();
-
     float s[4][4] = {}, dp[4][4] = {};
-    tile_dot<D>(s, q_s, k_s, ty, tx);
-    tile_dot<D>(dp, do_s, v_s, ty, tx);
+    if constexpr (ONE_KV) {                // V for dP, then K in its place
+      load_tile<D>(v_s, P, vb + (size_t)k0 * D, BK, k_valid);
+      __syncthreads();
+      tile_dot<D>(dp, do_s, v_s, ty, tx);
+      __syncthreads();
+      load_tile<D>(k_s, P, kb + (size_t)k0 * D, BK, k_valid);
+      __syncthreads();
+      tile_dot<D>(s, q_s, k_s, ty, tx);
+    } else {
+      load_tile<D>(k_s, P, kb + (size_t)k0 * D, BK, k_valid);
+      load_tile<D>(v_s, P, vb + (size_t)k0 * D, BK, k_valid);
+      __syncthreads();
+      tile_dot<D>(s, q_s, k_s, ty, tx);
+      tile_dot<D>(dp, do_s, v_s, ty, tx);
+    }
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
       const int qpos = q0 + ty + 16 * i;
@@ -279,10 +314,31 @@ flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
   }
 }
 
+// acc[i][j] += sum_r w[r][ty + 16 i] * x[r][tx + 16 j] over the valid query
+// rows r (dK += dS^T Q and dV += P^T dO)
+template <int D>
+__device__ __forceinline__ void accumulate_rows(float (&acc)[4][D / 16], const float* w_s,
+                                                const float* x_s, int q_valid, int ty, int tx) {
+  constexpr int P = D + 1, NJ = D / 16;
+#pragma unroll 2
+  for (int r = 0; r < q_valid; ++r) {
+    float wr[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) wr[i] = w_s[r * PS + ty + 16 * i];
+#pragma unroll
+    for (int j = 0; j < NJ; ++j) {
+      const float xv = x_s[r * P + tx + 16 * j];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) acc[i][j] = fmaf(wr[i], xv, acc[i][j]);
+    }
+  }
+}
+
 // ---------------------------------------------------------------------------
 // dK/dV: grid (ceil(Skv / BK), BH)
 // smem: k_s, v_s [BK][D+1], q_s, do_s [BQ][D+1], p_s, ds_s [BQ][BK+1],
-//       lse_s, delta_s [BQ]
+//       lse_s, delta_s [BQ]; where that is too much (dkv_one_qdo), Q and dO
+//       take one buffer in turn
 // ---------------------------------------------------------------------------
 template <int D>
 __global__ void __launch_bounds__(NT)
@@ -293,11 +349,12 @@ flash_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
                      long long q_bs, long long k_bs, long long v_bs, long long do_bs,
                      float scale, int causal) {
   constexpr int P = D + 1, NJ = D / 16;
+  constexpr bool ONE_QDO = dkv_one_qdo<D>();
   extern __shared__ float smem[];
   float* k_s = smem;
   float* v_s = k_s + BK * P;
   float* q_s = v_s + BK * P;
-  float* do_s = q_s + BQ * P;
+  float* do_s = ONE_QDO ? q_s : q_s + BQ * P;
   float* p_s = do_s + BQ * P;
   float* ds_s = p_s + BQ * PS;
   float* lse_s = ds_s + BQ * PS;
@@ -321,7 +378,7 @@ flash_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
   for (int qs = causal ? (k0 / BQ) * BQ : 0; qs < sq; qs += BQ) {
     __syncthreads();
     const int q_valid = min(BQ, sq - qs);
-    load_tile<D>(q_s, P, qb + (size_t)qs * D, BQ, q_valid);
+    if constexpr (!ONE_QDO) load_tile<D>(q_s, P, qb + (size_t)qs * D, BQ, q_valid);
     load_tile<D>(do_s, P, dob + (size_t)qs * D, BQ, q_valid);
     for (int r = threadIdx.x; r < BQ; r += NT) {
       lse_s[r] = r < q_valid ? lse[(size_t)bh * sq + qs + r] : 0.0f;
@@ -331,8 +388,16 @@ flash_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
 
     // rows ty + 16 i are queries here, columns tx + 16 j keys
     float s[4][4] = {}, dp[4][4] = {};
-    tile_dot<D>(s, q_s, k_s, ty, tx);
-    tile_dot<D>(dp, do_s, v_s, ty, tx);
+    if constexpr (ONE_QDO) {               // dP from dO, then Q in its place
+      tile_dot<D>(dp, do_s, v_s, ty, tx);
+      __syncthreads();
+      load_tile<D>(q_s, P, qb + (size_t)qs * D, BQ, q_valid);
+      __syncthreads();
+      tile_dot<D>(s, q_s, k_s, ty, tx);
+    } else {
+      tile_dot<D>(s, q_s, k_s, ty, tx);
+      tile_dot<D>(dp, do_s, v_s, ty, tx);
+    }
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
       const int r = ty + 16 * i;
@@ -348,25 +413,14 @@ flash_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
       }
     }
     __syncthreads();
-#pragma unroll 2
-    for (int r = 0; r < q_valid; ++r) {
-      float pr[4], dr[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        pr[i] = p_s[r * PS + ty + 16 * i];
-        dr[i] = ds_s[r * PS + ty + 16 * i];
-      }
-#pragma unroll
-      for (int j = 0; j < NJ; ++j) {
-        const float dov = do_s[r * P + tx + 16 * j];
-        const float qv = q_s[r * P + tx + 16 * j];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          dv_acc[i][j] = fmaf(pr[i], dov, dv_acc[i][j]);
-          dk_acc[i][j] = fmaf(dr[i], qv, dk_acc[i][j]);
-        }
-      }
+    // dK += dS^T Q, then dV += P^T dO (with ONE_QDO, dO back in Q's place)
+    accumulate_rows<D>(dk_acc, ds_s, q_s, q_valid, ty, tx);
+    if constexpr (ONE_QDO) {
+      __syncthreads();
+      load_tile<D>(do_s, P, dob + (size_t)qs * D, BQ, q_valid);
+      __syncthreads();
     }
+    accumulate_rows<D>(dv_acc, p_s, do_s, q_valid, ty, tx);
   }
 
   float* dkb = dk + (size_t)bh * skv * D;
@@ -388,22 +442,29 @@ flash_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
 // tile, operands in padded bf16 shared tiles filled by cp.async through a
 // two-stage ring, fragments by ldmatrix, products on mma.sync.m16n8k16 with
 // fp32 accumulators.  Scores are kept in the log2 domain (scale * log2(e)
-// folded into one multiply, exp2f); lse is written in natural log.
+// folded into one multiply, exp2f); lse is written in natural log.  With
+// SPLIT = 2 (D = 256) the block has 8 warps: warp w takes rows of warp w % 4
+// and output columns [(w / 4) D / 2, (w / 4 + 1) D / 2).
 // ---------------------------------------------------------------------------
-constexpr int MMA_NT = 128;                    // 4 warps
+constexpr int MMA_NT = 128;                    // 4 warps: one per 16 rows
 constexpr float LOG2E = 1.4426950408889634f;
 constexpr float LN2 = 0.6931471805599453f;
 
+// ways the bf16 kernels split D's output columns between warps
+template <int D> __host__ __device__ constexpr int col_split() { return D > 128 ? 2 : 1; }
+
 // forward: grid (BH, ceil(Sq / BQ)), query tiles longest-first when causal
 // smem: q_s [BQ][D+8], k_s [2][BK][D+8], v_s [2][BK][D+8] (bf16)
-template <int D>
-__global__ void __launch_bounds__(MMA_NT)
+template <int D, int SPLIT>
+__global__ void __launch_bounds__(MMA_NT * SPLIT)
 flash_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
                      const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ o,
                      float* __restrict__ lse, int sq, int skv, long long q_bs, long long k_bs,
                      long long v_bs, float scale_log2, int causal) {
   using namespace mma_bf16;
-  constexpr int P = pitch<D>(), KD = D / 16, ND = D / 8, NS = BK / 8;
+  constexpr int P = pitch<D>(), KD = D / 16, NS = BK / 8, NTH = MMA_NT * SPLIT;
+  constexpr int ND = D / 8 / SPLIT;            // this warp's 8-column output tiles
+  constexpr bool Q_REGS = SPLIT == 1;          // Q's fragments held, or re-read
   extern __shared__ __align__(16) unsigned char mma_smem[];
   __nv_bfloat16* q_s = reinterpret_cast<__nv_bfloat16*>(mma_smem);
   __nv_bfloat16* k_s = q_s + BQ * P;
@@ -413,24 +474,27 @@ flash_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* _
   const int qt = causal ? gridDim.y - 1 - blockIdx.y : blockIdx.y;
   const int q0 = qt * BQ, q_valid = min(BQ, sq - q0);
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int rw = warp & 3, d0 = (warp >> 2) * (D / SPLIT);   // row group, first column
   const int g = lane >> 2, t = lane & 3;
-  const int row0 = q0 + warp * 16 + g;         // query of c0, c1; row0 + 8 of c2, c3
+  const int row0 = q0 + rw * 16 + g;           // query of c0, c1; row0 + 8 of c2, c3
   const __nv_bfloat16* kb = k + bh * k_bs;
   const __nv_bfloat16* vb = v + bh * v_bs;
   // causal: keys up to the tile's last valid query only
   const int kend = causal ? min(skv, q0 + q_valid) : skv;
   const int n_tiles = (kend + BK - 1) / BK;
 
-  load_tile_async<BQ, D, MMA_NT>(q_s, q + bh * q_bs + (size_t)q0 * D, q_valid);
+  load_tile_async<BQ, D, NTH>(q_s, q + bh * q_bs + (size_t)q0 * D, q_valid);
   cp_async_commit();
-  load_tile_async<BK, D, MMA_NT>(k_s, kb, min(BK, skv));
-  load_tile_async<BK, D, MMA_NT>(v_s, vb, min(BK, skv));
+  load_tile_async<BK, D, NTH>(k_s, kb, min(BK, skv));
+  load_tile_async<BK, D, NTH>(v_s, vb, min(BK, skv));
   cp_async_commit();
-  cp_async_wait<1>();                        // Q has landed: its fragments stay in registers
+  cp_async_wait<1>();                        // Q has landed
   __syncthreads();
-  uint32_t qf[KD][4];
+  uint32_t qf[Q_REGS ? KD : 1][4];             // with Q_REGS its fragments stay in registers
+  if constexpr (Q_REGS) {
 #pragma unroll
-  for (int kd = 0; kd < KD; ++kd) ldsm_x4(qf[kd], a_frag_addr<D>(q_s, warp * 16, kd * 16, lane));
+    for (int kd = 0; kd < KD; ++kd) ldsm_x4(qf[kd], a_frag_addr<D>(q_s, rw * 16, kd * 16, lane));
+  }
 
   float acc[ND][4], m[2] = {NEG_INF, NEG_INF}, l[2] = {0.0f, 0.0f};
 #pragma unroll
@@ -442,8 +506,8 @@ flash_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* _
     const int k0 = it * BK;
     if (it + 1 < n_tiles) {                  // prefetch the next K/V tile
       const int k1 = k0 + BK, nv = min(BK, skv - k1), st = (it + 1) & 1;
-      load_tile_async<BK, D, MMA_NT>(k_s + st * BK * P, kb + (size_t)k1 * D, nv);
-      load_tile_async<BK, D, MMA_NT>(v_s + st * BK * P, vb + (size_t)k1 * D, nv);
+      load_tile_async<BK, D, NTH>(k_s + st * BK * P, kb + (size_t)k1 * D, nv);
+      load_tile_async<BK, D, NTH>(v_s + st * BK * P, vb + (size_t)k1 * D, nv);
     }
     cp_async_commit();
     cp_async_wait<1>();                      // this tile has landed
@@ -459,12 +523,19 @@ flash_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* _
       for (int e = 0; e < 4; ++e) s[j][e] = 0.0f;
 #pragma unroll
     for (int kd = 0; kd < KD; ++kd) {
+      uint32_t a[4];
+      if constexpr (Q_REGS) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) a[e] = qf[kd][e];
+      } else {
+        ldsm_x4(a, a_frag_addr<D>(q_s, rw * 16, kd * 16, lane));
+      }
 #pragma unroll
       for (int np = 0; np < NS / 2; ++np) {
         uint32_t b[4];
         ldsm_x4(b, b_frag_addr_nk<D>(ks, np * 16, kd * 16, lane));
-        mma_16816(s[2 * np], qf[kd], b[0], b[1]);
-        mma_16816(s[2 * np + 1], qf[kd], b[2], b[3]);
+        mma_16816(s[2 * np], a, b[0], b[1]);
+        mma_16816(s[2 * np + 1], a, b[2], b[3]);
       }
     }
     // scale; mask only a tile that crosses the diagonal or the end of K
@@ -512,7 +583,7 @@ flash_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* _
 #pragma unroll
       for (int dp = 0; dp < ND / 2; ++dp) {
         uint32_t b[4];
-        ldsm_x4_trans(b, b_frag_addr_kn<D>(vs, kk * 16, dp * 16, lane));
+        ldsm_x4_trans(b, b_frag_addr_kn<D>(vs, kk * 16, d0 + dp * 16, lane));
         mma_16816(acc[2 * dp], a, b[0], b[1]);
         mma_16816(acc[2 * dp + 1], a, b[2], b[3]);
       }
@@ -528,9 +599,9 @@ flash_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* _
     if (r >= sq) continue;
 #pragma unroll
     for (int j = 0; j < ND; ++j)
-      *reinterpret_cast<uint32_t*>(ob + (size_t)r * D + j * 8 + 2 * t) =
+      *reinterpret_cast<uint32_t*>(ob + (size_t)r * D + d0 + j * 8 + 2 * t) =
           pack_bf16x2(acc[j][2 * h] / li, acc[j][2 * h + 1] / li);
-    if (t == 0) lse[(size_t)bh * sq + r] = m[h] * LN2 + logf(li);
+    if (t == 0 && d0 == 0) lse[(size_t)bh * sq + r] = m[h] * LN2 + logf(li);
   }
 }
 
@@ -543,8 +614,8 @@ flash_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* _
 // per product rather than kept in registers.
 // smem: q_s, do_s [BQ][D+8], k_s, v_s [2][BK][D+8] (bf16), lse_s, delta_s
 // [BQ] (fp32)
-template <int D>
-__global__ void __launch_bounds__(MMA_NT)
+template <int D, int SPLIT>
+__global__ void __launch_bounds__(MMA_NT * SPLIT)
 flash_bwd_dq_mma_kernel(const __nv_bfloat16* __restrict__ q,
                         const __nv_bfloat16* __restrict__ k,
                         const __nv_bfloat16* __restrict__ v,
@@ -553,7 +624,8 @@ flash_bwd_dq_mma_kernel(const __nv_bfloat16* __restrict__ q,
                         int skv, long long q_bs, long long k_bs, long long v_bs,
                         long long do_bs, float scale, float scale_log2, int causal) {
   using namespace mma_bf16;
-  constexpr int P = pitch<D>(), KD = D / 16, ND = D / 8, NS = BK / 8;
+  constexpr int P = pitch<D>(), KD = D / 16, NS = BK / 8, NTH = MMA_NT * SPLIT;
+  constexpr int ND = D / 8 / SPLIT;            // this warp's 8-column output tiles
   extern __shared__ __align__(16) unsigned char mma_smem[];
   __nv_bfloat16* q_s = reinterpret_cast<__nv_bfloat16*>(mma_smem);
   __nv_bfloat16* do_s = q_s + BQ * P;
@@ -566,33 +638,34 @@ flash_bwd_dq_mma_kernel(const __nv_bfloat16* __restrict__ q,
   const int qt = causal ? gridDim.y - 1 - blockIdx.y : blockIdx.y;
   const int q0 = qt * BQ, q_valid = min(BQ, sq - q0);
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int rw = warp & 3, d0 = (warp >> 2) * (D / SPLIT);   // row group, first column
   const int g = lane >> 2, t = lane & 3;
-  const int row0 = q0 + warp * 16 + g;         // query of c0, c1; row0 + 8 of c2, c3
+  const int row0 = q0 + rw * 16 + g;           // query of c0, c1; row0 + 8 of c2, c3
   const __nv_bfloat16* kb = k + bh * k_bs;
   const __nv_bfloat16* vb = v + bh * v_bs;
   // causal: keys up to the tile's last valid query only
   const int kend = causal ? min(skv, q0 + q_valid) : skv;
   const int n_tiles = (kend + BK - 1) / BK;
 
-  load_tile_async<BQ, D, MMA_NT>(q_s, q + bh * q_bs + (size_t)q0 * D, q_valid);
-  load_tile_async<BQ, D, MMA_NT>(do_s, dout + bh * do_bs + (size_t)q0 * D, q_valid);
-  {
+  load_tile_async<BQ, D, NTH>(q_s, q + bh * q_bs + (size_t)q0 * D, q_valid);
+  load_tile_async<BQ, D, NTH>(do_s, dout + bh * do_bs + (size_t)q0 * D, q_valid);
+  if (threadIdx.x < 2 * BQ) {                  // threads 0..63 lse, 64..127 delta
     const int r = threadIdx.x & (BQ - 1);
     const bool ok = r < q_valid;
     const float* src = (threadIdx.x < BQ ? lse : delta) + (size_t)bh * sq + q0;
     cp_async_4((threadIdx.x < BQ ? lse_s : delta_s) + r, ok ? src + r : src, ok);
   }
   cp_async_commit();
-  load_tile_async<BK, D, MMA_NT>(k_s, kb, min(BK, skv));
-  load_tile_async<BK, D, MMA_NT>(v_s, vb, min(BK, skv));
+  load_tile_async<BK, D, NTH>(k_s, kb, min(BK, skv));
+  load_tile_async<BK, D, NTH>(v_s, vb, min(BK, skv));
   cp_async_commit();
   cp_async_wait<1>();                        // Q, dO and the row statistics have landed
   __syncthreads();
   float lse2[2], dl[2];                        // lse in log2 units, delta; rows row0, row0 + 8
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
-    lse2[h] = lse_s[warp * 16 + g + 8 * h] * LOG2E;
-    dl[h] = delta_s[warp * 16 + g + 8 * h];
+    lse2[h] = lse_s[rw * 16 + g + 8 * h] * LOG2E;
+    dl[h] = delta_s[rw * 16 + g + 8 * h];
   }
 
   float acc[ND][4];
@@ -605,8 +678,8 @@ flash_bwd_dq_mma_kernel(const __nv_bfloat16* __restrict__ q,
     const int k0 = it * BK;
     if (it + 1 < n_tiles) {                  // prefetch the next K/V tile
       const int k1 = k0 + BK, nv = min(BK, skv - k1), st = (it + 1) & 1;
-      load_tile_async<BK, D, MMA_NT>(k_s + st * BK * P, kb + (size_t)k1 * D, nv);
-      load_tile_async<BK, D, MMA_NT>(v_s + st * BK * P, vb + (size_t)k1 * D, nv);
+      load_tile_async<BK, D, NTH>(k_s + st * BK * P, kb + (size_t)k1 * D, nv);
+      load_tile_async<BK, D, NTH>(v_s + st * BK * P, vb + (size_t)k1 * D, nv);
     }
     cp_async_commit();
     cp_async_wait<1>();                      // this tile has landed
@@ -623,7 +696,7 @@ flash_bwd_dq_mma_kernel(const __nv_bfloat16* __restrict__ q,
 #pragma unroll
     for (int kd = 0; kd < KD; ++kd) {
       uint32_t a[4];
-      ldsm_x4(a, a_frag_addr<D>(q_s, warp * 16, kd * 16, lane));
+      ldsm_x4(a, a_frag_addr<D>(q_s, rw * 16, kd * 16, lane));
 #pragma unroll
       for (int np = 0; np < NS / 2; ++np) {
         uint32_t b[4];
@@ -655,7 +728,7 @@ flash_bwd_dq_mma_kernel(const __nv_bfloat16* __restrict__ q,
 #pragma unroll
     for (int kd = 0; kd < KD; ++kd) {
       uint32_t a[4];
-      ldsm_x4(a, a_frag_addr<D>(do_s, warp * 16, kd * 16, lane));
+      ldsm_x4(a, a_frag_addr<D>(do_s, rw * 16, kd * 16, lane));
 #pragma unroll
       for (int np = 0; np < NS / 2; ++np) {
         uint32_t b[4];
@@ -677,7 +750,7 @@ flash_bwd_dq_mma_kernel(const __nv_bfloat16* __restrict__ q,
 #pragma unroll
       for (int dpair = 0; dpair < ND / 2; ++dpair) {
         uint32_t b[4];
-        ldsm_x4_trans(b, b_frag_addr_kn<D>(ks, kk * 16, dpair * 16, lane));
+        ldsm_x4_trans(b, b_frag_addr_kn<D>(ks, kk * 16, d0 + dpair * 16, lane));
         mma_16816(acc[2 * dpair], a, b[0], b[1]);
         mma_16816(acc[2 * dpair + 1], a, b[2], b[3]);
       }
@@ -693,7 +766,7 @@ flash_bwd_dq_mma_kernel(const __nv_bfloat16* __restrict__ q,
     if (r >= sq) continue;
 #pragma unroll
     for (int j = 0; j < ND; ++j)
-      *reinterpret_cast<uint32_t*>(dqb + (size_t)r * D + j * 8 + 2 * t) =
+      *reinterpret_cast<uint32_t*>(dqb + (size_t)r * D + d0 + j * 8 + 2 * t) =
           pack_bf16x2(acc[j][2 * h], acc[j][2 * h + 1]);
   }
 }
@@ -704,8 +777,8 @@ flash_bwd_dq_mma_kernel(const __nv_bfloat16* __restrict__ q,
 // two 32-row halves to keep the live accumulators at dK + dV + 2 x 16.
 // smem: k_s, v_s [BK][D+8], q_s, do_s [2][BQ][D+8] (bf16), lse_s, delta_s
 // [2][BQ] (fp32)
-template <int D>
-__global__ void __launch_bounds__(MMA_NT)
+template <int D, int SPLIT>
+__global__ void __launch_bounds__(MMA_NT * SPLIT)
 flash_bwd_dkv_mma_kernel(const __nv_bfloat16* __restrict__ q,
                          const __nv_bfloat16* __restrict__ k,
                          const __nv_bfloat16* __restrict__ v,
@@ -715,7 +788,8 @@ flash_bwd_dkv_mma_kernel(const __nv_bfloat16* __restrict__ q,
                          long long k_bs, long long v_bs, long long do_bs, float scale,
                          float scale_log2, int causal) {
   using namespace mma_bf16;
-  constexpr int P = pitch<D>(), KD = D / 16, ND = D / 8, HQ = BQ / 2, NS = HQ / 8;
+  constexpr int P = pitch<D>(), KD = D / 16, HQ = BQ / 2, NS = HQ / 8, NTH = MMA_NT * SPLIT;
+  constexpr int ND = D / 8 / SPLIT;            // this warp's 8-column dK, dV tiles
   static_assert(BQ == BK, "a causal key tile starts at the query tile of its own index");
   extern __shared__ __align__(16) unsigned char mma_smem[];
   __nv_bfloat16* k_s = reinterpret_cast<__nv_bfloat16*>(mma_smem);
@@ -727,8 +801,9 @@ flash_bwd_dkv_mma_kernel(const __nv_bfloat16* __restrict__ q,
 
   const int bh = blockIdx.x, k0 = blockIdx.y * BK, k_valid = min(BK, skv - k0);
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int rw = warp & 3, d0 = (warp >> 2) * (D / SPLIT);   // key group, first column
   const int g = lane >> 2, t = lane & 3;
-  const int key0 = k0 + warp * 16 + g;         // key of c0, c1; key0 + 8 of c2, c3
+  const int key0 = k0 + rw * 16 + g;           // key of c0, c1; key0 + 8 of c2, c3
   const __nv_bfloat16* qb = q + bh * q_bs;
   const __nv_bfloat16* dob = dout + bh * do_bs;
   const float* lse_b = lse + (size_t)bh * sq;
@@ -739,18 +814,18 @@ flash_bwd_dkv_mma_kernel(const __nv_bfloat16* __restrict__ q,
 
   auto load_q_tile = [&](int qs, int st) {
     const int nv = min(BQ, sq - qs);
-    load_tile_async<BQ, D, MMA_NT>(q_s + st * BQ * P, qb + (size_t)qs * D, nv);
-    load_tile_async<BQ, D, MMA_NT>(do_s + st * BQ * P, dob + (size_t)qs * D, nv);
+    load_tile_async<BQ, D, NTH>(q_s + st * BQ * P, qb + (size_t)qs * D, nv);
+    load_tile_async<BQ, D, NTH>(do_s + st * BQ * P, dob + (size_t)qs * D, nv);
     const int r = threadIdx.x & (BQ - 1);
     const bool ok = r < nv;
     if (threadIdx.x < BQ)
       cp_async_4(lse_s + st * BQ + r, ok ? lse_b + qs + r : lse_b, ok);
-    else
+    else if (threadIdx.x < 2 * BQ)
       cp_async_4(delta_s + st * BQ + r, ok ? delta_b + qs + r : delta_b, ok);
   };
 
-  load_tile_async<BK, D, MMA_NT>(k_s, k + bh * k_bs + (size_t)k0 * D, k_valid);
-  load_tile_async<BK, D, MMA_NT>(v_s, v + bh * v_bs + (size_t)k0 * D, k_valid);
+  load_tile_async<BK, D, NTH>(k_s, k + bh * k_bs + (size_t)k0 * D, k_valid);
+  load_tile_async<BK, D, NTH>(v_s, v + bh * v_bs + (size_t)k0 * D, k_valid);
   if (n_tiles > 0) load_q_tile(qstart, 0);
   cp_async_commit();
 
@@ -784,7 +859,7 @@ flash_bwd_dkv_mma_kernel(const __nv_bfloat16* __restrict__ q,
 #pragma unroll
       for (int kd = 0; kd < KD; ++kd) {
         uint32_t a[4];
-        ldsm_x4(a, a_frag_addr<D>(k_s, warp * 16, kd * 16, lane));
+        ldsm_x4(a, a_frag_addr<D>(k_s, rw * 16, kd * 16, lane));
 #pragma unroll
         for (int np = 0; np < NS / 2; ++np) {
           uint32_t b[4];
@@ -816,7 +891,7 @@ flash_bwd_dkv_mma_kernel(const __nv_bfloat16* __restrict__ q,
 #pragma unroll
         for (int dpair = 0; dpair < ND / 2; ++dpair) {
           uint32_t b[4];
-          ldsm_x4_trans(b, b_frag_addr_kn<D>(dot_s, c0 + kk * 16, dpair * 16, lane));
+          ldsm_x4_trans(b, b_frag_addr_kn<D>(dot_s, c0 + kk * 16, d0 + dpair * 16, lane));
           mma_16816(dv_acc[2 * dpair], a, b[0], b[1]);
           mma_16816(dv_acc[2 * dpair + 1], a, b[2], b[3]);
         }
@@ -825,7 +900,7 @@ flash_bwd_dkv_mma_kernel(const __nv_bfloat16* __restrict__ q,
 #pragma unroll
       for (int kd = 0; kd < KD; ++kd) {
         uint32_t a[4];
-        ldsm_x4(a, a_frag_addr<D>(v_s, warp * 16, kd * 16, lane));
+        ldsm_x4(a, a_frag_addr<D>(v_s, rw * 16, kd * 16, lane));
 #pragma unroll
         for (int np = 0; np < NS / 2; ++np) {
           uint32_t b[4];
@@ -850,7 +925,7 @@ flash_bwd_dkv_mma_kernel(const __nv_bfloat16* __restrict__ q,
 #pragma unroll
         for (int dpair = 0; dpair < ND / 2; ++dpair) {
           uint32_t b[4];
-          ldsm_x4_trans(b, b_frag_addr_kn<D>(qt_s, c0 + kk * 16, dpair * 16, lane));
+          ldsm_x4_trans(b, b_frag_addr_kn<D>(qt_s, c0 + kk * 16, d0 + dpair * 16, lane));
           mma_16816(dk_acc[2 * dpair], a, b[0], b[1]);
           mma_16816(dk_acc[2 * dpair + 1], a, b[2], b[3]);
         }
@@ -868,9 +943,9 @@ flash_bwd_dkv_mma_kernel(const __nv_bfloat16* __restrict__ q,
     if (r >= skv) continue;
 #pragma unroll
     for (int j = 0; j < ND; ++j) {
-      *reinterpret_cast<uint32_t*>(dkb + (size_t)r * D + j * 8 + 2 * t) =
+      *reinterpret_cast<uint32_t*>(dkb + (size_t)r * D + d0 + j * 8 + 2 * t) =
           pack_bf16x2(dk_acc[j][2 * h], dk_acc[j][2 * h + 1]);
-      *reinterpret_cast<uint32_t*>(dvb + (size_t)r * D + j * 8 + 2 * t) =
+      *reinterpret_cast<uint32_t*>(dvb + (size_t)r * D + d0 + j * 8 + 2 * t) =
           pack_bf16x2(dv_acc[j][2 * h], dv_acc[j][2 * h + 1]);
     }
   }
@@ -892,10 +967,12 @@ template <int D> constexpr size_t fwd_smem() {
   return sizeof(float) * ((size_t)BQ * (D + 1) + BK * (D + 1) + BK * D + BQ * PS);
 }
 template <int D> constexpr size_t dq_smem() {
-  return sizeof(float) * ((size_t)2 * BQ * (D + 1) + 2 * BK * (D + 1) + BQ * PS);
+  return sizeof(float) *
+         ((size_t)2 * BQ * (D + 1) + (dq_one_kv<D>() ? 1 : 2) * BK * (D + 1) + BQ * PS);
 }
 template <int D> constexpr size_t dkv_smem() {
-  return sizeof(float) * ((size_t)2 * BK * (D + 1) + 2 * BQ * (D + 1) + 2 * BQ * PS + 2 * BQ);
+  return sizeof(float) * ((size_t)2 * BK * (D + 1) + (dkv_one_qdo<D>() ? 1 : 2) * BQ * (D + 1) +
+                          2 * BQ * PS + 2 * BQ);
 }
 
 // Allow a kernel dynamic shared memory above 48 KB (once: `ready`), launch it
@@ -919,13 +996,16 @@ template <typename T, int D>
 cudaError_t fwd(const void* q, const void* k, const void* v, void* o, void* lse, int bh, int sq,
                 int skv, long long q_bs, long long k_bs, long long v_bs, float scale,
                 int causal, cudaStream_t stream) {
+  static_assert(fwd_smem<D>() <= MAX_SMEM && fwd_mma_smem<D>() <= MAX_SMEM,
+                "one block's shared memory must fit an SM");
   static bool ready = false;
   const int nq = (sq + BQ - 1) / BQ;
   const T *qt = static_cast<const T*>(q), *kt = static_cast<const T*>(k),
           *vt = static_cast<const T*>(v);
   if constexpr (std::is_same_v<T, __nv_bfloat16>) {
     if (nq > 65535) return cudaErrorInvalidValue;
-    return launch(flash_fwd_mma_kernel<D>, ready, dim3(bh, nq), MMA_NT, fwd_mma_smem<D>(),
+    return launch(flash_fwd_mma_kernel<D, col_split<D>()>, ready, dim3(bh, nq),
+                  MMA_NT * col_split<D>(), fwd_mma_smem<D>(),
                   stream, qt, kt, vt, static_cast<T*>(o), static_cast<float*>(lse), sq, skv,
                   q_bs, k_bs, v_bs, scale * LOG2E, causal);
   } else {
@@ -940,6 +1020,8 @@ cudaError_t bwd_dq(const void* q, const void* k, const void* v, const void* dout
                    const void* lse, const void* delta, void* dq, int bh, int sq, int skv,
                    long long q_bs, long long k_bs, long long v_bs, long long do_bs, float scale,
                    int causal, cudaStream_t stream) {
+  static_assert(dq_smem<D>() <= MAX_SMEM && dq_mma_smem<D>() <= MAX_SMEM,
+                "one block's shared memory must fit an SM");
   static bool ready = false;
   const int nq = (sq + BQ - 1) / BQ;
   const T *qt = static_cast<const T*>(q), *kt = static_cast<const T*>(k),
@@ -947,7 +1029,8 @@ cudaError_t bwd_dq(const void* q, const void* k, const void* v, const void* dout
   const float *lsef = static_cast<const float*>(lse), *deltaf = static_cast<const float*>(delta);
   if constexpr (std::is_same_v<T, __nv_bfloat16>) {
     if (nq > 65535) return cudaErrorInvalidValue;
-    return launch(flash_bwd_dq_mma_kernel<D>, ready, dim3(bh, nq), MMA_NT, dq_mma_smem<D>(),
+    return launch(flash_bwd_dq_mma_kernel<D, col_split<D>()>, ready, dim3(bh, nq),
+                  MMA_NT * col_split<D>(), dq_mma_smem<D>(),
                   stream, qt, kt, vt, dot, lsef, deltaf, static_cast<T*>(dq), sq, skv, q_bs,
                   k_bs, v_bs, do_bs, scale, scale * LOG2E, causal);
   } else {
@@ -963,6 +1046,8 @@ cudaError_t bwd_dkv(const void* q, const void* k, const void* v, const void* dou
                     const void* lse, const void* delta, void* dk, void* dv, int bh, int sq,
                     int skv, long long q_bs, long long k_bs, long long v_bs, long long do_bs,
                     float scale, int causal, cudaStream_t stream) {
+  static_assert(dkv_smem<D>() <= MAX_SMEM && dkv_mma_smem<D>() <= MAX_SMEM,
+                "one block's shared memory must fit an SM");
   static bool ready = false;
   const int nk = (skv + BK - 1) / BK;
   const T *qt = static_cast<const T*>(q), *kt = static_cast<const T*>(k),
@@ -970,7 +1055,8 @@ cudaError_t bwd_dkv(const void* q, const void* k, const void* v, const void* dou
   const float *lsef = static_cast<const float*>(lse), *deltaf = static_cast<const float*>(delta);
   if constexpr (std::is_same_v<T, __nv_bfloat16>) {
     if (nk > 65535) return cudaErrorInvalidValue;
-    return launch(flash_bwd_dkv_mma_kernel<D>, ready, dim3(bh, nk), MMA_NT, dkv_mma_smem<D>(),
+    return launch(flash_bwd_dkv_mma_kernel<D, col_split<D>()>, ready, dim3(bh, nk),
+                  MMA_NT * col_split<D>(), dkv_mma_smem<D>(),
                   stream, qt, kt, vt, dot, lsef, deltaf, static_cast<T*>(dk),
                   static_cast<T*>(dv), sq, skv, q_bs, k_bs, v_bs, do_bs, scale,
                   scale * LOG2E, causal);
@@ -992,11 +1078,15 @@ bool bad_shape(int bh, int sq, int skv) {
     case 16: return (int)FN<float, 16>(__VA_ARGS__);                                  \
     case 32: return (int)FN<float, 32>(__VA_ARGS__);                                  \
     case 64: return (int)FN<float, 64>(__VA_ARGS__);                                  \
+    case 96: return (int)FN<float, 96>(__VA_ARGS__);                                  \
     case 128: return (int)FN<float, 128>(__VA_ARGS__);                                \
+    case 256: return (int)FN<float, 256>(__VA_ARGS__);                                \
     case 1016: return (int)FN<__nv_bfloat16, 16>(__VA_ARGS__);                        \
     case 1032: return (int)FN<__nv_bfloat16, 32>(__VA_ARGS__);                        \
     case 1064: return (int)FN<__nv_bfloat16, 64>(__VA_ARGS__);                        \
+    case 1096: return (int)FN<__nv_bfloat16, 96>(__VA_ARGS__);                        \
     case 1128: return (int)FN<__nv_bfloat16, 128>(__VA_ARGS__);                       \
+    case 1256: return (int)FN<__nv_bfloat16, 256>(__VA_ARGS__);                       \
     default: return (int)cudaErrorInvalidValue;                                       \
   }
 

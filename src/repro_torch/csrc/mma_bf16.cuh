@@ -15,7 +15,7 @@
 //
 // Tiles hold rows of D bf16 at a pitch of D + 8 elements: the 16 extra bytes
 // move each row 4 banks on, so the 8 row addresses of one ldmatrix phase hit
-// 32 distinct banks for every D in {16, 32, 64, 128}, and every row start
+// 32 distinct banks for every D in {16, 32, 64, 96, 128, 256}, and every row start
 // stays 16-byte aligned for cp.async and ldmatrix.
 
 #pragma once

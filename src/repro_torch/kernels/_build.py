@@ -131,7 +131,7 @@ def _declare(lib: ctypes.CDLL) -> None:
         fn = getattr(lib, name)
         fn.argtypes = [p, p, p, p, p, p, i, i, i, i, i, i, i, p]
         fn.restype = i
-    lib.block_stats_launch.argtypes = [p, p, p, i, i, p]
+    lib.block_stats_launch.argtypes = [p, p, p, p, p, i, i, i, p]
     lib.block_stats_launch.restype = i
 
 

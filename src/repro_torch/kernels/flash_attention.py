@@ -17,7 +17,11 @@ accumulators, and P (dS) handed from one product's accumulators to the
 next product's operands in registers.  Those copies need each slab 16-byte
 aligned, so a bf16 tensor that is not raises ``ValueError`` rather than
 falling back.  Every float32 kernel multiplies on the CUDA cores in fp32
-(tensor cores would take fp32 only as TF32).
+(tensor cores would take fp32 only as TF32).  Head dims: :data:`HEAD_DIMS`.
+At 256 the bf16 kernels give each pair of warps 16 rows and each warp half
+of D's output columns (registers), and the fp32 dQ and dK/dV kernels stage
+K and V (Q and dO) in one shared buffer in turn (shared memory); all keep
+the 64-wide tiles.
 
 Beside each kernel sits its plain PyTorch version with the reference's
 rounding points: scores in fp32, times the scale, ``-1e30`` where masked; P
@@ -43,7 +47,7 @@ LAUNCHES = {"flash_fwd": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0}
 
 NEG_INF = -1e30
 BQ = BK = 64                     # the kernels' query-row and key tiles
-HEAD_DIMS = (16, 32, 64, 128)    # head dims the kernels are built for
+HEAD_DIMS = (16, 32, 64, 96, 128, 256)    # head dims the kernels are built for
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 

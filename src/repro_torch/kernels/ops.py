@@ -15,7 +15,7 @@ from repro_torch.core.quantization import Quantized, quantize
 from repro_torch.kernels import bitsparsity as _bs
 from repro_torch.kernels import quant_gemm as _qg
 from repro_torch.kernels import unary_gemm as _ug
-from repro_torch.kernels.ref import sparsity_from_block_stats
+from repro_torch.kernels.ref import sparsity_from_sums
 
 __all__ = ["pack_values", "int_matmul", "quantized_matmul", "tub_matmul",
            "tu_matmul", "bit_sparsity_stats"]
@@ -84,10 +84,11 @@ def tu_matmul(a_q: torch.Tensor, b_q: torch.Tensor, *, bits: int = 8):
 def bit_sparsity_stats(q: torch.Tensor, *, bits: int,
                        tile: int = 32) -> tuple[float, float]:
     """(word sparsity, block-max bit sparsity) of an int8 code matrix from
-    the tile-statistics kernel; the sums reduce on the tensor's device and
-    only two integers reach the host."""
+    the tile-statistics kernel, which also sums its two statistics on the
+    tensor's device: one read of two integers reaches the host."""
     if q.ndim != 2:
         q = q.reshape(-1, q.shape[-1])
-    maxes, zeros = _bs.block_stats(q, tile=tile)
-    return sparsity_from_block_stats(maxes, zeros, q.shape[0], q.shape[1],
-                                     bits, tile)
+    _, _, sums = _bs.block_stats_with_sums(q, tile=tile)
+    max_sum, zero_sum = sums.tolist()
+    return sparsity_from_sums(max_sum, zero_sum, q.shape[0], q.shape[1],
+                              bits, tile)

@@ -20,7 +20,8 @@ from repro_torch.core.sparsity import _f32_mean
 
 __all__ = ["tub_gemm_ref", "tu_gemm_ref", "unpack_values_ref",
            "quant_gemm_ref", "packed_gemm_ref", "block_stats_ref",
-           "sparsity_from_block_stats", "bit_sparsity_stats_ref"]
+           "sparsity_from_sums", "sparsity_from_block_stats",
+           "bit_sparsity_stats_ref"]
 
 #: |pulse| <= 3 and |b| <= 128: 4096 * 3 * 128 < 2^24, so an fp32 product over
 #: a K-chunk of 4096 is exact in any summation order.
@@ -146,18 +147,25 @@ def block_stats_ref(q: torch.Tensor, tile: int = 32):
     return maxes, zeros
 
 
+def sparsity_from_sums(max_sum: int, zero_sum: int, m: int, n: int, bits: int,
+                       tile: int) -> tuple[float, float]:
+    """(word sparsity, block-max bit sparsity) of an ``(m, n)`` code matrix
+    from the sums of its tile statistics (max|q| and zero counts over every
+    tile): the pad cells of the edge tiles, counted as zeros there, are
+    subtracted; the means round as the reference's do."""
+    rows, cols = -(-m // tile), -(-n // tile)
+    total_pad = rows * tile * cols * tile - m * n
+    word = _f32_mean(zero_sum - total_pad, m * n)
+    blk = _f32_mean(max_sum, rows * cols)
+    return float(word), float(np.float32(1.0) - blk / np.float32(2 ** (bits - 1)))
+
+
 def sparsity_from_block_stats(maxes: torch.Tensor, zeros: torch.Tensor,
                               m: int, n: int, bits: int,
                               tile: int) -> tuple[float, float]:
-    """(word sparsity, block-max bit sparsity) of an ``(m, n)`` code matrix
-    from its tile statistics: the pad cells of the edge tiles, counted as
-    zeros there, are subtracted; the means round as the reference's do."""
-    pad_rows = maxes.shape[0] * tile - m
-    pad_cols = maxes.shape[1] * tile - n
-    total_pad = pad_rows * n + pad_cols * m + pad_rows * pad_cols
-    word = _f32_mean(int(zeros.sum(dtype=torch.int64)) - total_pad, m * n)
-    blk = _f32_mean(int(maxes.sum(dtype=torch.int64)), maxes.numel())
-    return float(word), float(np.float32(1.0) - blk / np.float32(2 ** (bits - 1)))
+    """:func:`sparsity_from_sums` of the tile statistics themselves."""
+    return sparsity_from_sums(int(maxes.sum(dtype=torch.int64)),
+                              int(zeros.sum(dtype=torch.int64)), m, n, bits, tile)
 
 
 def bit_sparsity_stats_ref(q: torch.Tensor, bits: int, tile: int = 32):

@@ -100,3 +100,58 @@ def test_block_stats_flattens_and_checks():
     port_bs.reset_launches()
     port_bs.block_stats(torch.from_numpy(q))
     assert port_bs.LAUNCHES == {"block_stats": 0}
+
+
+@pytest.mark.parametrize("tile", port_bs.TILES)
+@pytest.mark.parametrize("codes", ["int8", "zeros"])
+def test_every_tile_equals_reference(codes, tile):
+    """Every tile that divides the reference's (256, 128) block, on the full
+    int8 range (-128 included) and on an all-zero matrix, ragged against
+    every tile above 1: the tile statistics EQUAL to the reference's Pallas
+    kernel in interpret mode and to its plain version; the fused sums equal
+    theirs; bit_sparsity_stats equal to the port's plain chain and within
+    STAT_TOL of the reference's."""
+    shape = (300, 257)
+    if codes == "int8":
+        q = _codes(shape, 8, seed=tile, zero_frac=0.1)
+        q.flat[::11] = -128
+    else:
+        q = np.zeros(shape, np.int8)
+    ref_max, ref_zero = ref_bs.block_stats(jnp.asarray(q), tile=tile, interpret=True)
+    maxes, zeros, sums = port_bs.block_stats_with_sums(torch.from_numpy(q), tile=tile)
+    assert tuple(maxes.shape) == (-(-shape[0] // tile), -(-shape[1] // tile))
+    np.testing.assert_array_equal(np.asarray(ref_max), maxes.numpy())
+    np.testing.assert_array_equal(np.asarray(ref_zero), zeros.numpy())
+    r_max, r_zero = ref_ref.block_stats_ref(jnp.asarray(q), tile=tile)
+    np.testing.assert_array_equal(np.asarray(r_max), maxes.numpy())
+    np.testing.assert_array_equal(np.asarray(r_zero), zeros.numpy())
+    assert sums.dtype == torch.int64
+    assert sums.tolist() == [int(np.asarray(ref_max).sum()), int(np.asarray(ref_zero).sum())]
+    if codes == "int8":
+        assert int(maxes.max()) == 128          # |-128|, not saturated to 127
+    bits = 8 if codes == "int8" else 4
+    word, blk = port_ops.bit_sparsity_stats(torch.from_numpy(q), bits=bits, tile=tile)
+    assert (word, blk) == port_ref.bit_sparsity_stats_ref(torch.from_numpy(q), bits, tile)
+    ref_word, ref_blk = ref_ops.bit_sparsity_stats(jnp.asarray(q), bits=bits, tile=tile)
+    assert abs(word - float(ref_word)) <= STAT_TOL
+    assert abs(blk - float(ref_blk)) <= STAT_TOL
+
+
+@pytest.mark.parametrize("tile", [3, 48, 256])
+def test_tiles_the_reference_refuses_raise(tile):
+    q = np.zeros((64, 64), np.int8)
+    with pytest.raises(ValueError):
+        ref_bs.block_stats(jnp.asarray(q), tile=tile, interpret=True)
+    with pytest.raises(ValueError, match="tile"):
+        port_bs.block_stats(torch.from_numpy(q), tile=tile)
+
+
+def test_sums_give_the_same_floats_as_the_tile_statistics():
+    """ops.bit_sparsity_stats reads the two fused sums; the floats are those
+    that the tile statistics give, bit for bit, on ragged shapes."""
+    for shape, tile in (((33, 70), 32), ((100, 129), 16), ((257, 40), 64)):
+        q = torch.from_numpy(_codes(shape, 4, seed=shape[0]))
+        maxes, zeros = port_bs.block_stats(q, tile=tile)
+        for bits in (2, 4, 8):
+            want = port_ref.sparsity_from_block_stats(maxes, zeros, *shape, bits, tile)
+            assert port_ops.bit_sparsity_stats(q, bits=bits, tile=tile) == want

@@ -45,10 +45,16 @@ CASES = [
     (2, 77, 77, 1, 64, 64),       # ragged past the port's 64-row tile
 ]
 CROSS = [(1, 10, 26, 2, 16, 16), (1, 40, 20, 2, 16, 16), (2, 70, 130, 1, 32, 64)]
+# head dims 96 (phi3-mini-3.8b) and 256 (gemma-7b), which the kernels take
+# since the D = 256 instances split their work (the plain versions walk the
+# same 64-wide tiles): whole tiles, ragged, Sq < Skv and Sq > Skv
+HEAD_DIM_CASES = [(1, 64, 64, 2, 96, 64), (1, 64, 64, 1, 256, 64),
+                  (2, 20, 20, 1, 256, 16), (1, 20, 40, 2, 96, 16),
+                  (1, 40, 20, 1, 256, 16), (1, 77, 77, 1, 96, 64)]
 
 
 @pytest.mark.parametrize("causal", [True, False])
-@pytest.mark.parametrize("case", CASES + CROSS, ids=str)
+@pytest.mark.parametrize("case", CASES + CROSS + HEAD_DIM_CASES, ids=str)
 def test_values_and_grads_match_reference(case, causal):
     b, sq, skv, h, d, blk = case
     rng = np.random.default_rng(sq * 31 + skv + d)
@@ -85,6 +91,37 @@ def test_bf16_matches_reference(causal):
     assert got.dtype == torch.bfloat16
     np.testing.assert_allclose(got.float().numpy(), np.asarray(want, np.float32),
                                rtol=BF16_TOL, atol=BF16_TOL)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("case", HEAD_DIM_CASES, ids=str)
+def test_bf16_head_dims_values_and_grads_match_reference(case, causal):
+    """bf16 at head dims 96 and 256: values and the three gradients of the
+    port (its plain versions, on the CPU) against the reference's kernels in
+    interpret mode, both fed the same bf16 inputs."""
+    b, sq, skv, h, d, blk = case
+    rng = np.random.default_rng(sq * 7 + skv + d)
+    q, k, v = _arrays(rng, (b, sq, h, d), (b, skv, h, d), (b, skv, h, d))
+    g = rng.standard_normal((b, sq, h, d)).astype(np.float32)
+
+    def ref_fn(q_, k_, v_):
+        return ref_flash.flash_attention(q_, k_, v_, causal=causal, bq=blk,
+                                         bk=blk, interpret=True)
+
+    want, vjp = jax.vjp(ref_fn, *(_ref(x, jnp.bfloat16) for x in (q, k, v)))
+    want_grads = vjp(_ref(g, jnp.bfloat16))
+    tq, tk, tv = (_port(x, torch.bfloat16, grad=True) for x in (q, k, v))
+    got = port_flash.flash_attention(tq, tk, tv, causal=causal)
+    assert got.dtype == torch.bfloat16 and got.shape == (b, sq, h, d)
+    np.testing.assert_allclose(got.detach().float().numpy(),
+                               np.asarray(want, np.float32),
+                               rtol=BF16_TOL, atol=BF16_TOL)
+    got_grads = torch.autograd.grad(got, (tq, tk, tv),
+                                    _port(g, torch.bfloat16))
+    for name, a, w in zip("qkv", got_grads, want_grads):
+        assert a.dtype == torch.bfloat16
+        np.testing.assert_allclose(a.float().numpy(), np.asarray(w, np.float32),
+                                   rtol=BF16_TOL, atol=BF16_TOL, err_msg=f"d{name}")
 
 
 @pytest.mark.parametrize("causal", [True, False])
@@ -126,6 +163,16 @@ def test_lse_is_the_row_logsumexp():
     s = s.masked_fill(torch.ones(70, 70, dtype=torch.bool).triu(1), -1e30)
     np.testing.assert_allclose(lse.numpy(), torch.logsumexp(s, -1).numpy(),
                                rtol=1e-6, atol=1e-5)
+
+
+def test_kernel_head_dims():
+    """The head dims the kernels are built for: the reference's configs'
+    (16 .. 128, phi3-mini's 96, gemma-7b's 256); any other raises on a CUDA
+    tensor (tests/test_torch_gpu.py), and the CPU path takes every head
+    dim."""
+    assert port_flash.HEAD_DIMS == (16, 32, 64, 96, 128, 256)
+    q = torch.randn(1, 9, 1, 48)
+    assert port_flash.flash_attention(q, q, q).shape == (1, 9, 1, 48)
 
 
 def test_cpu_tensors_never_launch_a_kernel():

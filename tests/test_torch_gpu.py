@@ -18,7 +18,8 @@ the tensor-core kernels' 16-byte copies cannot take raises.  The packed
 integer GEMMs (quant_gemm and packed_gemm, both on the int8 tensor cores)
 must be EQUAL to their plain versions in int32 and in the fused float32
 epilogue, under the planned split K, none and 3, and block_stats EQUAL
-too; each launch on a CUDA tensor must count.
+too, at every tile 1..128 and any row count, with its two fused sums; each
+launch on a CUDA tensor must count.
 """
 
 import numpy as np
@@ -216,7 +217,14 @@ FLASH_BF16_ROW_TOL = 1.2e-2
                                          (2, 1, 1, 16), (2, 15, 17, 32),
                                          (2, 17, 15, 64), (2, 63, 65, 128),
                                          (2, 65, 63, 16), (2, 129, 129, 32),
-                                         (2, 1, 129, 64), (2, 129, 1, 128)])
+                                         (2, 1, 129, 64), (2, 129, 1, 128),
+                                         # head dims 96 and 256 (phi3-mini,
+                                         # gemma-7b): the same edges
+                                         (3, 77, 77, 96), (2, 130, 50, 256),
+                                         (2, 1, 1, 96), (2, 15, 17, 256),
+                                         (2, 63, 65, 96), (2, 65, 63, 256),
+                                         (2, 129, 129, 96), (2, 100, 100, 256),
+                                         (2, 1, 129, 256), (2, 129, 1, 96)])
 def test_flash_kernels_match_plain(cuda, dtype, causal, bh, sq, skv, d):
     gen = torch.Generator(device=cuda)
     gen.manual_seed(sq + skv + d)
@@ -440,9 +448,46 @@ def test_block_stats_kernel_equals_plain(cuda, shape):
     assert torch.equal(maxes, want_max) and torch.equal(zeros, want_zero)
 
 
+@pytest.mark.parametrize("tile", bs_lib.TILES)
+@pytest.mark.parametrize("codes", ["int8", "4bit", "zeros"])
+@pytest.mark.parametrize("shape", [(1, 1), (33, 70), (100, 129), (257, 1000),
+                                   (1000, 777), (4096, 1024), (2_100_000, 32)])
+def test_block_stats_every_tile_bit_exact(cuda, shape, codes, tile):
+    """Every tile 1..128 EQUAL to the plain version over the full int8 range
+    (-128 included), 4-bit codes with zeros, and an all-zero matrix;
+    (2,100,000, 32) has more than 65,535 tile rows at every tile.  The
+    launch's two sums equal the tile statistics' sums, and
+    bit_sparsity_stats' floats are bit-identical to those of the tile
+    statistics."""
+    rng = np.random.default_rng(shape[0] + tile)
+    if codes == "int8":
+        q = rng.integers(-128, 128, shape)
+        q.flat[::7] = -128
+    elif codes == "4bit":
+        q = rng.integers(-8, 8, shape)
+        q[rng.random(shape) < 0.3] = 0
+    else:
+        q = np.zeros(shape)
+    q = torch.from_numpy(q.astype(np.int8)).to(cuda)
+    before = bs_lib.LAUNCHES["block_stats"]
+    maxes, zeros, sums = bs_lib.block_stats_with_sums(q, tile=tile)
+    torch.cuda.synchronize()
+    assert bs_lib.LAUNCHES["block_stats"] == before + 1
+    want_max, want_zero = ref_lib.block_stats_ref(q, tile)
+    assert torch.equal(maxes, want_max) and torch.equal(zeros, want_zero)
+    assert sums.tolist() == [int(want_max.sum(dtype=torch.int64)),
+                             int(want_zero.sum(dtype=torch.int64))]
+    assert bs_lib._STATE[cuda.index].tolist() == [0, 0, 0]   # reset for the next launch
+    m, n = shape
+    for bits in (4, 8):
+        got = ops_lib.bit_sparsity_stats(q, bits=bits, tile=tile)
+        want = ref_lib.sparsity_from_block_stats(want_max, want_zero, m, n, bits, tile)
+        assert got == want, (got, want)
+
+
 def test_packed_wrappers_raise_rather_than_fall_back(cuda):
     x = torch.zeros((2, 8), dtype=torch.int8, device=cuda)
     with pytest.raises(ValueError):
         qg_lib.quant_gemm(x, torch.zeros((4, 2), dtype=torch.int8), bits=4)
     with pytest.raises(ValueError, match="tile"):
-        bs_lib.block_stats(x, tile=16)
+        bs_lib.block_stats(x, tile=48)        # divides no (256, 128) block

@@ -85,6 +85,12 @@ def test_csrc_holds_the_three_kernels():
                            ("packed_gemm.cu", "packed_gemm_launch"),
                            ("bitsparsity.cu", "block_stats_launch")):
         assert f'extern "C" int {launcher}' in srcs[name]
+    # block_stats: byte-SIMD |q| (non-saturating) and zero tests, one
+    # warp's shuffles a tile, the two sums as integer atomics
+    stats = srcs["bitsparsity.cu"]
+    for op in ("__vabs4(", "__vmaxu4(", "__vcmpeq4(", "atomicAdd(state"):
+        assert op in stats
+    assert "__syncthreads" not in stats and "__shared__" not in stats
     assert '#include "int_gemm.cuh"' in srcs["quant_gemm.cu"]
     assert '#include "int_gemm.cuh"' in srcs["packed_gemm.cu"]
     unary = srcs["unary_gemm.cu"]
@@ -114,7 +120,7 @@ def test_csrc_holds_the_three_kernels():
     assert '#include "mma_bf16.cuh"' in flash
     for kernel in ("flash_fwd_mma_kernel", "flash_bwd_dq_mma_kernel",
                    "flash_bwd_dkv_mma_kernel"):
-        assert f"__global__ void __launch_bounds__(MMA_NT)\n{kernel}" in flash
+        assert f"__global__ void __launch_bounds__(MMA_NT * SPLIT)\n{kernel}" in flash
     # tuGEMM's and tubGEMM's slot loop and quant_gemm on the int8 tensor
     # cores, through the shared int8 header (which takes mma_bf16's cp.async)
     int8 = (PKG / "csrc" / "mma_int8.cuh").read_text()
