@@ -34,12 +34,23 @@ Phases, each of which fails the run (non-zero exit) on its own:
    with ``packed_matmul``, equal to the materialising reference; and
    ``ops.bit_sparsity_stats`` over every site weight within 1e-6 of
    ``profile_tensor``;
-6. ``train``   — the training path (``launch/train.py``): a card-vs-CPU
+6. ``plan``    — per-site plans and packed serving on the same weights:
+   ``build_plan`` over the served model (batch 8, designs tu/tub/bGEMM at
+   2/4/8 bits, 64 units of 128 x 128), gated on a clean lint, planned
+   energy at most the best uniform plan's, a JSON round trip and measured
+   cycles within [floor, wc] at every site; the plan rewritten to the
+   ``*_cuda`` mirrors, saved and loaded back; the trace served under it
+   from float weights and from bit-packed stores (``packed=True``), gated
+   on completion, identical token streams and the launch counters
+   (``tub_gemm`` launched); every site's int32 output over a teacher-forced
+   prefill and two decode steps equal, packed vs unpacked and simulated
+   plan vs kernel plan; one traced decode step of the packed run;
+7. ``train``   — the training path (``launch/train.py``): a card-vs-CPU
    probe of one step on the smoke config in fp32, then 10 steps of
    llama3-8b at its published widths cut to 8 layers (fp32 parameters,
    bf16 compute, remat, batch 4 x 2048), gated on finite, falling loss and
    on the flash kernels' launch counters; one more step traced;
-7. ``times``   — per-kernel CUDA-event timings beside the plain version, the
+8. ``times``   — per-kernel CUDA-event timings beside the plain version, the
    roofline bound and, where one exists, the library call (flash: TFLOP/s,
    and SDPA's backward alone beside its forward + backward, at head dims
    128, 96 and 256; fused decode also unsplit and at the serve step's
@@ -49,8 +60,8 @@ Phases, each of which fails the run (non-zero exit) on its own:
 Needs a CUDA device: without one (or without the package beside it) the
 script exits non-zero and prints no result.  ``--layers`` / ``--requests``
 cut the served model's depth and traffic, for quick iterations; widths are
-never cut (``quant`` serves the ``serve`` phase's model).  The trained depth
-is fixed at ``TRAIN_LAYERS``.
+never cut (``quant`` and ``plan`` serve the ``serve`` phase's model).  The
+trained depth is fixed at ``TRAIN_LAYERS``.
 """
 
 from __future__ import annotations
@@ -67,6 +78,7 @@ import re
 import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -136,7 +148,8 @@ REPLACES = {
 }
 FLASH = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
 INT_GEMMS = ("quant_gemm", "packed_gemm")
-ALL_PHASES = ("device", "kernels", "probes", "serve", "quant", "train", "times")
+ALL_PHASES = ("device", "kernels", "probes", "serve", "quant", "plan", "train",
+              "times")
 SITE_LEAVES = (("attn", "wq"), ("attn", "wk"), ("attn", "wv"), ("attn", "wo"),
                ("mlp", "w_up"), ("mlp", "w_gate"), ("mlp", "w_down"))
 
@@ -785,7 +798,7 @@ def _decode_step_profile(engine, cfg, kernels: dict[str, str]) -> None:
 
     def one_step():
         _, _, _, state["lengths"] = engine._decode(
-            engine.params, tokens, cache.k_pool, cache.v_pool, d_bt,
+            engine._exec_params, tokens, cache.k_pool, cache.v_pool, d_bt,
             state["lengths"], active)
 
     with engine._scope(), activation_scaling("per-row"):
@@ -1304,7 +1317,217 @@ def phase_quant(cfg, params, requests: int) -> dict:
 
 
 # ---------------------------------------------------------------------------
-# phase 6: train
+# phase 6: plan (per-site plan, kernel rewrite, packed serving)
+# ---------------------------------------------------------------------------
+
+PLAN_KW = dict(batch=8, designs=("tugemm", "tubgemm", "bgemm"),
+               bits_candidates=(2, 4, 8), unit_n=128, num_units=64)
+TEACHER_STEPS = 2
+
+
+def _kernel_plan(plan):
+    """The plan with every design that has a ``*_cuda`` mirror rewritten to
+    it (tugemm -> tugemm_cuda, tubgemm -> tubgemm_cuda; bgemm stays)."""
+    mirror = {sim: name for name, sim in backends.KERNEL_SIBLINGS.items()}
+    return dataclasses.replace(plan, sites=tuple(
+        dataclasses.replace(e, design=mirror.get(e.design, e.design))
+        for e in plan.sites))
+
+
+def _teacher_forced_sites(cfg, engines, *, steps: int = TEACHER_STEPS,
+                          prompt_len: int = 32) -> list[list]:
+    """Every dense site's int32 output, per engine, over one seeded prefill
+    of a prompt per slot and ``steps`` decode steps, each engine under its
+    own scope (per-row scales) and fed the first engine's tokens."""
+    dev, b = engines[0].device, engines[0].max_batch
+    rng = np.random.default_rng(5)
+    prompts = torch.from_numpy(rng.integers(
+        0, cfg.vocab_size, (b, prompt_len)).astype(np.int32)).to(dev)
+    active = torch.ones((b,), dtype=torch.bool, device=dev)
+    fed: list[torch.Tensor] = []
+    recorded = []
+    for eng in engines:
+        outs: list = []
+        eng.on_gemm_output = lambda site, out, _o=outs: _o.append((site, out))
+        cache = eng.new_cache()
+        with eng._scope(), activation_scaling("per-row"):
+            logits, k_l, v_l = eng._prefill(prompts)
+            for i in range(b):
+                cache.allocate(i, prompt_len + steps + 1)
+                cache.write_prefill(i, k_l[:, i], v_l[:, i])
+            d_bt = torch.from_numpy(np.stack(
+                [cache.block_table_row(i) for i in range(b)])).to(dev)
+            tok = torch.argmax(logits[:, -1], dim=-1).to(torch.int32)[:, None]
+            del logits, k_l, v_l
+            for step in range(steps):
+                if len(fed) <= step:
+                    fed.append(tok)
+                lengths = torch.full((b,), prompt_len + step, dtype=torch.int32,
+                                     device=dev)
+                lg, _, _, _ = eng._decode(eng._exec_params, fed[step],
+                                          cache.k_pool, cache.v_pool, d_bt,
+                                          lengths, active)
+                tok = torch.argmax(lg[:, 0], dim=-1).to(torch.int32)[:, None]
+        eng.on_gemm_output = None
+        recorded.append(outs)
+        del cache
+    return recorded
+
+
+def _sites_equal(a: list, b: list) -> bool:
+    return len(a) == len(b) > 0 and all(
+        s == t and torch.equal(x, y) for (s, x), (t, y) in zip(a, b))
+
+
+def _plan_serve(cfg, params, plan, trace, packed: bool, weight_cache=None):
+    """One full-width serve of ``trace`` under ``plan`` (per-row scales,
+    fused decode), counters zeroed just before and read just after."""
+    t0 = time.perf_counter()
+    engine = ServingEngine(cfg, params, plan=plan, packed=packed,
+                           attention="fused", device=DEV,
+                           weight_cache=weight_cache, **SERVE_KW)
+    torch.cuda.synchronize()
+    built = time.perf_counter() - t0
+    ug.reset_launches()
+    fused_lib.reset_launches()
+    t0 = time.perf_counter()
+    with activation_scaling("per-row"):
+        rep = engine.run(trace, "continuous")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {"tub_gemm": ug.LAUNCHES["tub_gemm"],
+                "tu_gemm": ug.LAUNCHES["tu_gemm"],
+                "fused_paged_decode": fused_lib.LAUNCHES["fused_paged_decode"]}
+    calls = rep.decode_steps + rep.prefill_calls
+    want = {name: calls * sum(e.count for e in plan.sites if e.design == design)
+            for name, design in (("tub_gemm", "tubgemm_cuda"),
+                                 ("tu_gemm", "tugemm_cuda"))}
+    tag = "packed" if packed else "unpacked"
+    log(f"  [{tag}] engine built in {built:.1f} s; requests "
+        f"{rep.requests}/{len(trace)}, tokens {rep.tokens}, decode steps "
+        f"{rep.decode_steps}, prefill calls {rep.prefill_calls}; wall "
+        f"{wall:.2f} s, {rep.decode_steps / wall:.2f} decode steps/s, "
+        f"{rep.tokens / wall:.2f} tokens/s (prefill included in the wall)")
+    log(f"  [{tag}] launches: tub_gemm {launches['tub_gemm']} (plan: "
+        f"{want['tub_gemm']}), tu_gemm {launches['tu_gemm']} (plan: "
+        f"{want['tu_gemm']}), fused {launches['fused_paged_decode']} (= layers "
+        f"x decode steps = {cfg.num_layers * rep.decode_steps})")
+    require(rep.requests == len(trace), f"{tag} plan run: not every request "
+                                        f"completed")
+    require(all(len(rep.request_tokens[r.req_id]) == r.output_len
+                for r in trace), f"{tag} plan run: a stream has the wrong length")
+    require(launches["tub_gemm"] == want["tub_gemm"] > 0,
+            f"{tag} plan run: tub_gemm launches != tubgemm_cuda sites x calls")
+    require(launches["tu_gemm"] == want["tu_gemm"],
+            f"{tag} plan run: tu_gemm launches != tugemm_cuda sites x calls")
+    require(launches["fused_paged_decode"] == cfg.num_layers * rep.decode_steps,
+            f"{tag} plan run: fused decode launches != layers x decode steps")
+    return engine, rep, wall, launches
+
+
+def phase_plan(cfg, params, requests: int) -> dict:
+    from repro_torch.analysis import plan_lint
+    from repro_torch.eval import planner
+    log(f"plan: build_plan at batch {PLAN_KW['batch']}, designs "
+        f"{PLAN_KW['designs']}, bits {PLAN_KW['bits_candidates']}, "
+        f"{PLAN_KW['num_units']} units of {PLAN_KW['unit_n']}x{PLAN_KW['unit_n']}")
+    torch.cuda.reset_peak_memory_stats()
+    t_phase = time.perf_counter()
+    # ---- 1. plan the model
+    t0 = time.perf_counter()
+    sites = planner.discover_sites(cfg, params, batch=PLAN_KW["batch"])
+    plan = planner.build_plan(cfg, params, sites=sites, **PLAN_KW)
+    torch.cuda.synchronize()
+    plan_wall = time.perf_counter() - t0
+    names = [s.name for s in sites]
+    for e in plan.sites:
+        log(f"  {e.pattern:>20s} x{e.count:<3d} {e.engine_label:>11s} "
+            f"bit_blockmax {e.bit_blockmax:.4f} rel_mse {e.rel_mse:.5f} "
+            f"dyn {e.dyn_energy_uj:.4f} uJ{' (guard relaxed)' if e.guard_relaxed else ''}")
+    totals = plan.metadata()["totals"]
+    best = totals["uniform_best"]
+    planned = totals["planned"]["dyn_energy_uj"]
+    best_e = totals["uniform"][best]["dyn_energy_uj"] if best else math.inf
+    log(f"  planned {planned:.4f} uJ per decode step against best uniform "
+        f"{best} {best_e:.4f} uJ ({100 * (1 - planned / best_e):.2f} % less, "
+        f"difference {planned - best_e:.3e} uJ); "
+        f"planning wall {plan_wall:.2f} s (discovery on the meta device, "
+        f"profiling and guard statistics on the card); peak "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    found = plan_lint.lint_plan(plan, site_names=names)
+    require(not [f for f in found if f.severity == "error"],
+            f"plan lint: {[f.render() for f in found]}")
+    # the two totals sum the same site energies in other orders: as the
+    # reference's planner tests, allow their rounding (1e-9 relative)
+    require(best is not None and planned <= best_e * (1 + 1e-9),
+            "planned energy above the best uniform plan's")
+    require(backends.BackendPlan.from_json(plan.to_json()) == plan,
+            "the plan does not survive its JSON round trip")
+    t0 = time.perf_counter()
+    by_name = {s.name: s for s in sites}
+    for e in plan.sites:
+        cyc = planner.measure_site_cycles(by_name[e.pattern], e,
+                                          unit_n=PLAN_KW["unit_n"],
+                                          num_units=PLAN_KW["num_units"])
+        require(cyc["dyn_floor"] - 0.5 <= cyc["measured"] <= cyc["wc"] + 0.5,
+                f"measured cycles of {e.pattern} outside [floor, wc]: {cyc}")
+    log(f"  measured cycles within [floor, wc] at all {len(plan.sites)} sites "
+        f"({time.perf_counter() - t0:.2f} s); lint: {len(found)} findings")
+    # ---- 2. rewrite the plan for the kernels, through a file
+    kplan = _kernel_plan(plan)
+    with tempfile.TemporaryDirectory() as tmp:
+        kplan = backends.load_plan(kplan.save(os.path.join(tmp, "plan.json")))
+    require(not plan_lint.lint_plan(kplan, site_names=names),
+            "the kernel plan does not lint clean")
+    log(f"  kernel plan: {', '.join(f'{d}@{b}' for d, b in kplan.distinct_backends())}"
+        f", saved, loaded back and lint-clean")
+    # ---- 3. serve the trace, unpacked and packed
+    trace = serve_trace(requests)
+    unpacked, rep_u, wall_u, _ = _plan_serve(cfg, params, kplan, trace, False)
+    packed, rep_p, wall_p, launches = _plan_serve(cfg, params, kplan, trace, True)
+    store = packed_store_report(packed._exec_params)
+    log(f"  packed store: {store.packed_sites}/{store.total_sites} sites, "
+        f"{store.stored_bytes / 2**20:.1f} MiB stored against "
+        f"{store.float32_bytes / 2**20:.1f} MiB fp32 ({store.reduction:.2f}x; "
+        f"packed sites alone {store.packed_stored_bytes / 2**20:.1f} against "
+        f"{store.packed_float32_bytes / 2**20:.1f} MiB, "
+        f"{store.packed_reduction:.2f}x)")
+    require(rep_u.request_tokens == rep_p.request_tokens
+            and rep_u.events == rep_p.events,
+            "packed and unpacked plan runs sampled different streams")
+    log(f"  packed vs unpacked token streams: identical over "
+        f"{len(trace)} requests; trace wall unpacked {wall_u:.2f} s, packed "
+        f"{wall_p:.2f} s")
+    # ---- 3b and 4. every site's int32 output, teacher-forced: packed and
+    # the simulated designs against the unpacked kernel plan
+    sim = ServingEngine(cfg, params, plan=plan, attention="fused", device=DEV,
+                        weight_cache=unpacked.weight_cache, **SERVE_KW)
+    t0 = time.perf_counter()
+    ref, got_p, got_s = _teacher_forced_sites(cfg, [unpacked, packed, sim])
+    require(_sites_equal(ref, got_p), "packed and unpacked plan runs differ "
+                                      "in a site's int32 output")
+    require(_sites_equal(ref, got_s), "the simulated plan and the kernel plan "
+                                      "differ in a site's int32 output")
+    log(f"  teacher-forced prefill + {TEACHER_STEPS} decode steps: all "
+        f"{len(ref)} site int32 outputs equal, packed vs unpacked and "
+        f"simulated plan vs kernel plan ({time.perf_counter() - t0:.1f} s)")
+    del ref, got_p, got_s, sim, unpacked
+    gc.collect()
+    kernels = {"tub_gemm": "TubPulses",
+               "fused_paged_decode": "fused_decode_split_kernel"}
+    if launches["tu_gemm"]:
+        kernels["tu_gemm"] = "TuPulses"
+    log("  packed plan run, steady decode step:")
+    _decode_step_profile(packed, cfg, kernels)
+    log(f"  peak torch.cuda.max_memory_allocated(): "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; plan phase "
+        f"wall {time.perf_counter() - t_phase:.1f} s")
+    # the serve phase's counts stay on the kernels line (its main path)
+    return {"launches": {}, "launches_run": {}}
+
+
+# ---------------------------------------------------------------------------
+# phase 7: train
 # ---------------------------------------------------------------------------
 
 def _tree_leaves(tree, prefix=()):
@@ -1449,7 +1672,7 @@ def phase_train(layers: int, steps: int) -> dict:
 
 
 # ---------------------------------------------------------------------------
-# phase 7: times
+# phase 8: times
 # ---------------------------------------------------------------------------
 
 _FLUSH = None
@@ -1506,8 +1729,8 @@ def _int_mm_ms(a: torch.Tensor, b: torch.Tensor) -> float | None:
     m = a.shape[0]
     if m <= 16:
         a = torch.cat([a, a.new_zeros((32 - m, a.shape[1]))])
-    if not gemm_sims._int_mm_eligible(a, b):
-        return None
+    if a.shape[0] % 8 or a.shape[1] % 8 or b.shape[1] % 8:
+        return None              # shapes cuBLASLt's int8 matmul refuses
     return _time_ms(lambda: torch._int_mm(a, b))
 
 
@@ -1898,9 +2121,10 @@ def main() -> int:
             if "probes" in phases:
                 log("phase probes")
                 phase_probes()
-            if "serve" in phases or "quant" in phases:
+            if {"serve", "quant", "plan"} & set(phases):
                 cfg, params = served_model(args.layers)
-                for name, phase in (("serve", phase_serve), ("quant", phase_quant)):
+                for name, phase in (("serve", phase_serve), ("quant", phase_quant),
+                                    ("plan", phase_plan)):
                     if name in phases:
                         log(f"phase {name}")
                         served = phase(cfg, params, args.requests)

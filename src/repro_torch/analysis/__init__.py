@@ -1,8 +1,8 @@
-"""Static numeric-safety analysis (the part the backend guards need).
-
-Only :mod:`repro_torch.analysis.ranges` (accumulator envelopes) and
-:mod:`repro_torch.analysis.findings` are ported; the plan/source lint
-passes arrive with the planner slice.
+"""Static numeric-safety analysis: accumulator envelopes
+(:mod:`repro_torch.analysis.ranges`), plan lint
+(:mod:`repro_torch.analysis.plan_lint`) and their
+:mod:`repro_torch.analysis.findings`.  The source lint, the model-graph
+scan and the CLI arrive with the analysis slice.
 """
 
 from repro_torch.analysis.findings import (  # noqa: F401  (re-export)

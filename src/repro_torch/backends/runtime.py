@@ -1,13 +1,16 @@
-"""Scoped backend execution: :func:`use_backend` threads a GEMM engine into
-``models/common.dense`` so the quantized forward pass actually contracts its
-integer tiles on the selected unary engine.
+"""Scoped backend execution: :func:`use_backend` / :func:`use_plan` thread a
+GEMM engine (one global backend, or a per-site
+:class:`~repro_torch.backends.plan.BackendPlan`) into ``models/common.dense``
+so the quantized forward pass actually contracts its integer tiles on the
+selected unary engine(s).
 
 Scopes live on one thread-local stack (nestable, exception-safe, the
 innermost scope wins).  Inside a scope, every ``dense`` call asks the scope
 for the backend of its *site* (see the naming contract below), quantizes both
 operands to that backend's bit-width, contracts the int tiles with
 :meth:`GemmBackend.execute`, and dequantizes back to the activation dtype;
-outside any scope the float path runs untouched.
+outside any scope — or when a plan maps the site to no backend — the float
+path runs untouched.
 
 **Site-naming contract.**  A GEMM site is the parameter-tree path of its
 weight, ``"/"``-joined:
@@ -28,24 +31,35 @@ layer body looped over L layers appears L times (the reference, traced under
 given, sees each site's raw int32 GEMM output as it is produced, which is
 what the parity tests and the on-card tub-vs-tu comparison read.
 
-Per-site plans (``use_plan``), ``pack_weights`` and grids are not ported yet.
+PE-array grids (``grid=``) are not ported yet.
 """
 
 from __future__ import annotations
 
 import contextlib
 import dataclasses
+import math
 import threading
 
+import torch
+
+from repro_torch.analysis import ranges
 from repro_torch.backends.base import GemmBackend
+from repro_torch.backends.plan import BackendPlan
+from repro_torch.core import packing, ppa, sparsity
+from repro_torch.core.quantization import quantize
 
 # NOTE: repro_torch.backends.registry is imported lazily inside use_backend —
 # registry pulls in repro_torch.configs, whose model-config import would
 # close a cycle with the model modules that import site_scope from here.
 
-__all__ = ["ExecutedGemm", "BackendExecution", "use_backend",
-           "active_backend", "active_execution", "site_scope",
-           "current_site"]
+__all__ = ["ExecutedGemm", "BackendExecution", "PlanExecution",
+           "SiteRecorder", "use_backend", "use_plan", "pack_weights",
+           "record_sites", "active_backend", "active_execution", "site_scope",
+           "current_site", "measure_matrix_cycles"]
+
+_GRID_MSG = ("needs backends/grid.py, which the grids slice of the port "
+             "brings")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -83,6 +97,10 @@ class BackendExecution:
         self.weight_cache = weight_cache
         self.calls: list[ExecutedGemm] = []
 
+    def backend_for(self, site: str) -> GemmBackend | None:
+        """The backend ``dense`` must execute ``site`` on (None = float)."""
+        return self.backend
+
     def record(self, site: str, m: int, k: int, n_out: int,
                backend: GemmBackend, out=None) -> None:
         """Append one executed GEMM site to ``calls``."""
@@ -91,6 +109,60 @@ class BackendExecution:
             str(site)))
         if self.on_output is not None and out is not None:
             self.on_output(str(site), out)
+
+    def observe(self, site: str, m: int, k: int, n_out: int) -> None:
+        """Called by ``dense`` for sites the scope maps to NO backend.
+
+        A no-op for execution scopes; :class:`SiteRecorder` overrides it to
+        collect the site inventory.
+        """
+
+
+class PlanExecution(BackendExecution):
+    """Live handle for one :func:`use_plan` scope.
+
+    ``plan`` — the :class:`~repro_torch.backends.plan.BackendPlan`;
+    ``backend`` is None (there is no single engine — :meth:`backend_for`
+    resolves per site).  Backends are resolved once per site name and cached
+    for the scope's lifetime.  ``on_output`` and ``weight_cache`` work as in
+    :class:`BackendExecution`; the cache keys on the bit-width, so sites
+    planned at different widths never share codes.
+    """
+
+    def __init__(self, plan, on_output=None,
+                 weight_cache: dict | None = None) -> None:
+        super().__init__(backend=None, on_output=on_output,
+                         weight_cache=weight_cache)
+        self.plan = plan
+        self._cache: dict[str, GemmBackend | None] = {}
+
+    def backend_for(self, site: str) -> GemmBackend | None:
+        try:
+            return self._cache[site]
+        except KeyError:
+            backend = self._cache[site] = self.plan.backend_for(site)
+            return backend
+
+
+class SiteRecorder(BackendExecution):
+    """Scope that *names* every dense GEMM site without executing on any
+    backend — the planner's discovery pass (see :func:`record_sites`).
+
+    ``backend_for`` always returns None, so the float path runs (on the
+    ``meta`` device nothing is computed); ``dense`` still records the site
+    name and contraction shape into ``calls`` with backend ``"none"`` /
+    bits 0.
+    """
+
+    def __init__(self) -> None:
+        super().__init__(backend=None)
+
+    def backend_for(self, site: str) -> GemmBackend | None:
+        return None
+
+    def observe(self, site: str, m: int, k: int, n_out: int) -> None:
+        self.calls.append(ExecutedGemm(int(m), int(k), int(n_out),
+                                       "none", 0, str(site)))
 
 
 _TLS = threading.local()
@@ -111,13 +183,19 @@ def _site_stack() -> list[str]:
 
 
 def active_execution() -> BackendExecution | None:
-    """The innermost live :func:`use_backend` scope, or None."""
+    """The innermost live :func:`use_backend` / :func:`use_plan` /
+    :func:`record_sites` scope, or None."""
     stack = _stack()
     return stack[-1] if stack else None
 
 
 def active_backend() -> GemmBackend | None:
-    """The single backend ``dense`` executes on right now, or None."""
+    """The single backend ``dense`` executes on right now, or None.
+
+    None outside any scope (float path) and inside :func:`use_plan` /
+    :func:`record_sites` scopes, whose backend is per-site — use
+    :meth:`BackendExecution.backend_for` with a site name there.
+    """
     execution = active_execution()
     return execution.backend if execution is not None else None
 
@@ -173,11 +251,198 @@ def use_backend(spec: str | GemmBackend, *, bits: int | None = None,
     """
     from repro_torch.backends.registry import resolve
     if grid is not None:
-        raise NotImplementedError(
-            "use_backend(grid=...) needs backends/grid.py, which a later "
-            "slice of the port brings")
+        raise NotImplementedError(f"use_backend(grid=...) {_GRID_MSG}")
     backend = resolve(spec, bits=bits)
     execution = BackendExecution(backend, on_output=on_output,
                                  weight_cache=weight_cache)
     with _pushed(execution):
+        yield execution
+
+
+def _load(plan):
+    from repro_torch.backends import load_plan
+    return plan if isinstance(plan, BackendPlan) else load_plan(plan)
+
+
+def _validate_plan_envelopes(plan) -> None:
+    """Fail fast on assignments whose evidence leaves the safe envelope.
+
+    Entries record the contraction length they were planned for (``k``).
+    Executing outside the envelope would raise mid-forward anyway (the
+    backend guard); checking here turns that into an immediate, plan-level
+    error naming the offending entry.  Entries without geometry evidence
+    (hand-written pattern-only plans) are skipped — the execute guard still
+    covers them.
+    """
+    for entry in plan.sites:
+        if entry.k:
+            ranges.assert_within_envelope(
+                entry.design, entry.bits, int(entry.k),
+                where=f"plan entry {entry.pattern!r}",
+                stream_len=entry.stream_len or None)
+
+
+@contextlib.contextmanager
+def use_plan(plan, *, grid=None, on_output=None,
+             weight_cache: dict | None = None):
+    """Execute every ``dense`` contraction on the site's planned backend.
+
+    ``plan`` — a :class:`~repro_torch.backends.plan.BackendPlan` or a
+    path-like / str (loaded via :func:`repro_torch.backends.load_plan`).
+    Each dense site is matched against the plan's patterns (most specific
+    wins, see ``repro_torch.backends.plan``); unmatched sites run the float
+    path.  ``on_output`` / ``weight_cache`` as in :func:`use_backend`.
+    ``grid`` is accepted for signature parity and raises
+    ``NotImplementedError`` until ``backends/grid.py`` is ported.
+
+    Yields a :class:`PlanExecution` whose ``.calls`` lists every contracted
+    site with the backend it actually ran on.  Nests with
+    :func:`use_backend` (innermost scope wins) and unwinds on exceptions.
+    Entering the scope checks the plan's recorded contraction geometry
+    against each assignment's accumulator envelope
+    (``repro_torch.analysis.ranges``).
+    """
+    if grid is not None:
+        raise NotImplementedError(f"use_plan(grid=...) {_GRID_MSG}")
+    plan = _load(plan)
+    _validate_plan_envelopes(plan)
+    with _pushed(PlanExecution(plan, on_output=on_output,
+                               weight_cache=weight_cache)) as execution:
+        yield execution
+
+
+def _replace_leaves(tree, fn, prefix=()):
+    """A copy of a nested-dict tree with each leaf replaced by
+    ``fn("/"-joined path, leaf)``."""
+    if isinstance(tree, dict):
+        return {k: _replace_leaves(v, fn, prefix + (str(k),))
+                for k, v in tree.items()}
+    return fn("/".join(prefix), tree)
+
+
+def pack_weights(cfg, params, plan=None, *, bits: int | None = None,
+                 grid=None):
+    """Freeze each planned site's weight bit-packed at its assigned width.
+
+    Returns a new parameter tree in which every dense GEMM site that
+    ``plan`` assigns a backend is replaced by a
+    :class:`repro_torch.core.packing.PackedQuantized` store holding the
+    *exact* codes and scales ``models/common.dense`` would compute on that
+    site under the plan — so executing the packed tree inside
+    :func:`use_plan` is bit-identical to executing the float tree, while the
+    weight bytes shrink 4–16x (``core.accounting.packed_store_report``).
+    The other leaves are shared with ``params``, not copied.
+
+    ``plan`` — a :class:`~repro_torch.backends.plan.BackendPlan` or a path.
+    Alternatively pass ``bits`` to freeze every discovered site at one
+    uniform width (the ``use_backend`` analogue).  Sites the plan leaves
+    unmatched keep their float leaves — they run the float path under
+    ``use_plan``, exactly as before.  ``grid`` raises
+    ``NotImplementedError`` until ``backends/grid.py`` is ported.
+
+    Already-packed leaves pass through when their width matches the
+    assignment and raise otherwise (the stale-width hazard plan-lint's
+    ``packed-width-mismatch`` rule catches statically).
+    """
+    from repro_torch.eval import planner as planner_lib  # lazy: the stack
+
+    if (plan is None) == (bits is None):
+        raise ValueError("pack_weights wants exactly one of plan= or bits=")
+    if grid is not None:
+        raise NotImplementedError(f"pack_weights(grid=...) {_GRID_MSG}")
+    if plan is not None:
+        plan = _load(plan)
+    assignments: dict[str, tuple[int, int, int]] = {}
+    for site in planner_lib.discover_sites(cfg, params):
+        if plan is not None:
+            entry = plan.assignment_for(site.name)
+            if entry is None:
+                continue
+            width = int(entry.bits)
+        else:
+            width = int(bits)
+        assignments[site.name] = (width, site.k, site.n_out)
+
+    def pack(name, leaf):
+        picked = assignments.get(name)
+        if picked is None:
+            return leaf
+        width, k, n_out = picked
+        if packing.is_packed(leaf):
+            if int(leaf.bits) != width:
+                raise ValueError(
+                    f"site {name!r}: packed store holds {leaf.bits}-bit "
+                    f"codes but the plan assigns {width}-bit — repack from "
+                    f"the float parameters (packed-width-mismatch)")
+            return leaf
+        return packing.pack_quantized(leaf, bits=width, k=k, n_out=n_out)
+
+    return _replace_leaves(params, pack)
+
+
+def measure_matrix_cycles(backend: GemmBackend, weight, *, rows: int,
+                          unit_n: int, num_units: int,
+                          bit_blockmax: float | None = None,
+                          bit_elem: float | None = None) -> dict[str, float]:
+    """Measured-cycles contract for ONE (k, n_out) weight matrix on one
+    backend — the single implementation behind both the planner's per-site
+    report (``eval/planner.measure_site_cycles``) and the serve driver's
+    decode totals (``launch/serve.measure_decode_cycles``).
+
+    Quantizes ``weight`` per output channel (exactly what
+    ``models/common.dense`` contracts under a scope), on the device it
+    lives on, and returns cycles for one invocation of the ``(rows, k) @
+    (k, n_out)`` decode GEMM on the ``core.ppa.DLAModel`` tiling (per-tile
+    cycles × ⌈tiles / num_units⌉ waves), four ways:
+
+    * ``measured`` — operand-driven early termination,
+      ``backend.dyn_cycles(operand=codes)``;
+    * ``dyn`` — paper Eq. 1 from the block-max statistic (profiled here at
+      ``backend.bits`` unless ``bit_blockmax`` is supplied);
+    * ``dyn_floor`` — Eq. 1 from the element-level statistic (optimistic
+      bound the shared slot schedule cannot beat);
+    * ``wc`` — worst case.
+
+    For sparsity-aware designs ``dyn_floor ≤ measured ≤ wc``; designs
+    without early termination report measured == dyn == floor == wc.
+    """
+    if packing.is_packed(weight):
+        raise TypeError(
+            "measure_matrix_cycles wants the float weight — measuring a "
+            "PackedQuantized store would re-quantize its dequantized codes "
+            "at a second scale; keep the float parameters for measurement "
+            "(serve's plan replay does)")
+    w = torch.as_tensor(weight)
+    if w.dtype != torch.float32:
+        w = w.to(torch.float32)
+    k, n_out = int(w.shape[0]), int(w.shape[1])
+    if bit_blockmax is None or bit_elem is None:
+        st = sparsity.profile_tensor(w, bits=backend.bits)
+        bit_blockmax = st.bit_blockmax if bit_blockmax is None else bit_blockmax
+        bit_elem = st.bit_elem if bit_elem is None else bit_elem
+    dla = ppa.DLAModel(design=backend.pricing_design, bits=backend.bits,
+                       n=unit_n, num_units=num_units)
+    waves = math.ceil(dla.tiles(rows, n_out) / num_units)
+    codes = quantize(w, bits=backend.bits).values
+    return {
+        "measured": float(backend.dyn_cycles(operand=codes)) * waves,
+        "dyn": float(backend.dyn_cycles(k, bit_sparsity=bit_blockmax)) * waves,
+        "dyn_floor": float(backend.dyn_cycles(k, bit_sparsity=bit_elem))
+        * waves,
+        "wc": float(backend.cycles(k)) * waves,
+    }
+
+
+@contextlib.contextmanager
+def record_sites():
+    """Record every dense GEMM site's name and shape, executing nothing.
+
+    The planner's discovery pass: run the model inside this scope (on the
+    ``meta`` device nothing is computed, see ``eval/planner.discover_sites``)
+    and read ``.calls`` for the ``(site, m, k, n_out)`` of every GEMM
+    ``models/common.dense`` would contract under a backend scope.  The port
+    runs the layer loop eagerly, so a layer's sites appear once per layer;
+    per-site invocation counts come from the parameter shapes.
+    """
+    with _pushed(SiteRecorder()) as execution:
         yield execution

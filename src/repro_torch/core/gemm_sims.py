@@ -41,6 +41,7 @@ __all__ = [
     "scoped_registry",
     "wc_cycles",
     "dynamic_cycles_from_sparsity",
+    "rel_rmse",
     "bgemm_exact",
     "tugemm_exact",
     "tubgemm_exact",
@@ -184,6 +185,18 @@ def _tubgemm_dyn(bits: int, step_max: torch.Tensor) -> torch.Tensor:
     return torch.sum(torch.clamp(per_step, min=1))
 
 
+def rel_rmse(est, oracle) -> float:
+    """Relative RMSE of an estimate vs its oracle (0.0 means bit-exact).
+
+    Computed in float64 on the tensors' device; guarded against an
+    all-zero oracle.
+    """
+    est = torch.as_tensor(est).to(torch.float64)
+    oracle = torch.as_tensor(oracle).to(device=est.device, dtype=torch.float64)
+    denom = float(torch.sqrt(torch.mean(oracle ** 2)))
+    return float(torch.sqrt(torch.mean((est - oracle) ** 2))) / max(denom, 1e-12)
+
+
 # ---------------------------------------------------------------------------
 # Fast functional paths
 # ---------------------------------------------------------------------------
@@ -193,13 +206,6 @@ def _tubgemm_dyn(bits: int, step_max: torch.Tensor) -> torch.Tensor:
 _FP32_EXACT_CHUNK = 512
 
 
-def _int_mm_eligible(a: torch.Tensor, b: torch.Tensor) -> bool:
-    m, k = a.shape
-    n = b.shape[1]
-    return (a.dtype == torch.int8 and b.dtype == torch.int8
-            and m > 16 and k % 8 == 0 and n % 8 == 0)
-
-
 def bgemm_exact(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:  # analysis: allow-float-accumulation (int32 matmul on the CPU; on CUDA K-chunked fp32 partial sums < 2^24 are exact integers)
     """Conventional binary GEMM: the int32 oracle every exact design equals.
 
@@ -207,15 +213,14 @@ def bgemm_exact(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:  # analysis: 
     holding int8-range codes).  Returns: (M, N) int32 product.
 
     CPU tensors use the integer matmul directly.  CUDA has no int32
-    ``matmul``, so device tensors go through ``torch._int_mm`` where its
-    shape rules allow, else through K-chunked fp32 products — each chunk's
-    partial sums stay below 2^24, where fp32 is exact in any order — summed
-    in int32.
+    ``matmul``, so device tensors go through K-chunked fp32 products — each
+    chunk's partial sums stay below 2^24, where fp32 (and TF32, which holds
+    int8 values exactly) is exact in any order — summed in int32.
+    ``torch._int_mm`` is not used: cuBLASLt on the H100 refuses row counts
+    its shape rules admit (M = 24, 27), which a plan's prefill reaches.
     """
     if a.device.type != "cuda":
         return torch.matmul(a.to(torch.int32), b.to(torch.int32))
-    if _int_mm_eligible(a, b):
-        return torch._int_mm(a.contiguous(), b.contiguous())
     out = torch.zeros((a.shape[0], b.shape[1]), dtype=torch.int32,
                       device=a.device)
     for lo in range(0, a.shape[1], _FP32_EXACT_CHUNK):

@@ -23,9 +23,10 @@ is bit-identical to ``Quantized.dequantize()`` on the same codes.
 
 Stores here are flat (``grid_x == 1``): a store packed per K-band for a
 unit grid arrives with the grids slice.  ``PackedQuantized`` is a plain
-dataclass of tensors; a stacked store ``(L, words, n)`` is sliced by its
-caller.  The logical ``shape`` / ``ndim`` / ``reshape`` report the
-*unpacked* weight geometry, so shape-driven code keeps working.
+dataclass of tensors; ``store[i]`` slices a stacked store ``(L, words,
+n)`` along its leading axis, as the layer loop does.  The logical
+``shape`` / ``ndim`` / ``reshape`` report the *unpacked* weight geometry,
+so shape-driven code keeps working.
 """
 
 from __future__ import annotations
@@ -161,6 +162,15 @@ class PackedQuantized:
             self, tail=shape[len(shape) - tail_len:],
             k_shape=() if k_dims == (self.k,) else k_dims)
 
+    def __getitem__(self, i: int) -> "PackedQuantized":
+        """Slice ``i`` of a stacked store's leading axis (a view, like a
+        tensor's ``[i]``)."""
+        if self.packed.ndim < 3:
+            raise IndexError("only a stacked packed store has a leading "
+                             "axis to index")
+        return dataclasses.replace(self, packed=self.packed[i],
+                                   scale=self.scale[i])
+
     @property
     def ndim(self) -> int:
         return len(self.shape)
@@ -276,14 +286,22 @@ def pack_quantized(w: torch.Tensor, *, bits: int, k: int | None = None,
         raise ValueError(
             f"leaf shape {tuple(w.shape)} is not a stack of "
             f"(k={k}, n_out={n_out}) matrices")
+    lead = tuple(int(s) for s in w.shape[:lead_len])
     k_dims = tuple(int(s) for s in w.shape[lead_len:lead_len + k_len])
     tail = tuple(int(t) for t in w.shape[lead_len + k_len:])
-    w3 = w.to(torch.float32).reshape(*w.shape[:lead_len], k, n_out)
-    # per (k, n_out) slice and output channel: reduce over k only
-    scale = _absmax_scale(w3, bits, axes=(w3.ndim - 2,))
-    q = Quantized(values=_codes(w3, scale, bits), scale=scale, bits=bits)
-    return from_quantized(q, tail=tail,
-                          k_shape=() if k_dims == (k,) else k_dims)
+    # One (k, n_out) slice at a time, each per output channel with its own
+    # scales: assembling the words of a whole stacked leaf at once would
+    # hold int64 temporaries of 8 bytes an element.
+    words, scales = [], []
+    for w2 in w.reshape(-1, k, n_out):
+        w2 = w2.to(torch.float32)
+        scale = _absmax_scale(w2, bits, axes=(0,))
+        words.append(pack_codes(_codes(w2, scale, bits), bits, axis=-2))
+        scales.append(scale)
+    return PackedQuantized(
+        packed=torch.stack(words).reshape(*lead, -1, n_out),
+        scale=torch.stack(scales).reshape(*lead, 1, n_out), bits=int(bits),
+        k=k, tail=tail, k_shape=() if k_dims == (k,) else k_dims)
 
 
 def packed_widths(params) -> dict[str, int]:

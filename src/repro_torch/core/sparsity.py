@@ -34,6 +34,7 @@ __all__ = [
     "bit_sparsity_elementwise",
     "bit_sparsity_blockmax",
     "profile_tensor",
+    "combine_stats",
 ]
 
 #: elements per chunk of :func:`profile_tensor`'s walk
@@ -137,3 +138,19 @@ def profile_tensor(x: torch.Tensor, bits: int, block: int = 32,
                            / slots),
         numel=int(numel),
     )
+
+
+def combine_stats(stats: list[SparsityStats]) -> SparsityStats:
+    """Size-weighted aggregate across tensors (a model's layers).
+
+    Args: ``stats`` — per-tensor stats at one shared ``bits``.
+    Returns: one :class:`SparsityStats` whose fractions are
+    ``numel``-weighted means (Table V's per-model numbers).
+    """
+    if not stats:
+        raise ValueError("no stats to combine")
+    bits = stats[0].bits
+    total = sum(s.numel for s in stats)
+    w = lambda f: sum(getattr(s, f) * s.numel for s in stats) / total
+    return SparsityStats(bits=bits, word=w("word"), bit_elem=w("bit_elem"),
+                         bit_blockmax=w("bit_blockmax"), numel=total)

@@ -1,0 +1,584 @@
+"""Per-layer mixed-precision backend planner (paper Table V + Eq. 1 + Fig. 3
+composed into a decision).
+
+The paper's sweet-spot conclusion is a *map*, not a winner: which GEMM design
+is cheapest depends on bit-width, matrix size, and — through Eq. 1 — the
+measured weight bit sparsity.  This module turns that map into an executable
+per-site assignment:
+
+1. **Discover** every dense GEMM site of a model with one forward pass on
+   the ``meta`` device under ``repro_torch.backends.record_sites`` — no
+   FLOPs run and no weight is read; the site names and contraction shapes
+   are exactly what ``models/common.dense`` executes under a backend scope.
+2. **Profile** each site's weight with ``core.sparsity.profile_tensor`` at
+   every candidate bit-width (word / element-bit / block-max-bit sparsity)
+   and measure its quantization error (relative per-output-channel MSE, the
+   accuracy-guard statistic), on the device the weights live on, one row
+   chunk at a time.
+3. **Price** every (site, design, bits) candidate on the ``core.ppa`` DLA
+   tiling with Eq. 1 sparsity-scaled dynamic cycles instead of worst case,
+   drop candidates whose quantization error violates the guard — and,
+   first, candidates whose accumulator envelope the site's contraction
+   length provably leaves (``repro_torch.analysis.ranges``); the pruning
+   evidence ships in the plan's ``range_pruned`` meta block.
+4. **Pick** the per-site argmin of the objective.
+5. **Emit** a typed :class:`repro_torch.backends.BackendPlan`, which
+   ``repro_torch.backends.use_plan`` executes and ``launch/serve.py
+   --backend-plan`` replays.
+
+Because every uniform single-backend assignment that satisfies the guard at
+all sites is in each site's candidate set, the planned total is ≤ the best
+uniform plan's total by construction.
+
+Exact designs only: the rate-coded ``ugemm_stochastic`` candidates wait for
+the stochastic slice of the port, per-shard grid plans for the grids slice.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Sequence
+
+import torch
+
+from repro_torch.analysis import ranges as ranges_lib
+from repro_torch.backends import runtime as runtime_lib
+from repro_torch.backends.plan import BackendPlan, SiteAssignment
+from repro_torch.core import packing, ppa, sparsity
+from repro_torch.core.quantization import _codes, _scale_from_amax
+from repro_torch.core.sparsity import SparsityStats
+
+__all__ = [
+    "DEFAULT_BITS_CANDIDATES",
+    "DEFAULT_DESIGNS",
+    "DEFAULT_MAX_REL_MSE",
+    "STOCHASTIC_DESIGN",
+    "GemmSite",
+    "Candidate",
+    "discover_sites",
+    "quantization_rel_mse",
+    "price_site",
+    "prune_infeasible",
+    "site_candidates",
+    "build_plan",
+    "measure_site_cycles",
+    "plan_totals",
+    "to_markdown",
+]
+
+#: candidate operand widths (paper grid); 2-bit usually fails the guard
+DEFAULT_BITS_CANDIDATES: tuple[int, ...] = (2, 4, 8)
+#: exact calibrated designs — a planned model stays bit-identical to the
+#: binary oracle
+DEFAULT_DESIGNS: tuple[str, ...] = ("tugemm", "tubgemm", "bgemm")
+#: default accuracy guard: per-site relative quantization MSE ceiling
+DEFAULT_MAX_REL_MSE: float = 0.05
+#: the rate-coded family, which the port cannot plan yet
+STOCHASTIC_DESIGN = ranges_lib.STOCHASTIC_FAMILY
+
+#: elements per row chunk of :func:`quantization_rel_mse`'s two passes
+_REL_MSE_CHUNK_ELEMS = 1 << 26
+
+
+def _exact_only(designs: Sequence[str], stream_lens: Sequence[int]) -> None:
+    if STOCHASTIC_DESIGN in designs or len(stream_lens) > 0:
+        raise NotImplementedError(
+            "rate-coded ugemm_stochastic candidates (designs containing "
+            f"{STOCHASTIC_DESIGN!r}, stream_lens) arrive with the "
+            "stochastic slice of the port")
+
+
+@dataclasses.dataclass(frozen=True)
+class GemmSite:
+    """One plannable GEMM site of a model.
+
+    ``name`` — the site name per the runtime naming contract (equals the
+    weight's parameter-tree path); ``m``/``k``/``n_out`` — the per-invocation
+    contraction ``(m, k) @ (k, n_out)`` ``dense`` performs there; ``count`` —
+    invocations per forward pass (stacked layers); ``leaf`` — the site's
+    parameter-tree leaf, held by reference (zero-copy).
+    """
+
+    name: str
+    m: int
+    k: int
+    n_out: int
+    count: int
+    leaf: object = dataclasses.field(repr=False, compare=False)
+
+    def weight_matrix(self) -> torch.Tensor:
+        """The (count · k, n_out) float32 matrix the contraction consumes
+        (all invocations stacked along rows): a view of a float32 leaf on
+        its own device, never a copy (other dtypes are converted).
+
+        Refuses a bit-packed leaf: the planner's sparsity/guard statistics
+        and candidate quantization must read the *pre-quantization* float
+        weight — re-quantizing a :class:`PackedQuantized` store's
+        dequantized codes at a second width would compound rounding error
+        into every downstream plan decision.
+        """
+        if packing.is_packed(self.leaf):
+            raise TypeError(
+                f"site {self.name!r}: leaf is an already-packed "
+                f"{self.leaf.bits}-bit PackedQuantized store — plan from the "
+                f"float parameters (pack with backends.pack_weights only "
+                f"*after* planning); re-quantizing packed codes at a second "
+                f"width compounds quantization error")
+        w = self.leaf.reshape(-1, self.n_out)
+        return w if w.dtype == torch.float32 else w.to(torch.float32)
+
+
+@dataclasses.dataclass(frozen=True)
+class Candidate:
+    """One priced (design, bits) option for a site."""
+
+    design: str
+    bits: int
+    stats: SparsityStats
+    rel_mse: float
+    guard_ok: bool
+    dyn_energy_uj: float
+    dyn_latency_us: float
+    wc_energy_uj: float
+    wc_latency_us: float
+    stream_len: int = 0
+
+
+def _walk(tree, prefix=()):
+    """``("/"-joined path, leaf)`` of a nested-dict tree (packed stores are
+    leaves), in sorted key order."""
+    for key in sorted(tree):
+        node = tree[key]
+        if isinstance(node, dict):
+            yield from _walk(node, prefix + (str(key),))
+        else:
+            yield "/".join(prefix + (str(key),)), node
+
+
+def _leaf_index(params) -> dict:
+    return dict(_walk(params))
+
+
+def _meta_like(tree):
+    """The tree's geometry on the ``meta`` device (packed stores by their
+    logical shape): what discovery runs the forward on."""
+    if isinstance(tree, dict):
+        return {k: _meta_like(v) for k, v in tree.items()}
+    dtype = tree.scale.dtype if packing.is_packed(tree) else tree.dtype
+    return torch.empty(tuple(tree.shape), dtype=dtype, device="meta")
+
+
+def discover_sites(cfg, params, *, batch: int = 1,
+                   seq_len: int = 8) -> list[GemmSite]:
+    """Find every dense GEMM site of ``cfg``'s model, with weights attached.
+
+    Runs one forward pass on the ``meta`` device — parameters and tokens
+    carry shapes only, so no FLOPs run and nothing is allocated — inside a
+    ``repro_torch.backends.record_sites`` scope, and joins the recorded
+    (site, k, n_out) against the parameter tree by the same ``/``-joined
+    path ``serving/energy.py`` walks.  ``count`` per site is ``leaf size /
+    (k · n_out)`` (the stacked-layers multiplier).  Sites hold the parameter
+    leaves by reference.
+
+    ``m`` is reported for a *decode step*: ``batch`` rows per invocation
+    (``seq_len`` only shapes the discovery pass).  Returns sites in model
+    order, deduplicated by name.
+    """
+    from repro_torch import backends
+    from repro_torch.models import model as model_lib
+
+    meta = _meta_like(params)
+    with torch.no_grad(), backends.record_sites() as rec:
+        if getattr(cfg, "frontend_stub", False):
+            embeds = torch.empty((batch, seq_len, cfg.d_model),
+                                 dtype=torch.float32, device="meta")
+            model_lib.forward(meta, cfg, embeds=embeds)
+        else:
+            tokens = torch.zeros((batch, seq_len), dtype=torch.int32,
+                                 device="meta")
+            model_lib.forward(meta, cfg, tokens)
+
+    leaves = _leaf_index(params)
+    sites: list[GemmSite] = []
+    seen: set[str] = set()
+    for call in rec.calls:
+        if call.site in seen:
+            continue
+        seen.add(call.site)
+        leaf = leaves.get(call.site)
+        if leaf is None:
+            raise ValueError(
+                f"recorded site {call.site!r} has no parameter-tree leaf — "
+                "a dense(name=...) annotation disagrees with the param path")
+        size = math.prod(leaf.shape)
+        count = size // (call.k * call.n_out)
+        if count * call.k * call.n_out != size:
+            raise ValueError(
+                f"site {call.site!r}: leaf shape {tuple(leaf.shape)} is not "
+                f"a stack of (k={call.k}, n_out={call.n_out}) matrices")
+        sites.append(GemmSite(name=call.site, m=max(int(batch), 1),
+                              k=call.k, n_out=call.n_out, count=count,
+                              leaf=leaf))
+    return sites
+
+
+def quantization_rel_mse(w: torch.Tensor, bits: int) -> float:
+    """Relative quantization MSE of a 2-D ``w`` at ``bits`` — the guard
+    statistic.
+
+    Per-output-channel symmetric quantization (exactly what
+    ``models/common.dense`` applies to the weight under a backend scope),
+    dequantized and compared to the original: ``mean((w - dq)²) /
+    mean(w²)``.  Dimensionless; 0 = lossless, ~0.01–0.03 for 4-bit Gaussian
+    weights, ≫ 0.1 for 2-bit.
+
+    Walks ``w`` in row chunks on its own device: one pass for the column
+    maxima, one for the two sums (float32 elements, float64 sums), so a
+    stacked multi-gigabyte matrix needs scratch of one chunk only.  The
+    reference takes float32 means, so the two agree to float32 rounding of
+    the sums, not bit for bit.
+    """
+    rows, cols = w.shape
+    step = max(1, _REL_MSE_CHUNK_ELEMS // max(cols, 1))
+    chunks = [w[lo: lo + step].to(torch.float32)
+              for lo in range(0, rows, step)]          # views for float32
+    amax = torch.stack([torch.amax(torch.abs(c), dim=0) for c in chunks])
+    scale = _scale_from_amax(amax.amax(dim=0, keepdim=True), bits)
+    err = sq = 0.0
+    for c in chunks:
+        dq = _codes(c, scale, bits).to(torch.float32) * scale
+        err += float(torch.sum(torch.square(c - dq), dtype=torch.float64))
+        sq += float(torch.sum(torch.square(c), dtype=torch.float64))
+    n = rows * cols
+    return (err / n) / max(sq / n, 1e-30)
+
+
+def price_site(design: str, bits: int, *, m: int, k: int, n_out: int,
+               count: int, bit_sparsity: float, unit_n: int,
+               num_units: int) -> dict[str, float]:
+    """Price one site's per-decode-step cost on a (design, bits) DLA.
+
+    Uses the same ``core.ppa.DLAModel`` tiling the serve cost table uses,
+    with Eq. 1 ``bit_sparsity`` (block-max statistic) scaling the dynamic
+    numbers and 0.0 for the worst case.  Returns µJ / µs totals over the
+    site's ``count`` invocations: ``dyn_energy_uj``, ``dyn_latency_us``,
+    ``wc_energy_uj``, ``wc_latency_us``.
+    """
+    dla = ppa.DLAModel(design=design, bits=bits, n=unit_n,
+                       num_units=num_units)
+    return {
+        "dyn_energy_uj":
+            dla.matmul_energy_nj(m, k, n_out, bit_sparsity) * count * 1e-3,
+        "dyn_latency_us":
+            dla.matmul_latency_ns(m, k, n_out, bit_sparsity) * count * 1e-3,
+        "wc_energy_uj":
+            dla.matmul_energy_nj(m, k, n_out, 0.0) * count * 1e-3,
+        "wc_latency_us":
+            dla.matmul_latency_ns(m, k, n_out, 0.0) * count * 1e-3,
+    }
+
+
+def prune_infeasible(site_name: str, k: int,
+                     designs: Sequence[str],
+                     bits_candidates: Sequence[int],
+                     pruned: list | None) -> set[tuple[str, int]]:
+    """(design, bits) pairs whose accumulator envelope ``k`` provably
+    leaves (``repro_torch.analysis.ranges``) — the planner never prices,
+    picks, or baselines them.  Evidence is appended to ``pruned`` (the
+    plan's ``range_pruned`` meta block) when a list is given."""
+    out: set[tuple[str, int]] = set()
+    for design in designs:
+        for bits in bits_candidates:
+            finding = ranges_lib.check_gemm(design, bits, int(k),
+                                            where=site_name)
+            if finding is not None:
+                out.add((design, bits))
+                if pruned is not None:
+                    pruned.append({
+                        "site": site_name, "design": design, "bits": bits,
+                        "k": int(k),
+                        "max_safe_k": ranges_lib.max_safe_k(design, bits),
+                        "reason": finding.message})
+    return out
+
+
+def site_candidates(site: GemmSite, *,
+                    bits_candidates: Sequence[int] = DEFAULT_BITS_CANDIDATES,
+                    designs: Sequence[str] = DEFAULT_DESIGNS,
+                    max_rel_mse: float = DEFAULT_MAX_REL_MSE,
+                    unit_n: int = 64, num_units: int = 64,
+                    block: int = 32,
+                    pruned: list | None = None,
+                    stream_lens: Sequence[int] = ()) -> list[Candidate]:
+    """Profile and price every feasible (design, bits) candidate for one
+    site.
+
+    Candidates whose accumulator envelope the site's contraction length
+    leaves are pruned *before* pricing (see :func:`prune_infeasible`;
+    evidence lands in ``pruned`` when given).  The site's stacked weight
+    matrix is profiled per the paper's convention (per-tensor quantization
+    grid, ``block``×``block`` maxima for the Eq. 1 statistic); the guard
+    statistic is :func:`quantization_rel_mse` at each bit-width.
+    ``guard_ok`` is False where ``rel_mse > max_rel_mse``.  Stochastic
+    candidates raise ``NotImplementedError`` (the stochastic slice).
+    """
+    _exact_only(designs, stream_lens)
+    infeasible = prune_infeasible(site.name, site.k, designs,
+                                  bits_candidates, pruned)
+    weight = site.weight_matrix()
+    out: list[Candidate] = []
+    for bits in bits_candidates:
+        stats = sparsity.profile_tensor(weight, bits=bits, block=block)
+        rel_mse = quantization_rel_mse(weight, bits)
+        guard_ok = rel_mse <= max_rel_mse
+        for design in designs:
+            if (design, bits) in infeasible:
+                continue
+            priced = price_site(design, bits, m=site.m, k=site.k,
+                                n_out=site.n_out, count=site.count,
+                                bit_sparsity=stats.bit_blockmax,
+                                unit_n=unit_n, num_units=num_units)
+            out.append(Candidate(design=design, bits=bits, stats=stats,
+                                 rel_mse=rel_mse, guard_ok=guard_ok,
+                                 **priced))
+    return out
+
+
+def _pick(cands: list[Candidate], objective: str) -> tuple[Candidate, bool]:
+    """Per-site argmin of ``objective`` among guard-passing candidates.
+
+    Falls back to the most accurate (lowest rel_mse, then widest) candidates
+    when the guard rejects every bit-width — the returned bool flags the
+    relaxation.  Ties break deterministically by (value, design, bits).
+    """
+    allowed = [c for c in cands if c.guard_ok]
+    relaxed = not allowed
+    if relaxed:
+        best_mse = min(c.rel_mse for c in cands)
+        allowed = [c for c in cands if c.rel_mse == best_mse]
+    return min(allowed, key=lambda c: (getattr(c, objective), c.design,
+                                       c.bits, c.stream_len)), relaxed
+
+
+def build_plan(cfg, params, *, batch: int = 1,
+               bits_candidates: Sequence[int] = DEFAULT_BITS_CANDIDATES,
+               designs: Sequence[str] = DEFAULT_DESIGNS,
+               objective: str = "dyn_energy_uj",
+               max_rel_mse: float = DEFAULT_MAX_REL_MSE,
+               unit_n: int = 64, num_units: int = 64,
+               seq_len: int = 8,
+               sites: list[GemmSite] | None = None,
+               stream_lens: Sequence[int] = ()) -> BackendPlan:
+    """Derive a per-site mixed-precision :class:`BackendPlan` for a model.
+
+    Args: ``cfg``/``params`` — the model; ``batch`` — decode rows per step
+    (prices the tiling; does not change the per-site winner); ``objective``
+    — one of ``dyn_energy_uj`` / ``dyn_latency_us`` / ``wc_energy_uj`` /
+    ``wc_latency_us`` (lower is better); ``unit_n``/``num_units`` — the DLA
+    geometry (n×n PE arrays); ``max_rel_mse`` — the accuracy guard;
+    ``sites`` — optionally a pre-computed :func:`discover_sites` result
+    (callers that also measure cycles reuse one discovery pass).
+    ``stream_lens`` or a stochastic design raise ``NotImplementedError``.
+
+    Returns a plan whose entries use exact site names as patterns, with
+    ``meta`` carrying the planning inputs, per-(design, bits) uniform
+    baselines, and the planned totals.  The planned total never exceeds the
+    best guard-feasible uniform baseline (per-site argmin over a superset).
+    The scratch memory peaks at one row chunk of one site's weight.
+    """
+    _exact_only(designs, stream_lens)
+    if sites is None:
+        sites = discover_sites(cfg, params, batch=batch, seq_len=seq_len)
+    if not sites:
+        raise ValueError("model exposes no dense GEMM sites to plan")
+
+    entries: list[SiteAssignment] = []
+    range_pruned: list[dict] = []
+    uniform = {(d, b): {**_zero_totals(), "feasible": True}
+               for d in designs for b in bits_candidates}
+    for site in sites:
+        n_pruned = len(range_pruned)
+        cands = site_candidates(site, bits_candidates=bits_candidates,
+                                designs=designs, max_rel_mse=max_rel_mse,
+                                unit_n=unit_n, num_units=num_units,
+                                pruned=range_pruned)
+        for rec in range_pruned[n_pruned:]:
+            uniform[(rec["design"], rec["bits"])]["feasible"] = False
+        if not cands:
+            raise ValueError(
+                f"site {site.name!r}: no (design, bits) candidate among "
+                f"{list(designs)} x {list(bits_candidates)} keeps a K="
+                f"{site.k} contraction inside its accumulator envelope "
+                f"(see repro_torch.analysis.ranges)")
+        best, relaxed = _pick(cands, objective)
+        entries.append(_assignment(site, best, relaxed, k=site.k,
+                                   n_out=site.n_out))
+        _fold_uniform(uniform, cands)
+
+    meta = {
+        "arch": getattr(cfg, "arch_id", None),
+        "objective": objective,
+        "bits_candidates": list(bits_candidates),
+        "designs": list(designs),
+        "stream_lens": [],
+        "max_rel_mse": max_rel_mse,
+        "unit_n": unit_n,
+        "num_units": num_units,
+        "batch": batch,
+        # Numeric-safety evidence: every pruned (site, design, bits) with
+        # its envelope bound.  Always present — an empty list is the
+        # verifier's proof that no candidate was overflow-hazardous.
+        "range_pruned": range_pruned,
+        "totals": _uniform_verdict(uniform, plan_totals(entries), objective),
+    }
+    return BackendPlan(sites=tuple(entries),
+                       meta=tuple(sorted(meta.items())))
+
+
+def _zero_totals() -> dict[str, float]:
+    return {"dyn_energy_uj": 0.0, "dyn_latency_us": 0.0,
+            "wc_energy_uj": 0.0, "wc_latency_us": 0.0}
+
+
+def _assignment(site: GemmSite, best: Candidate, relaxed: bool, *,
+                k: int, n_out: int) -> SiteAssignment:
+    """A plan entry for ``site`` from a picked candidate (``k``/``n_out``
+    record the priced contraction)."""
+    return SiteAssignment(
+        pattern=site.name, design=best.design, bits=best.bits,
+        m=site.m, k=int(k), n_out=int(n_out), count=site.count,
+        word=best.stats.word, bit_elem=best.stats.bit_elem,
+        bit_blockmax=best.stats.bit_blockmax,
+        dyn_energy_uj=best.dyn_energy_uj,
+        dyn_latency_us=best.dyn_latency_us,
+        wc_energy_uj=best.wc_energy_uj,
+        wc_latency_us=best.wc_latency_us,
+        rel_mse=best.rel_mse, guard_relaxed=relaxed,
+        stream_len=best.stream_len)
+
+
+def _fold_uniform(uniform: dict, cands: list[Candidate]) -> None:
+    """Accumulate every candidate into the per-(design, bits) uniform
+    baselines (a uniform assignment is infeasible once any site's guard
+    rejects that bit-width)."""
+    for c in cands:
+        tot = uniform[(c.design, c.bits)]
+        if not c.guard_ok:
+            tot["feasible"] = False
+        for key in _zero_totals():
+            tot[key] += getattr(c, key)
+
+
+def _uniform_verdict(uniform: dict, planned: dict,
+                     objective: str) -> dict:
+    """The planned-vs-uniform totals block."""
+    feasible = {f"{d}@{b}": {k: v for k, v in tot.items() if k != "feasible"}
+                for (d, b), tot in uniform.items() if tot["feasible"]}
+    best = (min(feasible, key=lambda name: feasible[name][objective])
+            if feasible else None)
+    return {"planned": planned, "uniform": feasible, "uniform_best": best}
+
+
+def _site_copies(site: GemmSite, weight: torch.Tensor
+                 ) -> tuple[torch.Tensor, int]:
+    """The site's physical weight copies and the application multiplier.
+
+    Returns ``(copies-stacked (copies, k, n_out) view, applications)``; a
+    site's ``count`` exceeds its physical copies only where one weight is
+    applied several times a step.
+    """
+    copies = weight.shape[0] // site.k
+    return (weight.reshape(copies, site.k, site.n_out),
+            site.count // copies)
+
+
+def measure_site_cycles(site: GemmSite, entry, *, unit_n: int,
+                        num_units: int) -> dict[str, float]:
+    """Measured (operand-driven) decode-step cycles for one planned site.
+
+    Runs the shared measured-cycles contract
+    (``repro_torch.backends.runtime.measure_matrix_cycles`` — the same
+    helper the serve driver totals with) over each of the site's physical
+    weight copies with the entry's profiled Eq. 1 statistics, and sums.
+    Returns cycles per decode step: ``measured`` (operand-driven early
+    termination), ``dyn`` (Eq. 1 block-max), ``dyn_floor`` (Eq. 1
+    element-level), ``wc`` (worst case).  For sparsity-aware designs
+    ``dyn_floor ≤ measured ≤ wc``; designs without early termination report
+    all four equal.
+    """
+    backend = entry.backend()
+    w3, applications = _site_copies(site, site.weight_matrix())
+    totals = {"measured": 0.0, "dyn": 0.0, "dyn_floor": 0.0, "wc": 0.0}
+    for w in w3:
+        cyc = runtime_lib.measure_matrix_cycles(
+            backend, w, rows=site.m, unit_n=unit_n, num_units=num_units,
+            bit_blockmax=entry.bit_blockmax, bit_elem=entry.bit_elem)
+        for key in totals:
+            totals[key] += cyc[key]
+    return {key: val * applications for key, val in totals.items()}
+
+
+def plan_totals(entries) -> dict[str, float]:
+    """Summed predicted cost of a plan's entries (µJ / µs per decode step)."""
+    keys = ("dyn_energy_uj", "dyn_latency_us", "wc_energy_uj",
+            "wc_latency_us")
+    return {k: sum(getattr(e, k) for e in entries) for k in keys}
+
+
+def to_markdown(plan: BackendPlan) -> str:
+    """Human-readable rendering of a plan."""
+    meta = plan.metadata()
+    totals = meta.get("totals", {})
+    planned = totals.get("planned", {})
+    lines = [
+        "# Per-layer mixed-precision backend plan",
+        "",
+        f"Arch: `{meta.get('arch')}` — objective `{meta.get('objective')}` "
+        f"on a {meta.get('num_units')}× {meta.get('unit_n')}×"
+        f"{meta.get('unit_n')} DLA, decode batch {meta.get('batch')}.",
+        f"Candidates: designs {meta.get('designs')} × bits "
+        f"{meta.get('bits_candidates')}; accuracy guard rel. quant MSE ≤ "
+        f"{meta.get('max_rel_mse')}.",
+        "",
+        "| site | backend | bits | b_spa (blockmax) | dyn energy (µJ) | "
+        "dyn latency (µs) | rel MSE | guard |",
+        "|---|---|---|---|---|---|---|---|",
+    ]
+    for e in plan.sites:
+        guard = "relaxed" if e.guard_relaxed else "ok"
+        lines.append(
+            f"| `{e.pattern}` ×{e.count} | {e.design} | {e.bits} | "
+            f"{e.bit_blockmax:.3f} | {e.dyn_energy_uj:.4f} | "
+            f"{e.dyn_latency_us:.4f} | {e.rel_mse:.4f} | {guard} |")
+    lines += [
+        "",
+        f"**Planned totals**: {planned.get('dyn_energy_uj', 0.0):.4f} µJ "
+        f"dyn energy, {planned.get('dyn_latency_us', 0.0):.4f} µs dyn "
+        "latency per decode step.",
+        "",
+        "## Uniform single-backend baselines (guard-feasible)",
+        "",
+        "| uniform backend | dyn energy (µJ) | dyn latency (µs) | "
+        "wc energy (µJ) |",
+        "|---|---|---|---|",
+    ]
+    uniform = totals.get("uniform", {})
+    for name in sorted(uniform):
+        tot = uniform[name]
+        mark = " ← best" if name == totals.get("uniform_best") else ""
+        lines.append(f"| {name}{mark} | {tot['dyn_energy_uj']:.4f} | "
+                     f"{tot['dyn_latency_us']:.4f} | "
+                     f"{tot['wc_energy_uj']:.4f} |")
+    distinct = ", ".join(f"{d}@{b}" for d, b in plan.distinct_backends())
+    lines += [
+        "",
+        f"Distinct backends chosen: {distinct}.",
+        "",
+        "Per-site argmin over the same candidate set makes the planned "
+        "total ≤ every guard-feasible uniform baseline by construction; "
+        "`repro_torch.backends.use_plan` executes this mapping and "
+        "`serve --backend-plan` replays it with bit-exactness checks.",
+        "",
+    ]
+    return "\n".join(lines)

@@ -1,50 +1,390 @@
-"""Serving entry point: ``serve traffic`` on the PyTorch/CUDA port.
+"""Serving driver on the PyTorch/CUDA port: prefill + decode with unary-DLA
+energy accounting, per-site backend plans and seeded traffic.
 
-    PYTHONPATH=src python -m repro_torch.launch.serve traffic --arch llama3-8b \
+Three modes, as in the reference:
+
+* ``serve`` (default): greedy generation for a seeded prompt batch, the
+  backend numerics spot-check, the per-design Eq.-1 cost table and the
+  sweet-spot verdict; with ``--execute-backend`` (a simulated design or a
+  ``*_cuda`` kernel mirror) or ``--backend-plan FILE`` prefill and decode
+  also *execute* every dense site on its backend, and the driver reports
+  the int GEMMs' bit-exactness, the drift from the float model and the
+  measured cycles against the priced bounds (per site under a plan).
+  ``--packed`` executes from bit-packed weight stores.
+* ``plan``: derive a per-layer mixed-precision plan
+  (``repro_torch.eval.planner``), save it to ``--plan-out``, and report
+  predicted vs uniform-backend energy, measured per-site decode cycles and
+  the plan lint's verdict.
+* ``traffic``: a seeded Poisson trace through the paged
+  continuous-batching :class:`repro_torch.serving.ServingEngine` under
+  continuous and static batching, on the float path, a backend or a plan.
+
+Runs on the card by default; ``--device cpu`` runs the same code on the
+kernels' plain versions.  Grid plans and ``--grid`` wait for the grids
+slice, ``--stream-lens`` (rate-coded candidates) for the stochastic slice:
+both exit 2.
+
+    PYTHONPATH=src python -m repro_torch.launch.serve plan --arch llama3-8b \\
+        --smoke --device cpu --plan-out /tmp/plan.json
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3-8b \\
+        --smoke --device cpu --backend-plan /tmp/plan.json --packed --tokens 8
+    PYTHONPATH=src python -m repro_torch.launch.serve traffic --arch llama3-8b \\
         --execute-backend tubgemm_cuda --bits 4 --act-scale per-row
-
-Generates a seeded Poisson traffic trace and serves it through the paged
-continuous-batching :class:`repro_torch.serving.ServingEngine` — once under
-continuous batching, once under static batching — with every dense site
-contracted on ``--execute-backend`` (a simulated design or a ``*_cuda``
-kernel mirror) when one is given.  Runs on the card by default; ``--device
-cpu`` runs the same code on the kernels' plain versions.  The one-shot
-``serve`` and ``plan`` modes, ``--backend-plan``, ``--packed`` and ``--grid``
-are not ported yet.
 """
 
 from __future__ import annotations
 
 import argparse
+import time
 
+import numpy as np
 import torch
 
 from repro_torch import backends as backends_lib
 from repro_torch import configs
+from repro_torch.core import accounting, packing, ppa, sparsity
+from repro_torch.core import gemm_sims as gemm_sims_lib
+from repro_torch.core.quantization import quantize
+from repro_torch.eval import planner as planner_lib
+from repro_torch.eval import sweetspot as sweetspot_lib
 from repro_torch.models import common as common_lib
 from repro_torch.models import model as model_lib
 from repro_torch.serving import (FUSED_LOGIT_TOL, ServingEngine, TrafficConfig,
                                  fused_vs_gather_probe, generate_trace,
                                  paged_vs_contiguous_probe)
+from repro_torch.serving import energy as serving_energy
+
+_STOCHASTIC_MSG = ("rate-coded ugemm_stochastic candidates arrive with the "
+                   "stochastic slice of the port")
+_GRID_MSG = "PE-array grids arrive with the grids slice of the port"
 
 
-def run_traffic_mode(args, cfg, params) -> int:
+def _float32(w: torch.Tensor) -> torch.Tensor:
+    return w if w.dtype == torch.float32 else w.to(torch.float32)
+
+
+def build_workload(cfg, params, batch: int, ctx_len: int, bits: int):
+    """GemmCalls for ONE decode step, with measured per-matrix sparsity."""
+    rec = accounting.GemmWorkloadRecorder()
+    stats = {}
+    for name, w in serving_energy.iter_weight_matrices(cfg, params):
+        st = sparsity.profile_tensor(_float32(w), bits=bits)
+        stats[name] = st
+        k, n_out = w.shape
+        rec.record(name, m=batch, k=k, n_out=n_out,
+                   bit_sparsity=st.bit_blockmax, count=1)
+    return rec, stats
+
+
+def validate_backend_numerics(params, design, bits: int | None = None,
+                              n_tiles: int = 8, tile: int = 16,
+                              oracle: str = "bgemm") -> float:
+    """Spot-check the selected GEMM backend on tiles of the real weights.
+
+    Quantizes ``n_tiles`` (tile x tile) slices of actual model weights (the
+    leaves in sorted-path order, as the reference flattens its tree),
+    stacks them on a batch axis, and pushes the stack through
+    ``GemmBackend.execute`` in one batched call against the ``oracle``
+    design.  Exact designs (tu/tub/b and the CUDA mirrors) must come back
+    bit-identical — returns 0.0.
+    """
+    backend = backends_lib.resolve(design, bits=bits)
+    oracle = backends_lib.resolve(oracle, bits=backend.bits)
+    # Packed leaves dequantize for tiling — the spot-check wants float
+    # matrices to quantize fresh at the backend's width.
+    leaves = [leaf.dequantize() if packing.is_packed(leaf) else leaf
+              for _, leaf in planner_lib._walk(params)]
+    leaves = [leaf for leaf in leaves
+              if leaf.ndim >= 2 and leaf.numel() >= 2 * tile * tile]
+    if not leaves:
+        return 0.0
+    tiles = []
+    for i in range(2 * n_tiles):
+        flat = leaves[i % len(leaves)].reshape(-1)
+        off = (i // len(leaves)) * tile * tile
+        chunk = flat[off:off + tile * tile]
+        if chunk.numel() < tile * tile:
+            chunk = flat[:tile * tile]
+        q = quantize(_float32(chunk).reshape(tile, tile), bits=backend.bits,
+                     per_channel=False)
+        tiles.append(q.values)
+    a = torch.stack(tiles[:n_tiles])
+    b = torch.stack(tiles[n_tiles:])
+    return gemm_sims_lib.rel_rmse(backend.execute(a, b), oracle.execute(a, b))
+
+
+def _oracle_for(backend) -> str:
+    """The oracle design a backend's numerics are judged against: the
+    binary int32 oracle (the rate-coded backends, judged against exact
+    uGEMM in the reference, arrive with the stochastic slice)."""
+    return "bgemm"
+
+
+def measure_decode_cycles(cfg, params, backend, *, batch: int, unit_n: int,
+                          num_units: int, stats=None) -> dict[str, float]:
+    """Per-decode-token cycle totals for the model on one backend.
+
+    Sums the shared measured-cycles contract
+    (``repro_torch.backends.measure_matrix_cycles``, the helper behind the
+    planner's ``measure_site_cycles``) over every priced weight matrix:
+    ``wc`` (worst case), ``dyn_floor`` (Eq. 1 with element-level
+    sparsity), ``measured`` (operand-driven, on the per-channel codes
+    ``dense`` contracts) and ``dyn`` (the priced Eq. 1 estimate).  For
+    sparsity-aware designs ``dyn_floor <= measured <= wc``.
+
+    ``stats`` — optional ``{name: SparsityStats}`` at ``backend.bits`` (from
+    ``build_workload``) to skip re-profiling every weight matrix.
+    """
+    totals = {"wc": 0.0, "dyn": 0.0, "dyn_floor": 0.0, "measured": 0.0}
+    for name, w in serving_energy.iter_weight_matrices(cfg, params):
+        st = (stats or {}).get(name)
+        cyc = backends_lib.measure_matrix_cycles(
+            backend, w, rows=batch, unit_n=unit_n, num_units=num_units,
+            bit_blockmax=None if st is None else st.bit_blockmax,
+            bit_elem=None if st is None else st.bit_elem)
+        for key in totals:
+            totals[key] += cyc[key]
+    return totals
+
+
+@torch.no_grad()
+def generate(cfg, params, prompt: torch.Tensor, max_new: int) -> torch.Tensor:
+    """Greedy decoding: ``model.prefill`` then ``model.decode_step`` over a
+    contiguous float32 cache.  Returns the ``(batch, max_new)`` tokens."""
+    b, s = prompt.shape
+    caches = model_lib.init_caches(cfg, b, s + max_new, dtype=torch.float32,
+                                   device=prompt.device)
+    logits, caches = model_lib.prefill(params, cfg, prompt, caches=caches)
+    tok = torch.argmax(logits[:, -1:], dim=-1).to(torch.int32)
+    out = [tok]
+    for i in range(max_new - 1):
+        logits, caches = model_lib.decode_step(params, cfg, tok,
+                                               caches=caches, cache_pos=s + i)
+        tok = torch.argmax(logits[:, -1:], dim=-1).to(torch.int32)
+        out.append(tok)
+    return torch.cat(out, dim=1)
+
+
+@torch.no_grad()
+def prefill_logits(cfg, params, prompt: torch.Tensor) -> torch.Tensor:
+    """Full prefill logits under whatever backend/plan scope is active."""
+    caches = model_lib.init_caches(cfg, prompt.shape[0], prompt.shape[1] + 1,
+                                   dtype=torch.float32, device=prompt.device)
+    logits, _ = model_lib.prefill(params, cfg, prompt, caches=caches)
+    return logits
+
+
+def _drift(exec_logits, ref_logits) -> tuple[float, float]:
+    """(relRMSE, top-1 agreement) of executed vs float prefill logits."""
+    agree = float(torch.mean((torch.argmax(exec_logits, -1)
+                              == torch.argmax(ref_logits, -1)).to(torch.float64)))
+    return gemm_sims_lib.rel_rmse(exec_logits, ref_logits), agree
+
+
+def run_backend_execution(cfg, params, prompt, backend, max_new: int,
+                          *, unit_n: int, num_units: int,
+                          ref_logits=None, stats=None,
+                          packed: bool = False) -> dict:
+    """Execute prefill+decode on ``backend`` and collect the evidence.
+
+    Returns a dict: generated ``tokens``, number of distinct GEMM ``sites``
+    contracted on the backend, int-GEMM ``rel_rmse`` vs the binary oracle,
+    prefill-logits ``drift`` + ``top1_agreement`` vs the float model, wall
+    time, and the measured/dyn/wc ``cycles`` totals per decode token.
+    ``packed`` freezes every GEMM site's weight bit-packed at the backend's
+    width and executes from the packed store; the float ``params`` keep
+    feeding the reference and measurement paths.
+    """
+    backend = backends_lib.resolve(backend)
+    exec_params = (backends_lib.pack_weights(cfg, params, bits=backend.bits)
+                   if packed else params)
+    if ref_logits is None:
+        ref_logits = prefill_logits(cfg, params, prompt)
+    t0 = time.perf_counter()
+    with backends_lib.use_backend(backend) as execution:
+        tokens = generate(cfg, exec_params, prompt, max_new)
+        exec_logits = prefill_logits(cfg, exec_params, prompt)
+    if tokens.is_cuda:
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    if not execution.calls:
+        raise RuntimeError("backend execution recorded no GEMM sites")
+    drift, agree = _drift(exec_logits, ref_logits)
+    oracle = _oracle_for(backend)
+    return {
+        "backend": backend,
+        "tokens": tokens,
+        "sites": len({c.site for c in execution.calls}),
+        "wall_s": wall,
+        "oracle": oracle,
+        "rel_rmse": validate_backend_numerics(params, backend, oracle=oracle),
+        "drift": drift,
+        "top1_agreement": agree,
+        "cycles": measure_decode_cycles(cfg, params, backend,
+                                        batch=prompt.shape[0], unit_n=unit_n,
+                                        num_units=num_units, stats=stats),
+    }
+
+
+def run_plan_execution(cfg, params, prompt, plan, max_new: int,
+                       *, ref_logits=None, packed: bool = False) -> dict:
+    """Execute prefill+decode under ``use_plan`` and collect the evidence.
+
+    Like :func:`run_backend_execution` but per site: every dense site
+    contracts on the backend its plan entry names (unmatched sites stay
+    float).  Returns generated ``tokens``, the ``site_backends`` mapping
+    actually executed, per-distinct-backend int-GEMM ``rel_rmse`` vs the
+    binary oracle, prefill ``drift`` / ``top1_agreement`` vs the float
+    model, wall time, and per-site measured/dyn/floor/wc decode-cycle totals
+    (``site_cycles``; DLA geometry from the plan's meta).  ``packed``
+    executes the planned sites from bit-packed stores; reference logits,
+    numerics, site discovery and cycles keep reading the float params.
+    """
+    exec_params = (backends_lib.pack_weights(cfg, params, plan)
+                   if packed else params)
+    if ref_logits is None:
+        ref_logits = prefill_logits(cfg, params, prompt)
+    t0 = time.perf_counter()
+    with backends_lib.use_plan(plan) as execution:
+        tokens = generate(cfg, exec_params, prompt, max_new)
+        exec_logits = prefill_logits(cfg, exec_params, prompt)
+    if tokens.is_cuda:
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    if not execution.calls:
+        raise RuntimeError(
+            "plan execution contracted no GEMM sites — do the plan's "
+            "patterns match this model's site names?")
+    site_backends = {c.site: f"{c.backend}@{c.bits}" for c in execution.calls}
+    rel_rmse = {}
+    for design, bits in plan.distinct_backends():
+        tag = f"{design}@{bits}"
+        if tag in site_backends.values():
+            backend = backends_lib.resolve(design, bits=bits)
+            rel_rmse[tag] = validate_backend_numerics(
+                params, backend, oracle=_oracle_for(backend))
+    drift, agree = _drift(exec_logits, ref_logits)
+    meta = plan.metadata()
+    unit_n = int(meta.get("unit_n", 64))
+    num_units = int(meta.get("num_units", 64))
+    sites = {s.name: s for s in planner_lib.discover_sites(
+        cfg, params, batch=prompt.shape[0])}
+    site_cycles = {}
+    for entry in plan.sites:
+        site = sites.get(entry.pattern)
+        if site is None or entry.pattern not in site_backends:
+            continue
+        site_cycles[entry.pattern] = planner_lib.measure_site_cycles(
+            site, entry, unit_n=unit_n, num_units=num_units)
+    return {
+        "tokens": tokens,
+        "site_backends": site_backends,
+        "wall_s": wall,
+        "rel_rmse": rel_rmse,
+        "drift": drift,
+        "top1_agreement": agree,
+        "site_cycles": site_cycles,
+    }
+
+
+def _parse_stream_lens(spec: str | None) -> tuple[int, ...]:
+    """``"16,32,64"`` -> ``(16, 32, 64)`` (empty/None -> no stochastic)."""
+    if not spec:
+        return ()
+    try:
+        lens = tuple(int(tok) for tok in spec.split(",") if tok.strip())
+    except ValueError:
+        raise SystemExit(f"error: --stream-lens must be a comma-separated "
+                         f"list of ints, got {spec!r}")
+    if any(L < 1 for L in lens):
+        raise SystemExit(f"error: stream lengths must be >= 1, got {spec!r}")
+    return lens
+
+
+def run_plan_mode(args, cfg, params) -> int:
+    """``serve plan``: derive, save and report a mixed-precision plan."""
+    t0 = time.perf_counter()
+    site_list = planner_lib.discover_sites(cfg, params, batch=args.batch)
+    plan = planner_lib.build_plan(
+        cfg, params, batch=args.batch, unit_n=args.unit_n,
+        num_units=args.units, sites=site_list)
+    wall = time.perf_counter() - t0
+    path = plan.save(args.plan_out)
+    meta = plan.metadata()
+    totals = meta["totals"]
+    sites = {s.name: s for s in site_list}
+
+    print(f"\n=== backend plan for {args.arch} [{args.device}] "
+          f"({args.units}x {args.unit_n}x{args.unit_n} units, objective "
+          f"{meta['objective']}), planned in {wall:.2f} s ===")
+    print(f"{'site':>24s} {'engine':>20s} {'b_spa':>6s} {'dynE_uJ':>9s} "
+          f"{'relMSE':>7s} {'measured_cyc':>13s} {'wc_cyc':>10s}")
+    for e in plan.sites:
+        cyc = planner_lib.measure_site_cycles(
+            sites[e.pattern], e, unit_n=args.unit_n, num_units=args.units)
+        print(f"{e.pattern:>24s} {e.engine_label:>20s} "
+              f"{e.bit_blockmax:6.3f} {e.dyn_energy_uj:9.4f} "
+              f"{e.rel_mse:7.4f} {cyc['measured']:13.1f} {cyc['wc']:10.1f}")
+    planned = totals["planned"]
+    print(f"\nplanned dyn energy {planned['dyn_energy_uj']:.4f} uJ / decode "
+          f"step (wc {planned['wc_energy_uj']:.4f} uJ)")
+    for name in sorted(totals["uniform"]):
+        tot = totals["uniform"][name]
+        mark = " <-- best uniform" if name == totals["uniform_best"] else ""
+        print(f"  uniform {name:>12s}: dyn {tot['dyn_energy_uj']:.4f} uJ"
+              f"{mark}")
+    best = totals["uniform_best"]
+    if best is not None:
+        saving = 1.0 - planned["dyn_energy_uj"] \
+            / max(totals["uniform"][best]["dyn_energy_uj"], 1e-30)
+        print(f"plan vs best uniform ({best}): {saving:.2%} predicted "
+              f"energy saving")
+    distinct = plan.distinct_backends()
+    print(f"distinct engines chosen: "
+          f"{', '.join(f'{d}@{b}' for d, b in distinct)} "
+          f"({'mixed' if len(distinct) > 1 else 'uniform'} assignment)")
+    print(analysis_verdict(plan, site_names=[s.name for s in site_list]))
+    print(f"plan saved to {path} (replay: serve --arch {args.arch}"
+          f"{' --smoke' if args.smoke else ''} --device {args.device} "
+          f"--backend-plan {path})")
+    return 0
+
+
+def analysis_verdict(plan, site_names=None) -> str:
+    """One-line static numeric-safety verdict for a plan.
+
+    Runs ``repro_torch.analysis.plan_lint`` over the plan (against the
+    model's site inventory when given, so dead/shadowed patterns and
+    unmatched sites are checked too), prints each finding and returns the
+    verdict line.
+    """
+    from repro_torch.analysis import findings as findings_lib
+    from repro_torch.analysis import plan_lint
+    found = plan_lint.lint_plan(plan, site_names=site_names)
+    for f in found:
+        print(f"  {f.render()}")
+    return findings_lib.verdict_line(found)
+
+
+def run_traffic_mode(args, cfg, params, plan=None) -> int:
     """``serve traffic``: continuous vs static batching on one seeded trace.
 
     Serves the trace twice through the SAME engine (same paged pool geometry,
-    same backend scope) and reports throughput, latency percentiles, batch
-    occupancy and Eq.-1 energy per token for both.  Gates (non-zero exit) on:
+    same backend or plan scope, packed stores under ``--packed``) and
+    reports throughput, latency percentiles, batch occupancy and Eq.-1
+    energy per token for both.  Gates (non-zero exit) on:
 
     * continuous throughput >= static throughput on the same trace,
     * both schedulers completing every request; the per-request token
       streams must also be identical across schedulers — a strict gate on
-      the float path and, under --execute-backend, whenever ``--act-scale
-      per-row`` is active (per-row activation quantization makes each
-      request's integer codes a pure function of its own tokens); under the
-      default per-tensor scale the check is informational,
+      the float path and, under --execute-backend / --backend-plan, whenever
+      ``--act-scale per-row`` is active (per-row activation quantization
+      makes each request's integer codes a pure function of its own
+      tokens); under the default per-tensor scale the check is
+      informational,
     * under ``--decode-attention fused``: the continuous run replayed on the
       gather oracle samples identical token streams — a strict gate on the
-      float path only.  Under --execute-backend it is reported: the page
+      float path only.  Under quantized execution it is reported: the page
       walk re-associates the float32 softmax (<= ``FUSED_LOGIT_TOL`` on a
       logit), the next quantizer turns that into whole-code flips wherever
       an activation sits on a rounding tie, and the number of such ties
@@ -62,13 +402,23 @@ def run_traffic_mode(args, cfg, params) -> int:
     engine_kw = dict(
         max_batch=args.batch, page_size=args.page_size,
         num_pages=args.num_pages, max_seq_len=args.max_seq_len,
-        backend=args.execute_backend, bits=args.bits,
+        backend=args.execute_backend, plan=plan, bits=args.bits,
         unit_n=args.unit_n, num_units=args.units,
-        pricing_design=args.gemm_backend, device=args.device)
+        pricing_design=args.gemm_backend, packed=args.packed,
+        device=args.device)
     engine = ServingEngine(cfg, params, attention=args.decode_attention,
                            **engine_kw)
-    scope = (f"backend {args.execute_backend}@{args.bits}"
+    scope = (f"plan {args.backend_plan}" if plan is not None
+             else f"backend {args.execute_backend}@{args.bits}"
              if args.execute_backend else "float model")
+    if args.packed:
+        rep = accounting.packed_store_report(engine._exec_params)
+        scope += " [packed]"
+        print(f"packed weight store: {rep.packed_sites}/{rep.total_sites} "
+              f"sites bit-packed, {rep.stored_bytes / 2**20:.2f} MiB vs "
+              f"{rep.float32_bytes / 2**20:.2f} MiB fp32 "
+              f"({rep.reduction:.2f}x smaller; packed sites alone "
+              f"{rep.packed_reduction:.2f}x)")
     print(f"\n=== serving traffic on {args.arch} [{args.device}]: "
           f"{len(trace)} requests "
           f"(Poisson rate {args.arrival_rate}/step, seed {args.seed}), "
@@ -96,7 +446,7 @@ def run_traffic_mode(args, cfg, params) -> int:
         ok = False
     complete = (rc.requests == len(trace) == rs.requests)
     same_tokens = rc.request_tokens == rs.request_tokens
-    quantized = bool(args.execute_backend)
+    quantized = bool(args.execute_backend) or plan is not None
     strict = (not quantized) or args.act_scale == "per-row"
     note = ("" if not quantized else
             " (strict: per-row act-quant decouples co-batched rows)"
@@ -132,20 +482,165 @@ def run_traffic_mode(args, cfg, params) -> int:
     return 0 if ok else 1
 
 
+def _report_backend(args, cfg, params, prompt, costs, stats) -> bool:
+    """``serve --execute-backend``: execute, print the evidence, gate."""
+    backend = backends_lib.resolve(args.execute_backend, bits=args.bits)
+    print(f"\n=== executing model on {backend.name} "
+          f"({backend.bits}-bit int tiles) ===")
+    result = run_backend_execution(
+        cfg, params, prompt, backend, args.tokens, unit_n=args.unit_n,
+        num_units=args.units, stats=stats, packed=args.packed)
+    print(f"generated {tuple(result['tokens'].shape)} tokens in "
+          f"{result['wall_s']:.2f}s; {result['sites']} dense GEMM sites "
+          f"contracted on the backend")
+    tag = ("bit-exact" if result["rel_rmse"] == 0.0
+           else f"relRMSE {result['rel_rmse']:.2e}")
+    print(f"int GEMMs vs binary oracle: {tag} (exact design)")
+    print(f"output drift vs float model (prefill logits): "
+          f"relRMSE {result['drift']:.3f}, "
+          f"top-1 agreement {result['top1_agreement']:.1%}")
+    cyc = result["cycles"]
+    in_bounds = cyc["dyn_floor"] - 0.5 <= cyc["measured"] <= cyc["wc"] + 0.5
+    priced_dyn = costs[backend.pricing_design].dyn_latency_us * 1e3 \
+        / ppa.CLOCK_PERIOD_NS
+    print(f"per-decode-token cycles ({args.units}x {args.unit_n}x"
+          f"{args.unit_n} units): measured {cyc['measured']:.3e} within "
+          f"[dyn floor {cyc['dyn_floor']:.3e}, wc {cyc['wc']:.3e}]: "
+          f"{in_bounds} (priced Eq.1 dyn {priced_dyn:.3e})")
+    if not in_bounds:
+        print("WARNING: measured cycles outside the priced dyn/wc bounds")
+    return in_bounds and result["rel_rmse"] == 0.0
+
+
+def _report_plan(args, cfg, params, prompt, plan) -> bool:
+    """``serve --backend-plan``: execute per site, print the evidence, gate."""
+    labels = ", ".join(f"{d}@{b}" for d, b in plan.distinct_backends())
+    print(f"\n=== executing model on backend plan {args.backend_plan} "
+          f"({labels}) ===")
+    print(analysis_verdict(plan))
+    result = run_plan_execution(cfg, params, prompt, plan, args.tokens,
+                                packed=args.packed)
+    print(f"generated {tuple(result['tokens'].shape)} tokens in "
+          f"{result['wall_s']:.2f}s; {len(result['site_backends'])} dense "
+          f"GEMM sites contracted:")
+    for site, tag in sorted(result["site_backends"].items()):
+        print(f"  {site:>24s} -> {tag}")
+    ok = True
+    for tag, rel in sorted(result["rel_rmse"].items()):
+        label = "bit-exact" if rel == 0.0 else f"relRMSE {rel:.2e}"
+        print(f"int GEMMs vs binary oracle on {tag}: {label}")
+        ok = ok and rel == 0.0
+    print(f"output drift vs float model (prefill logits): "
+          f"relRMSE {result['drift']:.3f}, "
+          f"top-1 agreement {result['top1_agreement']:.1%}")
+    total = {"measured": 0.0, "dyn": 0.0, "dyn_floor": 0.0, "wc": 0.0}
+    for site, cyc in sorted(result["site_cycles"].items()):
+        in_bounds = (cyc["dyn_floor"] - 0.5 <= cyc["measured"]
+                     <= cyc["wc"] + 0.5)
+        print(f"  {site:>30s} cycles: measured {cyc['measured']:.3e} in "
+              f"[floor {cyc['dyn_floor']:.3e}, wc {cyc['wc']:.3e}]: "
+              f"{in_bounds} (planned Eq.1 dyn {cyc['dyn']:.3e})")
+        ok = ok and in_bounds
+        for key in total:
+            total[key] += cyc[key]
+    print(f"per-decode-token cycle totals: measured {total['measured']:.3e} "
+          f"within [dyn floor {total['dyn_floor']:.3e}, wc "
+          f"{total['wc']:.3e}] (planned Eq.1 dyn {total['dyn']:.3e})")
+    if not ok:
+        print("WARNING: plan replay violated bit-exactness or cycle bounds")
+    return ok
+
+
+def run_serve_mode(args, cfg, params, plan=None) -> int:
+    """The one-shot ``serve`` mode: generate, price, recommend, execute."""
+    rng = np.random.default_rng(0)
+    prompt = torch.from_numpy(rng.integers(
+        0, cfg.vocab_size, (args.batch, args.prompt_len)).astype(np.int32)
+    ).to(args.device)
+    t0 = time.perf_counter()
+    toks = generate(cfg, params, prompt, args.tokens)
+    if toks.is_cuda:
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    print(f"generated {tuple(toks.shape)} tokens in {wall:.2f}s "
+          f"({args.batch * args.tokens / wall:.1f} tok/s on {args.device}, "
+          f"float path)")
+
+    # --- backend numerics: batched engine vs binary oracle on real weights ---
+    if backends_lib.resolve(args.gemm_backend, bits=args.bits).exact:
+        rel = validate_backend_numerics(params, args.gemm_backend, args.bits)
+        tag = "bit-exact" if rel == 0.0 else f"relRMSE {rel:.2e}"
+    else:
+        tag = f"not run ({_STOCHASTIC_MSG})"
+    print(f"backend numerics ({args.gemm_backend}, {args.bits}-bit, "
+          f"batched weight tiles): {tag}")
+
+    # --- unary-DLA energy accounting (the paper's technique, end to end) ---
+    rec, stats = build_workload(cfg, params, args.batch, args.prompt_len,
+                                args.bits)
+    agg = sparsity.combine_stats(list(stats.values()))
+    print(f"\nweight sparsity ({args.bits}-bit): word={agg.word:.4f} "
+          f"bit_elem={agg.bit_elem:.4f} bit_blockmax={agg.bit_blockmax:.4f}")
+    print(f"\nper-decode-token DLA cost ({args.units}x {args.unit_n}x"
+          f"{args.unit_n} units, {args.bits}-bit):")
+    print(f"{'design':>9s} {'wc_energy_uJ':>13s} {'dyn_energy_uJ':>14s} "
+          f"{'dyn_latency_us':>15s} {'saving':>7s}")
+    costs = {design: backends_lib.resolve(design, bits=args.bits)
+             .price(rec.calls, unit_n=args.unit_n, num_units=args.units)
+             for design in sweetspot_lib.CALIBRATED_DESIGNS}
+    for design, cost in costs.items():
+        mark = " <-- selected" if design == args.gemm_backend else ""
+        print(f"{design:>9s} {cost.wc_energy_uj:13.2f} "
+              f"{cost.dyn_energy_uj:14.2f} {cost.dyn_latency_us:15.2f} "
+              f"{cost.sparsity_saving:6.1%}{mark}")
+
+    # --- sweet-spot verdict for this model's actual layer shapes ------------
+    rec_by = sweetspot_lib.recommend_backend(
+        rec.calls, bits=args.bits, unit_n=args.unit_n, num_units=args.units,
+        costs=costs)
+    best_e = rec_by["dyn_energy_uj"]["best"]
+    best_l = rec_by["dyn_latency_us"]["best"]
+    print(f"\nsweet-spot ({args.bits}-bit, {args.unit_n}x{args.unit_n} units): "
+          f"{best_e} minimizes energy, {best_l} minimizes latency "
+          f"for this model's layer shapes")
+    if args.gemm_backend not in (best_e, best_l):
+        e_sel = dict(rec_by["dyn_energy_uj"]["ranking"])[args.gemm_backend]
+        e_best = dict(rec_by["dyn_energy_uj"]["ranking"])[best_e]
+        print(f"note: selected backend {args.gemm_backend} spends "
+              f"{e_sel / e_best:.2f}x the energy of {best_e} here "
+              f"(rerun with --gemm-backend {best_e})")
+
+    ok = True
+    if args.execute_backend:
+        ok = _report_backend(args, cfg, params, prompt, costs, stats)
+    if plan is not None:
+        ok = _report_plan(args, cfg, params, prompt, plan) and ok
+    return 0 if ok else 1
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(
-        description="serve a seeded traffic trace on the PyTorch/CUDA port")
-    ap.add_argument("mode", nargs="?", default="traffic", choices=["traffic"],
-                    help="'traffic' serves a seeded Poisson trace through "
-                         "the paged continuous-batching engine and compares "
-                         "continuous vs static batching (the only mode "
-                         "ported so far)")
+        description="serve llama3-8b on the PyTorch/CUDA port: generate, "
+                    "plan, or serve a seeded traffic trace")
+    ap.add_argument("mode", nargs="?", default="serve",
+                    choices=["serve", "plan", "traffic"],
+                    help="'serve' generates tokens (default); 'plan' derives "
+                         "+ saves a per-layer mixed-precision backend plan "
+                         "and reports predicted vs uniform energy and "
+                         "measured per-site decode cycles; 'traffic' serves "
+                         "a seeded Poisson trace through the paged "
+                         "continuous-batching engine and compares continuous "
+                         "vs static batching")
     ap.add_argument("--arch", default="llama3-8b", choices=list(configs.ARCH_IDS))
     ap.add_argument("--smoke", action="store_true")
     ap.add_argument("--device", default="cuda",
                     help="torch device to serve on (default: cuda; 'cpu' "
                          "runs the kernels' plain versions)")
     ap.add_argument("--batch", type=int, default=4)
+    ap.add_argument("--prompt-len", type=int, default=16,
+                    help="[serve] prompt length of the seeded batch")
+    ap.add_argument("--tokens", type=int, default=32,
+                    help="[serve] tokens to generate per prompt")
     ap.add_argument("--gemm-backend", default="tubgemm",
                     choices=["ugemm", "tugemm", "tubgemm", "bgemm"],
                     help="design the energy pricing charges")
@@ -154,41 +649,81 @@ def main(argv=None) -> int:
                          "layer contracted on this backend (simulated design "
                          "or *_cuda kernel mirror); one of "
                          f"{', '.join(backends_lib.available())}")
+    ap.add_argument("--backend-plan", default=None, metavar="FILE",
+                    help="execute prefill/decode with every dense site "
+                         "contracted on the backend its plan entry names "
+                         "(a JSON file from 'serve plan', of either package)")
+    ap.add_argument("--plan-out", default="reports/plan.json",
+                    help="[plan] where the derived plan is saved")
+    ap.add_argument("--stream-lens", default=None, metavar="L1,L2,...",
+                    help="[plan] rate-coded ugemm_stochastic candidates: "
+                         "not ported yet (exits 2)")
     ap.add_argument("--act-scale", default="per-tensor",
                     choices=["per-tensor", "per-row"],
-                    help="activation quantization granularity under backend "
-                         "execution; per-row decouples co-batched requests "
-                         "and turns the identical-token-stream check into a "
-                         "strict gate")
+                    help="[traffic] activation quantization granularity "
+                         "under backend execution; per-row decouples "
+                         "co-batched requests and turns the identical-token-"
+                         "stream check into a strict gate")
     ap.add_argument("--bits", type=int, default=4, choices=[2, 4, 8])
     ap.add_argument("--unit-n", type=int, default=128)
     ap.add_argument("--units", type=int, default=64)
     ap.add_argument("--requests", type=int, default=12,
-                    help="number of requests in the seeded trace")
+                    help="[traffic] number of requests in the seeded trace")
     ap.add_argument("--arrival-rate", type=float, default=1.0,
-                    help="Poisson arrivals per scheduler step")
+                    help="[traffic] Poisson arrivals per scheduler step")
     ap.add_argument("--seed", type=int, default=0,
-                    help="trace seed (arrivals + lengths)")
+                    help="[traffic] trace seed (arrivals + lengths)")
     ap.add_argument("--page-size", type=int, default=8,
-                    help="KV-cache page size in token slots")
+                    help="[traffic] KV-cache page size in token slots")
     ap.add_argument("--num-pages", type=int, default=None,
-                    help="KV pool size in pages (default: every slot can "
-                         "hold a worst-case request, +1 trash page)")
+                    help="[traffic] KV pool size in pages (default: every "
+                         "slot can hold a worst-case request, +1 trash page)")
     ap.add_argument("--max-seq-len", type=int, default=64,
-                    help="per-request position budget (prompt + output)")
+                    help="[traffic] per-request position budget "
+                         "(prompt + output)")
     ap.add_argument("--decode-attention", default="fused",
                     choices=["fused", "gather"],
-                    help="decode attention path: 'fused' walks each block "
-                         "table page-by-page with online softmax (the "
-                         "default), 'gather' materializes the padded KV "
-                         "view (the exact oracle)")
+                    help="[traffic] decode attention path: 'fused' walks "
+                         "each block table page-by-page with online softmax "
+                         "(the default), 'gather' materializes the padded "
+                         "KV view (the exact oracle)")
+    ap.add_argument("--packed", action="store_true",
+                    help="freeze every planned site's weight bit-packed "
+                         "(int32 words, 32/bits codes each) at its assigned "
+                         "width and execute from the packed store; "
+                         "bit-identical to quantize-then-execute; needs "
+                         "--execute-backend or --backend-plan to fix the "
+                         "widths")
+    ap.add_argument("--grid", default=None, metavar="X,Y",
+                    help="tensor-parallel PE-array grid: not ported yet "
+                         "(exits 2)")
     args = ap.parse_args(argv)
 
+    if args.grid:
+        print(f"error: --grid {args.grid}: {_GRID_MSG}")
+        return 2
+    if _parse_stream_lens(args.stream_lens):
+        print(f"error: --stream-lens {args.stream_lens}: {_STOCHASTIC_MSG}")
+        return 2
+    if args.packed and not (args.execute_backend or args.backend_plan):
+        print("error: --packed needs --execute-backend or --backend-plan "
+              "to fix each site's bit-width")
+        return 2
+    if args.execute_backend and args.backend_plan and args.mode != "plan":
+        print("error: pass --execute-backend or --backend-plan, not both")
+        return 2
     if args.execute_backend:
         try:
             backends_lib.resolve(args.execute_backend, bits=args.bits)
         except (KeyError, ValueError) as exc:
             print(f"error: --execute-backend {args.execute_backend!r}: {exc}")
+            return 2
+    plan = None
+    if args.backend_plan and args.mode != "plan":
+        try:
+            plan = backends_lib.load_plan(args.backend_plan)
+        except NotImplementedError as exc:
+            print(f"error: --backend-plan: {exc}")
             return 2
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
@@ -207,7 +742,11 @@ def main(argv=None) -> int:
     generator = torch.Generator(device=device)
     generator.manual_seed(0)
     params = model_lib.init_params(cfg, generator, device=device)
-    return run_traffic_mode(args, cfg, params)
+    if args.mode == "plan":
+        return run_plan_mode(args, cfg, params)
+    if args.mode == "traffic":
+        return run_traffic_mode(args, cfg, params, plan)
+    return run_serve_mode(args, cfg, params, plan)
 
 
 if __name__ == "__main__":

@@ -14,6 +14,7 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.backends.runtime import site_scope
+from repro_torch.core import packing
 from repro_torch.models import attention as attn_lib
 from repro_torch.models.common import ParamDef, rmsnorm
 from repro_torch.models.config import ModelConfig
@@ -74,6 +75,8 @@ def _unstack(stacked, n: int) -> list:
     if isinstance(stacked, dict):
         per_key = {k: _unstack(v, n) for k, v in stacked.items()}
         return [{k: per_key[k][i] for k in stacked} for i in range(n)]
+    if packing.is_packed(stacked):      # a frozen store: no gradient
+        return [stacked[i] for i in range(n)]
     return torch.unbind(stacked[:n], 0)
 
 

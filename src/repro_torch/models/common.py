@@ -124,10 +124,13 @@ def dense(w: torch.Tensor, x: torch.Tensor, cfg: ModelConfig | None = None,
 
     Execution precedence:
 
-    1. An active ``repro_torch.backends.use_backend(...)`` scope — both
-       operands are quantized to the backend's bit-width and the int tiles
-       are contracted on the backend engine (simulated design or CUDA
-       kernel), then dequantized back to the activation dtype.
+    1. An active ``repro_torch.backends.use_backend(...)`` /
+       ``use_plan(...)`` scope — the scope names the backend for this site
+       (a plan may name none, and the site then runs the plain float
+       matmul, never precedence 2); both operands are quantized to the
+       backend's bit-width and the int tiles are contracted on the backend
+       engine (simulated design or CUDA kernel), then dequantized back to
+       the activation dtype.
     2. ``cfg.quant_kernel`` — the packed-integer ``quant_gemm`` kernel (the
        paper's PE array stand-in): the weight is quantized per channel at
        ``cfg.quant_bits`` at every call, activations per tensor at
@@ -140,7 +143,16 @@ def dense(w: torch.Tensor, x: torch.Tensor, cfg: ModelConfig | None = None,
     execution = backend_runtime.active_execution()
     if execution is not None:
         site = backend_runtime.current_site(name)
-        return _backend_matmul(execution, execution.backend, site, w, x)
+        backend = execution.backend_for(site)
+        if backend is not None:
+            return _backend_matmul(execution, backend, site, w, x)
+        k = w.shape[0]
+        execution.observe(site, m=math.prod(x.shape[:-1]), k=k,
+                          n_out=math.prod(w.shape) // k)
+        # A live scope owns execution: sites its plan leaves unmatched run
+        # FLOAT, never the cfg.quant_kernel path, which would mix a second
+        # quantization scheme into the plan's evidence.
+        return _plain_matmul(x, w)
     if cfg is not None and cfg.quant_bits is not None and cfg.quant_kernel:
         if packing.is_packed(w):
             raise TypeError(

@@ -5,7 +5,8 @@ the gather oracle (``kernels.paged_attention*``), a continuous-batching
 scheduler with page-reservation admission control (``scheduler``), a seeded
 synthetic traffic generator (``traffic``), Eq.-1 energy-per-token accounting
 (``energy``), and the engine that advances the whole batch one ragged decode
-step at a time under ``use_backend(...)`` (``engine``).
+step at a time under ``use_backend(...)`` or ``use_plan(...)``, from float or
+bit-packed weights (``engine``).
 """
 
 from repro_torch.serving.engine import (FUSED_LOGIT_TOL, ServingEngine,

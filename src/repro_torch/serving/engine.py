@@ -14,10 +14,11 @@ advances *every* slot one token per scheduler step:
   pages with the fused page-walk kernel (or the gather oracle), and emits
   next-token logits.  The step mirrors ``models.blocks._transformer_block``
   op for op — same ``dense`` sites under the same ``site_scope`` names
-  (``layers/attn/wq`` …, ``lm_head``) — so a ``use_backend(...)`` scope
-  contracts every token on the selected unary engine, and paged decode
-  logits equal ``model_lib.decode_step`` exactly whenever the requests are
-  aligned.
+  (``layers/attn/wq`` …, ``lm_head``) — so a ``use_backend(...)`` or
+  ``use_plan(...)`` scope contracts every token on the selected unary
+  engine(s) (from bit-packed weight stores under ``packed=True``), and
+  paged decode logits equal ``model_lib.decode_step`` exactly whenever the
+  requests are aligned.
 
 The layer stack is a Python loop over the leading axis of the stacked
 parameters (the reference scans it under ``jit``; eager PyTorch has nothing
@@ -235,7 +236,7 @@ def fused_vs_gather_probe(cfg, params, *, batch: int = 2, prompt_len: int = 5,
 
 
 class ServingEngine:
-    """Paged continuous/static batching over the backend stack."""
+    """Paged continuous/static batching over the backend/plan stack."""
 
     def __init__(self, cfg: ModelConfig, params, *, max_batch: int = 4,
                  page_size: int = 8, num_pages: int | None = None,
@@ -251,20 +252,12 @@ class ServingEngine:
             raise ValueError(
                 "ServingEngine supports the dense GQA transformer family "
                 f"(got family={cfg.family!r}, attention={cfg.attention!r})")
-        if plan is not None:
-            raise NotImplementedError(
-                "ServingEngine(plan=...) arrives with the plans slice "
-                "(backends/plan.py, use_plan)")
+        if backend is not None and plan is not None:
+            raise ValueError("pass either backend= or plan=, not both")
         if grid is not None:
             raise NotImplementedError(
                 "ServingEngine(grid=...) arrives with the grids slice "
                 "(backends/grid.py)")
-        if packed:
-            raise NotImplementedError(
-                "ServingEngine(packed=True) waits for backends.pack_weights, "
-                "which finds the sites to pack with eval/planner.py's "
-                "discover_sites: both arrive with the plans slice "
-                "(core/packing.py stores and the packed_gemm kernel exist)")
         self.device = model_lib.require_device(device)
         if _params_device(params).type != self.device.type:
             raise ValueError(f"params live on {_params_device(params)}, "
@@ -275,6 +268,7 @@ class ServingEngine:
         self.page_size = page_size
         self.max_seq_len = max_seq_len
         self.backend = backend
+        self.plan = plan
         self.bits = bits
         self.prompt_seed = prompt_seed
         blocks_per_req = -(-max_seq_len // page_size)
@@ -282,16 +276,32 @@ class ServingEngine:
         self.num_pages = (1 + max_batch * blocks_per_req
                           if num_pages is None else num_pages)
         design = pricing_design or backend or "tubgemm"
+        # EnergyModel (and any measurement) always reads the FLOAT leaves —
+        # Eq.-1 pricing must not depend on the storage format.  Only
+        # *execution* switches to the bit-packed store.
         self.energy = EnergyModel(cfg, params, design=design, bits=bits,
                                   unit_n=unit_n, num_units=num_units)
+        self.packed = packed
+        if packed:
+            if backend is None and plan is None:
+                raise ValueError("packed=True needs a backend= or plan= "
+                                 "scope to fix each site's bit-width")
+            self._exec_params = (
+                backends_lib.pack_weights(cfg, params, plan)
+                if plan is not None
+                else backends_lib.pack_weights(cfg, params, bits=bits))
+        else:
+            self._exec_params = params
         if attention not in ("fused", "gather"):
             raise ValueError(f"attention must be 'fused' or 'gather', "
                              f"got {attention!r}")
         self.attention = attention
         self.batched_prefill = batched_prefill
-        # Under a backend scope each weight is quantized once per engine
-        # instead of at every dense call (codes and scales are identical to
-        # the per-call path; parameters must not change under the engine).
+        # Under a backend or plan scope each float weight is quantized once
+        # per engine and width instead of at every dense call (codes and
+        # scales are identical to the per-call path; parameters must not
+        # change under the engine).  Packed stores skip the cache: their
+        # codes are unpacked at every call, as in the reference.
         # Engines over the same params and bits may share one cache: pass
         # another engine's ``weight_cache``.
         self.weight_cache: dict = {} if weight_cache is None else weight_cache
@@ -368,7 +378,7 @@ class ServingEngine:
         caches = model_lib.init_caches(cfg, tokens.shape[0], tokens.shape[1],
                                        dtype=torch.float32,
                                        device=self.device)
-        logits, new = model_lib.prefill(self.params, cfg, tokens,
+        logits, new = model_lib.prefill(self._exec_params, cfg, tokens,
                                         caches=caches)
         return logits, new["attn"]["k"], new["attn"]["v"]
 
@@ -381,6 +391,10 @@ class ServingEngine:
                             req.prompt_len).astype(np.int32)
 
     def _scope(self):
+        if self.plan is not None:
+            return backends_lib.use_plan(
+                self.plan, on_output=self.on_gemm_output,
+                weight_cache=self.weight_cache)
         if self.backend is not None:
             return backends_lib.use_backend(
                 self.backend, bits=self.bits, on_output=self.on_gemm_output,
@@ -526,8 +540,8 @@ class ServingEngine:
                 n_active = int(active.sum())
                 if n_active:
                     logits, k_pool, v_pool, d_lengths = self._decode(
-                        self.params, d_tokens, cache.k_pool, cache.v_pool,
-                        d_btables, d_lengths, d_active)
+                        self._exec_params, d_tokens, cache.k_pool,
+                        cache.v_pool, d_btables, d_lengths, d_active)
                     cache.sync_pools(k_pool, v_pool)
                     nxt_dev = torch.argmax(logits[:, 0], dim=-1).to(torch.int32)
                     d_tokens = nxt_dev[:, None].clone()

@@ -491,3 +491,123 @@ def test_packed_wrappers_raise_rather_than_fall_back(cuda):
         qg_lib.quant_gemm(x, torch.zeros((4, 2), dtype=torch.int8), bits=4)
     with pytest.raises(ValueError, match="tile"):
         bs_lib.block_stats(x, tile=48)        # divides no (256, 128) block
+
+
+# -- per-site plans on the card (smoke width) ---------------------------------
+
+def _smoke_plan_setup(cuda):
+    from repro_torch import backends, configs
+    from repro_torch.models import model as model_lib
+    cfg = configs.get_smoke_config("llama3-8b").replace(compute_dtype="float32")
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(0)
+    params = model_lib.init_params(cfg, gen, device=cuda)
+    tokens = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (3, 9)).astype(np.int32)).to(cuda)
+    plan = backends.BackendPlan(sites=(
+        backends.SiteAssignment("layers/attn/*", "tubgemm", 4),
+        backends.SiteAssignment("layers/mlp/*", "tugemm", 4),
+        backends.SiteAssignment("lm_head", "bgemm", 8)))
+    return cfg, params, tokens, plan
+
+
+def _kernel_plan(plan):
+    """The plan with every design that has a ``*_cuda`` mirror rewritten to
+    it, as chip_smoke.py does."""
+    import dataclasses as dc
+    from repro_torch import backends
+    mirror = {sim: cuda for cuda, sim in backends.KERNEL_SIBLINGS.items()}
+    return dc.replace(plan, sites=tuple(
+        dc.replace(e, design=mirror.get(e.design, e.design)) for e in plan.sites))
+
+
+def _plan_forward(cfg, params, tokens, plan):
+    from repro_torch import backends
+    from repro_torch.models import common as common_lib
+    from repro_torch.models import model as model_lib
+    outs = []
+    with backends.use_plan(plan, on_output=lambda s, o: outs.append((s, o.clone()))), \
+            common_lib.activation_scaling("per-row"):
+        logits, _ = model_lib.forward(params, cfg, tokens)
+    return outs, logits
+
+
+def test_cuda_plan_equals_simulated_plan(cuda):
+    cfg, params, tokens, plan = _smoke_plan_setup(cuda)
+    ug.reset_launches()
+    sim_outs, sim_logits = _plan_forward(cfg, params, tokens, plan)
+    assert ug.LAUNCHES == {"tub_gemm": 0, "tu_gemm": 0}
+    outs, logits = _plan_forward(cfg, params, tokens, _kernel_plan(plan))
+    assert ug.LAUNCHES == {"tub_gemm": 4 * cfg.num_layers,
+                           "tu_gemm": 3 * cfg.num_layers}
+    assert len(outs) == len(sim_outs) == 7 * cfg.num_layers + 1
+    for (s, a), (t, b) in zip(outs, sim_outs):
+        assert s == t and torch.equal(a, b), s
+    assert torch.equal(logits, sim_logits)
+
+
+def test_packed_plan_equals_unpacked_on_card(cuda):
+    from repro_torch import backends
+    cfg, params, tokens, plan = _smoke_plan_setup(cuda)
+    plan = _kernel_plan(plan)
+    packed = backends.pack_weights(cfg, params, plan)
+    assert all(packing.is_packed(w) for w in packed["layers"]["mlp"].values())
+    assert packed["layers"]["mlp"]["w_up"].packed.is_cuda
+    outs, logits = _plan_forward(cfg, params, tokens, plan)
+    p_outs, p_logits = _plan_forward(cfg, packed, tokens, plan)
+    assert torch.equal(logits, p_logits)
+    for (s, a), (t, b) in zip(outs, p_outs):
+        assert s == t and torch.equal(a, b), s
+
+
+def test_cuda_plan_entry_launches_the_kernel(cuda, monkeypatch):
+    """A ``*_cuda`` entry launches its kernel on a CUDA tensor and never
+    reaches the plain slot loop or the simulated design."""
+    from repro_torch import backends
+
+    def refuse(*_args, **_kw):
+        raise AssertionError("a *_cuda entry reached a plain version")
+
+    cfg, params, tokens, _ = _smoke_plan_setup(cuda)
+    monkeypatch.setattr(ug, "tub_gemm_ref", refuse)
+    monkeypatch.setattr(gemm_sims, "tubgemm_exact", refuse)
+    monkeypatch.setattr(gemm_sims, "bgemm_exact", refuse)
+    plan = backends.BackendPlan(sites=(
+        backends.SiteAssignment("*", "tubgemm_cuda", 4),))
+    ug.reset_launches()
+    outs, _ = _plan_forward(cfg, params, tokens, plan)
+    assert ug.LAUNCHES["tub_gemm"] == len(outs) == 7 * cfg.num_layers + 1
+
+
+def test_engine_packed_plan_streams_on_card(cuda):
+    from repro_torch.models import common as common_lib
+    from repro_torch.serving import ServingEngine, TrafficConfig, generate_trace
+    cfg, params, _, plan = _smoke_plan_setup(cuda)
+    plan = _kernel_plan(plan)
+    trace = generate_trace(TrafficConfig(num_requests=4, arrival_rate=1.0, seed=0))
+    streams = []
+    for packed in (False, True):
+        eng = ServingEngine(cfg, params, plan=plan, packed=packed, bits=4,
+                            max_batch=4, page_size=8, max_seq_len=64, device=cuda)
+        ug.reset_launches()
+        with common_lib.activation_scaling("per-row"):
+            rep = eng.run(trace, "continuous")
+        assert rep.requests == 4 and ug.LAUNCHES["tub_gemm"] > 0
+        streams.append(rep.request_tokens)
+    assert streams[0] == streams[1]
+
+
+@pytest.mark.parametrize("m,k,n", [(1, 64, 512), (8, 64, 512), (17, 64, 512),
+                                   (24, 64, 512), (27, 64, 512), (33, 100, 70),
+                                   (256, 4096, 1024), (27, 192, 64)])
+def test_bgemm_exact_on_card_at_any_rows(cuda, m, k, n):
+    """The simulated designs' integer GEMM on CUDA tensors (exact fp32
+    chunks) equals the CPU's integer matmul at any M: a plan's prefill rows
+    reach it (cuBLASLt's int8 matmul, used before, refused M = 24 and 27)."""
+    rng = np.random.default_rng(m + k + n)
+    a = rng.integers(-128, 128, (m, k)).astype(np.int8)
+    b = rng.integers(-128, 128, (k, n)).astype(np.int8)
+    want = torch.from_numpy(a).int() @ torch.from_numpy(b).int()
+    got = gemm_sims.bgemm_exact(torch.from_numpy(a).to(cuda),
+                                torch.from_numpy(b).to(cuda))
+    assert got.dtype == torch.int32 and torch.equal(got.cpu(), want)

@@ -153,3 +153,15 @@ def test_chip_smoke_refuses_a_host_without_cuda():
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode != 0
     assert '"ok"' not in proc.stdout
+
+
+@pytest.mark.parametrize("name", ["repro_torch.backends.plan",
+                                  "repro_torch.eval.planner",
+                                  "repro_torch.eval.sweetspot",
+                                  "repro_torch.analysis.plan_lint"])
+def test_plan_slice_modules_are_checked(name):
+    # the parametrised checks above walk the package: the plan slice's
+    # modules must be among what they check
+    assert name in list(_modules())
+    path = PKG.parent.joinpath(*name.split(".")).with_suffix(".py")
+    assert path in FILES

@@ -10,11 +10,14 @@ FUSED_LOGIT_TOL; for a 6-request seeded trace the port's
 ``ServingEngine.run`` and the reference engine produce EQUAL events, steps
 and per-request token streams, and ``energy_uj`` within rel 1e-6 (identical
 Python pricing arithmetic fed float32-rounded sparsity statistics), on the
-float path, under ``tubgemm``@4 with per-row activation scaling, and with
-``cfg.quant_kernel`` at 4 bits (no backend scope).
+float path, under ``tubgemm``@4 with per-row activation scaling, with
+``cfg.quant_kernel`` at 4 bits (no backend scope), and under the example
+plan from float and from bit-packed weight stores (``packed=True``, whose
+streams also equal the unpacked engine's).
 """
 
 import dataclasses
+import pathlib
 import subprocess
 import sys
 
@@ -30,6 +33,7 @@ from repro.serving import engine as ref_engine_mod
 from repro.serving import energy as ref_energy
 from repro.serving import traffic as ref_traffic
 from repro_torch import configs as port_configs
+from repro_torch.core import packing
 from repro_torch.models import common as port_common
 from repro_torch.models import model as port_model
 from repro_torch.serving import (FUSED_LOGIT_TOL, OutOfPages, PageAllocator,
@@ -37,6 +41,10 @@ from repro_torch.serving import (FUSED_LOGIT_TOL, OutOfPages, PageAllocator,
                                  fused_vs_gather_probe, generate_trace,
                                  paged_vs_contiguous_probe)
 from repro_torch.serving import energy as port_energy
+
+
+PLAN = pathlib.Path(__file__).resolve().parents[1] / "examples" / "plans" \
+    / "llama3_8b_smoke.plan.json"
 
 
 def _auto_mesh(model_axis: bool = True):
@@ -192,6 +200,40 @@ def test_engine_trace_equals_reference(setup, monkeypatch, backend, scheduler):
             ref_rep.to_dict()["request_tokens"].keys()
 
 
+@pytest.mark.parametrize("packed", [False, True])
+def test_engine_plan_trace_equals_reference(setup, monkeypatch, packed):
+    """Under the example plan, from float or bit-packed weight stores, the
+    port's engine serves the reference engine's events and token streams."""
+    from repro.backends import BackendPlan as RefPlan
+    ref_cfg, port_cfg, ref_params, port_params = setup
+    monkeypatch.setattr(ref_engine_mod, "single_device_mesh", _auto_mesh)
+    kw = dict(num_requests=6, arrival_rate=1.0, seed=0)
+    ref_trace = ref_traffic.generate_trace(ref_traffic.TrafficConfig(**kw))
+    trace = generate_trace(TrafficConfig(**kw))
+    ekw = dict(max_batch=4, page_size=8, max_seq_len=64, bits=4, packed=packed)
+    ref_eng = ref_engine_mod.ServingEngine(
+        ref_cfg, ref_params, attention="gather", plan=RefPlan.load(PLAN), **ekw)
+    with ref_common.activation_scaling("per-row"):
+        ref_rep = ref_eng.run(ref_trace, "continuous")
+    reps = {}
+    for attention in ("fused", "gather"):
+        eng = ServingEngine(port_cfg, port_params, attention=attention,
+                            plan=PLAN, device="cpu", **ekw)
+        assert any(packing.is_packed(leaf) for leaf in
+                   eng._exec_params["layers"]["attn"].values()) == packed
+        with port_common.activation_scaling("per-row"):
+            reps[attention] = rep = eng.run(trace, "continuous")
+        assert rep.events == ref_rep.events
+        assert rep.request_tokens == ref_rep.request_tokens
+        assert rep.energy_uj == pytest.approx(ref_rep.energy_uj, rel=1e-6)
+    if packed:      # and the packed store serves what the float one does
+        eng = ServingEngine(port_cfg, port_params, attention="fused",
+                            plan=PLAN, device="cpu", **{**ekw, "packed": False})
+        with port_common.activation_scaling("per-row"):
+            assert eng.run(trace, "continuous").request_tokens == \
+                reps["fused"].request_tokens
+
+
 def test_cuda_mirror_backend_and_prefill_grouping(setup):
     _, port_cfg, _, port_params = setup
     trace = generate_trace(TrafficConfig(num_requests=6, arrival_rate=2.0, seed=3))
@@ -233,8 +275,10 @@ def test_engines_share_weight_cache(setup):
 
 def test_engine_argument_checks(setup):
     _, port_cfg, _, port_params = setup
-    for kw in (dict(plan=object()), dict(grid=(2, 2)), dict(packed=True)):
-        with pytest.raises(NotImplementedError):
+    with pytest.raises(NotImplementedError):
+        ServingEngine(port_cfg, port_params, device="cpu", grid=(2, 2))
+    for kw in (dict(packed=True), dict(backend="tubgemm", plan=PLAN)):
+        with pytest.raises(ValueError):
             ServingEngine(port_cfg, port_params, device="cpu", **kw)
     with pytest.raises(ValueError):
         ServingEngine(port_cfg, port_params, attention="flash", device="cpu")
