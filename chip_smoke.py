@@ -45,12 +45,27 @@ Phases, each of which fails the run (non-zero exit) on its own:
    (``tub_gemm`` launched); every site's int32 output over a teacher-forced
    prefill and two decode steps equal, packed vs unpacked and simulated
    plan vs kernel plan; one traced decode step of the packed run;
-7. ``train``   — the training path (``launch/train.py``): a card-vs-CPU
+7. ``ugemm``   — uGEMM and the rate-coded family on the same weights:
+   ``ugemm_exact`` / ``ugemm_stream`` at 2, 4 and 8 bits and
+   ``stochastic_gemm`` (Sobol L = 16, 64; LFSR L = 16) at a decode site's
+   shape and a prefill shape, card equal to CPU bit for bit, each
+   stochastic result's rel-RMSE against ``ugemm_exact`` under the tail of
+   ``ranges.stochastic_error_bound``; the first three requests of the trace
+   served under ``ugemm``@4 and ``ugemm_stochastic:16``@4 (per-row, fused
+   decode), gated on completion, the fused decode launch counter, the
+   backend numerics against their oracles and every site's output at one
+   decode step equal to a direct call on the same codes (and, for layer
+   0's q/k/v, to the CPU's), each run with one traced decode step; and
+   ``build_plan`` with ``ugemm_stochastic`` candidates (bits 4 and 8,
+   stream lengths 16, 32, 64), gated on a clean lint, planned energy at
+   most the best uniform plan's and a JSON round trip that keeps every
+   stream length;
+8. ``train``   — the training path (``launch/train.py``): a card-vs-CPU
    probe of one step on the smoke config in fp32, then 10 steps of
    llama3-8b at its published widths cut to 8 layers (fp32 parameters,
    bf16 compute, remat, batch 4 x 2048), gated on finite, falling loss and
    on the flash kernels' launch counters; one more step traced;
-8. ``times``   — per-kernel CUDA-event timings beside the plain version, the
+9. ``times``   — per-kernel CUDA-event timings beside the plain version, the
    roofline bound and, where one exists, the library call (flash: TFLOP/s,
    and SDPA's backward alone beside its forward + backward, at head dims
    128, 96 and 256; fused decode also unsplit and at the serve step's
@@ -114,11 +129,14 @@ try:
     from repro_torch.kernels import quant_gemm as qg_lib
     from repro_torch.kernels import ref as ref_lib
     from repro_torch.kernels import unary_gemm as ug
+    from repro_torch.analysis import ranges
     from repro_torch.launch import steps as steps_lib
     from repro_torch.launch import train as train_lib
     from repro_torch.models import model as model_lib
     from repro_torch.models.common import activation_scaling
     from repro_torch.optim import AdamWConfig, adamw_init, cosine_schedule
+    from repro_torch.launch.serve import validate_backend_numerics
+    from repro_torch.stochastic import sgemm
     from repro_torch.serving import (FUSED_LOGIT_TOL, ServingEngine,
                                      TrafficConfig, fused_vs_gather_probe,
                                      generate_trace, paged_vs_contiguous_probe)
@@ -148,8 +166,8 @@ REPLACES = {
 }
 FLASH = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
 INT_GEMMS = ("quant_gemm", "packed_gemm")
-ALL_PHASES = ("device", "kernels", "probes", "serve", "quant", "plan", "train",
-              "times")
+ALL_PHASES = ("device", "kernels", "probes", "serve", "quant", "plan", "ugemm",
+              "train", "times")
 SITE_LEAVES = (("attn", "wq"), ("attn", "wk"), ("attn", "wv"), ("attn", "wo"),
                ("mlp", "w_up"), ("mlp", "w_gate"), ("mlp", "w_down"))
 
@@ -1527,7 +1545,300 @@ def phase_plan(cfg, params, requests: int) -> dict:
 
 
 # ---------------------------------------------------------------------------
-# phase 7: train
+# phase 7: ugemm (uGEMM's multiplier and the rate-coded stochastic family)
+# ---------------------------------------------------------------------------
+
+#: a decode site's contraction (8 rows into w_up) and a prefill one (27 rows)
+UGEMM_SHAPES = ((8, *UP_SHAPE), (27, 4096, 4096))
+UGEMM_BITS = 4
+#: (rng, stream length) of the stochastic checks, at UGEMM_BITS
+STOCHASTIC_CASES = (("sobol", 16), ("sobol", 64), ("lfsr", 16))
+UGEMM_SPECS = ("ugemm", "ugemm_stochastic:16")
+UGEMM_REQUESTS = 3
+UGEMM_PLAN_KW = dict(batch=8, designs=("tugemm", "tubgemm", "bgemm",
+                                       "ugemm_stochastic"),
+                     bits_candidates=(4, 8), stream_lens=(16, 32, 64),
+                     unit_n=128, num_units=64)
+
+
+def _wall(fn):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def _ugemm_card_vs_cpu() -> None:
+    """uGEMM's and the stochastic engine's counts on the card against the
+    CPU, bit for bit, on seeded codes at the phase's shapes."""
+    gen = torch.Generator().manual_seed(20)
+    for m, k, n in UGEMM_SHAPES:
+        for bits in (2, 4, 8):
+            v = 2 ** (bits - 1) - 1
+            a = torch.randint(-v, v + 1, (m, k), generator=gen, dtype=torch.int8)
+            b = torch.randint(-v, v + 1, (k, n), generator=gen, dtype=torch.int8)
+            t0 = time.perf_counter()
+            want = gemm_sims.ugemm_exact(a, b, bits=bits)
+            cpu_s = time.perf_counter() - t0
+            ad, bd = a.to(DEV), b.to(DEV)
+            gemm_sims.ugemm_exact(ad, bd, bits=bits)           # warm
+            got, card_s = _wall(lambda: gemm_sims.ugemm_exact(ad, bd, bits=bits))
+            (stream, cycles), _ = _wall(lambda: gemm_sims.ugemm_stream(ad, bd, bits))
+            require(torch.equal(got.cpu(), want) and torch.equal(stream.cpu(), want),
+                    f"ugemm_exact/ugemm_stream at ({m},{k},{n}) {bits} bits: "
+                    f"card != CPU")
+            require(cycles == 2 ** bits, "ugemm_stream cycles != 2^bits")
+            log(f"  ugemm_exact ({m},{k},{n}) {bits} bits: card == CPU and "
+                f"ugemm_stream == it, bit for bit; card {card_s * 1e3:.2f} ms "
+                f"(one call, host wall with a synchronise), CPU "
+                f"{cpu_s * 1e3:.1f} ms; {len(gemm_sims._unified_groups(bits).thresholds)}"
+                f" threshold products of the weight size")
+            if bits != UGEMM_BITS:
+                continue
+            for kind, L in STOCHASTIC_CASES:
+                want_s = sgemm.stochastic_gemm(a, b, bits, stream_len=L,
+                                               rng_kind=kind)
+                got_s, s_card = _wall(lambda: sgemm.stochastic_gemm(
+                    ad, bd, bits, stream_len=L, rng_kind=kind))
+                require(torch.equal(got_s.cpu(), want_s),
+                        f"stochastic_gemm {kind} L={L} at ({m},{k},{n}): "
+                        f"card != CPU")
+                rel = gemm_sims.rel_rmse(got_s, got)
+                bound = ranges.stochastic_error_bound(bits, L)
+                log(f"  stochastic_gemm {kind} L={L} ({m},{k},{n}) {bits} bits: "
+                    f"card == CPU; rel-RMSE vs ugemm_exact {rel:.5f} (bound "
+                    f"expected {bound.expected:.5f}, tail {bound.tail:.5f}); "
+                    f"card {s_card * 1e3:.2f} ms")
+                require(rel <= bound.tail, f"stochastic {kind} L={L} rel-RMSE "
+                                           f"{rel} above the tail bound")
+
+
+def _slim_cpu_tree(tree):
+    """The leaves ``validate_backend_numerics`` reads, on the CPU: every
+    matrix cut to its first 2,048 elements (the tiles come from the first
+    512 of each), every vector whole, in the same tree layout."""
+    if isinstance(tree, dict):
+        return {k: _slim_cpu_tree(v) for k, v in tree.items()}
+    if tree.ndim >= 2:
+        return tree.reshape(-1)[:2048].reshape(1, -1).cpu()
+    return tree.cpu()
+
+
+def _direct(spec: str):
+    backend = backends.resolve(spec, bits=UGEMM_BITS)
+    if backend.stream_len:
+        return lambda a, w: sgemm.stochastic_gemm(
+            a, w, UGEMM_BITS, stream_len=backend.stream_len)
+    return lambda a, w: gemm_sims.ugemm_exact(a, w, bits=UGEMM_BITS)
+
+
+#: columns of the site the plain forms below recompute
+PLAIN_SITE_COLS = 256
+
+
+def _plain_site(spec: str, a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """A site's decoded output by the reference's plain forms, none of them
+    the threshold-grouping engine: uGEMM's LUT gather ``LUT[|a|, |b|] *
+    sgn(a) sgn(b)``; the stochastic engine's materialized Sobol bitstreams,
+    contracted cycle by cycle.  Both sum as int64 over K on the device."""
+    backend = backends.resolve(spec, bits=UGEMM_BITS)
+    a, w = a.to(torch.int64), w.to(torch.int64)
+    if backend.stream_len:
+        L = backend.stream_len
+        sa, sb = (sgemm._bitstreams(x, UGEMM_BITS, L, dim=d, seed=0,
+                                    rng_kind="sobol").to(torch.int64)
+                  for x, d in ((a, 0), (w, 1)))
+        counts = sum((sa[t][:, :, None] * sb[t][None]).sum(dim=1)
+                     for t in range(L))
+    else:
+        L = 2 ** UGEMM_BITS
+        ta, tb = gemm_sims._unified_tables(UGEMM_BITS)
+        lut = (ta.to(torch.int64) @ tb.to(torch.int64).T).to(a.device)
+        sgn = torch.sign(a)[:, :, None] * torch.sign(w)[None]
+        counts = (lut[torch.abs(a)[:, :, None], torch.abs(w)[None]]
+                  * sgn).sum(dim=1)
+    v = 2 ** (UGEMM_BITS - 1) - 1
+    return counts.to(torch.float32) * float(np.float32(v * v / L))
+
+
+def _ugemm_site_outputs(engine, cfg, spec: str) -> None:
+    """One decode step (8 slots at context 300, seeded tokens and pools)
+    under ``spec``: every site's output (``on_output``) equals a direct
+    call on the codes it contracted (the ``on_output`` plumbing); layer 0's
+    q/k/v also the CPU's; and layer 0's first up-projection-wide site, on
+    its first ``PLAIN_SITE_COLS`` columns, the plain form of
+    :func:`_plain_site`."""
+    base = backends.resolve(spec, bits=UGEMM_BITS)
+    seen: list = []
+
+    def recording(a, w, bits):
+        seen.append((a, w))
+        return base.spec.exact_fn(a, w, bits)
+
+    rec = dataclasses.replace(
+        base, spec=dataclasses.replace(base.spec, exact_fn=recording))
+    outs: list = []
+    dev, b = engine.device, engine.max_batch
+    cache = engine.new_cache()
+    for i in range(b):
+        cache.allocate(i, 400)
+    d_bt = torch.from_numpy(np.stack([cache.block_table_row(i)
+                                      for i in range(b)])).to(dev)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(4)
+    cache.k_pool.normal_(generator=gen)
+    cache.v_pool.normal_(generator=gen)
+    tokens = torch.randint(0, cfg.vocab_size, (b, 1), generator=gen, device=dev,
+                           dtype=torch.int32)
+    lengths = torch.full((b,), 300, dtype=torch.int32, device=dev)
+    active = torch.ones((b,), dtype=torch.bool, device=dev)
+    with backends.use_backend(rec, weight_cache=engine.weight_cache,
+                              on_output=lambda s, o: outs.append((s, o))), \
+            activation_scaling("per-row"):
+        engine._decode(engine._exec_params, tokens, cache.k_pool, cache.v_pool,
+                       d_bt, lengths, active)
+    sites = 7 * cfg.num_layers + 1
+    require(len(outs) == len(seen) == sites,
+            f"{spec}: {len(outs)} site outputs for {sites} sites")
+    direct = _direct(spec)
+    require(all(torch.equal(out, direct(a, w))
+                for (_, out), (a, w) in zip(outs, seen)),
+            f"{spec}: a site's output differs from a direct call on its codes")
+    for (site, out), (a, w) in list(zip(outs, seen))[:3]:
+        require(torch.equal(out.cpu(), direct(a.cpu(), w.cpu())),
+                f"{spec}: {site} on the card != on the CPU")
+    site, out, a, w = next((site, out, a, w) for (site, out), (a, w)
+                           in zip(outs, seen)
+                           if w.shape[1] == cfg.d_ff)
+    cols = slice(0, PLAIN_SITE_COLS)
+    plain = _plain_site(spec, a, w[:, cols])
+    require(torch.equal(out[:, cols], plain),
+            f"{spec}: {site}'s output != the plain form on its first "
+            f"{PLAIN_SITE_COLS} columns (max |diff| "
+            f"{(out[:, cols] - plain).abs().max().item():.3g})")
+    log(f"  [{spec}] one decode step: all {sites} site outputs equal a direct "
+        f"call on the same codes; layer 0's wq/wk/wv equal the CPU's; "
+        f"{site} ({tuple(a.shape)} x {tuple(w.shape)}) equals the plain "
+        f"{'bitstream' if base.stream_len else 'LUT-gather'} form on its "
+        f"first {PLAIN_SITE_COLS} columns")
+    del cache, seen, outs
+
+
+def _ugemm_serve(cfg, params, spec: str, trace, weight_cache=None):
+    t0 = time.perf_counter()
+    engine = ServingEngine(cfg, params, backend=spec, attention="fused",
+                           device=DEV, weight_cache=weight_cache, **SERVE_KW)
+    torch.cuda.synchronize()
+    built = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats()
+    ug.reset_launches()
+    fused_lib.reset_launches()
+    t0 = time.perf_counter()
+    with activation_scaling("per-row"):
+        rep = engine.run(trace, "continuous")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    fused = fused_lib.LAUNCHES["fused_paged_decode"]
+    log(f"  [{spec}@{UGEMM_BITS}, {len(trace)} requests, prompts "
+        f"{[r.prompt_len for r in trace]}, outputs {[r.output_len for r in trace]}] "
+        f"engine built in {built:.1f} s; tokens {rep.tokens}, decode steps "
+        f"{rep.decode_steps}, prefill calls {rep.prefill_calls}; wall "
+        f"{wall:.2f} s, {rep.decode_steps / wall:.3f} decode steps/s, "
+        f"{rep.tokens / wall:.3f} tokens/s (prefill included); energy "
+        f"{rep.energy_per_token_uj:.2f} uJ/token; peak "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    require(rep.requests == len(trace), f"{spec}: not every request completed")
+    require(all(len(rep.request_tokens[r.req_id]) == r.output_len
+                for r in trace), f"{spec}: a stream has the wrong length")
+    require(fused == cfg.num_layers * rep.decode_steps > 0,
+            f"{spec}: fused decode launches {fused} != layers x decode steps")
+    require(ug.LAUNCHES["tub_gemm"] == ug.LAUNCHES["tu_gemm"] == 0,
+            f"{spec}: a unary kernel launched")
+    return engine, wall
+
+
+def phase_ugemm(cfg, params, requests: int) -> dict:
+    from repro_torch.analysis import plan_lint
+    from repro_torch.eval import planner
+    t_phase = time.perf_counter()
+    log("ugemm: card against CPU")
+    _ugemm_card_vs_cpu()
+    # ---- serve the first requests under uGEMM and the rate-coded family
+    trace = serve_trace(max(requests, UGEMM_REQUESTS))[:UGEMM_REQUESTS]
+    slim = _slim_cpu_tree(params)
+    cache = None
+    walls = {}
+    for spec in UGEMM_SPECS:
+        if spec != UGEMM_SPECS[0] and 2 * walls[UGEMM_SPECS[0]] > 150:
+            trace = trace[:1]
+            log(f"  the {UGEMM_SPECS[0]} run took {walls[UGEMM_SPECS[0]]:.1f} s: "
+                f"{spec} serves the first request alone")
+        engine, walls[spec] = _ugemm_serve(cfg, params, spec, trace, cache)
+        cache = engine.weight_cache
+        backend = backends.resolve(spec, bits=UGEMM_BITS)
+        oracle = "ugemm" if backend.stream_len else "bgemm"
+        rel = validate_backend_numerics(params, backend, oracle=oracle)
+        require(math.isfinite(rel), f"{spec}: numerics not finite")
+        if oracle == "bgemm":
+            rel_cpu = validate_backend_numerics(slim, backend, oracle=oracle)
+            # float64 means reduce in another order on the card
+            require(abs(rel - rel_cpu) <= 1e-12 * max(rel, rel_cpu),
+                    f"{spec}: numerics on the card {rel} != CPU {rel_cpu}")
+            log(f"  [{spec}] numerics vs binary oracle: relRMSE {rel:.6e} "
+                f"(CPU {rel_cpu:.6e})")
+        else:
+            log(f"  [{spec}] numerics vs exact-uGEMM oracle: relRMSE {rel:.6e}")
+        _ugemm_site_outputs(engine, cfg, spec)
+        log(f"  [{spec}] steady decode step:")
+        _decode_step_profile(engine, cfg, {
+            "fused_paged_decode": "fused_decode_split_kernel"})
+        del engine
+        gc.collect()
+        torch.cuda.empty_cache()
+    del cache
+    gc.collect()
+    torch.cuda.empty_cache()
+    # ---- plan with rate-coded candidates
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    sites = planner.discover_sites(cfg, params, batch=UGEMM_PLAN_KW["batch"])
+    plan = planner.build_plan(cfg, params, sites=sites, **UGEMM_PLAN_KW)
+    torch.cuda.synchronize()
+    plan_wall = time.perf_counter() - t0
+    for e in plan.sites:
+        log(f"  {e.pattern:>20s} x{e.count:<3d} {e.engine_label:>22s} "
+            f"rel_mse {e.rel_mse:.5f} dyn {e.dyn_energy_uj:.4f} uJ"
+            f"{' (guard relaxed)' if e.guard_relaxed else ''}")
+    meta = plan.metadata()
+    totals = meta["totals"]
+    best = totals["uniform_best"]
+    planned = totals["planned"]["dyn_energy_uj"]
+    best_e = totals["uniform"][best]["dyn_energy_uj"] if best else math.inf
+    stochastic = sum(e.stream_len > 0 for e in plan.sites)
+    pruned = sum(r["design"] == "ugemm_stochastic" for r in meta["range_pruned"])
+    log(f"  plan with ugemm_stochastic candidates: {stochastic} of "
+        f"{len(plan.sites)} sites chose a stochastic entry; {pruned} "
+        f"stochastic candidates pruned by the analytic bound or the envelope; "
+        f"planned {planned:.4f} uJ against best uniform {best} {best_e:.4f} "
+        f"uJ; planning wall {plan_wall:.2f} s; peak "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    found = plan_lint.lint_plan(plan, site_names=[s.name for s in sites])
+    require(not [f for f in found if f.severity == "error"],
+            f"stochastic plan lint: {[f.render() for f in found]}")
+    require(best is not None and planned <= best_e * (1 + 1e-9),
+            "stochastic plan: planned energy above the best uniform plan's")
+    back = backends.BackendPlan.from_json(plan.to_json())
+    require(back == plan and [e.stream_len for e in back.sites]
+            == [e.stream_len for e in plan.sites],
+            "the stochastic plan does not survive its JSON round trip")
+    log(f"  lint: {len(found)} findings; JSON round trip keeps every "
+        f"stream_len; ugemm phase wall {time.perf_counter() - t_phase:.1f} s")
+    return {"launches": {}, "launches_run": {}}
+
+
+# ---------------------------------------------------------------------------
+# phase 8: train
 # ---------------------------------------------------------------------------
 
 def _tree_leaves(tree, prefix=()):
@@ -1672,7 +1983,7 @@ def phase_train(layers: int, steps: int) -> dict:
 
 
 # ---------------------------------------------------------------------------
-# phase 8: times
+# phase 9: times
 # ---------------------------------------------------------------------------
 
 _FLUSH = None
@@ -2121,10 +2432,10 @@ def main() -> int:
             if "probes" in phases:
                 log("phase probes")
                 phase_probes()
-            if {"serve", "quant", "plan"} & set(phases):
+            if {"serve", "quant", "plan", "ugemm"} & set(phases):
                 cfg, params = served_model(args.layers)
                 for name, phase in (("serve", phase_serve), ("quant", phase_quant),
-                                    ("plan", phase_plan)):
+                                    ("plan", phase_plan), ("ugemm", phase_ugemm)):
                     if name in phases:
                         log(f"phase {name}")
                         served = phase(cfg, params, args.requests)

@@ -24,8 +24,8 @@ from repro_torch.backends.base import GemmBackend
 from repro_torch.backends.plan import SCHEMA as PLAN_SCHEMA
 from repro_torch.backends.plan import BackendPlan, SiteAssignment
 from repro_torch.backends.registry import (CUDA_SUFFIX, KERNEL_SIBLINGS,
-                                           available, mirror_design_spec,
-                                           resolve)
+                                           STOCHASTIC_DESIGN, available,
+                                           mirror_design_spec, resolve)
 from repro_torch.backends.runtime import (BackendExecution, ExecutedGemm,
                                           PlanExecution, SiteRecorder,
                                           active_backend, active_execution,
@@ -35,7 +35,7 @@ from repro_torch.backends.runtime import (BackendExecution, ExecutedGemm,
 
 __all__ = [
     "GemmBackend", "resolve", "available", "mirror_design_spec",
-    "KERNEL_SIBLINGS", "CUDA_SUFFIX", "BackendPlan", "SiteAssignment",
+    "KERNEL_SIBLINGS", "CUDA_SUFFIX", "STOCHASTIC_DESIGN", "BackendPlan", "SiteAssignment",
     "GRID_SCHEMA", "GRID_PLAN_MSG", "load_plan",
     "BackendExecution", "PlanExecution", "SiteRecorder", "ExecutedGemm",
     "use_backend", "use_plan", "pack_weights", "record_sites",

@@ -47,12 +47,18 @@ class GemmBackend:
     pricing_design: str
     # Execution engine.  Excluded from equality/hash: mirror specs hold
     # per-resolve closures, and the value identity of a backend is fully
-    # determined by the fields above.
+    # determined by the other fields.
     spec: gemm_sims.DesignSpec = dataclasses.field(repr=False, compare=False)
+    # Rate-coded stream length (the ``ugemm_stochastic`` family's
+    # accuracy/energy knob); None for every count-exact design.
+    stream_len: int | None = None
 
     def __post_init__(self) -> None:
         if self.bits < 2:
             raise ValueError(f"bits must be >= 2, got {self.bits}")
+        if self.stream_len is not None and self.stream_len < 1:
+            raise ValueError(
+                f"stream_len must be >= 1, got {self.stream_len}")
 
     # -- execution ----------------------------------------------------------
 
@@ -61,11 +67,13 @@ class GemmBackend:
 
         ``a``: (M, K) codes, or (B, M, K) for a batch of problems; ``b``:
         (K, N), or (B, K, N) per-problem, or (K, N) shared across the batch
-        (the weight-stationary serving case).  Returns (…, M, N) int32.
+        (the weight-stationary serving case).  Returns (…, M, N) — int32
+        for exact designs, float32 estimate for uGEMM and its rate-coded
+        family.
 
         Raises ``ValueError`` when the contraction length leaves the
-        design's validated accumulator envelope (int32 partial sums for the
-        exact designs).
+        design's validated accumulator envelope (uGEMM's exact-count window
+        ``L*K < 2^24``, int32 partial sums for the exact designs).
         """
         self._guard_envelope(a.shape[-1])
         if a.ndim == 2:
@@ -93,10 +101,29 @@ class GemmBackend:
 
     def _guard_envelope(self, k: int) -> None:
         """Static numeric-safety check (see ``repro_torch.analysis.ranges``)."""
-        ranges.assert_within_envelope(self.pricing_design, self.bits, int(k),
-                                      where=f"backend {self.name}")
+        # Stream-coded backends check their own stream-aware envelope (the
+        # per-step count is the stream length, not the pricing design's
+        # 2^bits slots); everything else checks as the design it prices as.
+        design = self.name if self.stream_len is not None \
+            else self.pricing_design
+        ranges.assert_within_envelope(design, self.bits, int(k),
+                                      where=f"backend {self.name}",
+                                      stream_len=self.stream_len)
 
     # -- cost ---------------------------------------------------------------
+
+    @property
+    def cycle_scale(self) -> float:
+        """Per-tile cycle multiplier vs ``pricing_design``'s wc formula.
+
+        1.0 for every design priced under its own name.  The stochastic
+        family prices as uGEMM (identical rate-coded datapath; k-independent
+        cycles) scaled by ``stream_len / 2^bits``: energy and latency are
+        linear in slot count.
+        """
+        if self.stream_len is None:
+            return 1.0
+        return self.stream_len / float(2 ** self.bits)
 
     def cycles(self, common_dim: int) -> int:
         """Worst-case clock cycles for one GEMM streaming over ``common_dim``."""

@@ -94,19 +94,11 @@ class SiteAssignment:
     stream_len: int = 0
 
     def backend(self) -> GemmBackend:
-        """Resolve the entry's engine as a typed ``GemmBackend``.
-
-        Stream-coded entries (``stream_len > 0``) need the rate-coded
-        ``ugemm_stochastic`` family, which the port does not have yet.
-        """
-        if self.stream_len:
-            raise NotImplementedError(
-                f"plan entry {self.pattern!r} names a rate-coded stream "
-                f"(stream_len={self.stream_len}); stochastic uGEMM arrives "
-                f"with the stochastic slice of the port")
+        """Resolve the entry's engine as a typed ``GemmBackend``."""
         from repro_torch.backends.registry import resolve  # lazy: avoids
         # an import cycle through repro_torch.configs (see runtime.py)
-        return resolve(self.design, bits=self.bits)
+        return resolve(self.design, bits=self.bits,
+                       stream_len=self.stream_len or None)
 
     @property
     def engine_label(self) -> str:

@@ -28,8 +28,9 @@ weight, ``"/"``-joined:
 The port runs eagerly, so ``calls`` records one entry per *executed* GEMM: a
 layer body looped over L layers appears L times (the reference, traced under
 ``lax.scan``, records it once).  An ``on_output(site, out)`` callback, when
-given, sees each site's raw int32 GEMM output as it is produced, which is
-what the parity tests and the on-card tub-vs-tu comparison read.
+given, sees each site's raw GEMM output as it is produced (int32 counts of
+the exact designs, uGEMM's float32 estimate), which is what the parity
+tests and the on-card site comparisons read.
 
 PE-array grids (``grid=``) are not ported yet.
 """
@@ -68,7 +69,8 @@ class ExecutedGemm:
 
     ``m``/``k``/``n_out`` — the contraction ``(m, k) @ (k, n_out)``;
     ``backend``/``bits`` — the engine that site ran on; ``site`` — the
-    site name per the module-level naming contract.
+    site name per the module-level naming contract; ``stream_len`` — the
+    rate-coded stream length for stochastic engines (0 = count-exact).
     """
 
     m: int
@@ -77,6 +79,7 @@ class ExecutedGemm:
     backend: str
     bits: int
     site: str = ""
+    stream_len: int = 0
 
 
 class BackendExecution:
@@ -84,7 +87,7 @@ class BackendExecution:
 
     ``backend`` — the resolved :class:`GemmBackend` every site executes on;
     ``calls`` — the :class:`ExecutedGemm` sites in execution order;
-    ``on_output`` — an optional ``callable(site, int32 GEMM result)`` invoked
+    ``on_output`` — an optional ``callable(site, GEMM result)`` invoked
     once per call, in the same order; ``weight_cache`` — an optional
     caller-owned dict in which ``dense`` keeps each weight's codes so they
     are quantized once instead of at every call.
@@ -106,7 +109,7 @@ class BackendExecution:
         """Append one executed GEMM site to ``calls``."""
         self.calls.append(ExecutedGemm(
             int(m), int(k), int(n_out), backend.name, backend.bits,
-            str(site)))
+            str(site), int(backend.stream_len or 0)))
         if self.on_output is not None and out is not None:
             self.on_output(str(site), out)
 
@@ -239,11 +242,12 @@ def _pushed(execution: BackendExecution):
 
 @contextlib.contextmanager
 def use_backend(spec: str | GemmBackend, *, bits: int | None = None,
-                grid=None, on_output=None,
+                stream_len: int | None = None, grid=None, on_output=None,
                 weight_cache: dict | None = None):
     """Execute every ``dense`` contraction in the block on ``spec``.
 
-    Args as :func:`repro_torch.backends.resolve`; ``grid`` (PE-array grids)
+    Args as :func:`repro_torch.backends.resolve` (``stream_len`` selects the
+    stochastic family's rate-coded stream length); ``grid`` (PE-array grids)
     is accepted for signature parity and raises ``NotImplementedError`` until
     ``backends/grid.py`` is ported.  Yields the scope's
     :class:`BackendExecution` (``.backend``, ``.calls``).
@@ -252,7 +256,7 @@ def use_backend(spec: str | GemmBackend, *, bits: int | None = None,
     from repro_torch.backends.registry import resolve
     if grid is not None:
         raise NotImplementedError(f"use_backend(grid=...) {_GRID_MSG}")
-    backend = resolve(spec, bits=bits)
+    backend = resolve(spec, bits=bits, stream_len=stream_len)
     execution = BackendExecution(backend, on_output=on_output,
                                  weight_cache=weight_cache)
     with _pushed(execution):

@@ -95,8 +95,9 @@ def price_workload(calls: list[GemmCall], design="tubgemm",
 
     ``design`` is a name or a ``repro_torch.backends.GemmBackend`` (whose own
     ``bits`` / ``pricing_design`` then win): CUDA kernel mirrors price as
-    their simulator sibling, uncalibrated designs fail in ppa with a clear
-    "no PPA calibration" error.
+    their simulator sibling, the rate-coded stochastic family as uGEMM
+    scaled by ``backend.cycle_scale``, and uncalibrated designs fail in ppa
+    with a clear "no PPA calibration" error.
 
     ``grid`` — tensor-parallel grids of DLA nodes are priced by a later
     slice of the port; anything but ``None`` raises ``NotImplementedError``.
@@ -109,8 +110,11 @@ def price_workload(calls: list[GemmCall], design="tubgemm",
             "grid pricing (GridCost / ppa.GridDLAModel tiling) is not ported "
             "yet: it lands with backends/grid.py in a later slice")
     design, bits = backend.pricing_design, backend.bits
+    # Stream-coded backends price as their pricing design with a per-tile
+    # cycle multiplier (stream_len / 2^bits); 1.0 for everything else.
     dla = ppa.DLAModel(design=design, bits=bits, n=unit_n,
-                       num_units=num_units)
+                       num_units=num_units,
+                       cycle_scale=float(backend.cycle_scale))
     wc_ns = dyn_ns = wc_nj = dyn_nj = 0.0
     per_layer: dict[str, tuple[float, float]] = {}
     macs = 0

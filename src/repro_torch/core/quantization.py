@@ -15,8 +15,12 @@ writes ``amax / Vmax``, and XLA compiles a division by that constant as a
 multiply by its float32 reciprocal, which differs from a true division in
 the last ulp for Vmax in {3, 7, 127}; the codes come from a *true division*
 ``x / scale`` (there a reciprocal-multiply would flip codes at ties); and
-``torch.round`` rounds half to even like ``jnp.round``.  Stochastic rounding
-is not ported yet.
+``torch.round`` rounds half to even like ``jnp.round``.
+
+Stochastic rounding takes its noise from an explicit ``torch.Generator``
+(the reference draws it with ``jax.random.uniform``, whose bits torch does
+not reproduce); given the same uniform draw, :func:`_stochastic_codes`
+rounds exactly as the reference does.
 """
 
 from __future__ import annotations
@@ -34,6 +38,7 @@ __all__ = [
     "quantize_per_channel",
     "quantize_per_tensor",
     "quantize_per_row",
+    "fake_quant",
 ]
 
 
@@ -94,20 +99,43 @@ def _codes(x: torch.Tensor, scale: torch.Tensor, bits: int) -> torch.Tensor:
     return torch.clamp(torch.round(x / safe), -v, v).to(torch.int8)
 
 
-def quantize(x: torch.Tensor, bits: int = 8, per_channel: bool = True) -> Quantized:
+def _stochastic_codes(x: torch.Tensor, scale: torch.Tensor, bits: int,
+                      u: torch.Tensor) -> torch.Tensor:
+    """Stochastic rounding of ``x / scale`` given a uniform draw ``u`` in
+    [0, 1) of ``x``'s shape and dtype: ``floor(y + 0.5 + (u - 0.5))``,
+    evaluated in the reference's order, then clipped like :func:`_codes`."""
+    v = vmax(bits)
+    safe = torch.where(scale == 0, torch.ones_like(scale), scale)
+    y = x / safe
+    q = torch.floor((y + 0.5) + (u.to(x.dtype) - 0.5))
+    return torch.clamp(q, -v, v).to(torch.int8)
+
+
+def quantize(x: torch.Tensor, bits: int = 8, per_channel: bool = True,
+             stochastic_rounding: bool = False,
+             generator: torch.Generator | None = None) -> Quantized:
     """Symmetric absmax quantization to w-bit signed integers (int8 container).
 
     ``per_channel`` reduces the scale over all-but-last axis (one scale per
     output channel of an ``(in, out)`` weight); otherwise one scale for the
-    whole tensor.
+    whole tensor.  ``stochastic_rounding`` rounds ``x / scale`` up with
+    probability equal to its fractional part, drawing the uniform noise from
+    ``generator`` (required; a ``torch.Generator`` on ``x``'s device).
     """
     if per_channel and x.ndim >= 2:
         axes = tuple(range(x.ndim - 1))
     else:
         axes = tuple(range(x.ndim))
     scale = _absmax_scale(x, bits, axes)
-    return Quantized(values=_codes(x, scale, bits),
-                     scale=scale.to(torch.float32), bits=bits)
+    if stochastic_rounding:
+        if generator is None:
+            raise ValueError("stochastic_rounding requires generator")
+        u = torch.rand(x.shape, generator=generator, dtype=x.dtype,
+                       device=x.device)
+        values = _stochastic_codes(x, scale, bits, u)
+    else:
+        values = _codes(x, scale, bits)
+    return Quantized(values=values, scale=scale.to(torch.float32), bits=bits)
 
 
 def quantize_per_channel(x: torch.Tensor, bits: int = 8) -> Quantized:
@@ -135,3 +163,9 @@ def quantize_per_row(x: torch.Tensor, bits: int = 8) -> Quantized:
 
 def dequantize(q: Quantized) -> torch.Tensor:
     return q.dequantize()
+
+
+def fake_quant(x: torch.Tensor, bits: int = 8,
+               per_channel: bool = True) -> torch.Tensor:
+    """Quantize-dequantize in the original dtype (QAT forward / error studies)."""
+    return quantize(x, bits=bits, per_channel=per_channel).dequantize().to(x.dtype)

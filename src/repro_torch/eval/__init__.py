@@ -4,8 +4,8 @@
   dense GEMM site's weight sparsity, prices (design, bits) candidates with
   Eq. 1-scaled dynamic cycles under an accuracy guard, and emits a typed
   ``repro_torch.backends.BackendPlan`` that ``use_plan`` /
-  ``serve --backend-plan`` execute.  Exact designs only; grid plans and
-  stochastic candidates wait for their slices.
+  ``serve --backend-plan`` execute; rate-coded ``ugemm_stochastic``
+  candidates join with ``stream_lens``.  Grid plans wait for their slice.
 - sweetspot : ``recommend_backend`` only (the one-shot ``serve`` mode's
   verdict line); the sweep and its report wait for their slice.
 """

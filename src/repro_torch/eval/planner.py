@@ -30,8 +30,10 @@ Because every uniform single-backend assignment that satisfies the guard at
 all sites is in each site's candidate set, the planned total is ≤ the best
 uniform plan's total by construction.
 
-Exact designs only: the rate-coded ``ugemm_stochastic`` candidates wait for
-the stochastic slice of the port, per-shard grid plans for the grids slice.
+With ``ugemm_stochastic`` in ``designs`` and ``stream_lens`` given, each
+bit-width also gets rate-coded ``(ugemm_stochastic, bits, L)`` candidates,
+guarded by the analytic stream-error bound and then by the error measured
+on the site's own weight.  Per-shard grid plans wait for the grids slice.
 """
 
 from __future__ import annotations
@@ -53,6 +55,7 @@ __all__ = [
     "DEFAULT_BITS_CANDIDATES",
     "DEFAULT_DESIGNS",
     "DEFAULT_MAX_REL_MSE",
+    "DEFAULT_STREAM_LENS",
     "STOCHASTIC_DESIGN",
     "GemmSite",
     "Candidate",
@@ -69,24 +72,18 @@ __all__ = [
 
 #: candidate operand widths (paper grid); 2-bit usually fails the guard
 DEFAULT_BITS_CANDIDATES: tuple[int, ...] = (2, 4, 8)
-#: exact calibrated designs — a planned model stays bit-identical to the
-#: binary oracle
+#: exact calibrated designs — stochastic uGEMM is excluded by default so a
+#: planned model stays bit-identical to the binary oracle
 DEFAULT_DESIGNS: tuple[str, ...] = ("tugemm", "tubgemm", "bgemm")
 #: default accuracy guard: per-site relative quantization MSE ceiling
 DEFAULT_MAX_REL_MSE: float = 0.05
-#: the rate-coded family, which the port cannot plan yet
+#: the rate-coded family (opt-in: add to ``designs`` + pass ``stream_lens``)
 STOCHASTIC_DESIGN = ranges_lib.STOCHASTIC_FAMILY
+#: default stream lengths tried per stochastic candidate
+DEFAULT_STREAM_LENS: tuple[int, ...] = (16, 32, 64, 128)
 
 #: elements per row chunk of :func:`quantization_rel_mse`'s two passes
 _REL_MSE_CHUNK_ELEMS = 1 << 26
-
-
-def _exact_only(designs: Sequence[str], stream_lens: Sequence[int]) -> None:
-    if STOCHASTIC_DESIGN in designs or len(stream_lens) > 0:
-        raise NotImplementedError(
-            "rate-coded ugemm_stochastic candidates (designs containing "
-            f"{STOCHASTIC_DESIGN!r}, stream_lens) arrive with the "
-            "stochastic slice of the port")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -131,7 +128,12 @@ class GemmSite:
 
 @dataclasses.dataclass(frozen=True)
 class Candidate:
-    """One priced (design, bits) option for a site."""
+    """One priced (design, bits[, stream_len]) option for a site.
+
+    ``stream_len`` is 0 for count-exact designs.  For stochastic candidates
+    ``rel_mse`` is the combined statistic: quantization rel-MSE plus the
+    measured stream-error rel-RMSE squared.
+    """
 
     design: str
     bits: int
@@ -256,17 +258,19 @@ def quantization_rel_mse(w: torch.Tensor, bits: int) -> float:
 
 def price_site(design: str, bits: int, *, m: int, k: int, n_out: int,
                count: int, bit_sparsity: float, unit_n: int,
-               num_units: int) -> dict[str, float]:
+               num_units: int, cycle_scale: float = 1.0) -> dict[str, float]:
     """Price one site's per-decode-step cost on a (design, bits) DLA.
 
     Uses the same ``core.ppa.DLAModel`` tiling the serve cost table uses,
     with Eq. 1 ``bit_sparsity`` (block-max statistic) scaling the dynamic
-    numbers and 0.0 for the worst case.  Returns µJ / µs totals over the
-    site's ``count`` invocations: ``dyn_energy_uj``, ``dyn_latency_us``,
+    numbers and 0.0 for the worst case.  ``cycle_scale`` is the stochastic
+    family's per-tile multiplier (``stream_len / 2^bits``, priced as
+    uGEMM); 1.0 otherwise.  Returns µJ / µs totals over the site's
+    ``count`` invocations: ``dyn_energy_uj``, ``dyn_latency_us``,
     ``wc_energy_uj``, ``wc_latency_us``.
     """
     dla = ppa.DLAModel(design=design, bits=bits, n=unit_n,
-                       num_units=num_units)
+                       num_units=num_units, cycle_scale=cycle_scale)
     return {
         "dyn_energy_uj":
             dla.matmul_energy_nj(m, k, n_out, bit_sparsity) * count * 1e-3,
@@ -303,6 +307,71 @@ def prune_infeasible(site_name: str, k: int,
     return out
 
 
+def _stochastic_candidates(site: GemmSite, weight: torch.Tensor, bits: int,
+                           stream_lens: Sequence[int], *,
+                           quant_rel_mse: float, stats: SparsityStats,
+                           max_rel_mse: float, unit_n: int, num_units: int,
+                           pruned: list | None) -> list[Candidate]:
+    """Priced ``(ugemm_stochastic, bits, L)`` candidates for one site.
+
+    Two static filters run before any measurement (excluded candidates are
+    never priced, never picked, and their evidence lands in ``pruned``):
+
+    1. the analytic expected-error bound
+       (``ranges.stochastic_error_bound``) squared must fit the guard on
+       its own — what ``plan-lint``'s ``stream-guard`` rule re-derives;
+    2. the int32 pulse-count envelope at the site's K and this L.
+
+    Surviving lengths get a *measured* seeded RMSE on the site's real
+    quantized weight (``repro_torch.stochastic.error.site_rmse_curve``, on
+    the weight's device); the guard then applies to quantization + stream
+    error combined.  Priced as uGEMM with ``L / 2^bits`` cycle scaling.
+    """
+    from repro_torch.stochastic import error as stoch_error
+    out: list[Candidate] = []
+    admissible: list[int] = []
+    for L in sorted({int(L) for L in stream_lens}):
+        bound = ranges_lib.stochastic_error_bound(bits, L)
+        if bound.expected_rel_mse > max_rel_mse:
+            if pruned is not None:
+                pruned.append({
+                    "site": site.name, "design": STOCHASTIC_DESIGN,
+                    "bits": bits, "stream_len": L, "k": int(site.k),
+                    "reason": f"{bound.describe()} — expected rel MSE "
+                              f"{bound.expected_rel_mse:.4f} > guard "
+                              f"{max_rel_mse}"})
+            continue
+        finding = ranges_lib.check_gemm(STOCHASTIC_DESIGN, bits,
+                                        int(site.k), where=site.name,
+                                        stream_len=L)
+        if finding is not None:
+            if pruned is not None:
+                pruned.append({
+                    "site": site.name, "design": STOCHASTIC_DESIGN,
+                    "bits": bits, "stream_len": L, "k": int(site.k),
+                    "max_safe_k": ranges_lib.max_safe_k(
+                        STOCHASTIC_DESIGN, bits, stream_len=L),
+                    "reason": finding.message})
+            continue
+        admissible.append(L)
+    if not admissible:
+        return out
+    curve = dict(stoch_error.site_rmse_curve(
+        weight, bits, admissible, rows=max(site.m, 1)))
+    for L in admissible:
+        combined = quant_rel_mse + curve[L] ** 2
+        priced = price_site("ugemm", bits, m=site.m, k=site.k,
+                            n_out=site.n_out, count=site.count,
+                            bit_sparsity=stats.bit_blockmax,
+                            unit_n=unit_n, num_units=num_units,
+                            cycle_scale=L / float(2 ** bits))
+        out.append(Candidate(design=STOCHASTIC_DESIGN, bits=bits,
+                             stats=stats, rel_mse=combined,
+                             guard_ok=combined <= max_rel_mse,
+                             stream_len=L, **priced))
+    return out
+
+
 def site_candidates(site: GemmSite, *,
                     bits_candidates: Sequence[int] = DEFAULT_BITS_CANDIDATES,
                     designs: Sequence[str] = DEFAULT_DESIGNS,
@@ -320,11 +389,14 @@ def site_candidates(site: GemmSite, *,
     matrix is profiled per the paper's convention (per-tensor quantization
     grid, ``block``×``block`` maxima for the Eq. 1 statistic); the guard
     statistic is :func:`quantization_rel_mse` at each bit-width.
-    ``guard_ok`` is False where ``rel_mse > max_rel_mse``.  Stochastic
-    candidates raise ``NotImplementedError`` (the stochastic slice).
+    ``guard_ok`` is False where ``rel_mse > max_rel_mse``.  When
+    ``designs`` contains ``ugemm_stochastic`` and ``stream_lens`` is
+    non-empty, each bit-width also gets the rate-coded candidates of
+    :func:`_stochastic_candidates`.
     """
-    _exact_only(designs, stream_lens)
-    infeasible = prune_infeasible(site.name, site.k, designs,
+    exact_designs = [d for d in designs if d != STOCHASTIC_DESIGN]
+    want_stochastic = STOCHASTIC_DESIGN in designs and len(stream_lens) > 0
+    infeasible = prune_infeasible(site.name, site.k, exact_designs,
                                   bits_candidates, pruned)
     weight = site.weight_matrix()
     out: list[Candidate] = []
@@ -332,7 +404,7 @@ def site_candidates(site: GemmSite, *,
         stats = sparsity.profile_tensor(weight, bits=bits, block=block)
         rel_mse = quantization_rel_mse(weight, bits)
         guard_ok = rel_mse <= max_rel_mse
-        for design in designs:
+        for design in exact_designs:
             if (design, bits) in infeasible:
                 continue
             priced = price_site(design, bits, m=site.m, k=site.k,
@@ -342,6 +414,12 @@ def site_candidates(site: GemmSite, *,
             out.append(Candidate(design=design, bits=bits, stats=stats,
                                  rel_mse=rel_mse, guard_ok=guard_ok,
                                  **priced))
+        if want_stochastic:
+            out.extend(_stochastic_candidates(
+                site, weight, bits, stream_lens,
+                quant_rel_mse=rel_mse, stats=stats,
+                max_rel_mse=max_rel_mse, unit_n=unit_n,
+                num_units=num_units, pruned=pruned))
     return out
 
 
@@ -378,16 +456,21 @@ def build_plan(cfg, params, *, batch: int = 1,
     ``wc_latency_us`` (lower is better); ``unit_n``/``num_units`` — the DLA
     geometry (n×n PE arrays); ``max_rel_mse`` — the accuracy guard;
     ``sites`` — optionally a pre-computed :func:`discover_sites` result
-    (callers that also measure cycles reuse one discovery pass).
-    ``stream_lens`` or a stochastic design raise ``NotImplementedError``.
+    (callers that also measure cycles reuse one discovery pass);
+    ``stream_lens`` — rate-coded stream lengths tried per bit-width when
+    ``designs`` contains ``ugemm_stochastic`` (e.g.
+    :data:`DEFAULT_STREAM_LENS`).
 
     Returns a plan whose entries use exact site names as patterns, with
     ``meta`` carrying the planning inputs, per-(design, bits) uniform
     baselines, and the planned totals.  The planned total never exceeds the
     best guard-feasible uniform baseline (per-site argmin over a superset).
-    The scratch memory peaks at one row chunk of one site's weight.
+    Uniform baselines are exact designs only: stochastic candidates compete
+    per site, where they must beat every exact candidate on the objective
+    and survive the combined guard.  The statistics' scratch memory peaks
+    at one row chunk of one site's weight; the stochastic error curves at
+    the chunk budget of ``gemm_sims.signed_slot_counts``.
     """
-    _exact_only(designs, stream_lens)
     if sites is None:
         sites = discover_sites(cfg, params, batch=batch, seq_len=seq_len)
     if not sites:
@@ -396,15 +479,19 @@ def build_plan(cfg, params, *, batch: int = 1,
     entries: list[SiteAssignment] = []
     range_pruned: list[dict] = []
     uniform = {(d, b): {**_zero_totals(), "feasible": True}
-               for d in designs for b in bits_candidates}
+               for d in designs if d != STOCHASTIC_DESIGN
+               for b in bits_candidates}
     for site in sites:
         n_pruned = len(range_pruned)
         cands = site_candidates(site, bits_candidates=bits_candidates,
                                 designs=designs, max_rel_mse=max_rel_mse,
                                 unit_n=unit_n, num_units=num_units,
-                                pruned=range_pruned)
+                                pruned=range_pruned,
+                                stream_lens=stream_lens)
         for rec in range_pruned[n_pruned:]:
-            uniform[(rec["design"], rec["bits"])]["feasible"] = False
+            tot = uniform.get((rec["design"], rec["bits"]))
+            if tot is not None:        # stochastic prunes have no baseline
+                tot["feasible"] = False
         if not cands:
             raise ValueError(
                 f"site {site.name!r}: no (design, bits) candidate among "
@@ -421,7 +508,7 @@ def build_plan(cfg, params, *, batch: int = 1,
         "objective": objective,
         "bits_candidates": list(bits_candidates),
         "designs": list(designs),
-        "stream_lens": [],
+        "stream_lens": sorted({int(L) for L in stream_lens}),
         "max_rel_mse": max_rel_mse,
         "unit_n": unit_n,
         "num_units": num_units,
@@ -461,9 +548,11 @@ def _assignment(site: GemmSite, best: Candidate, relaxed: bool, *,
 def _fold_uniform(uniform: dict, cands: list[Candidate]) -> None:
     """Accumulate every candidate into the per-(design, bits) uniform
     baselines (a uniform assignment is infeasible once any site's guard
-    rejects that bit-width)."""
+    rejects that bit-width); stochastic candidates compete per site only."""
     for c in cands:
-        tot = uniform[(c.design, c.bits)]
+        tot = uniform.get((c.design, c.bits))
+        if tot is None:
+            continue
         if not c.guard_ok:
             tot["feasible"] = False
         for key in _zero_totals():
@@ -547,8 +636,10 @@ def to_markdown(plan: BackendPlan) -> str:
     ]
     for e in plan.sites:
         guard = "relaxed" if e.guard_relaxed else "ok"
+        design = (f"{e.design}:{e.stream_len}" if e.stream_len
+                  else e.design)
         lines.append(
-            f"| `{e.pattern}` ×{e.count} | {e.design} | {e.bits} | "
+            f"| `{e.pattern}` ×{e.count} | {design} | {e.bits} | "
             f"{e.bit_blockmax:.3f} | {e.dyn_energy_uj:.4f} | "
             f"{e.dyn_latency_us:.4f} | {e.rel_mse:.4f} | {guard} |")
     lines += [
@@ -570,7 +661,8 @@ def to_markdown(plan: BackendPlan) -> str:
         lines.append(f"| {name}{mark} | {tot['dyn_energy_uj']:.4f} | "
                      f"{tot['dyn_latency_us']:.4f} | "
                      f"{tot['wc_energy_uj']:.4f} |")
-    distinct = ", ".join(f"{d}@{b}" for d, b in plan.distinct_backends())
+    distinct = ", ".join(f"{d}@{b}" + (f":{sl}" if sl else "")
+                         for d, b, sl in plan.distinct_engines())
     lines += [
         "",
         f"Distinct backends chosen: {distinct}.",

@@ -10,6 +10,8 @@ PyTorch versions.
 - paged_attention       : the gather oracle and KV writes (no kernel)
 - ops                   : public wrappers (pack, quantized_matmul, stats)
 - ref                   : the plain versions the CPU runs and the tests sweep
+- backends              : deprecated, scoped registration of the ``*_cuda``
+  mirrors in the ``gemm_sims`` registry (imported on demand, not here)
 
 Each kernel module holds the ctypes wrapper (device / dtype / shape checks,
 output allocation, launch on the current stream, a launch counter) next to

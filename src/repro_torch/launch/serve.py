@@ -5,14 +5,18 @@ Three modes, as in the reference:
 
 * ``serve`` (default): greedy generation for a seeded prompt batch, the
   backend numerics spot-check, the per-design Eq.-1 cost table and the
-  sweet-spot verdict; with ``--execute-backend`` (a simulated design or a
-  ``*_cuda`` kernel mirror) or ``--backend-plan FILE`` prefill and decode
-  also *execute* every dense site on its backend, and the driver reports
-  the int GEMMs' bit-exactness, the drift from the float model and the
-  measured cycles against the priced bounds (per site under a plan).
+  sweet-spot verdict; with ``--execute-backend`` (a simulated design, a
+  ``*_cuda`` kernel mirror, or the rate-coded ``ugemm_stochastic[:L]``) or
+  ``--backend-plan FILE`` prefill and decode also *execute* every dense
+  site on its backend, and the driver reports the int GEMMs against their
+  oracle (bit-exact for the exact designs; uGEMM's relative RMSE against
+  the binary oracle, a stochastic backend's against exact uGEMM), the drift
+  from the float model and the measured cycles against the priced bounds
+  (per site under a plan).
   ``--packed`` executes from bit-packed weight stores.
 * ``plan``: derive a per-layer mixed-precision plan
-  (``repro_torch.eval.planner``), save it to ``--plan-out``, and report
+  (``repro_torch.eval.planner``; ``--stream-lens L1,L2`` adds rate-coded
+  ``ugemm_stochastic`` candidates), save it to ``--plan-out``, and report
   predicted vs uniform-backend energy, measured per-site decode cycles and
   the plan lint's verdict.
 * ``traffic``: a seeded Poisson trace through the paged
@@ -21,8 +25,7 @@ Three modes, as in the reference:
 
 Runs on the card by default; ``--device cpu`` runs the same code on the
 kernels' plain versions.  Grid plans and ``--grid`` wait for the grids
-slice, ``--stream-lens`` (rate-coded candidates) for the stochastic slice:
-both exit 2.
+slice: both exit 2.
 
     PYTHONPATH=src python -m repro_torch.launch.serve plan --arch llama3-8b \\
         --smoke --device cpu --plan-out /tmp/plan.json
@@ -30,11 +33,15 @@ both exit 2.
         --smoke --device cpu --backend-plan /tmp/plan.json --packed --tokens 8
     PYTHONPATH=src python -m repro_torch.launch.serve traffic --arch llama3-8b \\
         --execute-backend tubgemm_cuda --bits 4 --act-scale per-row
+    PYTHONPATH=src python -m repro_torch.launch.serve traffic --arch llama3-8b \\
+        --smoke --device cpu --execute-backend ugemm_stochastic:16 \\
+        --act-scale per-row
 """
 
 from __future__ import annotations
 
 import argparse
+import math
 import time
 
 import numpy as np
@@ -54,8 +61,6 @@ from repro_torch.serving import (FUSED_LOGIT_TOL, ServingEngine, TrafficConfig,
                                  paged_vs_contiguous_probe)
 from repro_torch.serving import energy as serving_energy
 
-_STOCHASTIC_MSG = ("rate-coded ugemm_stochastic candidates arrive with the "
-                   "stochastic slice of the port")
 _GRID_MSG = "PE-array grids arrive with the grids slice of the port"
 
 
@@ -86,7 +91,10 @@ def validate_backend_numerics(params, design, bits: int | None = None,
     stacks them on a batch axis, and pushes the stack through
     ``GemmBackend.execute`` in one batched call against the ``oracle``
     design.  Exact designs (tu/tub/b and the CUDA mirrors) must come back
-    bit-identical — returns 0.0.
+    bit-identical — returns 0.0 — while uGEMM reports its stochastic
+    relative RMSE.  Rate-coded stochastic backends are judged with
+    ``oracle="ugemm"``, the exact uGEMM value their bitstreams converge to,
+    so the number isolates the stream-length error.
     """
     backend = backends_lib.resolve(design, bits=bits)
     oracle = backends_lib.resolve(oracle, bits=backend.bits)
@@ -114,10 +122,13 @@ def validate_backend_numerics(params, design, bits: int | None = None,
 
 
 def _oracle_for(backend) -> str:
-    """The oracle design a backend's numerics are judged against: the
-    binary int32 oracle (the rate-coded backends, judged against exact
-    uGEMM in the reference, arrive with the stochastic slice)."""
-    return "bgemm"
+    """The oracle design a backend's numerics are judged against.
+
+    Rate-coded stochastic backends carry a ``stream_len`` and converge to
+    the exact uGEMM value, so that is their reference; everything else is
+    checked against the binary int32 oracle.
+    """
+    return "ugemm" if backend.stream_len else "bgemm"
 
 
 def measure_decode_cycles(cfg, params, backend, *, batch: int, unit_n: int,
@@ -188,7 +199,7 @@ def run_backend_execution(cfg, params, prompt, backend, max_new: int,
     """Execute prefill+decode on ``backend`` and collect the evidence.
 
     Returns a dict: generated ``tokens``, number of distinct GEMM ``sites``
-    contracted on the backend, int-GEMM ``rel_rmse`` vs the binary oracle,
+    contracted on the backend, int-GEMM ``rel_rmse`` vs its ``oracle``,
     prefill-logits ``drift`` + ``top1_agreement`` vs the float model, wall
     time, and the measured/dyn/wc ``cycles`` totals per decode token.
     ``packed`` freezes every GEMM site's weight bit-packed at the backend's
@@ -233,10 +244,11 @@ def run_plan_execution(cfg, params, prompt, plan, max_new: int,
     Like :func:`run_backend_execution` but per site: every dense site
     contracts on the backend its plan entry names (unmatched sites stay
     float).  Returns generated ``tokens``, the ``site_backends`` mapping
-    actually executed, per-distinct-backend int-GEMM ``rel_rmse`` vs the
-    binary oracle, prefill ``drift`` / ``top1_agreement`` vs the float
-    model, wall time, and per-site measured/dyn/floor/wc decode-cycle totals
-    (``site_cycles``; DLA geometry from the plan's meta).  ``packed``
+    actually executed, per-distinct-engine int-GEMM ``rel_rmse`` vs its
+    oracle (binary, or exact uGEMM for a stream-coded entry), prefill
+    ``drift`` / ``top1_agreement`` vs the float model, wall time, and
+    per-site measured/dyn/floor/wc decode-cycle totals (``site_cycles``;
+    DLA geometry from the plan's meta).  ``packed``
     executes the planned sites from bit-packed stores; reference logits,
     numerics, site discovery and cycles keep reading the float params.
     """
@@ -255,12 +267,16 @@ def run_plan_execution(cfg, params, prompt, plan, max_new: int,
         raise RuntimeError(
             "plan execution contracted no GEMM sites — do the plan's "
             "patterns match this model's site names?")
-    site_backends = {c.site: f"{c.backend}@{c.bits}" for c in execution.calls}
+    site_backends = {
+        c.site: f"{c.backend}@{c.bits}"
+        + (f":{c.stream_len}" if c.stream_len else "")
+        for c in execution.calls}
     rel_rmse = {}
-    for design, bits in plan.distinct_backends():
-        tag = f"{design}@{bits}"
+    for design, bits, stream_len in plan.distinct_engines():
+        tag = f"{design}@{bits}" + (f":{stream_len}" if stream_len else "")
         if tag in site_backends.values():
-            backend = backends_lib.resolve(design, bits=bits)
+            backend = backends_lib.resolve(design, bits=bits,
+                                           stream_len=stream_len or None)
             rel_rmse[tag] = validate_backend_numerics(
                 params, backend, oracle=_oracle_for(backend))
     drift, agree = _drift(exec_logits, ref_logits)
@@ -305,9 +321,14 @@ def run_plan_mode(args, cfg, params) -> int:
     """``serve plan``: derive, save and report a mixed-precision plan."""
     t0 = time.perf_counter()
     site_list = planner_lib.discover_sites(cfg, params, batch=args.batch)
+    stream_lens = _parse_stream_lens(args.stream_lens)
+    designs = planner_lib.DEFAULT_DESIGNS
+    if stream_lens:
+        designs = designs + (planner_lib.STOCHASTIC_DESIGN,)
     plan = planner_lib.build_plan(
         cfg, params, batch=args.batch, unit_n=args.unit_n,
-        num_units=args.units, sites=site_list)
+        num_units=args.units, sites=site_list, designs=designs,
+        stream_lens=stream_lens)
     wall = time.perf_counter() - t0
     path = plan.save(args.plan_out)
     meta = plan.metadata()
@@ -339,9 +360,9 @@ def run_plan_mode(args, cfg, params) -> int:
             / max(totals["uniform"][best]["dyn_energy_uj"], 1e-30)
         print(f"plan vs best uniform ({best}): {saving:.2%} predicted "
               f"energy saving")
-    distinct = plan.distinct_backends()
+    distinct = plan.distinct_engines()
     print(f"distinct engines chosen: "
-          f"{', '.join(f'{d}@{b}' for d, b in distinct)} "
+          f"{', '.join(f'{d}@{b}' + (f':{L}' if L else '') for d, b, L in distinct)} "
           f"({'mixed' if len(distinct) > 1 else 'uniform'} assignment)")
     print(analysis_verdict(plan, site_names=[s.name for s in site_list]))
     print(f"plan saved to {path} (replay: serve --arch {args.arch}"
@@ -485,36 +506,45 @@ def run_traffic_mode(args, cfg, params, plan=None) -> int:
 def _report_backend(args, cfg, params, prompt, costs, stats) -> bool:
     """``serve --execute-backend``: execute, print the evidence, gate."""
     backend = backends_lib.resolve(args.execute_backend, bits=args.bits)
+    ltag = f", L={backend.stream_len} bitstreams" if backend.stream_len else ""
     print(f"\n=== executing model on {backend.name} "
-          f"({backend.bits}-bit int tiles) ===")
+          f"({backend.bits}-bit int tiles{ltag}) ===")
     result = run_backend_execution(
         cfg, params, prompt, backend, args.tokens, unit_n=args.unit_n,
         num_units=args.units, stats=stats, packed=args.packed)
     print(f"generated {tuple(result['tokens'].shape)} tokens in "
           f"{result['wall_s']:.2f}s; {result['sites']} dense GEMM sites "
           f"contracted on the backend")
-    tag = ("bit-exact" if result["rel_rmse"] == 0.0
-           else f"relRMSE {result['rel_rmse']:.2e}")
-    print(f"int GEMMs vs binary oracle: {tag} (exact design)")
+    rel = result["rel_rmse"]
+    tag = "bit-exact" if rel == 0.0 else f"relRMSE {rel:.2e}"
+    kind = "exact design" if backend.exact else "stochastic design"
+    oracle = ("exact-uGEMM oracle" if result["oracle"] == "ugemm"
+              else "binary oracle")
+    print(f"int GEMMs vs {oracle}: {tag} ({kind})")
     print(f"output drift vs float model (prefill logits): "
           f"relRMSE {result['drift']:.3f}, "
           f"top-1 agreement {result['top1_agreement']:.1%}")
     cyc = result["cycles"]
     in_bounds = cyc["dyn_floor"] - 0.5 <= cyc["measured"] <= cyc["wc"] + 0.5
     priced_dyn = costs[backend.pricing_design].dyn_latency_us * 1e3 \
-        / ppa.CLOCK_PERIOD_NS
+        / ppa.CLOCK_PERIOD_NS * backend.cycle_scale
+    stag = (f", measured stream relRMSE {rel:.2e} at L={backend.stream_len}"
+            if backend.stream_len else "")
     print(f"per-decode-token cycles ({args.units}x {args.unit_n}x"
           f"{args.unit_n} units): measured {cyc['measured']:.3e} within "
           f"[dyn floor {cyc['dyn_floor']:.3e}, wc {cyc['wc']:.3e}]: "
-          f"{in_bounds} (priced Eq.1 dyn {priced_dyn:.3e})")
+          f"{in_bounds} (priced Eq.1 dyn {priced_dyn:.3e}{stag})")
     if not in_bounds:
         print("WARNING: measured cycles outside the priced dyn/wc bounds")
-    return in_bounds and result["rel_rmse"] == 0.0
+    # exact designs must be bit-exact; a stochastic estimate only finite
+    numerics_ok = rel == 0.0 if backend.exact else math.isfinite(rel)
+    return in_bounds and numerics_ok
 
 
 def _report_plan(args, cfg, params, prompt, plan) -> bool:
     """``serve --backend-plan``: execute per site, print the evidence, gate."""
-    labels = ", ".join(f"{d}@{b}" for d, b in plan.distinct_backends())
+    labels = ", ".join(f"{d}@{b}" + (f":{L}" if L else "")
+                       for d, b, L in plan.distinct_engines())
     print(f"\n=== executing model on backend plan {args.backend_plan} "
           f"({labels}) ===")
     print(analysis_verdict(plan))
@@ -528,8 +558,10 @@ def _report_plan(args, cfg, params, prompt, plan) -> bool:
     ok = True
     for tag, rel in sorted(result["rel_rmse"].items()):
         label = "bit-exact" if rel == 0.0 else f"relRMSE {rel:.2e}"
-        print(f"int GEMMs vs binary oracle on {tag}: {label}")
-        ok = ok and rel == 0.0
+        oracle = "exact-uGEMM oracle" if ":" in tag else "binary oracle"
+        print(f"int GEMMs vs {oracle} on {tag}: {label}")
+        exact = backends_lib.resolve(tag.split("@")[0]).exact
+        ok = ok and (rel == 0.0 if exact else math.isfinite(rel))
     print(f"output drift vs float model (prefill logits): "
           f"relRMSE {result['drift']:.3f}, "
           f"top-1 agreement {result['top1_agreement']:.1%}")
@@ -567,11 +599,8 @@ def run_serve_mode(args, cfg, params, plan=None) -> int:
           f"float path)")
 
     # --- backend numerics: batched engine vs binary oracle on real weights ---
-    if backends_lib.resolve(args.gemm_backend, bits=args.bits).exact:
-        rel = validate_backend_numerics(params, args.gemm_backend, args.bits)
-        tag = "bit-exact" if rel == 0.0 else f"relRMSE {rel:.2e}"
-    else:
-        tag = f"not run ({_STOCHASTIC_MSG})"
+    rel = validate_backend_numerics(params, args.gemm_backend, args.bits)
+    tag = "bit-exact" if rel == 0.0 else f"relRMSE {rel:.2e}"
     print(f"backend numerics ({args.gemm_backend}, {args.bits}-bit, "
           f"batched weight tiles): {tag}")
 
@@ -646,8 +675,10 @@ def main(argv=None) -> int:
                     help="design the energy pricing charges")
     ap.add_argument("--execute-backend", default=None, metavar="SPEC",
                     help="EXECUTE prefill/decode with every quantized dense "
-                         "layer contracted on this backend (simulated design "
-                         "or *_cuda kernel mirror); one of "
+                         "layer contracted on this backend (simulated design, "
+                         "*_cuda kernel mirror, or a rate-coded spec like "
+                         "'ugemm_stochastic:64' where the suffix is the "
+                         "stream length); one of "
                          f"{', '.join(backends_lib.available())}")
     ap.add_argument("--backend-plan", default=None, metavar="FILE",
                     help="execute prefill/decode with every dense site "
@@ -656,8 +687,9 @@ def main(argv=None) -> int:
     ap.add_argument("--plan-out", default="reports/plan.json",
                     help="[plan] where the derived plan is saved")
     ap.add_argument("--stream-lens", default=None, metavar="L1,L2,...",
-                    help="[plan] rate-coded ugemm_stochastic candidates: "
-                         "not ported yet (exits 2)")
+                    help="[plan] admit rate-coded ugemm_stochastic "
+                         "candidates at these stream lengths: the plan then "
+                         "picks (design, bits, stream_len) per site")
     ap.add_argument("--act-scale", default="per-tensor",
                     choices=["per-tensor", "per-row"],
                     help="[traffic] activation quantization granularity "
@@ -701,9 +733,6 @@ def main(argv=None) -> int:
 
     if args.grid:
         print(f"error: --grid {args.grid}: {_GRID_MSG}")
-        return 2
-    if _parse_stream_lens(args.stream_lens):
-        print(f"error: --stream-lens {args.stream_lens}: {_STOCHASTIC_MSG}")
         return 2
     if args.packed and not (args.execute_backend or args.backend_plan):
         print("error: --packed needs --execute-backend or --backend-plan "

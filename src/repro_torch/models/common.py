@@ -134,9 +134,11 @@ def dense(w: torch.Tensor, x: torch.Tensor, cfg: ModelConfig | None = None,
     2. ``cfg.quant_kernel`` — the packed-integer ``quant_gemm`` kernel (the
        paper's PE array stand-in): the weight is quantized per channel at
        ``cfg.quant_bits`` at every call, activations per tensor at
-       ``min(2 * quant_bits, 8)``, through ``kernels.ops.quantized_matmul``.
-       ``quant_backend="ugemm"`` (the stochastic LUT path) is not ported
-       and raises.
+       ``min(2 * quant_bits, 8)``, through ``kernels.ops.quantized_matmul``;
+       with ``quant_backend="ugemm"`` activations are quantized per tensor
+       at ``quant_bits`` and contracted by ``gemm_sims.ugemm_exact``
+       (uGEMM's stochastic multiplier), then rescaled by the two scales in
+       turn.
     3. The plain float matmul (default).
     """
     from repro_torch.backends import runtime as backend_runtime
@@ -160,15 +162,19 @@ def dense(w: torch.Tensor, x: torch.Tensor, cfg: ModelConfig | None = None,
                 "would round already-packed codes a second time — execute "
                 "packed stores under use_backend at the store's width, or "
                 "keep float parameters for the quant-kernel path")
-        if cfg.quant_backend == "ugemm":
-            raise NotImplementedError(
-                "cfg.quant_kernel with quant_backend='ugemm' runs the "
-                "stochastic uGEMM LUT path, which arrives with the "
-                "stochastic slice")
         from repro_torch.kernels import ops as kops
         w2 = w.reshape(w.shape[0], -1) if w.ndim > 2 else w
         wq = quantize(w2.to(torch.float32), bits=cfg.quant_bits)
-        out = kops.quantized_matmul(x, wq, act_bits=min(cfg.quant_bits * 2, 8))
+        if cfg.quant_backend == "ugemm":
+            from repro_torch.core import gemm_sims
+            xq = quantize(x.reshape(-1, x.shape[-1]).to(torch.float32),
+                          bits=cfg.quant_bits, per_channel=False)
+            out = gemm_sims.ugemm_exact(xq.values, wq.values,
+                                        bits=cfg.quant_bits)
+            out = (out * xq.scale * wq.scale.reshape(1, -1)).to(x.dtype)
+        else:
+            out = kops.quantized_matmul(x, wq,
+                                        act_bits=min(cfg.quant_bits * 2, 8))
         return out.reshape(*x.shape[:-1], *w.shape[1:])
     return _plain_matmul(x, w)
 

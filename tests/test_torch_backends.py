@@ -124,7 +124,8 @@ def test_price_equal(design, bits):
 def test_resolve_and_registry():
     assert port_sims.DESIGNS == ref_sims.DESIGNS == ("ugemm", "tugemm", "tubgemm", "bgemm")
     assert port_backends.available() == ("ugemm", "tugemm", "tubgemm", "bgemm",
-                                         "tugemm_cuda", "tubgemm_cuda")
+                                         "tugemm_cuda", "tubgemm_cuda",
+                                         "ugemm_stochastic")
     be = port_backends.resolve("tubgemm", bits=4)
     assert port_backends.resolve(be) is be
     assert port_backends.resolve(be, bits=8).bits == 8
@@ -139,9 +140,15 @@ def test_resolve_and_registry():
         port_backends.resolve("nope")
     with pytest.raises(ValueError):
         port_backends.resolve("tubgemm", bits=1)
-    with pytest.raises(NotImplementedError):
+    # uGEMM executes its stochastic multiplier: the reference's value on
+    # the same codes (bit-exact at 4 bits)
+    a = np.random.default_rng(1).integers(-7, 8, (3, 5)).astype(np.int8)
+    b = np.random.default_rng(2).integers(-7, 8, (5, 4)).astype(np.int8)
+    np.testing.assert_array_equal(
         port_backends.resolve("ugemm", bits=4).execute(
-            torch.zeros((2, 2), dtype=torch.int8), torch.zeros((2, 2), dtype=torch.int8))
+            torch.from_numpy(a), torch.from_numpy(b)).numpy(),
+        np.asarray(ref_backends.resolve("ugemm", bits=4).execute(
+            jnp.asarray(a), jnp.asarray(b))))
     with port_sims.scoped_registry():
         port_sims.register_design("custom", lambda a, b, bits: a, lambda a, b, bits: (a, 0),
                                   lambda bits, k: 7)

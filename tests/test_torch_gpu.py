@@ -611,3 +611,48 @@ def test_bgemm_exact_on_card_at_any_rows(cuda, m, k, n):
     got = gemm_sims.bgemm_exact(torch.from_numpy(a).to(cuda),
                                 torch.from_numpy(b).to(cuda))
     assert got.dtype == torch.int32 and torch.equal(got.cpu(), want)
+
+
+@pytest.mark.parametrize("bits", [2, 4, 8])
+@pytest.mark.parametrize("m,k,n", [(8, 4096, 1024), (27, 4096, 512),
+                                   (3, 70_000, 5)])
+def test_ugemm_exact_card_equals_cpu(monkeypatch, cuda, m, k, n, bits):
+    """uGEMM's exact slot counts (float32 chunk products) on the card equal
+    the CPU's bit for bit, also past the float32 window (K * 2^bits >=
+    2^24 splits K), with a tight budget forcing many chunks."""
+    v = 2 ** (bits - 1) - 1
+    rng = np.random.default_rng(m + k + n + bits)
+    a = torch.from_numpy(rng.integers(-v, v + 1, (m, k)).astype(np.int8))
+    b = torch.from_numpy(rng.integers(-v, v + 1, (k, n)).astype(np.int8))
+    want = gemm_sims.ugemm_exact(a, b, bits=bits)
+    for budget in (gemm_sims.CHUNK_BUDGET_BYTES, 1 << 20):
+        monkeypatch.setattr(gemm_sims, "CHUNK_BUDGET_BYTES", budget)
+        got = gemm_sims.ugemm_exact(a.to(cuda), b.to(cuda), bits=bits)
+        assert got.is_cuda and torch.equal(got.cpu(), want)
+
+
+@pytest.mark.parametrize("kind,stream_len,bits", [
+    ("sobol", 64, 8), ("sobol", 16, 4), ("lfsr", 16, 8), ("lfsr", 100, 4)])
+def test_stochastic_gemm_card_equals_cpu(cuda, kind, stream_len, bits):
+    from repro_torch.stochastic import sgemm
+    v = 2 ** (bits - 1) - 1
+    rng = np.random.default_rng(stream_len + bits)
+    a = torch.from_numpy(rng.integers(-v, v + 1, (8, 4096)).astype(np.int8))
+    b = torch.from_numpy(rng.integers(-v, v + 1, (4096, 768)).astype(np.int8))
+    want = sgemm.stochastic_gemm(a, b, bits, stream_len=stream_len,
+                                 rng_kind=kind)
+    got = sgemm.stochastic_gemm(a.to(cuda), b.to(cuda), bits,
+                                stream_len=stream_len, rng_kind=kind)
+    assert got.is_cuda and torch.equal(got.cpu(), want)
+
+
+def test_ugemm_engines_refuse_operands_on_two_devices(cuda):
+    """Activations on the CPU and a weight on the card raise; neither
+    engine copies the weight to the host to contract it there."""
+    from repro_torch.stochastic import sgemm
+    a = torch.ones((2, 64), dtype=torch.int8)
+    b = torch.ones((64, 8), dtype=torch.int8, device=cuda)
+    with pytest.raises(ValueError, match="different devices"):
+        gemm_sims.ugemm_exact(a, b, bits=4)
+    with pytest.raises(ValueError, match="different devices"):
+        sgemm.stochastic_gemm(a, b, 4, stream_len=16)

@@ -68,6 +68,32 @@ def test_package_imports_without_jax_cuda_or_triton():
     assert proc.stdout.startswith("ok")
 
 
+def test_stochastic_slice_runs_without_jax():
+    # the stochastic package and the unary encodings import and compute in
+    # an interpreter where jax and the reference cannot be imported
+    code = (
+        "import sys\n"
+        "class Block:\n"
+        "    def find_spec(self, name, path=None, target=None):\n"
+        "        if name.split('.')[0] in ('jax', 'jaxlib', 'repro'):\n"
+        "            raise ImportError('blocked: ' + name)\n"
+        "sys.meta_path.insert(0, Block())\n"
+        "import torch\n"
+        "import repro_torch.stochastic as st\n"
+        "from repro_torch.core import gemm_sims, unary\n"
+        "a = torch.tensor([[3, -7, 0]], dtype=torch.int8)\n"
+        "b = torch.tensor([[1], [2], [-7]], dtype=torch.int8)\n"
+        "assert unary.decode_temporal(*unary.encode_temporal(a, 4)).tolist()"
+        " == [[3, -7, 0]]\n"
+        "print('ok', st.stochastic_gemm(a, b, 4, stream_len=16).tolist(),\n"
+        "      gemm_sims.ugemm_exact(a, b, bits=4).tolist())\n")
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                          text=True, timeout=300,
+                          env={"PYTHONPATH": str(PKG.parent), "PATH": "/usr/bin:/bin"})
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert proc.stdout.startswith("ok")
+
+
 def test_csrc_holds_the_three_kernels():
     srcs = {p.name: p.read_text() for p in (PKG / "csrc").glob("*.cu")}
     # nine kernels: tub/tu GEMM (one int8 tensor-core template), fused

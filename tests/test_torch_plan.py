@@ -91,10 +91,13 @@ def test_save_load_and_validation(tmp_path):
 def test_grid_plan_and_stream_entries_raise():
     with pytest.raises(NotImplementedError, match="grids slice"):
         port_backends.load_plan(GRID)
+    # a stream-coded entry resolves to its rate-coded backend
     entry = port_plan.SiteAssignment(pattern="x", design="ugemm_stochastic",
                                      bits=4, stream_len=32)
-    with pytest.raises(NotImplementedError, match="stochastic slice"):
-        entry.backend()
+    be = entry.backend()
+    assert (be.name, be.bits, be.stream_len, be.pricing_design) == \
+        ("ugemm_stochastic", 4, 32, "ugemm")
+    assert be.cycle_scale == 2.0 and be.cycles(4096) == 32
     with pytest.raises(NotImplementedError):
         with port_backends.use_plan(FLAT, grid=(2, 2)):
             pass

@@ -269,10 +269,13 @@ def test_pack_weights_and_planner_refusals(setup):
         port_backends.measure_matrix_cycles(
             port_backends.resolve("tubgemm", bits=4), packed4["lm_head"],
             rows=1, unit_n=64, num_units=64)
+    # stochastic candidates need both the design and stream lengths, as in
+    # the reference: either alone plans the exact designs only
     for kw in (dict(designs=("tubgemm", "ugemm_stochastic")),
                dict(stream_lens=(16,))):
-        with pytest.raises(NotImplementedError, match="stochastic slice"):
-            port_planner.build_plan(port_cfg, port_params, **kw)
+        plan = port_planner.build_plan(port_cfg, port_params, **kw)
+        assert all(e.stream_len == 0 and e.design != "ugemm_stochastic"
+                   for e in plan.sites)
 
 
 def test_recommend_backend_and_combine_stats_equal(setup):

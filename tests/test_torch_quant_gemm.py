@@ -34,6 +34,7 @@ from repro.kernels import packed_gemm as ref_pg
 from repro.kernels import quant_gemm as ref_qg
 from repro.kernels import ref as ref_ref
 from repro.models import model as ref_model
+from repro_torch import backends as port_backends
 from repro_torch import configs as port_configs
 from repro_torch.core import packing as port_packing
 from repro_torch.core import quantization as port_quant
@@ -404,8 +405,17 @@ def test_quant_kernel_forward_sites_bit_equal(setup, monkeypatch, bits):
 
 
 def test_quant_kernel_ugemm_and_packed_refusals(setup):
-    _, port_cfg, _, port_params, tokens = setup
-    with pytest.raises(NotImplementedError, match="ugemm"):
-        port_model.forward(port_params, port_cfg.replace(
-            quant_bits=4, quant_kernel=True, quant_backend="ugemm"),
-            torch.from_numpy(tokens))
+    # quant_backend="ugemm": activations per tensor at quant_bits, uGEMM's
+    # multiplier on the codes, the two dequant multiplies in turn — logits
+    # within the quant path's tolerance of the reference's
+    ref_cfg, port_cfg, ref_params, port_params, tokens = setup
+    kw = dict(quant_bits=4, quant_kernel=True, quant_backend="ugemm")
+    ref_logits, _ = ref_model.forward(ref_params, ref_cfg.replace(**kw),
+                                      jnp.asarray(tokens))
+    logits, _ = port_model.forward(port_params, port_cfg.replace(**kw),
+                                   torch.from_numpy(tokens))
+    assert float(np.abs(np.asarray(ref_logits) - logits.numpy()).max()) <= TOL
+    with pytest.raises(TypeError, match="already-packed"):
+        port_model.forward(
+            port_backends.pack_weights(port_cfg, port_params, bits=4),
+            port_cfg.replace(**kw), torch.from_numpy(tokens))

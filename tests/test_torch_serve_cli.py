@@ -2,8 +2,10 @@
 ``plan`` mode writes a plan that loads and lints clean against the model's
 sites; ``traffic`` and the one-shot ``serve`` mode replay it (also from
 packed stores); ``serve --execute-backend`` reports bit-exact integer GEMMs;
-what the port does not have yet (``--stream-lens``, ``--grid``, grid plan
-files) exits 2 and names the slice that brings it."""
+``--execute-backend ugemm`` and ``ugemm_stochastic:16`` execute prefill and
+decode and report against their oracles; ``plan --stream-lens`` admits
+rate-coded candidates; what the port does not have yet (``--grid``, grid
+plan files) exits 2 and names the slice that brings it."""
 
 import pathlib
 
@@ -54,7 +56,6 @@ def test_serve_execute_backend_packed_is_bit_exact(capsys):
 
 
 @pytest.mark.parametrize("argv,names", [
-    (["plan", "--stream-lens", "16"], "stochastic slice"),
     (["serve", "--grid", "2,2"], "grids slice"),
     (["traffic", "--backend-plan",
       str(ROOT / "examples" / "plans" / "llama3_8b_smoke.grid2x2.json")],
@@ -66,3 +67,56 @@ def test_serve_execute_backend_packed_is_bit_exact(capsys):
 def test_unported_and_conflicting_options_exit_2(capsys, argv, names):
     assert serve.main([*argv, *BASE]) == 2
     assert names in capsys.readouterr().out
+
+
+@pytest.mark.parametrize("spec,oracle", [
+    ("ugemm", "int GEMMs vs binary oracle: relRMSE"),
+    ("ugemm_stochastic:16", "int GEMMs vs exact-uGEMM oracle: relRMSE")])
+def test_serve_execute_backend_ugemm_family(capsys, spec, oracle):
+    assert serve.main(["serve", *BASE, "--execute-backend", spec,
+                       "--tokens", "4"]) == 0
+    out = capsys.readouterr().out
+    assert oracle in out and "(stochastic design)" in out
+    assert ("L=16 bitstreams" in out) == (":" in spec)
+
+
+@pytest.mark.parametrize("spec", ["ugemm", "ugemm_stochastic:16"])
+def test_traffic_execute_backend_ugemm_family(capsys, spec):
+    assert serve.main(["traffic", *BASE, "--execute-backend", spec,
+                       "--act-scale", "per-row", "--requests", "6"]) == 0
+    out = capsys.readouterr().out
+    assert f"backend {spec}@4" in out
+    assert "per-request token streams identical: True" in out
+
+
+@pytest.mark.parametrize("lens", ["16", "16,32"])
+def test_plan_stream_lens_runs(tmp_path, capsys, lens):
+    # the rate-coded candidates join the plan (this case exited 2 while the
+    # port had no stochastic uGEMM)
+    path = tmp_path / "plan.json"
+    assert serve.main(["plan", "--stream-lens", lens, *BASE, "--batch", "2",
+                       "--plan-out", str(path)]) == 0
+    out = capsys.readouterr().out
+    assert "analysis: OK" in out
+    plan = backends.load_plan(path)
+    meta = plan.metadata()
+    assert meta["stream_lens"] == [int(x) for x in lens.split(",")]
+    assert meta["designs"][-1] == "ugemm_stochastic"
+    sites = [e.pattern for e in plan.sites]
+    assert plan_lint.lint_plan(plan, site_names=sites) == []
+    assert serve.main(["serve", *BASE, "--backend-plan", str(path),
+                       "--tokens", "2"]) == 0
+
+
+def test_backend_plan_with_stream_entries_replays(tmp_path, capsys):
+    plan = backends.BackendPlan(sites=(
+        backends.SiteAssignment("layers/mlp/*", "ugemm_stochastic", 4,
+                                stream_len=16),
+        backends.SiteAssignment("layers/attn/*", "tubgemm", 4)))
+    path = plan.save(str(tmp_path / "plan.json"))
+    assert serve.main(["serve", *BASE, "--backend-plan", path,
+                       "--tokens", "2"]) == 0
+    out = capsys.readouterr().out
+    assert "(tubgemm@4, ugemm_stochastic@4:16)" in out
+    assert "int GEMMs vs exact-uGEMM oracle on ugemm_stochastic@4:16" in out
+    assert "int GEMMs vs binary oracle on tubgemm@4: bit-exact" in out

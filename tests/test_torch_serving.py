@@ -10,8 +10,10 @@ FUSED_LOGIT_TOL; for a 6-request seeded trace the port's
 ``ServingEngine.run`` and the reference engine produce EQUAL events, steps
 and per-request token streams, and ``energy_uj`` within rel 1e-6 (identical
 Python pricing arithmetic fed float32-rounded sparsity statistics), on the
-float path, under ``tubgemm``@4 with per-row activation scaling, with
-``cfg.quant_kernel`` at 4 bits (no backend scope), and under the example
+float path, under ``tubgemm``@4, ``ugemm``@4 and ``ugemm_stochastic:16``@4
+with per-row activation scaling, with ``cfg.quant_kernel`` at 4 bits (no
+backend scope; the packed kernel, or uGEMM's multiplier under
+``quant_backend="ugemm"``), and under the example
 plan from float and from bit-packed weight stores (``packed=True``, whose
 streams also equal the unpacked engine's).
 """
@@ -165,14 +167,19 @@ def test_weight_walk_and_energy_model_equal(setup):
 
 @pytest.mark.parametrize("backend,scheduler", [
     (None, "continuous"), (None, "static"), ("tubgemm", "continuous"),
-    ("quant_kernel", "continuous")])
+    ("quant_kernel", "continuous"), ("ugemm", "continuous"),
+    ("ugemm_stochastic:16", "continuous"), ("quant_kernel_ugemm", "continuous")])
 def test_engine_trace_equals_reference(setup, monkeypatch, backend, scheduler):
     ref_cfg, port_cfg, ref_params, port_params = setup
-    if backend == "quant_kernel":
+    if backend in ("quant_kernel", "quant_kernel_ugemm"):
         # no backend scope: every dense site runs the packed quant_gemm
-        # kernel path at 4 bits (activations per tensor at 8)
-        ref_cfg = ref_cfg.replace(quant_bits=4, quant_kernel=True)
-        port_cfg = port_cfg.replace(quant_bits=4, quant_kernel=True)
+        # kernel path at 4 bits (activations per tensor at 8), or uGEMM's
+        # multiplier (activations per tensor at 4)
+        kw = dict(quant_bits=4, quant_kernel=True)
+        if backend == "quant_kernel_ugemm":
+            kw["quant_backend"] = "ugemm"
+        ref_cfg = ref_cfg.replace(**kw)
+        port_cfg = port_cfg.replace(**kw)
         backend = None
     monkeypatch.setattr(ref_engine_mod, "single_device_mesh", _auto_mesh)
     kw = dict(num_requests=6, arrival_rate=1.0, seed=0)
