@@ -70,7 +70,27 @@ Phases, each of which fails the run (non-zero exit) on its own:
    and SDPA's backward alone beside its forward + backward, at head dims
    128, 96 and 256; fused decode also unsplit and at the serve step's
    geometry, on its log lines; block_stats at every tile and with an L2 the
-   flush left clean).
+   flush left clean);
+10. ``grid``   — PE-array grids and the sweet-spot report on the same
+   weights: ``as_grid(b, 2, 2).execute`` equal bit for bit to the single
+   unit and to the plain integer product for ``tubgemm_cuda`` and
+   ``tugemm_cuda`` at 2, 4 and 8 bits at a decode step's shape of every
+   distinct dense site and at a prefill shape (so at every shard shape the
+   served trace gives the kernels), and ``ugemm`` at 4 bits at a decode
+   and a prefill shape, with the per-shard launches and times;
+   ``build_grid_plan`` over the served model (2 x 2 grid, batch 8,
+   tu/tub/bGEMM at 2/4/8 bits, 64 units of 128 x 128), gated on a clean
+   lint, planned energy at most the best uniform plan's and measured
+   cycles within [floor, wc] on every shard; the trace served under the
+   grid plan and under its aggregate flat plan (kernel mirrors, per-row,
+   fused decode), gated on completion, identical token streams and each
+   unary kernel launched four times as often on the grid, then every
+   site's int32 output over a teacher-forced prefill and two decode steps
+   equal bit for bit between the two plans, with one traced grid decode
+   step; and ``build_report()`` with its ``kernel_crosscheck``
+   on the card, every row equal to the simulator in output and cycles,
+   written to a temporary directory.  The phase runs after ``ugemm`` on the
+   served model; its launches are printed, not put on the kernels line.
 
 Needs a CUDA device: without one (or without the package beside it) the
 script exits non-zero and prints no result.  ``--layers`` / ``--requests``
@@ -167,7 +187,7 @@ REPLACES = {
 FLASH = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
 INT_GEMMS = ("quant_gemm", "packed_gemm")
 ALL_PHASES = ("device", "kernels", "probes", "serve", "quant", "plan", "ugemm",
-              "train", "times")
+              "train", "times", "grid")
 SITE_LEAVES = (("attn", "wq"), ("attn", "wk"), ("attn", "wv"), ("attn", "wo"),
                ("mlp", "w_up"), ("mlp", "w_gate"), ("mlp", "w_down"))
 
@@ -847,7 +867,8 @@ def _decode_step_profile(engine, cfg, kernels: dict[str, str]) -> None:
         log(f"  traced 3 steps: device busy {busy_us / 3e3:.2f} ms/step of "
             f"{wall_us / 3e3:.2f} ms/step under the profiler = "
             f"{100 * busy_us / wall_us:.1f} % busy, "
-            f"{100 - 100 * busy_us / wall_us:.1f} % idle")
+            f"{100 - 100 * busy_us / wall_us:.1f} % idle; "
+            f"{sum(r[2] for r in rows) // 3} device operations a step")
         for t, key, count in sorted(rows, reverse=True)[:10]:
             log(f"    {t / 3e3:8.3f} ms/step  x{count // 3:<5d} {key[:90]}")
         for name, piece in kernels.items():
@@ -1838,6 +1859,247 @@ def phase_ugemm(cfg, params, requests: int) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 10: grid (PE-array grids, grid plans, the sweet-spot report)
+# ---------------------------------------------------------------------------
+
+GRID = (2, 2)
+#: a decode step's contraction (8 rows) into every distinct dense-site shape,
+#: and a prefill one (27 rows): at 2x2 the shards are (8, 2048, 512),
+#: (8, 2048, 2048), (8, 2048, 7168), (8, 7168, 2048) and (27, 2048, 2048),
+#: every shard shape the grid-served trace gives tub_gemm at these rows
+GRID_SHAPES = (*((8, k, n) for k, n in sorted(set(SITE_SHAPES))),
+               (27, 4096, 4096))
+#: uGEMM's grid is not on the served path: a decode and a prefill shape
+UGEMM_GRID_SHAPES = ((8, *UP_SHAPE), (27, 4096, 4096))
+GRID_CASES = (("tubgemm_cuda", (2, 4, 8)), ("tugemm_cuda", (2, 4, 8)),
+              ("ugemm", (4,)))
+GRID_PLAN_KW = dict(PLAN_KW, grid=GRID)
+
+
+def _exact_product(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """The plain integer product on the card: float64 holds every partial
+    sum of int8 codes over these K exactly (< 2^53)."""
+    return torch.matmul(a.to(torch.float64), w.to(torch.float64)).to(torch.int32)
+
+
+def _grid_vs_unit() -> None:
+    gen = torch.Generator(device=DEV)
+    gen.manual_seed(21)
+    for spec, widths in GRID_CASES:
+        for bits in widths:
+            unit = backends.resolve(spec, bits=bits)
+            grid = backends.as_grid(unit, *GRID)
+            for m, k, n in UGEMM_GRID_SHAPES if spec == "ugemm" else GRID_SHAPES:
+                a, w = _codes(gen, (m, k), bits), _codes(gen, (k, n), bits)
+                codes = grid.shard_codes(w)
+                ug.reset_launches()
+                got = grid.execute(a, codes)
+                torch.cuda.synchronize()
+                shard_launches = dict(ug.LAUNCHES)
+                want = unit.execute(a, w)
+                require(torch.equal(got, want),
+                        f"{spec}@{bits} {GRID} grid != single unit at {(m, k, n)}")
+                if spec == "ugemm":
+                    plain = gemm_sims.ugemm_exact(a.cpu(), w.cpu(), bits=bits)
+                    require(torch.equal(got.cpu(), plain),
+                            f"ugemm@{bits} grid on the card != CPU at {(m, k, n)}")
+                else:
+                    require(torch.equal(got, _exact_product(a, w)),
+                            f"{spec}@{bits} grid != the integer product")
+                kernel = {"tubgemm_cuda": "tub_gemm",
+                          "tugemm_cuda": "tu_gemm"}.get(spec)
+                if kernel:
+                    require(shard_launches[kernel] == GRID[0] * GRID[1],
+                            f"{spec}: {shard_launches[kernel]} launches for "
+                            f"{GRID[0] * GRID[1]} shards")
+                t_grid = _time_ms(lambda: grid.execute(a, codes), reps=10)
+                t_unit = _time_ms(lambda: unit.execute(a, w), reps=10)
+                line = (f"  [{spec}@{bits} {(m, k, n)}] grid == unit == plain; "
+                        f"grid {t_grid:.4f} ms, unit {t_unit:.4f} ms")
+                if kernel:
+                    sub = codes.shards[(0, 0)]
+                    a0 = a[:, :sub.shape[0]].contiguous()
+                    fn = ug.tub_gemm if kernel == "tub_gemm" else ug.tu_gemm
+                    t_shard = _time_ms(lambda: fn(a0, sub, bits=bits), reps=10)
+                    line += (f"; {shard_launches[kernel]} {kernel} launches, "
+                             f"one shard {(m, *sub.shape)} {t_shard:.4f} ms")
+                log(line)
+
+
+def _rewrite_mirrors(gplan):
+    """The grid plan with every design that has a ``*_cuda`` mirror
+    rewritten to it, in the aggregate and in every shard."""
+    return dataclasses.replace(
+        gplan, aggregate=_kernel_plan(gplan.aggregate),
+        shards=tuple((key, _kernel_plan(p)) for key, p in gplan.shards))
+
+
+def _grid_serve(cfg, params, trace, **kw):
+    """One full-width serve of ``trace`` (per-row, fused decode), counters
+    zeroed just before and read just after."""
+    torch.cuda.reset_peak_memory_stats()
+    engine = ServingEngine(cfg, params, attention="fused", device=DEV, **kw,
+                           **SERVE_KW)
+    ug.reset_launches()
+    fused_lib.reset_launches()
+    t0 = time.perf_counter()
+    with activation_scaling("per-row"):
+        rep = engine.run(trace, "continuous")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {"tub_gemm": ug.LAUNCHES["tub_gemm"],
+                "tu_gemm": ug.LAUNCHES["tu_gemm"],
+                "fused_paged_decode": fused_lib.LAUNCHES["fused_paged_decode"]}
+    tag = "grid" if engine.grid else "flat"
+    log(f"  [{tag}] requests {rep.requests}/{len(trace)}, tokens {rep.tokens}, "
+        f"decode steps {rep.decode_steps}, prefill calls {rep.prefill_calls}; "
+        f"wall {wall:.2f} s, {rep.decode_steps / wall:.2f} decode steps/s, "
+        f"{rep.tokens / wall:.2f} tokens/s (prefill included); "
+        f"{rep.energy_per_token_uj:.2f} uJ/token (Eq. 1, "
+        f"{type(engine.energy.step_cost(8)).__name__}); launches {launches}; "
+        f"peak {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    require(rep.requests == len(trace), f"{tag} run: not every request completed")
+    require(launches["fused_paged_decode"] == cfg.num_layers * rep.decode_steps,
+            f"{tag} run: fused decode launches != layers x decode steps")
+    return engine, rep, wall, launches
+
+
+def phase_grid(cfg, params, requests: int) -> dict:
+    from repro_torch.analysis import plan_lint
+    from repro_torch.eval import planner
+    from repro_torch.eval import report as report_lib
+    from repro_torch.eval import sweetspot
+    t_phase = time.perf_counter()
+    # ---- 1. grid vs unit vs plain, per-shard launches and times
+    log(f"grid: as_grid(b, {GRID[0]}, {GRID[1]}).execute against the single unit")
+    _grid_vs_unit()
+    # ---- 2. plan the grid
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    sites = planner.discover_sites(cfg, params, batch=GRID_PLAN_KW["batch"])
+    gplan = planner.build_grid_plan(cfg, params, sites=sites, **GRID_PLAN_KW)
+    torch.cuda.synchronize()
+    plan_wall = time.perf_counter() - t0
+    meta = gplan.metadata()
+    agg = meta["totals"]["aggregate"]
+    best = agg["uniform_best"]
+    best_e = agg["uniform"][best]["dyn_energy_uj"] if best else math.inf
+    planned = agg["planned"]["dyn_energy_uj"]
+    hetero_e = agg["planned_heterogeneous"]["dyn_energy_uj"]
+    log(f"  build_grid_plan {GRID[0]}x{GRID[1]}: wall {plan_wall:.2f} s (profile "
+        f"of every shard's slice on the card), peak "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    for e in gplan.aggregate.sites:
+        per_shard = ", ".join(
+            f"{key}:{p.assignment_for(e.pattern).engine_label}"
+            for key, p in gplan.shards)
+        log(f"  {e.pattern:>20s} x{e.count:<3d} aggregate {e.engine_label:>11s} "
+            f"dyn {e.dyn_energy_uj:.4f} uJ; shards {per_shard}")
+    log(f"  heterogeneous sites: {list(gplan.heterogeneous_sites()) or 'none'}; "
+        f"aggregate planned {planned:.4f} uJ, per-shard heterogeneous "
+        f"{hetero_e:.4f} uJ, best uniform {best} {best_e:.4f} uJ "
+        f"({100 * (1 - planned / best_e):.2f} % less)")
+    names = [s.name for s in sites]
+    found = plan_lint.lint_plan(gplan, site_names=names)
+    require(not found, f"grid plan lint: {[f.render() for f in found]}")
+    require(best is not None and planned <= best_e * (1 + 1e-9),
+            "grid plan: planned energy above the best uniform grid plan's")
+    require(backends.GridPlan.from_json(gplan.to_json()) == gplan,
+            "the grid plan does not survive its JSON round trip")
+    t0 = time.perf_counter()
+    by_name = {s.name: s for s in sites}
+    for e in gplan.aggregate.sites:
+        cyc = planner.measure_grid_site_cycles(
+            by_name[e.pattern], e, grid=GRID, unit_n=GRID_PLAN_KW["unit_n"],
+            num_units=GRID_PLAN_KW["num_units"])
+        for coord, c in cyc.items():
+            require(c["dyn_floor"] - 0.5 <= c["measured"] <= c["wc"] + 0.5,
+                    f"measured cycles of {e.pattern} [{coord}] outside "
+                    f"[floor, wc]: {c}")
+    log(f"  lint clean; measured cycles within [floor, wc] on every shard of "
+        f"all {len(gplan.aggregate.sites)} sites "
+        f"({time.perf_counter() - t0:.2f} s)")
+    # ---- 3. serve the trace under the grid plan and its aggregate flat plan
+    kplan = _rewrite_mirrors(gplan)
+    with tempfile.TemporaryDirectory() as tmp:
+        kplan = backends.load_plan(kplan.save(os.path.join(tmp, "grid.json")))
+    trace = serve_trace(requests)
+    flat, rep_f, wall_f, launch_f = _grid_serve(cfg, params, trace,
+                                                plan=kplan.aggregate)
+    del flat
+    gc.collect()
+    torch.cuda.empty_cache()
+    engine, rep_g, wall_g, launch_g = _grid_serve(cfg, params, trace, plan=kplan,
+                                                  grid=GRID)
+    # ---- 3b. every site's int32 output, teacher-forced: the grid plan
+    # against its aggregate flat plan, bit for bit
+    flat = ServingEngine(cfg, params, plan=kplan.aggregate, attention="fused",
+                         device=DEV, **SERVE_KW)
+    t0 = time.perf_counter()
+    ref, got = _teacher_forced_sites(cfg, [flat, engine])
+    require(_sites_equal(ref, got), "the grid plan and its aggregate flat plan "
+                                    "differ in a site's int32 output")
+    log(f"  teacher-forced prefill + {TEACHER_STEPS} decode steps: all "
+        f"{len(ref)} site int32 outputs equal, grid plan vs its aggregate flat "
+        f"plan ({time.perf_counter() - t0:.1f} s)")
+    del ref, got, flat
+    gc.collect()
+    torch.cuda.empty_cache()
+    cache_gib = sum(wq.values.nbytes() for _, wq in engine.weight_cache.values())
+    log(f"  grid engine's code cache: {len(engine.weight_cache)} weights in "
+        f"shard blocks, {cache_gib / 2**30:.2f} GiB")
+    require(rep_g.request_tokens == rep_f.request_tokens
+            and rep_g.events == rep_f.events,
+            "the grid plan and its aggregate flat plan sampled different streams")
+    for name in ("tub_gemm", "tu_gemm"):
+        require(launch_g[name] == GRID[0] * GRID[1] * launch_f[name],
+                f"{name}: {launch_g[name]} launches on the grid, "
+                f"{launch_f[name]} flat (want x{GRID[0] * GRID[1]})")
+    require(launch_g["tub_gemm"] + launch_g["tu_gemm"] > 0,
+            "the grid run launched no unary kernel")
+    log(f"  grid vs flat token streams: identical over {len(trace)} requests; "
+        f"trace wall grid {wall_g:.2f} s against flat {wall_f:.2f} s "
+        f"({wall_g / wall_f:.2f}x)")
+    kernels = {"fused_paged_decode": "fused_decode_split_kernel"}
+    if launch_g["tub_gemm"]:
+        kernels["tub_gemm"] = "TubPulses"
+    if launch_g["tu_gemm"]:
+        kernels["tu_gemm"] = "TuPulses"
+    log("  grid plan run, steady decode step:")
+    _decode_step_profile(engine, cfg, kernels)
+    del engine
+    gc.collect()
+    torch.cuda.empty_cache()
+    # ---- 4. the sweet-spot report, its cross-check on the card
+    ug.reset_launches()
+    t0 = time.perf_counter()
+    report = sweetspot.build_report(device=DEV)
+    torch.cuda.synchronize()
+    cross = report.kernel_crosscheck
+    log(f"  sweet-spot report: {len(report.points)} points, "
+        f"{len(report.winners)} winners, {len(report.crossovers)} crossovers, "
+        f"grid fidelity {report.grid_fidelity}; kernel_crosscheck "
+        f"{len(cross)} rows on the card, launches tub {ug.LAUNCHES['tub_gemm']} "
+        f"tu {ug.LAUNCHES['tu_gemm']} ({time.perf_counter() - t0:.2f} s)")
+    require(cross and all(r["output_ok"] and r["cycles_ok"] for r in cross),
+            f"kernel_crosscheck on the card: {cross}")
+    require(ug.LAUNCHES["tub_gemm"] >= 3 and ug.LAUNCHES["tu_gemm"] >= 3,
+            "kernel_crosscheck did not launch the kernels")
+    with tempfile.TemporaryDirectory() as tmp:
+        json_path, md_path = report_lib.write(report, tmp)
+        require(os.path.getsize(json_path) > 0 and os.path.getsize(md_path) > 0,
+                "the sweet-spot report was not written")
+    for c in report.crossovers:
+        log(f"    crossover {c.metric} {c.bits}b: {c.from_design} at n="
+            f"{c.n_below} -> {c.to_design} from n={c.n_at}")
+    energy = [w for w in report.winners if w.metric == "energy_nj"]
+    log("    energy_nj winners: " + ", ".join(
+        f"{w.bits}b/{w.n}:{w.design}({w.margin:.2f}x)" for w in energy))
+    log(f"  grid phase wall {time.perf_counter() - t_phase:.1f} s")
+    return {"launches": {}, "launches_run": {}}
+
+
+# ---------------------------------------------------------------------------
 # phase 8: train
 # ---------------------------------------------------------------------------
 
@@ -2432,10 +2694,11 @@ def main() -> int:
             if "probes" in phases:
                 log("phase probes")
                 phase_probes()
-            if {"serve", "quant", "plan", "ugemm"} & set(phases):
+            if {"serve", "quant", "plan", "ugemm", "grid"} & set(phases):
                 cfg, params = served_model(args.layers)
                 for name, phase in (("serve", phase_serve), ("quant", phase_quant),
-                                    ("plan", phase_plan), ("ugemm", phase_ugemm)):
+                                    ("plan", phase_plan), ("ugemm", phase_ugemm),
+                                    ("grid", phase_grid)):
                     if name in phases:
                         log(f"phase {name}")
                         served = phase(cfg, params, args.requests)

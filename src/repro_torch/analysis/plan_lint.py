@@ -1,4 +1,4 @@
-"""Static lint for ``BackendPlan`` documents.
+"""Static lint for ``BackendPlan`` / ``GridPlan`` documents.
 
 A plan is a claim: "these (pattern -> design@bits) assignments are what the
 model should execute".  This pass checks the claim without running
@@ -17,6 +17,8 @@ anything:
   error exceeded the accuracy guard (every bit-width failed);
 * ``acc-overflow`` — the assignment's recorded contraction geometry leaves
   the design's accumulator envelope (:mod:`repro_torch.analysis.ranges`);
+  for grid plans, per-shard entries check their shard-local K and aggregate
+  entries check the geometry's ceil K split;
 * ``invalid-stream`` / ``stream-guard`` — stream-length hygiene for the
   rate-coded ``ugemm_stochastic`` family: a stochastic entry must carry
   ``stream_len >= 1`` (and no count-exact design may carry one), and its
@@ -38,9 +40,7 @@ record ``k``/``n_out``), or from a model trace when the caller has one.
 Known designs are the port's: ``core.gemm_sims`` designs, the ``*_cuda``
 kernel mirrors and ``ugemm_stochastic``.  A plan naming a ``*_pallas`` mirror
 of the JAX package gets ``unknown-design``: no kernel of that name exists
-here, its ``*_cuda`` name is the counterpart.  Grid plans
-(``lint_grid_plan``) wait for the grids slice; :func:`lint_plan` on one
-raises ``NotImplementedError``.
+here, its ``*_cuda`` name is the counterpart.
 """
 
 from __future__ import annotations
@@ -51,7 +51,7 @@ from typing import Mapping, Sequence
 
 from repro_torch.analysis import ranges
 from repro_torch.analysis.findings import ERROR, WARNING, Finding
-from repro_torch.backends import GRID_PLAN_MSG, load_plan
+from repro_torch.backends.grid import GridPlan, load_plan
 from repro_torch.backends.plan import BackendPlan, SiteAssignment, _specificity
 from repro_torch.backends.registry import KERNEL_SIBLINGS
 from repro_torch.core import gemm_sims
@@ -247,26 +247,52 @@ def lint_backend_plan(plan: BackendPlan, *,
     return out
 
 
+def lint_grid_plan(plan: GridPlan, *,
+                   site_names: Sequence[str] | None = None,
+                   packed_bits: Mapping[str, int] | None = None
+                   ) -> list[Finding]:
+    """Findings for a :class:`GridPlan`: per-shard plans check shard-local
+    contraction lengths (their entries record the slice dims); the
+    aggregate plan is checked at the geometry's ceil K split, which is what
+    replay through ``GridBackend`` actually contracts per shard."""
+    out: list[Finding] = []
+    for key, shard_plan in plan.shards:
+        out.extend(lint_backend_plan(shard_plan, site_names=None,
+                                     where_prefix=f"shard {key}/"))
+    agg = plan.aggregate
+    max_rel_mse = agg.metadata().get("max_rel_mse")
+    for i, entry in enumerate(agg.sites):
+        where = (f"aggregate sites[{i}] {entry.pattern!r} "
+                 f"-> {entry.design}@{entry.bits}b "
+                 f"[grid {plan.units_x}x{plan.units_y}]")
+        k_shard = -(-int(entry.k) // plan.units_x) if entry.k else 0
+        out.extend(_entry_findings(entry, where=where, k_override=k_shard,
+                                   max_rel_mse=max_rel_mse))
+    out.extend(_pattern_findings(agg, site_names=site_names,
+                                 where_prefix="aggregate "))
+    out.extend(_packed_findings(agg, packed_bits=packed_bits,
+                                where_prefix="aggregate "))
+    return out
+
+
 def lint_plan(plan, *, site_names: Sequence[str] | None = None,
               packed_bits: Mapping[str, int] | None = None) -> list[Finding]:
-    """Dispatch on plan flavour (a grid plan raises: the grids slice)."""
+    """Dispatch on plan flavour."""
+    if isinstance(plan, GridPlan):
+        return lint_grid_plan(plan, site_names=site_names,
+                              packed_bits=packed_bits)
     if isinstance(plan, BackendPlan):
         return lint_backend_plan(plan, site_names=site_names,
                                  packed_bits=packed_bits)
-    if type(plan).__name__ == "GridPlan":
-        raise NotImplementedError(GRID_PLAN_MSG)
-    raise TypeError(f"expected a BackendPlan, got {type(plan)!r}")
+    raise TypeError(f"expected BackendPlan or GridPlan, got {type(plan)!r}")
 
 
 def lint_plan_file(path, *, site_names: Sequence[str] | None = None
                    ) -> list[Finding]:
-    """Load and lint one plan JSON document (a grid plan raises
-    ``NotImplementedError``)."""
+    """Load (schema-sniffing) and lint one plan JSON document."""
     path = pathlib.Path(path)
     try:
         plan = load_plan(path)
-    except NotImplementedError:   # a grid plan: not a fault of the file
-        raise
     except Exception as e:  # malformed JSON/schema is itself a finding
         return [Finding(pass_name="plan-lint", rule="unloadable-plan",
                         severity=ERROR, where=str(path),

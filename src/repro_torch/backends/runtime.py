@@ -32,7 +32,11 @@ given, sees each site's raw GEMM output as it is produced (int32 counts of
 the exact designs, uGEMM's float32 estimate), which is what the parity
 tests and the on-card site comparisons read.
 
-PE-array grids (``grid=``) are not ported yet.
+PE-array grids: ``use_backend(..., grid=(X, Y))``, ``use_plan(..., grid=)``
+and a :class:`~repro_torch.backends.grid.GridPlan` wrap every resolved
+backend in a :class:`~repro_torch.backends.grid.GridBackend`, which runs the
+site's shards one after another on the operands' device, bit-identical to
+the single unit.
 """
 
 from __future__ import annotations
@@ -46,6 +50,7 @@ import torch
 
 from repro_torch.analysis import ranges
 from repro_torch.backends.base import GemmBackend
+from repro_torch.backends.grid import GridPlan, as_grid, load_plan, parse_grid
 from repro_torch.backends.plan import BackendPlan
 from repro_torch.core import packing, ppa, sparsity
 from repro_torch.core.quantization import quantize
@@ -58,10 +63,6 @@ __all__ = ["ExecutedGemm", "BackendExecution", "PlanExecution",
            "SiteRecorder", "use_backend", "use_plan", "pack_weights",
            "record_sites", "active_backend", "active_execution", "site_scope",
            "current_site", "measure_matrix_cycles"]
-
-_GRID_MSG = ("needs backends/grid.py, which the grids slice of the port "
-             "brings")
-
 
 @dataclasses.dataclass(frozen=True)
 class ExecutedGemm:
@@ -124,26 +125,34 @@ class BackendExecution:
 class PlanExecution(BackendExecution):
     """Live handle for one :func:`use_plan` scope.
 
-    ``plan`` — the :class:`~repro_torch.backends.plan.BackendPlan`;
-    ``backend`` is None (there is no single engine — :meth:`backend_for`
-    resolves per site).  Backends are resolved once per site name and cached
-    for the scope's lifetime.  ``on_output`` and ``weight_cache`` work as in
-    :class:`BackendExecution`; the cache keys on the bit-width, so sites
-    planned at different widths never share codes.
+    ``plan`` — the :class:`~repro_torch.backends.plan.BackendPlan` (or a
+    :class:`~repro_torch.backends.grid.GridPlan`, which wraps its aggregate
+    entries in grid backends itself); ``backend`` is None (there is no
+    single engine — :meth:`backend_for` resolves per site).  ``grid`` — an
+    optional (units_x, units_y) shape that wraps every resolved backend in a
+    :class:`~repro_torch.backends.grid.GridBackend`.  Backends are resolved
+    once per site name and cached for the scope's lifetime.  ``on_output``
+    and ``weight_cache`` work as in :class:`BackendExecution`; the cache
+    keys on the bit-width and the grid, so sites planned at different widths
+    never share codes.
     """
 
-    def __init__(self, plan, on_output=None,
-                 weight_cache: dict | None = None) -> None:
+    def __init__(self, plan, grid: tuple[int, int] | None = None,
+                 on_output=None, weight_cache: dict | None = None) -> None:
         super().__init__(backend=None, on_output=on_output,
                          weight_cache=weight_cache)
         self.plan = plan
+        self.grid = grid
         self._cache: dict[str, GemmBackend | None] = {}
 
     def backend_for(self, site: str) -> GemmBackend | None:
         try:
             return self._cache[site]
         except KeyError:
-            backend = self._cache[site] = self.plan.backend_for(site)
+            backend = self.plan.backend_for(site)
+            if backend is not None and self.grid is not None:
+                backend = as_grid(backend, *self.grid)
+            self._cache[site] = backend
             return backend
 
 
@@ -247,16 +256,17 @@ def use_backend(spec: str | GemmBackend, *, bits: int | None = None,
     """Execute every ``dense`` contraction in the block on ``spec``.
 
     Args as :func:`repro_torch.backends.resolve` (``stream_len`` selects the
-    stochastic family's rate-coded stream length); ``grid`` (PE-array grids)
-    is accepted for signature parity and raises ``NotImplementedError`` until
-    ``backends/grid.py`` is ported.  Yields the scope's
-    :class:`BackendExecution` (``.backend``, ``.calls``).
+    stochastic family's rate-coded stream length), plus ``grid`` — an
+    optional (units_x, units_y) tuple or ``"X,Y"`` string that wraps the
+    resolved backend in a :class:`~repro_torch.backends.grid.GridBackend`,
+    so every dense contraction is sharded across the PE-array grid.  Yields
+    the scope's :class:`BackendExecution` (``.backend``, ``.calls``).
     Scopes nest — the innermost wins — and unwind correctly on exceptions.
     """
     from repro_torch.backends.registry import resolve
-    if grid is not None:
-        raise NotImplementedError(f"use_backend(grid=...) {_GRID_MSG}")
     backend = resolve(spec, bits=bits, stream_len=stream_len)
+    if grid is not None:
+        backend = as_grid(backend, *parse_grid(grid))
     execution = BackendExecution(backend, on_output=on_output,
                                  weight_cache=weight_cache)
     with _pushed(execution):
@@ -264,26 +274,35 @@ def use_backend(spec: str | GemmBackend, *, bits: int | None = None,
 
 
 def _load(plan):
-    from repro_torch.backends import load_plan
-    return plan if isinstance(plan, BackendPlan) else load_plan(plan)
+    return (plan if isinstance(plan, (BackendPlan, GridPlan))
+            else load_plan(plan))
 
 
-def _validate_plan_envelopes(plan) -> None:
+def _validate_plan_envelopes(plan, grid: tuple[int, int] | None) -> None:
     """Fail fast on assignments whose evidence leaves the safe envelope.
 
-    Entries record the contraction length they were planned for (``k``).
-    Executing outside the envelope would raise mid-forward anyway (the
-    backend guard); checking here turns that into an immediate, plan-level
-    error naming the offending entry.  Entries without geometry evidence
-    (hand-written pattern-only plans) are skipped — the execute guard still
-    covers them.
+    Entries record the contraction length they were planned for (``k``;
+    shard entries record their slice, aggregate grid entries the full K,
+    checked at the grid's ceil K split).  Executing outside the envelope
+    would raise mid-forward anyway (the backend guard); checking here turns
+    that into an immediate, plan-level error naming the offending entry.
+    Entries without geometry evidence (hand-written pattern-only plans) are
+    skipped — the execute guard still covers them.
     """
-    for entry in plan.sites:
-        if entry.k:
-            ranges.assert_within_envelope(
-                entry.design, entry.bits, int(entry.k),
-                where=f"plan entry {entry.pattern!r}",
-                stream_len=entry.stream_len or None)
+    def check(entries, units_x: int, label: str) -> None:
+        for entry in entries:
+            if entry.k:
+                ranges.assert_within_envelope(
+                    entry.design, entry.bits, -(-int(entry.k) // units_x),
+                    where=f"{label} entry {entry.pattern!r}",
+                    stream_len=entry.stream_len or None)
+
+    if isinstance(plan, GridPlan):
+        check(plan.aggregate.sites, plan.units_x, "aggregate plan")
+        for key, shard_plan in plan.shards:
+            check(shard_plan.sites, 1, f"shard {key} plan")
+    else:
+        check(plan.sites, grid[0] if grid else 1, "plan")
 
 
 @contextlib.contextmanager
@@ -291,13 +310,19 @@ def use_plan(plan, *, grid=None, on_output=None,
              weight_cache: dict | None = None):
     """Execute every ``dense`` contraction on the site's planned backend.
 
-    ``plan`` — a :class:`~repro_torch.backends.plan.BackendPlan` or a
-    path-like / str (loaded via :func:`repro_torch.backends.load_plan`).
-    Each dense site is matched against the plan's patterns (most specific
-    wins, see ``repro_torch.backends.plan``); unmatched sites run the float
-    path.  ``on_output`` / ``weight_cache`` as in :func:`use_backend`.
-    ``grid`` is accepted for signature parity and raises
-    ``NotImplementedError`` until ``backends/grid.py`` is ported.
+    ``plan`` — a :class:`~repro_torch.backends.plan.BackendPlan`, a
+    :class:`~repro_torch.backends.grid.GridPlan`, or a path-like / str
+    (loaded via :func:`repro_torch.backends.load_plan`, which sniffs the
+    schema).  Each dense site is matched against the plan's patterns (most
+    specific wins, see ``repro_torch.backends.plan``); unmatched sites run
+    the float path.  ``on_output`` / ``weight_cache`` as in
+    :func:`use_backend`.
+
+    ``grid`` — optional (units_x, units_y) / ``"X,Y"`` grid every resolved
+    backend is wrapped in.  A :class:`GridPlan` brings its own grid (its
+    aggregate entries execute grid-wrapped; shard-local site names resolve
+    to single-node backends) — passing a different ``grid`` next to one is
+    an error.
 
     Yields a :class:`PlanExecution` whose ``.calls`` lists every contracted
     site with the backend it actually ran on.  Nests with
@@ -306,11 +331,16 @@ def use_plan(plan, *, grid=None, on_output=None,
     against each assignment's accumulator envelope
     (``repro_torch.analysis.ranges``).
     """
-    if grid is not None:
-        raise NotImplementedError(f"use_plan(grid=...) {_GRID_MSG}")
     plan = _load(plan)
-    _validate_plan_envelopes(plan)
-    with _pushed(PlanExecution(plan, on_output=on_output,
+    if grid is not None:
+        grid = parse_grid(grid)
+    _validate_plan_envelopes(plan, grid)
+    if isinstance(plan, GridPlan):
+        if grid is not None and grid != plan.grid:
+            raise ValueError(f"use_plan(grid={grid}) conflicts with the "
+                             f"GridPlan's own grid {plan.grid}")
+        grid = None  # GridPlan.backend_for wraps its aggregate itself
+    with _pushed(PlanExecution(plan, grid=grid, on_output=on_output,
                                weight_cache=weight_cache)) as execution:
         yield execution
 
@@ -337,12 +367,17 @@ def pack_weights(cfg, params, plan=None, *, bits: int | None = None,
     weight bytes shrink 4–16x (``core.accounting.packed_store_report``).
     The other leaves are shared with ``params``, not copied.
 
-    ``plan`` — a :class:`~repro_torch.backends.plan.BackendPlan` or a path.
-    Alternatively pass ``bits`` to freeze every discovered site at one
-    uniform width (the ``use_backend`` analogue).  Sites the plan leaves
-    unmatched keep their float leaves — they run the float path under
-    ``use_plan``, exactly as before.  ``grid`` raises
-    ``NotImplementedError`` until ``backends/grid.py`` is ported.
+    ``plan`` — a :class:`~repro_torch.backends.plan.BackendPlan` /
+    :class:`~repro_torch.backends.grid.GridPlan` or a path (schema-sniffed
+    via ``load_plan``).  Alternatively pass ``bits`` to freeze every
+    discovered site at one uniform width (the ``use_backend`` analogue).
+    Sites the plan leaves unmatched keep their float leaves — they run the
+    float path under ``use_plan``, exactly as before.
+
+    ``grid`` — (units_x, units_y) / ``"X,Y"``: pack per shard along the
+    same ceil K split :meth:`~repro_torch.backends.grid.GridBackend.execute`
+    applies, so no int32 word straddles a shard boundary.  A
+    :class:`GridPlan` brings its own grid.
 
     Already-packed leaves pass through when their width matches the
     assignment and raise otherwise (the stale-width hazard plan-lint's
@@ -352,14 +387,21 @@ def pack_weights(cfg, params, plan=None, *, bits: int | None = None,
 
     if (plan is None) == (bits is None):
         raise ValueError("pack_weights wants exactly one of plan= or bits=")
-    if grid is not None:
-        raise NotImplementedError(f"pack_weights(grid=...) {_GRID_MSG}")
+    entry_plan = None
     if plan is not None:
         plan = _load(plan)
+        entry_plan = plan.aggregate if isinstance(plan, GridPlan) else plan
+        if isinstance(plan, GridPlan):
+            if grid is not None and parse_grid(grid) != plan.grid:
+                raise ValueError(
+                    f"pack_weights(grid={grid}) conflicts with the "
+                    f"GridPlan's own grid {plan.grid}")
+            grid = plan.grid
+    grid_x = parse_grid(grid)[0] if grid is not None else 1
     assignments: dict[str, tuple[int, int, int]] = {}
     for site in planner_lib.discover_sites(cfg, params):
-        if plan is not None:
-            entry = plan.assignment_for(site.name)
+        if entry_plan is not None:
+            entry = entry_plan.assignment_for(site.name)
             if entry is None:
                 continue
             width = int(entry.bits)
@@ -379,7 +421,8 @@ def pack_weights(cfg, params, plan=None, *, bits: int | None = None,
                     f"codes but the plan assigns {width}-bit — repack from "
                     f"the float parameters (packed-width-mismatch)")
             return leaf
-        return packing.pack_quantized(leaf, bits=width, k=k, n_out=n_out)
+        return packing.pack_quantized(leaf, bits=width, k=k, n_out=n_out,
+                                      grid_x=grid_x)
 
     return _replace_leaves(params, pack)
 
@@ -409,6 +452,12 @@ def measure_matrix_cycles(backend: GemmBackend, weight, *, rows: int,
 
     For sparsity-aware designs ``dyn_floor ≤ measured ≤ wc``; designs
     without early termination report measured == dyn == floor == wc.
+
+    Grid backends stay consistent with their per-shard cycle model: the
+    per-tile cycles already cover the ceil-split contraction (plus hops),
+    so the wave count comes from a *shard's* output tile share
+    (``⌈n_out / units_y⌉``), matching ``ppa.GridDLAModel`` — all shards
+    run their waves in parallel.
     """
     if packing.is_packed(weight):
         raise TypeError(
@@ -426,7 +475,8 @@ def measure_matrix_cycles(backend: GemmBackend, weight, *, rows: int,
         bit_elem = st.bit_elem if bit_elem is None else bit_elem
     dla = ppa.DLAModel(design=backend.pricing_design, bits=backend.bits,
                        n=unit_n, num_units=num_units)
-    waves = math.ceil(dla.tiles(rows, n_out) / num_units)
+    shard_n_out = math.ceil(n_out / getattr(backend, "units_y", 1))
+    waves = math.ceil(dla.tiles(rows, shard_n_out) / num_units)
     codes = quantize(w, bits=backend.bits).values
     return {
         "measured": float(backend.dyn_cycles(operand=codes)) * waves,

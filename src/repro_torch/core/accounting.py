@@ -19,7 +19,7 @@ import math
 from repro_torch.core import ppa
 from repro_torch.core.sparsity import SparsityStats
 
-__all__ = ["GemmCall", "GemmWorkloadRecorder", "ModelCost",
+__all__ = ["GemmCall", "GemmWorkloadRecorder", "ModelCost", "GridCost",
            "PackedStoreReport", "packed_store_report", "price_workload"]
 
 
@@ -88,6 +88,38 @@ class ModelCost:
         return 1.0 - self.dyn_energy_uj / self.wc_energy_uj
 
 
+@dataclasses.dataclass(frozen=True)
+class GridCost(ModelCost):
+    """A :class:`ModelCost` priced on a ``units_x`` × ``units_y`` grid of
+    DLA nodes (``repro_torch.core.ppa.GridDLAModel`` tiling).
+
+    Extra fields over the single-node cost: the grid shape, the interconnect
+    share of the dynamic totals (``hop_energy_uj`` / ``hop_latency_us``, also
+    folded into ``dyn_*``/``wc_*``), and ``utilization`` — the MAC-weighted
+    mean useful/padded ratio across the workload (1.0 when every contraction
+    divides the grid evenly).  Consumers that only understand ``ModelCost``
+    (sweet-spot ranking, serve cost tables) keep working: a grid prices as
+    one bigger, hop-taxed DLA.
+    """
+
+    units_x: int = 1
+    units_y: int = 1
+    hop_energy_uj: float = 0.0
+    hop_latency_us: float = 0.0
+    utilization: float = 1.0
+
+    @property
+    def grid(self) -> tuple[int, int]:
+        return (self.units_x, self.units_y)
+
+    @property
+    def hop_energy_share(self) -> float:
+        """Fraction of the dynamic energy spent on chip-to-chip links."""
+        if self.dyn_energy_uj == 0:
+            return 0.0
+        return self.hop_energy_uj / self.dyn_energy_uj
+
+
 def price_workload(calls: list[GemmCall], design="tubgemm",
                    bits: int = 4, unit_n: int = 128,
                    num_units: int = 1, grid=None) -> ModelCost:
@@ -99,22 +131,27 @@ def price_workload(calls: list[GemmCall], design="tubgemm",
     scaled by ``backend.cycle_scale``, and uncalibrated designs fail in ppa
     with a clear "no PPA calibration" error.
 
-    ``grid`` — tensor-parallel grids of DLA nodes are priced by a later
-    slice of the port; anything but ``None`` raises ``NotImplementedError``.
+    ``grid`` — optional ``(units_x, units_y)`` tensor-parallel grid of DLA
+    nodes; a ``repro_torch.backends.GridBackend`` supplies its own grid
+    shape.  With a grid the result is a :class:`GridCost` priced on the
+    ``ppa.GridDLAModel`` sharded tiling (per-shard tile counts plus the
+    interconnect hop terms).
     """
     from repro_torch import backends
     backend = (design if isinstance(design, backends.GemmBackend)
                else backends.resolve(design, bits=bits))
-    if grid is not None:
-        raise NotImplementedError(
-            "grid pricing (GridCost / ppa.GridDLAModel tiling) is not ported "
-            "yet: it lands with backends/grid.py in a later slice")
+    if grid is None:
+        grid = getattr(backend, "grid", None)
     design, bits = backend.pricing_design, backend.bits
     # Stream-coded backends price as their pricing design with a per-tile
     # cycle multiplier (stream_len / 2^bits); 1.0 for everything else.
+    cycle_scale = float(backend.cycle_scale)
+    if grid is not None:
+        return _price_grid(calls, design, bits, unit_n, num_units,
+                           int(grid[0]), int(grid[1]),
+                           cycle_scale=cycle_scale)
     dla = ppa.DLAModel(design=design, bits=bits, n=unit_n,
-                       num_units=num_units,
-                       cycle_scale=float(backend.cycle_scale))
+                       num_units=num_units, cycle_scale=cycle_scale)
     wc_ns = dyn_ns = wc_nj = dyn_nj = 0.0
     per_layer: dict[str, tuple[float, float]] = {}
     macs = 0
@@ -210,3 +247,43 @@ def packed_store_report(params) -> PackedStoreReport:
         float32_bytes=f32, stored_bytes=stored,
         packed_sites=packed_sites, total_sites=total_sites,
         packed_float32_bytes=packed_f32, packed_stored_bytes=packed_stored)
+
+
+def _price_grid(calls: list[GemmCall], design: str, bits: int, unit_n: int,
+                num_units: int, units_x: int, units_y: int, *,
+                cycle_scale: float = 1.0) -> GridCost:
+    """The grid branch of :func:`price_workload` (same contract)."""
+    gdla = ppa.GridDLAModel(design=design, bits=bits, n=unit_n,
+                            num_units=num_units, units_x=units_x,
+                            units_y=units_y, cycle_scale=cycle_scale)
+    wc_ns = dyn_ns = wc_nj = dyn_nj = hop_nj = hop_ns = 0.0
+    per_layer: dict[str, tuple[float, float]] = {}
+    macs = padded_macs = 0
+    for c in calls:
+        l_wc = gdla.matmul_latency_ns(c.m, c.k, c.n_out, 0.0) * c.count
+        l_dyn = gdla.matmul_latency_ns(c.m, c.k, c.n_out,
+                                       c.bit_sparsity) * c.count
+        e_wc = gdla.matmul_energy_nj(c.m, c.k, c.n_out, 0.0) * c.count
+        e_dyn = gdla.matmul_energy_nj(c.m, c.k, c.n_out,
+                                      c.bit_sparsity) * c.count
+        hop_nj += gdla.hop_energy_nj(c.m, c.k, c.n_out) * c.count
+        hop_ns += gdla.hop_latency_ns() * c.count
+        wc_ns += l_wc
+        dyn_ns += l_dyn
+        wc_nj += e_wc
+        dyn_nj += e_dyn
+        prev = per_layer.get(c.name, (0.0, 0.0))
+        per_layer[c.name] = (prev[0] + l_dyn * 1e-3, prev[1] + e_dyn * 1e-3)
+        macs += c.macs
+        ks, ns = gdla.shard_dims(c.k, c.n_out)
+        padded_macs += c.m * ks * units_x * ns * units_y * c.count
+    return GridCost(
+        design=design, bits=bits, unit_n=unit_n, num_units=num_units,
+        total_macs=macs,
+        wc_latency_us=wc_ns * 1e-3, dyn_latency_us=dyn_ns * 1e-3,
+        wc_energy_uj=wc_nj * 1e-3, dyn_energy_uj=dyn_nj * 1e-3,
+        per_layer=per_layer,
+        units_x=units_x, units_y=units_y,
+        hop_energy_uj=hop_nj * 1e-3, hop_latency_us=hop_ns * 1e-3,
+        utilization=(macs / padded_macs) if padded_macs else 1.0,
+    )

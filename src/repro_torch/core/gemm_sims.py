@@ -75,6 +75,8 @@ __all__ = [
     "tugemm_exact",
     "tubgemm_exact",
     "ugemm_exact",
+    "ugemm_counts",
+    "ugemm_decode",
     "tugemm_stream",
     "tubgemm_stream",
     "ugemm_stream",
@@ -107,6 +109,11 @@ class DesignSpec:
     product-step max magnitudes ``step_max: (K,)``; None means worst case.
     ``exact`` — True iff the functional result is deterministic integer GEMM
     (bit-identical to the binary oracle); False for stochastic designs.
+    ``count_fn(a, b, bits)`` / ``decode_fn(counts, bits)`` — for designs
+    whose float result decodes an exact integer count (uGEMM and the
+    rate-coded family): ``exact_fn == decode_fn(count_fn(...))``, and the
+    int64 counts of two K-slices add exactly, which is how a PE-array grid
+    reduces its shards before decoding once.  None for the int32 designs.
     """
 
     name: str
@@ -116,6 +123,8 @@ class DesignSpec:
     sparsity_aware: bool = False
     dyn_operand_fn: Callable[[int, torch.Tensor], torch.Tensor] | None = None
     exact: bool = True
+    count_fn: Callable[[torch.Tensor, torch.Tensor, int], torch.Tensor] | None = None
+    decode_fn: Callable[[torch.Tensor, int], torch.Tensor] | None = None
 
 
 _REGISTRY: dict[str, DesignSpec] = {}
@@ -133,6 +142,8 @@ def register_design(name: str,
                     sparsity_aware: bool = False,
                     dyn_operand_fn: Callable | None = None,
                     exact: bool = True,
+                    count_fn: Callable | None = None,
+                    decode_fn: Callable | None = None,
                     overwrite: bool = False) -> DesignSpec:
     """Register a GEMM unit design with the dispatch layer.
 
@@ -149,7 +160,7 @@ def register_design(name: str,
                       wc_cycles_fn=wc_cycles_fn,
                       sparsity_aware=sparsity_aware,
                       dyn_operand_fn=dyn_operand_fn,
-                      exact=exact)
+                      exact=exact, count_fn=count_fn, decode_fn=decode_fn)
     _REGISTRY[name] = spec  # analysis: allow-registry-mutation (this is the registry's own module)
     DESIGNS = tuple(_REGISTRY)
     return spec
@@ -429,6 +440,17 @@ def _unified_groups(bits: int) -> SlotGroups:
     return SlotGroups(*_unified_tables(bits))
 
 
+def ugemm_counts(a: torch.Tensor, b: torch.Tensor, bits: int = 8) -> torch.Tensor:
+    """uGEMM's exact signed AND-counts of its unified streams, (M, N) int64."""
+    return signed_slot_counts(a, b, _unified_groups(bits))
+
+
+def ugemm_decode(counts: torch.Tensor, bits: int = 8) -> torch.Tensor:
+    """uGEMM's float32 estimate ``count * V^2 / L`` of :func:`ugemm_counts`."""
+    V = vmax(bits)
+    return _scaled(counts, V * V, unary.rate_stream_len(bits))
+
+
 def ugemm_exact(a: torch.Tensor, b: torch.Tensor, bits: int = 8) -> torch.Tensor:  # analysis: allow-float-accumulation (float32 chunk products of integer counts below 2^24, summed as int64)
     """uGEMM's output: exact AND-counts of its unified streams, decoded.
 
@@ -436,9 +458,7 @@ def ugemm_exact(a: torch.Tensor, b: torch.Tensor, bits: int = 8) -> torch.Tensor
     device.  Returns the (M, N) float32 estimate ``count * V^2 / L`` (see
     the module docstring for how this relates to the reference's LUT sum).
     """
-    V = vmax(bits)
-    counts = signed_slot_counts(a, b, _unified_groups(bits))
-    return _scaled(counts, V * V, unary.rate_stream_len(bits))
+    return ugemm_decode(ugemm_counts(a, b, bits), bits)
 
 
 # ---------------------------------------------------------------------------
@@ -610,6 +630,8 @@ register_design(
     stream_fn=lambda a, b, bits: ugemm_stream(a, b, bits),
     wc_cycles_fn=lambda bits, common_dim: 2 ** bits,
     exact=False,   # stochastic multiplier: estimate, not the int32 oracle
+    count_fn=lambda a, b, bits: ugemm_counts(a, b, bits),
+    decode_fn=lambda counts, bits: ugemm_decode(counts, bits),
 )
 
 register_design(

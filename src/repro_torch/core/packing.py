@@ -21,12 +21,20 @@ sign-extends each field, so the round trip is exact for every signed
 per output channel, ``(…, 1, n)`` — so :meth:`PackedQuantized.dequantize`
 is bit-identical to ``Quantized.dequantize()`` on the same codes.
 
-Stores here are flat (``grid_x == 1``): a store packed per K-band for a
-unit grid arrives with the grids slice.  ``PackedQuantized`` is a plain
-dataclass of tensors; ``store[i]`` slices a stacked store ``(L, words,
-n)`` along its leading axis, as the layer loop does.  The logical
-``shape`` / ``ndim`` / ``reshape`` report the *unpacked* weight geometry,
-so shape-driven code keeps working.
+**Grid shard packing** (``grid_x > 1``).  ``GridBackend.execute`` splits
+the contraction dim into ``grid_x`` ceil-sized row bands.  A grid store
+packs each band's codes *separately* (``packed`` gains a shard axis:
+``(*lead, grid_x, shard_words, n)``), so no int32 word straddles a shard
+boundary and every unit can decode its own rows without touching a
+neighbour's words.  The reassembled codes equal the full-weight
+quantization codes — the same quantize-then-slice contract
+``GridBackend.execute`` applies — so grid execution from the packed store
+stays bit-identical.
+
+``PackedQuantized`` is a plain dataclass of tensors; ``store[i]`` slices a
+stacked store ``(L, words, n)`` along its leading axis, as the layer loop
+does.  The logical ``shape`` / ``ndim`` / ``reshape`` report the
+*unpacked* weight geometry, so shape-driven code keeps working.
 """
 
 from __future__ import annotations
@@ -53,10 +61,6 @@ __all__ = [
 
 #: operand widths with a whole number of codes per int32 word
 PACK_BITS = (2, 4, 8)
-
-_GRID_MSG = ("grid stores (grid_x > 1, one packed band per unit row) arrive "
-             "with the grids slice (backends/grid.py)")
-
 
 def codes_per_word(bits: int) -> int:
     """How many ``bits``-wide codes one int32 word holds (16 / 8 / 4)."""
@@ -112,12 +116,14 @@ def unpack_fields(v: torch.Tensor, bits: int, count: int) -> torch.Tensor:
 class PackedQuantized:
     """A weight frozen at its width: packed int32 codes + scales.
 
-    ``packed`` — int32 words, ``(*lead, words, n)``; ``scale`` — the
+    ``packed`` — int32 words, ``(*lead, words, n)`` (flat) or
+    ``(*lead, grid_x, shard_words, n)`` (grid store); ``scale`` — the
     quantizer's float32 scales, broadcastable against the unpacked
-    ``(*lead, k, n)`` codes; ``bits`` / ``k`` / ``tail``: operand width,
-    logical length of the packed axis, and the logical trailing dims
-    (``prod(tail) == n``) the 2-D code view folds; ``k_shape``: the logical
-    dims folding to ``k`` (``()`` = the single axis ``(k,)``).
+    ``(*lead, k, n)`` codes; ``bits`` / ``k`` / ``tail`` / ``grid_x``:
+    operand width, logical length of the packed axis, the logical trailing
+    dims (``prod(tail) == n``) the 2-D code view folds, and the number of
+    K bands; ``k_shape``: the logical dims folding to ``k`` (``()`` = the
+    single axis ``(k,)``).
     """
 
     packed: torch.Tensor
@@ -131,9 +137,13 @@ class PackedQuantized:
     # -- logical geometry (the *unpacked* weight's) -------------------------
 
     @property
+    def _lead_ndim(self) -> int:
+        return self.packed.ndim - (3 if self.grid_x > 1 else 2)
+
+    @property
     def shape(self) -> tuple[int, ...]:
-        return (*self.packed.shape[:-2], *(self.k_shape or (self.k,)),
-                *self.tail)
+        return (*self.packed.shape[:self._lead_ndim],
+                *(self.k_shape or (self.k,)), *self.tail)
 
     def reshape(self, *shape) -> "PackedQuantized":
         """Metadata-only regroup of the logical dims (no data movement):
@@ -143,10 +153,11 @@ class PackedQuantized:
         if len(shape) == 1 and isinstance(shape[0], (tuple, list, torch.Size)):
             shape = tuple(shape[0])
         shape = tuple(int(s) for s in shape)
-        if self.packed.ndim > 2:
+        if self._lead_ndim:
             raise ValueError(
                 f"cannot reshape a stacked packed store (lead dims "
-                f"{tuple(self.packed.shape[:-2])}); slice it first")
+                f"{tuple(self.packed.shape[:self._lead_ndim])}); slice it "
+                f"first")
         tail_len, prod = 0, 1
         while prod < self.n_out and tail_len < len(shape):
             tail_len += 1
@@ -165,7 +176,7 @@ class PackedQuantized:
     def __getitem__(self, i: int) -> "PackedQuantized":
         """Slice ``i`` of a stacked store's leading axis (a view, like a
         tensor's ``[i]``)."""
-        if self.packed.ndim < 3:
+        if not self._lead_ndim:
             raise IndexError("only a stacked packed store has a leading "
                              "axis to index")
         return dataclasses.replace(self, packed=self.packed[i],
@@ -200,6 +211,12 @@ class PackedQuantized:
 
     def codes(self) -> torch.Tensor:
         """The exact int8 quantizer codes, ``(*lead, k, n)``."""
+        if self.grid_x > 1:
+            ks = -(-self.k // self.grid_x)
+            sub = unpack_codes(self.packed, self.bits, ks, axis=-2)
+            full = sub.reshape(*sub.shape[:-3], self.grid_x * ks,
+                               sub.shape[-1])
+            return full[..., :self.k, :]
         return unpack_codes(self.packed, self.bits, self.k, axis=-2)
 
     def quantized(self) -> Quantized:
@@ -224,10 +241,9 @@ def from_quantized(q: Quantized, *, tail: tuple[int, ...] | None = None,
     """Pack an existing :class:`Quantized` (codes ``(*lead, k, n)``).
 
     ``tail`` defaults to ``(n,)``; ``k_shape`` names the logical dims the
-    packed axis folds (``()`` = the single axis).
+    packed axis folds (``()`` = the single axis); ``grid_x`` > 1 packs per
+    K band as described in the module docstring.
     """
-    if grid_x != 1:
-        raise NotImplementedError(_GRID_MSG)
     values = q.values
     if values.ndim < 2:
         raise ValueError(f"packing wants (…, k, n) codes, got {tuple(values.shape)}")
@@ -239,9 +255,24 @@ def from_quantized(q: Quantized, *, tail: tuple[int, ...] | None = None,
     if k_shape and math.prod(k_shape) != k:
         raise ValueError(f"k_shape {k_shape} does not fold the packed "
                          f"length {k}")
-    return PackedQuantized(packed=pack_codes(values, q.bits, axis=-2),
+    return PackedQuantized(packed=_pack_bands(values, q.bits, grid_x),
                            scale=q.scale, bits=int(q.bits), k=k, tail=tail,
-                           k_shape=k_shape)
+                           grid_x=int(grid_x), k_shape=k_shape)
+
+
+def _pack_bands(values: torch.Tensor, bits: int, grid_x: int) -> torch.Tensor:
+    """Words of ``(*lead, k, n)`` codes: flat ``(*lead, words, n)``, or per
+    ceil-sized K band ``(*lead, grid_x, shard_words, n)`` when ``grid_x >
+    1`` (the last bands zero-padded to the band length)."""
+    if grid_x < 1:
+        raise ValueError(f"grid_x must be >= 1, got {grid_x}")
+    if grid_x == 1:
+        return pack_codes(values, bits, axis=-2)
+    k = values.shape[-2]
+    ks = -(-k // grid_x)
+    banded = torch.nn.functional.pad(values, (0, 0, 0, grid_x * ks - k))
+    return pack_codes(banded.reshape(*values.shape[:-2], grid_x, ks,
+                                     values.shape[-1]), bits, axis=-2)
 
 
 def pack_quantized(w: torch.Tensor, *, bits: int, k: int | None = None,
@@ -255,15 +286,14 @@ def pack_quantized(w: torch.Tensor, *, bits: int, k: int | None = None,
     contraction geometry; they default to ``w.shape[0]`` / ``w.numel() //
     k`` — the unstacked case.  Each ``(k, n_out)`` slice is quantized per
     output channel with its *own* scales, so packed execution is
-    bit-identical to quantize-on-the-fly execution.
+    bit-identical to quantize-on-the-fly execution.  ``grid_x`` > 1 packs
+    each slice per K band (the module docstring's grid stores).
     """
     if is_packed(w):
         raise ValueError(
             f"leaf is already a PackedQuantized store at {w.bits}-bit — "
             "packing packed codes at a second width compounds quantization "
             "error; pack from the float parameters")
-    if grid_x != 1:
-        raise NotImplementedError(_GRID_MSG)
     if w.ndim < 2:
         raise ValueError(f"packing wants a >=2-D weight, got shape {tuple(w.shape)}")
     k = int(w.shape[0]) if k is None else int(k)
@@ -296,12 +326,14 @@ def pack_quantized(w: torch.Tensor, *, bits: int, k: int | None = None,
     for w2 in w.reshape(-1, k, n_out):
         w2 = w2.to(torch.float32)
         scale = _absmax_scale(w2, bits, axes=(0,))
-        words.append(pack_codes(_codes(w2, scale, bits), bits, axis=-2))
+        words.append(_pack_bands(_codes(w2, scale, bits), bits, grid_x))
         scales.append(scale)
+    word_shape = words[0].shape[:-1]       # (words,) or (grid_x, shard_words)
     return PackedQuantized(
-        packed=torch.stack(words).reshape(*lead, -1, n_out),
+        packed=torch.stack(words).reshape(*lead, *word_shape, n_out),
         scale=torch.stack(scales).reshape(*lead, 1, n_out), bits=int(bits),
-        k=k, tail=tail, k_shape=() if k_dims == (k,) else k_dims)
+        k=k, tail=tail, grid_x=int(grid_x),
+        k_shape=() if k_dims == (k,) else k_dims)
 
 
 def packed_widths(params) -> dict[str, int]:

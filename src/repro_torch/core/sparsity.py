@@ -60,6 +60,21 @@ def _as_rows(q: torch.Tensor) -> torch.Tensor:
     return q[None, :] if q.ndim == 1 else q.reshape(-1, q.shape[-1])
 
 
+def _row_chunk(x: torch.Tensor, lo: int, hi: int) -> torch.Tensor:
+    """Rows ``[lo, hi)`` of ``x``'s 2-D row view (all leading axes folded
+    into rows).  A 3-D strided view — a stack of column bands, a grid
+    shard's slice of every layer — is not reshaped as a whole (that would
+    copy it): only the chunk's rows are gathered."""
+    if x.ndim <= 2:
+        return _as_rows(x)[lo:hi]
+    stack = x.reshape(-1, x.shape[-2], x.shape[-1])
+    r = stack.shape[1]
+    hi = min(hi, stack.shape[0] * r)
+    pieces = [stack[i, max(lo - i * r, 0): min(hi - i * r, r)]
+              for i in range(lo // r, (hi - 1) // r + 1)]
+    return pieces[0] if len(pieces) == 1 else torch.cat(pieces)
+
+
 def _block_max_sum(rows: torch.Tensor, block: int) -> tuple[int, int]:
     """(sum of per-block max|q|, number of blocks) of a 2-D code matrix."""
     x = torch.abs(rows.to(torch.int32))
@@ -107,21 +122,22 @@ def profile_tensor(x: torch.Tensor, bits: int, block: int = 32,
     Per-tensor quantization, as the paper profiles (block maxima are measured
     against the tensor-global Vmax; per-channel scales would renormalize
     every channel to its own max and hide bit sparsity).  The tensor is
-    walked in chunks of whole block rows on its own device; only scalars
-    reach the host.
+    walked in chunks of whole block rows on its own device (a strided 3-D
+    view one chunk at a time, never copied whole); only scalars reach the
+    host.
     """
-    rows = _as_rows(x)
-    n_rows, n_cols = rows.shape
+    n_cols = x.shape[-1] if x.ndim else 1
+    n_rows = x.numel() // max(n_cols, 1)
     step = max(block, (_PROFILE_CHUNK_ELEMS // max(n_cols, 1)) // block * block)
     scale = None
     if not pre_quantized:
         # the tensor-global absmax, one chunk at a time (max is exact)
-        amax = torch.stack([torch.amax(torch.abs(rows[lo: lo + step]))
+        amax = torch.stack([torch.amax(torch.abs(_row_chunk(x, lo, lo + step)))
                             for lo in range(0, n_rows, step)]).amax()
         scale = _scale_from_amax(amax, bits)
     zeros = mag_sum = blk_sum = blk_count = 0
     for lo in range(0, n_rows, step):
-        part = rows[lo: lo + step]
+        part = _row_chunk(x, lo, lo + step)
         q = part.to(torch.int32) if pre_quantized else _codes(part, scale, bits)
         zeros += int((q == 0).sum(dtype=torch.int64))
         mag_sum += int(torch.abs(q.to(torch.int32)).sum(dtype=torch.int64))

@@ -33,7 +33,14 @@ uniform plan's total by construction.
 With ``ugemm_stochastic`` in ``designs`` and ``stream_lens`` given, each
 bit-width also gets rate-coded ``(ugemm_stochastic, bits, L)`` candidates,
 guarded by the analytic stream-error bound and then by the error measured
-on the site's own weight.  Per-shard grid plans wait for the grids slice.
+on the site's own weight.
+
+:func:`build_grid_plan` plans a ``units_x`` × ``units_y`` PE-array grid:
+each site's weight is cut the way ``GridBackend.execute`` shards it, every
+shard's slice is profiled on its own (a strided view on the weight's
+device, walked in row chunks), and each shard gets its own plan beside the
+aggregate one execution replays (a
+:class:`repro_torch.backends.GridPlan`).
 """
 
 from __future__ import annotations
@@ -45,6 +52,7 @@ from typing import Sequence
 import torch
 
 from repro_torch.analysis import ranges as ranges_lib
+from repro_torch.backends import grid as grid_lib
 from repro_torch.backends import runtime as runtime_lib
 from repro_torch.backends.plan import BackendPlan, SiteAssignment
 from repro_torch.core import packing, ppa, sparsity
@@ -65,9 +73,12 @@ __all__ = [
     "prune_infeasible",
     "site_candidates",
     "build_plan",
+    "build_grid_plan",
     "measure_site_cycles",
+    "measure_grid_site_cycles",
     "plan_totals",
     "to_markdown",
+    "grid_plan_to_markdown",
 ]
 
 #: candidate operand widths (paper grid); 2-bit usually fails the guard
@@ -569,6 +580,293 @@ def _uniform_verdict(uniform: dict, planned: dict,
     return {"planned": planned, "uniform": feasible, "uniform_best": best}
 
 
+def build_grid_plan(cfg, params, *, grid=(2, 2), batch: int = 1,
+                    bits_candidates: Sequence[int] = DEFAULT_BITS_CANDIDATES,
+                    designs: Sequence[str] = DEFAULT_DESIGNS,
+                    objective: str = "dyn_energy_uj",
+                    max_rel_mse: float = DEFAULT_MAX_REL_MSE,
+                    unit_n: int = 64, num_units: int = 64,
+                    seq_len: int = 8,
+                    sites: list[GemmSite] | None = None):
+    """Derive a per-shard heterogeneous :class:`repro_torch.backends.GridPlan`.
+
+    Shards every site's weight the way ``GridBackend.execute`` does (K rows
+    ceil-split over ``units_x``, output columns over ``units_y``), profiles
+    **each shard's slice separately** — a shard's weight slice has its own
+    sparsity, so the Eq. 1-priced winner may differ across shards — and
+    prices every (shard, design, bits) candidate on the per-node DLA tiling
+    (padded shard dims) plus that shard's share of the interconnect-hop
+    energy and the full hop latency.
+
+    The accuracy guard uses the **full-weight** quantization error at each
+    bit-width: execution quantizes the whole weight per output channel
+    before sharding the codes, so the shard slices see the full tensor's
+    quantization grid — and per-shard, aggregate and uniform candidate sets
+    then share one feasibility structure, keeping the planned-total ≤
+    best-uniform property airtight at every level.
+
+    Every statistic runs on the weight's device; a shard's slice is a view
+    of the stacked site weight, walked one row chunk at a time, so the
+    scratch memory stays at one chunk.
+
+    Returns a :class:`~repro_torch.backends.GridPlan`: one
+    :class:`BackendPlan` per shard (its meta carries that shard's
+    planned-vs-uniform verdict), the *aggregate* plan execution replays
+    (per-site argmin of the summed per-shard cost), and a meta block with
+    the per-shard and aggregate verdicts plus the sites whose assignment is
+    heterogeneous across shards.
+    """
+    grid = grid_lib.parse_grid(grid)
+    units_x, units_y = grid
+    num_shards = units_x * units_y
+    if sites is None:
+        sites = discover_sites(cfg, params, batch=batch, seq_len=seq_len)
+    if not sites:
+        raise ValueError("model exposes no dense GEMM sites to plan")
+
+    shard_keys = [f"{gx},{gy}" for gx in range(units_x)
+                  for gy in range(units_y)]
+    shard_entries: dict[str, list[SiteAssignment]] = \
+        {k: [] for k in shard_keys}
+    shard_uniform = {k: {(d, b): {**_zero_totals(), "feasible": True}
+                         for d in designs for b in bits_candidates}
+                     for k in shard_keys}
+    agg_entries: list[SiteAssignment] = []
+    agg_uniform = {(d, b): {**_zero_totals(), "feasible": True}
+                   for d in designs for b in bits_candidates}
+    range_pruned: list[dict] = []
+
+    for site in sites:
+        full = site.weight_matrix()            # a view: one site at a time
+        w3, _applications = _site_copies(site, full)
+        full_mse = {b: quantization_rel_mse(full, b) for b in bits_candidates}
+        full_stats = {b: sparsity.profile_tensor(full, bits=b)
+                      for b in bits_candidates}
+        ks_pad = -(-site.k // units_x)
+        ns_pad = -(-site.n_out // units_y)
+        # Envelope pruning at the *padded shard* contraction length — what
+        # each grid node actually accumulates over.  Infeasible pairs are
+        # never priced for any shard, the aggregate, or a uniform baseline.
+        infeasible = prune_infeasible(site.name, ks_pad, designs,
+                                      bits_candidates, range_pruned)
+        for pair in infeasible:
+            agg_uniform[pair]["feasible"] = False
+            for skey in shard_keys:
+                shard_uniform[skey][pair]["feasible"] = False
+        if len(infeasible) == len(designs) * len(bits_candidates):
+            raise ValueError(
+                f"site {site.name!r}: no (design, bits) candidate among "
+                f"{list(designs)} x {list(bits_candidates)} keeps the "
+                f"per-shard K={ks_pad} contraction (grid {units_x}x"
+                f"{units_y}) inside its accumulator envelope "
+                f"(see repro_torch.analysis.ranges)")
+        agg_costs: dict[tuple[str, int], dict[str, float]] = {}
+
+        def _fold_agg(priced: dict[str, float], design: str,
+                      bits: int) -> None:
+            # energy sums across shards; shards run in parallel, so the
+            # grid's latency is the slowest shard's (matching GridDLAModel)
+            agg = agg_costs.setdefault((design, bits), _zero_totals())
+            for key in ("dyn_energy_uj", "wc_energy_uj"):
+                agg[key] += priced[key]
+            for key in ("dyn_latency_us", "wc_latency_us"):
+                agg[key] = max(agg[key], priced[key])
+
+        for (gx, gy), (rows_sl, cols_sl) in grid_lib.shard_slices(
+                site.k, site.n_out, units_x, units_y).items():
+            sub = w3[:, rows_sl, cols_sl]      # a strided view, never copied
+            # A pure-padding shard (units_x ∤ k) has nothing to plan, but
+            # the priced grid still streams its zero codes and the reduction
+            # still crosses it: charge its padded compute (all-zero codes →
+            # block-max sparsity 1.0) and hop share into the aggregate,
+            # keeping planner totals consistent with the grid pricer.
+            padding_only = sub.numel() == 0
+            if padding_only:
+                shard_stats = {b: sparsity.SparsityStats(
+                    bits=b, word=1.0, bit_elem=1.0, bit_blockmax=1.0,
+                    numel=0) for b in bits_candidates}
+            else:
+                shard_stats = {b: sparsity.profile_tensor(sub, bits=b)
+                               for b in bits_candidates}
+            cands: list[Candidate] = []
+            for bits in bits_candidates:
+                stats = shard_stats[bits]
+                guard_ok = full_mse[bits] <= max_rel_mse
+                for design in designs:
+                    if (design, bits) in infeasible:
+                        continue
+                    node = ppa.DLAModel(design=design, bits=bits, n=unit_n,
+                                        num_units=num_units)
+                    gdla = ppa.GridDLAModel(
+                        design=design, bits=bits, n=unit_n,
+                        num_units=num_units, units_x=units_x,
+                        units_y=units_y)
+                    hop_e = gdla.hop_energy_nj(site.m, site.k, site.n_out) \
+                        / num_shards * site.count * 1e-3
+                    hop_l = gdla.hop_latency_ns() * site.count * 1e-3
+                    priced = {
+                        "dyn_energy_uj": node.matmul_energy_nj(
+                            site.m, ks_pad, ns_pad, stats.bit_blockmax)
+                        * site.count * 1e-3 + hop_e,
+                        "dyn_latency_us": node.matmul_latency_ns(
+                            site.m, ks_pad, ns_pad, stats.bit_blockmax)
+                        * site.count * 1e-3 + hop_l,
+                        "wc_energy_uj": node.matmul_energy_nj(
+                            site.m, ks_pad, ns_pad, 0.0)
+                        * site.count * 1e-3 + hop_e,
+                        "wc_latency_us": node.matmul_latency_ns(
+                            site.m, ks_pad, ns_pad, 0.0)
+                        * site.count * 1e-3 + hop_l,
+                    }
+                    _fold_agg(priced, design, bits)
+                    if not padding_only:
+                        cands.append(Candidate(design=design, bits=bits,
+                                               stats=stats,
+                                               rel_mse=full_mse[bits],
+                                               guard_ok=guard_ok, **priced))
+            if padding_only:
+                continue
+            best, relaxed = _pick(cands, objective)
+            key = f"{gx},{gy}"
+            shard_entries[key].append(_assignment(
+                site, best, relaxed, k=sub.shape[1], n_out=sub.shape[2]))
+            _fold_uniform(shard_uniform[key], cands)
+        agg_cands = [
+            Candidate(design=d, bits=b, stats=full_stats[b],
+                      rel_mse=full_mse[b],
+                      guard_ok=full_mse[b] <= max_rel_mse, **vals)
+            for (d, b), vals in sorted(agg_costs.items())]
+        best, relaxed = _pick(agg_cands, objective)
+        agg_entries.append(_assignment(site, best, relaxed,
+                                       k=site.k, n_out=site.n_out))
+        _fold_uniform(agg_uniform, agg_cands)
+
+    common = {
+        "arch": getattr(cfg, "arch_id", None),
+        "grid": list(grid),
+        "objective": objective,
+        "bits_candidates": list(bits_candidates),
+        "designs": list(designs),
+        "max_rel_mse": max_rel_mse,
+        "unit_n": unit_n,
+        "num_units": num_units,
+        "batch": batch,
+        # Always present — an empty list is the verifier's proof that every
+        # candidate stayed inside its accumulator envelope at shard-local K.
+        "range_pruned": range_pruned,
+    }
+    shards = []
+    per_shard_verdicts = {}
+    hetero_planned = _zero_totals()
+    for key in shard_keys:
+        entries = shard_entries[key]
+        if not entries:
+            continue
+        verdict = _uniform_verdict(shard_uniform[key], plan_totals(entries),
+                                   objective)
+        per_shard_verdicts[key] = verdict
+        for tkey in ("dyn_energy_uj", "wc_energy_uj"):
+            hetero_planned[tkey] += verdict["planned"][tkey]
+        for tkey in ("dyn_latency_us", "wc_latency_us"):
+            # shards run in parallel: heterogeneous latency = slowest shard
+            hetero_planned[tkey] = max(hetero_planned[tkey],
+                                       verdict["planned"][tkey])
+        shards.append((key, BackendPlan(
+            sites=tuple(entries),
+            meta=tuple(sorted({**common, "shard": key,
+                               "totals": verdict}.items())))))
+    agg_verdict = _uniform_verdict(agg_uniform, plan_totals(agg_entries),
+                                   objective)
+    aggregate = BackendPlan(
+        sites=tuple(agg_entries),
+        meta=tuple(sorted({**common, "shard": None,
+                           "totals": agg_verdict}.items())))
+    gplan = grid_lib.GridPlan(units_x=units_x, units_y=units_y,
+                              aggregate=aggregate, shards=tuple(shards))
+    meta = {
+        **common,
+        "totals": {
+            "aggregate": {**agg_verdict,
+                          "planned_heterogeneous": hetero_planned},
+            "per_shard": per_shard_verdicts,
+        },
+        "heterogeneous_sites": list(gplan.heterogeneous_sites()),
+    }
+    return dataclasses.replace(gplan, meta=tuple(sorted(meta.items())))
+
+
+def grid_plan_to_markdown(gplan) -> str:
+    """Human-readable rendering of a grid plan."""
+    meta = gplan.metadata()
+    totals = meta.get("totals", {})
+    agg = totals.get("aggregate", {})
+    lines = [
+        "# Per-shard mixed-precision grid plan",
+        "",
+        f"Arch: `{meta.get('arch')}` on a {gplan.units_x}×{gplan.units_y} "
+        f"PE-array grid of {meta.get('num_units')}× {meta.get('unit_n')}×"
+        f"{meta.get('unit_n')} DLA nodes — objective "
+        f"`{meta.get('objective')}`, decode batch {meta.get('batch')}.",
+        "",
+        "## Aggregate (executed) assignment",
+        "",
+        "| site | backend | b_spa | dyn energy (µJ) | guard |",
+        "|---|---|---|---|---|",
+    ]
+    for e in gplan.aggregate.sites:
+        guard = "relaxed" if e.guard_relaxed else "ok"
+        lines.append(f"| `{e.pattern}` ×{e.count} | {e.design}@{e.bits} | "
+                     f"{e.bit_blockmax:.3f} | {e.dyn_energy_uj:.4f} | "
+                     f"{guard} |")
+    planned = agg.get("planned", {})
+    hetero = agg.get("planned_heterogeneous", {})
+    lines += [
+        "",
+        f"**Aggregate planned**: {planned.get('dyn_energy_uj', 0.0):.4f} µJ "
+        f"dyn energy / decode step; per-shard heterogeneous planned: "
+        f"{hetero.get('dyn_energy_uj', 0.0):.4f} µJ.",
+        "",
+        "## Uniform grid baselines (guard-feasible)",
+        "",
+        "| uniform backend | dyn energy (µJ) | dyn latency (µs) |",
+        "|---|---|---|",
+    ]
+    uniform = agg.get("uniform", {})
+    for name in sorted(uniform):
+        tot = uniform[name]
+        mark = " ← best" if name == agg.get("uniform_best") else ""
+        lines.append(f"| {name}{mark} | {tot['dyn_energy_uj']:.4f} | "
+                     f"{tot['dyn_latency_us']:.4f} |")
+    lines += [
+        "",
+        "## Per-shard verdicts",
+        "",
+        "| shard | planned dyn energy (µJ) | best uniform | assignment |",
+        "|---|---|---|---|",
+    ]
+    for key, plan in gplan.shards:
+        verdict = totals.get("per_shard", {}).get(key, {})
+        p = verdict.get("planned", {}).get("dyn_energy_uj", 0.0)
+        best = verdict.get("uniform_best")
+        tags = ", ".join(f"{s.design}@{s.bits}" for s in plan.sites)
+        lines.append(f"| {key} | {p:.4f} | {best} | {tags} |")
+    hsites = meta.get("heterogeneous_sites", [])
+    lines += [
+        "",
+        f"Sites with shard-heterogeneous assignments: "
+        f"{', '.join(f'`{s}`' for s in hsites) if hsites else 'none'}.",
+        "",
+        "Per-site, per-shard argmin over the same candidate set makes every "
+        "shard's planned total ≤ its best uniform baseline and the "
+        "aggregate ≤ the best uniform grid assignment, by construction; "
+        "`use_plan` executes the aggregate shard by shard "
+        "(`serve --backend-plan … --grid X,Y` replays it with bit-exactness "
+        "and per-shard cycle-bound checks).",
+        "",
+    ]
+    return "\n".join(lines)
+
+
 def _site_copies(site: GemmSite, weight: torch.Tensor
                  ) -> tuple[torch.Tensor, int]:
     """The site's physical weight copies and the application multiplier.
@@ -606,6 +904,35 @@ def measure_site_cycles(site: GemmSite, entry, *, unit_n: int,
         for key in totals:
             totals[key] += cyc[key]
     return {key: val * applications for key, val in totals.items()}
+
+
+def measure_grid_site_cycles(site: GemmSite, entry, *, grid: tuple[int, int],
+                             unit_n: int, num_units: int
+                             ) -> dict[str, dict[str, float]]:
+    """Per-shard measured decode-step cycles for one planned site on a grid.
+
+    Like :func:`measure_site_cycles` but sharded: each grid node measures
+    its own weight slice (``repro_torch.backends.grid_matrix_cycles`` —
+    per-shard tile counts, per-shard sparsity, hop term added to every
+    bound), on the weight's device, summed over the site's physical copies
+    and scaled by applications.  Returns ``{"gx,gy": {measured, dyn,
+    dyn_floor, wc}}``; the per-shard invariant ``dyn_floor ≤ measured ≤
+    wc`` holds shard by shard.
+    """
+    backend = grid_lib.as_grid(entry.backend(), *grid)
+    w3, applications = _site_copies(site, site.weight_matrix())
+    totals: dict[str, dict[str, float]] = {}
+    for w in w3:
+        per_shard = grid_lib.grid_matrix_cycles(
+            backend, w, rows=site.m, unit_n=unit_n, num_units=num_units)
+        for coord, cyc in per_shard.items():
+            tot = totals.setdefault(
+                coord, {"measured": 0.0, "dyn": 0.0, "dyn_floor": 0.0,
+                        "wc": 0.0})
+            for key in tot:
+                tot[key] += cyc[key]
+    return {coord: {key: val * applications for key, val in tot.items()}
+            for coord, tot in totals.items()}
 
 
 def plan_totals(entries) -> dict[str, float]:

@@ -22,10 +22,16 @@ Three modes, as in the reference:
 * ``traffic``: a seeded Poisson trace through the paged
   continuous-batching :class:`repro_torch.serving.ServingEngine` under
   continuous and static batching, on the float path, a backend or a plan.
+* **grid serving** (``--grid X,Y``): everything above on a tensor-parallel
+  PE-array grid.  ``serve plan --grid X,Y`` derives a per-shard
+  ``GridPlan`` (each shard profiles its own weight slice); execution shards
+  every dense contraction (K over ``gx``, output columns over ``gy``) and
+  runs the shards one after another on the one device, bit-identical to the
+  single unit.  A grid plan loaded by ``--backend-plan`` brings its own
+  grid; a flat plan with ``--grid`` is wrapped in one.
 
 Runs on the card by default; ``--device cpu`` runs the same code on the
-kernels' plain versions.  Grid plans and ``--grid`` wait for the grids
-slice: both exit 2.
+kernels' plain versions.
 
     PYTHONPATH=src python -m repro_torch.launch.serve plan --arch llama3-8b \\
         --smoke --device cpu --plan-out /tmp/plan.json
@@ -35,6 +41,11 @@ slice: both exit 2.
         --execute-backend tubgemm_cuda --bits 4 --act-scale per-row
     PYTHONPATH=src python -m repro_torch.launch.serve traffic --arch llama3-8b \\
         --smoke --device cpu --execute-backend ugemm_stochastic:16 \\
+        --act-scale per-row
+    PYTHONPATH=src python -m repro_torch.launch.serve plan --arch llama3-8b \\
+        --smoke --device cpu --grid 2,2 --plan-out /tmp/grid_plan.json
+    PYTHONPATH=src python -m repro_torch.launch.serve traffic --arch llama3-8b \\
+        --smoke --device cpu --backend-plan /tmp/grid_plan.json \\
         --act-scale per-row
 """
 
@@ -60,9 +71,6 @@ from repro_torch.serving import (FUSED_LOGIT_TOL, ServingEngine, TrafficConfig,
                                  fused_vs_gather_probe, generate_trace,
                                  paged_vs_contiguous_probe)
 from repro_torch.serving import energy as serving_energy
-
-_GRID_MSG = "PE-array grids arrive with the grids slice of the port"
-
 
 def _float32(w: torch.Tensor) -> torch.Tensor:
     return w if w.dtype == torch.float32 else w.to(torch.float32)
@@ -203,12 +211,14 @@ def run_backend_execution(cfg, params, prompt, backend, max_new: int,
     prefill-logits ``drift`` + ``top1_agreement`` vs the float model, wall
     time, and the measured/dyn/wc ``cycles`` totals per decode token.
     ``packed`` freezes every GEMM site's weight bit-packed at the backend's
-    width and executes from the packed store; the float ``params`` keep
-    feeding the reference and measurement paths.
+    width (per K band under a grid backend) and executes from the packed
+    store; the float ``params`` keep feeding the reference and measurement
+    paths.
     """
     backend = backends_lib.resolve(backend)
-    exec_params = (backends_lib.pack_weights(cfg, params, bits=backend.bits)
-                   if packed else params)
+    exec_params = (backends_lib.pack_weights(
+        cfg, params, bits=backend.bits, grid=getattr(backend, "grid", None))
+        if packed else params)
     if ref_logits is None:
         ref_logits = prefill_logits(cfg, params, prompt)
     t0 = time.perf_counter()
@@ -243,15 +253,21 @@ def run_plan_execution(cfg, params, prompt, plan, max_new: int,
 
     Like :func:`run_backend_execution` but per site: every dense site
     contracts on the backend its plan entry names (unmatched sites stay
-    float).  Returns generated ``tokens``, the ``site_backends`` mapping
+    float).  ``plan`` may be a ``BackendPlan`` or a ``GridPlan`` — a grid
+    plan's aggregate entries execute sharded (``GridBackend``), the oracle
+    comparison stays unsharded, and the measured cycles come back **per
+    shard**.  Returns generated ``tokens``, the ``site_backends`` mapping
     actually executed, per-distinct-engine int-GEMM ``rel_rmse`` vs its
     oracle (binary, or exact uGEMM for a stream-coded entry), prefill
-    ``drift`` / ``top1_agreement`` vs the float model, wall time, and
-    per-site measured/dyn/floor/wc decode-cycle totals (``site_cycles``;
-    DLA geometry from the plan's meta).  ``packed``
-    executes the planned sites from bit-packed stores; reference logits,
-    numerics, site discovery and cycles keep reading the float params.
+    ``drift`` / ``top1_agreement`` vs the float model, wall time, the
+    ``grid`` shape (None unsharded), and per-site measured/dyn/floor/wc
+    decode-cycle totals (``site_cycles``; for a grid ``{site: {"gx,gy":
+    totals}}``; DLA geometry from the plan's meta).  ``packed`` executes
+    the planned sites from bit-packed stores; reference logits, numerics,
+    site discovery and cycles keep reading the float params.
     """
+    grid = plan.grid if isinstance(plan, backends_lib.GridPlan) else None
+    entry_plan = plan.aggregate if grid else plan
     exec_params = (backends_lib.pack_weights(cfg, params, plan)
                    if packed else params)
     if ref_logits is None:
@@ -272,26 +288,32 @@ def run_plan_execution(cfg, params, prompt, plan, max_new: int,
         + (f":{c.stream_len}" if c.stream_len else "")
         for c in execution.calls}
     rel_rmse = {}
-    for design, bits, stream_len in plan.distinct_engines():
+    for design, bits, stream_len in entry_plan.distinct_engines():
         tag = f"{design}@{bits}" + (f":{stream_len}" if stream_len else "")
         if tag in site_backends.values():
             backend = backends_lib.resolve(design, bits=bits,
                                            stream_len=stream_len or None)
+            if grid:
+                backend = backends_lib.as_grid(backend, *grid)
             rel_rmse[tag] = validate_backend_numerics(
                 params, backend, oracle=_oracle_for(backend))
     drift, agree = _drift(exec_logits, ref_logits)
-    meta = plan.metadata()
+    meta = entry_plan.metadata()
     unit_n = int(meta.get("unit_n", 64))
     num_units = int(meta.get("num_units", 64))
     sites = {s.name: s for s in planner_lib.discover_sites(
         cfg, params, batch=prompt.shape[0])}
     site_cycles = {}
-    for entry in plan.sites:
+    for entry in entry_plan.sites:
         site = sites.get(entry.pattern)
         if site is None or entry.pattern not in site_backends:
             continue
-        site_cycles[entry.pattern] = planner_lib.measure_site_cycles(
-            site, entry, unit_n=unit_n, num_units=num_units)
+        if grid:
+            site_cycles[entry.pattern] = planner_lib.measure_grid_site_cycles(
+                site, entry, grid=grid, unit_n=unit_n, num_units=num_units)
+        else:
+            site_cycles[entry.pattern] = planner_lib.measure_site_cycles(
+                site, entry, unit_n=unit_n, num_units=num_units)
     return {
         "tokens": tokens,
         "site_backends": site_backends,
@@ -299,6 +321,7 @@ def run_plan_execution(cfg, params, prompt, plan, max_new: int,
         "rel_rmse": rel_rmse,
         "drift": drift,
         "top1_agreement": agree,
+        "grid": grid,
         "site_cycles": site_cycles,
     }
 
@@ -387,7 +410,61 @@ def analysis_verdict(plan, site_names=None) -> str:
     return findings_lib.verdict_line(found)
 
 
-def run_traffic_mode(args, cfg, params, plan=None) -> int:
+def run_grid_plan_mode(args, cfg, params, grid: tuple[int, int]) -> int:
+    """``serve plan --grid X,Y``: derive, save and report a per-shard plan."""
+    t0 = time.perf_counter()
+    site_list = planner_lib.discover_sites(cfg, params, batch=args.batch)
+    gplan = planner_lib.build_grid_plan(
+        cfg, params, grid=grid, batch=args.batch, unit_n=args.unit_n,
+        num_units=args.units, sites=site_list)
+    wall = time.perf_counter() - t0
+    path = gplan.save(args.plan_out)
+    meta = gplan.metadata()
+    totals = meta["totals"]
+    agg = totals["aggregate"]
+    sites = {s.name: s for s in site_list}
+
+    print(f"\n=== grid backend plan for {args.arch} [{args.device}] "
+          f"({grid[0]}x{grid[1]} grid of {args.units}x {args.unit_n}x"
+          f"{args.unit_n} nodes, objective {meta['objective']}), planned in "
+          f"{wall:.2f} s ===")
+    print("aggregate (executed) assignment, with per-shard measured cycles:")
+    for e in gplan.aggregate.sites:
+        cyc = planner_lib.measure_grid_site_cycles(
+            sites[e.pattern], e, grid=grid, unit_n=args.unit_n,
+            num_units=args.units)
+        shard_meas = ", ".join(f"{c}:{v['measured']:.0f}"
+                               for c, v in sorted(cyc.items()))
+        print(f"  {e.pattern:>24s} -> {e.design}@{e.bits} "
+              f"(b_spa {e.bit_blockmax:.3f}, dynE {e.dyn_energy_uj:.4f} uJ; "
+              f"measured cyc/shard {shard_meas})")
+    print("\nper-shard verdicts (each shard plans its own weight slices):")
+    for key, _plan in gplan.shards:
+        v = totals["per_shard"][key]
+        best = v["uniform_best"]
+        best_e = v["uniform"][best]["dyn_energy_uj"] if best else 0.0
+        print(f"  shard {key}: planned {v['planned']['dyn_energy_uj']:.4f} uJ"
+              f" vs best uniform {best} {best_e:.4f} uJ")
+    hetero = meta["heterogeneous_sites"]
+    print(f"shard-heterogeneous sites: "
+          f"{', '.join(hetero) if hetero else 'none'}")
+    best = agg["uniform_best"]
+    if best is not None:
+        best_e = agg["uniform"][best]["dyn_energy_uj"]
+        planned = agg["planned"]["dyn_energy_uj"]
+        hetero_e = agg["planned_heterogeneous"]["dyn_energy_uj"]
+        print(f"aggregate: executed plan {planned:.4f} uJ, per-shard "
+              f"heterogeneous {hetero_e:.4f} uJ, best uniform ({best}) "
+              f"{best_e:.4f} uJ -> {1.0 - hetero_e / max(best_e, 1e-30):.2%} "
+              f"predicted saving")
+    print(analysis_verdict(gplan, site_names=[s.name for s in site_list]))
+    print(f"grid plan saved to {path} (replay: serve --arch {args.arch}"
+          f"{' --smoke' if args.smoke else ''} --device {args.device} "
+          f"--backend-plan {path})")
+    return 0
+
+
+def run_traffic_mode(args, cfg, params, plan=None, grid=None) -> int:
     """``serve traffic``: continuous vs static batching on one seeded trace.
 
     Serves the trace twice through the SAME engine (same paged pool geometry,
@@ -415,7 +492,8 @@ def run_traffic_mode(args, cfg, params, plan=None) -> int:
       them),
     * the paged decode step equal to the contiguous ``decode_step``
       reference at fp32, and the fused page walk within ``FUSED_LOGIT_TOL``
-      of the gather oracle.
+      of the gather oracle (both probes run the float path, so under
+      ``--grid`` they are skipped, as in the reference).
     """
     tcfg = TrafficConfig(num_requests=args.requests,
                          arrival_rate=args.arrival_rate, seed=args.seed)
@@ -423,7 +501,7 @@ def run_traffic_mode(args, cfg, params, plan=None) -> int:
     engine_kw = dict(
         max_batch=args.batch, page_size=args.page_size,
         num_pages=args.num_pages, max_seq_len=args.max_seq_len,
-        backend=args.execute_backend, plan=plan, bits=args.bits,
+        backend=args.execute_backend, plan=plan, bits=args.bits, grid=grid,
         unit_n=args.unit_n, num_units=args.units,
         pricing_design=args.gemm_backend, packed=args.packed,
         device=args.device)
@@ -432,6 +510,8 @@ def run_traffic_mode(args, cfg, params, plan=None) -> int:
     scope = (f"plan {args.backend_plan}" if plan is not None
              else f"backend {args.execute_backend}@{args.bits}"
              if args.execute_backend else "float model")
+    if grid is not None:
+        scope += f" on a {grid[0]}x{grid[1]} grid"
     if args.packed:
         rep = accounting.packed_store_report(engine._exec_params)
         scope += " [packed]"
@@ -492,23 +572,30 @@ def run_traffic_mode(args, cfg, params, plan=None) -> int:
         print(f"fused vs gather decode token streams (continuous): "
               f"identical: {fused_same}{fnote}")
         ok = ok and (fused_same or quantized)
-    diff = paged_vs_contiguous_probe(cfg, params, page_size=args.page_size)
-    tag = "exact" if diff == 0.0 else f"max |diff| {diff:.3e}"
-    print(f"paged decode vs contiguous decode_step (fp32): {tag}")
-    ok = ok and diff == 0.0
-    fdiff = fused_vs_gather_probe(cfg, params, page_size=args.page_size)
-    print(f"fused page-walk vs gather oracle (fp32): max |dlogit| "
-          f"{fdiff:.3e} (tol {FUSED_LOGIT_TOL:.0e})")
-    ok = ok and fdiff <= FUSED_LOGIT_TOL
+    if grid is None:
+        diff = paged_vs_contiguous_probe(cfg, params,
+                                         page_size=args.page_size)
+        tag = "exact" if diff == 0.0 else f"max |diff| {diff:.3e}"
+        print(f"paged decode vs contiguous decode_step (fp32): {tag}")
+        ok = ok and diff == 0.0
+        fdiff = fused_vs_gather_probe(cfg, params, page_size=args.page_size)
+        print(f"fused page-walk vs gather oracle (fp32): max |dlogit| "
+              f"{fdiff:.3e} (tol {FUSED_LOGIT_TOL:.0e})")
+        ok = ok and fdiff <= FUSED_LOGIT_TOL
     return 0 if ok else 1
 
 
-def _report_backend(args, cfg, params, prompt, costs, stats) -> bool:
+def _report_backend(args, cfg, params, prompt, costs, stats,
+                    grid=None) -> bool:
     """``serve --execute-backend``: execute, print the evidence, gate."""
     backend = backends_lib.resolve(args.execute_backend, bits=args.bits)
+    if grid is not None:
+        backend = backends_lib.as_grid(backend, *grid)
     ltag = f", L={backend.stream_len} bitstreams" if backend.stream_len else ""
+    gtag = (f" on a {grid[0]}x{grid[1]} grid (shards in turn, partial sums "
+            f"added over k)" if grid else "")
     print(f"\n=== executing model on {backend.name} "
-          f"({backend.bits}-bit int tiles{ltag}) ===")
+          f"({backend.bits}-bit int tiles{ltag}){gtag} ===")
     result = run_backend_execution(
         cfg, params, prompt, backend, args.tokens, unit_n=args.unit_n,
         num_units=args.units, stats=stats, packed=args.packed)
@@ -543,10 +630,13 @@ def _report_backend(args, cfg, params, prompt, costs, stats) -> bool:
 
 def _report_plan(args, cfg, params, prompt, plan) -> bool:
     """``serve --backend-plan``: execute per site, print the evidence, gate."""
+    is_grid = isinstance(plan, backends_lib.GridPlan)
+    distinct = (plan.aggregate if is_grid else plan).distinct_engines()
     labels = ", ".join(f"{d}@{b}" + (f":{L}" if L else "")
-                       for d, b, L in plan.distinct_engines())
-    print(f"\n=== executing model on backend plan {args.backend_plan} "
-          f"({labels}) ===")
+                       for d, b, L in distinct)
+    gtag = f" on a {plan.units_x}x{plan.units_y} grid" if is_grid else ""
+    print(f"\n=== executing model on backend plan {args.backend_plan}"
+          f"{gtag} ({labels}) ===")
     print(analysis_verdict(plan))
     result = run_plan_execution(cfg, params, prompt, plan, args.tokens,
                                 packed=args.packed)
@@ -559,6 +649,8 @@ def _report_plan(args, cfg, params, prompt, plan) -> bool:
     for tag, rel in sorted(result["rel_rmse"].items()):
         label = "bit-exact" if rel == 0.0 else f"relRMSE {rel:.2e}"
         oracle = "exact-uGEMM oracle" if ":" in tag else "binary oracle"
+        if is_grid:
+            oracle = "unsharded " + oracle
         print(f"int GEMMs vs {oracle} on {tag}: {label}")
         exact = backends_lib.resolve(tag.split("@")[0]).exact
         ok = ok and (rel == 0.0 if exact else math.isfinite(rel))
@@ -567,23 +659,28 @@ def _report_plan(args, cfg, params, prompt, plan) -> bool:
           f"top-1 agreement {result['top1_agreement']:.1%}")
     total = {"measured": 0.0, "dyn": 0.0, "dyn_floor": 0.0, "wc": 0.0}
     for site, cyc in sorted(result["site_cycles"].items()):
-        in_bounds = (cyc["dyn_floor"] - 0.5 <= cyc["measured"]
-                     <= cyc["wc"] + 0.5)
-        print(f"  {site:>30s} cycles: measured {cyc['measured']:.3e} in "
-              f"[floor {cyc['dyn_floor']:.3e}, wc {cyc['wc']:.3e}]: "
-              f"{in_bounds} (planned Eq.1 dyn {cyc['dyn']:.3e})")
-        ok = ok and in_bounds
-        for key in total:
-            total[key] += cyc[key]
-    print(f"per-decode-token cycle totals: measured {total['measured']:.3e} "
-          f"within [dyn floor {total['dyn_floor']:.3e}, wc "
-          f"{total['wc']:.3e}] (planned Eq.1 dyn {total['dyn']:.3e})")
+        shards = sorted(cyc.items()) if is_grid else [(None, cyc)]
+        for coord, c in shards:
+            label = f"{site} [{coord}]" if coord else site
+            in_bounds = (c["dyn_floor"] - 0.5 <= c["measured"]
+                         <= c["wc"] + 0.5)
+            print(f"  {label:>30s} cycles: measured {c['measured']:.3e} in "
+                  f"[floor {c['dyn_floor']:.3e}, wc {c['wc']:.3e}]: "
+                  f"{in_bounds} (planned Eq.1 dyn {c['dyn']:.3e})")
+            ok = ok and in_bounds
+            for key in total:
+                total[key] += c[key]
+    scope = "per-shard " if is_grid else ""
+    print(f"per-decode-token {scope}cycle totals: measured "
+          f"{total['measured']:.3e} within [dyn floor "
+          f"{total['dyn_floor']:.3e}, wc {total['wc']:.3e}] (planned Eq.1 "
+          f"dyn {total['dyn']:.3e})")
     if not ok:
         print("WARNING: plan replay violated bit-exactness or cycle bounds")
     return ok
 
 
-def run_serve_mode(args, cfg, params, plan=None) -> int:
+def run_serve_mode(args, cfg, params, plan=None, grid=None) -> int:
     """The one-shot ``serve`` mode: generate, price, recommend, execute."""
     rng = np.random.default_rng(0)
     prompt = torch.from_numpy(rng.integers(
@@ -641,7 +738,7 @@ def run_serve_mode(args, cfg, params, plan=None) -> int:
 
     ok = True
     if args.execute_backend:
-        ok = _report_backend(args, cfg, params, prompt, costs, stats)
+        ok = _report_backend(args, cfg, params, prompt, costs, stats, grid)
     if plan is not None:
         ok = _report_plan(args, cfg, params, prompt, plan) and ok
     return 0 if ok else 1
@@ -727,12 +824,17 @@ def main(argv=None) -> int:
                          "--execute-backend or --backend-plan to fix the "
                          "widths")
     ap.add_argument("--grid", default=None, metavar="X,Y",
-                    help="tensor-parallel PE-array grid: not ported yet "
-                         "(exits 2)")
+                    help="tensor-parallel PE-array grid: 'plan' derives a "
+                         "per-shard heterogeneous GridPlan; execution modes "
+                         "shard every dense contraction (K over X, output "
+                         "columns over Y) and run the shards one after "
+                         "another on the one device")
     args = ap.parse_args(argv)
 
-    if args.grid:
-        print(f"error: --grid {args.grid}: {_GRID_MSG}")
+    try:
+        grid = backends_lib.parse_grid(args.grid) if args.grid else None
+    except ValueError as exc:
+        print(f"error: --grid {args.grid!r}: {exc}")
         return 2
     if args.packed and not (args.execute_backend or args.backend_plan):
         print("error: --packed needs --execute-backend or --backend-plan "
@@ -749,11 +851,18 @@ def main(argv=None) -> int:
             return 2
     plan = None
     if args.backend_plan and args.mode != "plan":
-        try:
-            plan = backends_lib.load_plan(args.backend_plan)
-        except NotImplementedError as exc:
-            print(f"error: --backend-plan: {exc}")
-            return 2
+        # a GridPlan implies grid execution even without --grid
+        plan = backends_lib.load_plan(args.backend_plan)
+        if isinstance(plan, backends_lib.GridPlan):
+            if grid is not None and grid != plan.grid:
+                print(f"error: --grid {grid} conflicts with the grid plan's "
+                      f"own grid {plan.grid}")
+                return 2
+            grid = plan.grid
+        elif grid is not None:
+            # shard a flat plan's sites across the requested grid
+            plan = backends_lib.GridPlan(units_x=grid[0], units_y=grid[1],
+                                         aggregate=plan, shards=())
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         print("error: --device cuda requested but no CUDA device is "
@@ -772,10 +881,12 @@ def main(argv=None) -> int:
     generator.manual_seed(0)
     params = model_lib.init_params(cfg, generator, device=device)
     if args.mode == "plan":
+        if grid is not None:
+            return run_grid_plan_mode(args, cfg, params, grid)
         return run_plan_mode(args, cfg, params)
     if args.mode == "traffic":
-        return run_traffic_mode(args, cfg, params, plan)
-    return run_serve_mode(args, cfg, params, plan)
+        return run_traffic_mode(args, cfg, params, plan, grid)
+    return run_serve_mode(args, cfg, params, plan, grid)
 
 
 if __name__ == "__main__":

@@ -25,6 +25,7 @@ import torch
 from repro_torch import configs
 from repro_torch.checkpoint import CheckpointManager
 from repro_torch.data import DataConfig, make_pipeline
+from repro_torch.launch import mesh as mesh_lib
 from repro_torch.launch import steps as steps_lib
 from repro_torch.models.model import require_device
 from repro_torch.optim import AdamWConfig, cosine_schedule
@@ -145,9 +146,7 @@ def main(argv=None) -> int:
     args = ap.parse_args(argv)
 
     if args.mesh != "single":
-        raise NotImplementedError(
-            f"--mesh {args.mesh} needs a multi-device mesh, which the port does "
-            f"not have yet (ROADMAP Queue 1 item 12); use --mesh single")
+        mesh_lib.make_production_mesh(multi_pod=args.mesh == "multipod")
     cfg = (configs.get_smoke_config(args.arch) if args.smoke
            else configs.get_config(args.arch))
     loop = TrainLoopConfig(steps=args.steps, batch=args.batch, seq=args.seq,

@@ -188,16 +188,26 @@ def _weight_codes(execution, backend, w2: torch.Tensor):
     codes and scales are reused.  An entry holds the weight view beside its
     codes, so the storage the key names cannot be freed and its address
     handed to another tensor while the cache lives; parameters must not be
-    written in place meanwhile.
+    written in place meanwhile.  Under a PE-array grid backend the cached
+    codes are the grid's contiguous shard blocks
+    (:class:`~repro_torch.backends.grid.ShardedCodes`), in place of the flat
+    matrix.
     """
     cache = execution.weight_cache
     if cache is None:
         return quantize(w2.to(torch.float32), bits=backend.bits)
+    grid = getattr(backend, "grid", None)
     key = (w2.data_ptr(), tuple(w2.shape), w2.dtype, backend.bits)
+    if grid is not None:
+        key += (grid,)
     entry = cache.get(key)
     if entry is None:
-        entry = cache[key] = (w2, quantize(w2.to(torch.float32),
-                                           bits=backend.bits))
+        wq = quantize(w2.to(torch.float32), bits=backend.bits)
+        if grid is not None:
+            # a grid keeps its shards' contiguous blocks in place of the
+            # flat codes, so no call re-cuts (copies) the weight's bands
+            wq = dataclasses.replace(wq, values=backend.shard_codes(wq.values))
+        entry = cache[key] = (w2, wq)
     return entry[1]
 
 

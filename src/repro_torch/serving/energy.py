@@ -63,15 +63,14 @@ class EnergyModel:
     def __init__(self, cfg, params, *, design: str = "tubgemm", bits: int = 4,
                  unit_n: int = 64, num_units: int = 64,
                  grid: tuple[int, int] | None = None) -> None:
-        if grid is not None:
-            raise NotImplementedError(
-                "EnergyModel(grid=...) needs the grid pricing of a later "
-                "slice of the port")
         self.design = design
         self.bits = bits
         self.unit_n = unit_n
         self.num_units = num_units
-        self._backend = backends_lib.resolve(design, bits=bits)
+        backend = backends_lib.resolve(design, bits=bits)
+        if grid is not None:
+            backend = backends_lib.as_grid(backend, *grid)
+        self._backend = backend
         self._shapes = []
         for name, w in iter_weight_matrices(cfg, params):
             # profile in float32 like the reference, one chunk at a time

@@ -236,7 +236,14 @@ def fused_vs_gather_probe(cfg, params, *, batch: int = 2, prompt_len: int = 5,
 
 
 class ServingEngine:
-    """Paged continuous/static batching over the backend/plan stack."""
+    """Paged continuous/static batching over the backend/plan/grid stack.
+
+    ``grid`` — an optional ``(units_x, units_y)`` PE-array grid: every
+    backend the scope resolves is wrapped in a ``GridBackend`` (a
+    ``GridPlan`` brings its own), the energy model prices the grid, packed
+    stores pack per K band, and the weight-code cache holds each weight's
+    shard blocks in place of its flat codes.
+    """
 
     def __init__(self, cfg: ModelConfig, params, *, max_batch: int = 4,
                  page_size: int = 8, num_pages: int | None = None,
@@ -254,10 +261,6 @@ class ServingEngine:
                 f"(got family={cfg.family!r}, attention={cfg.attention!r})")
         if backend is not None and plan is not None:
             raise ValueError("pass either backend= or plan=, not both")
-        if grid is not None:
-            raise NotImplementedError(
-                "ServingEngine(grid=...) arrives with the grids slice "
-                "(backends/grid.py)")
         self.device = model_lib.require_device(device)
         if _params_device(params).type != self.device.type:
             raise ValueError(f"params live on {_params_device(params)}, "
@@ -270,6 +273,7 @@ class ServingEngine:
         self.backend = backend
         self.plan = plan
         self.bits = bits
+        self.grid = grid
         self.prompt_seed = prompt_seed
         blocks_per_req = -(-max_seq_len // page_size)
         # default pool: every slot can hold a worst-case request, +1 trash page
@@ -280,16 +284,17 @@ class ServingEngine:
         # Eq.-1 pricing must not depend on the storage format.  Only
         # *execution* switches to the bit-packed store.
         self.energy = EnergyModel(cfg, params, design=design, bits=bits,
-                                  unit_n=unit_n, num_units=num_units)
+                                  unit_n=unit_n, num_units=num_units, grid=grid)
         self.packed = packed
         if packed:
             if backend is None and plan is None:
                 raise ValueError("packed=True needs a backend= or plan= "
                                  "scope to fix each site's bit-width")
             self._exec_params = (
-                backends_lib.pack_weights(cfg, params, plan)
+                backends_lib.pack_weights(cfg, params, plan, grid=grid)
                 if plan is not None
-                else backends_lib.pack_weights(cfg, params, bits=bits))
+                else backends_lib.pack_weights(cfg, params, bits=bits,
+                                               grid=grid))
         else:
             self._exec_params = params
         if attention not in ("fused", "gather"):
@@ -393,11 +398,12 @@ class ServingEngine:
     def _scope(self):
         if self.plan is not None:
             return backends_lib.use_plan(
-                self.plan, on_output=self.on_gemm_output,
+                self.plan, grid=self.grid, on_output=self.on_gemm_output,
                 weight_cache=self.weight_cache)
         if self.backend is not None:
             return backends_lib.use_backend(
-                self.backend, bits=self.bits, on_output=self.on_gemm_output,
+                self.backend, bits=self.bits, grid=self.grid,
+                on_output=self.on_gemm_output,
                 weight_cache=self.weight_cache)
         return contextlib.nullcontext()
 

@@ -39,7 +39,8 @@ from repro_torch.stochastic import gen
 
 __all__ = [
     "STOCHASTIC_DESIGN", "default_stream_len", "stochastic_gemm",
-    "stochastic_gemm_stream", "stochastic_design_spec",
+    "stochastic_gemm_stream", "stochastic_counts", "stochastic_decode",
+    "stochastic_design_spec",
     "UnaryLinearAcc", "scaled_output_stream",
 ]
 
@@ -97,9 +98,22 @@ def stochastic_gemm(a, b, bits: int = 8, *, stream_len: int | None = None,
     """
     if stream_len is None:
         stream_len = default_stream_len(bits)
-    counts = gemm_sims.signed_slot_counts(
+    counts = stochastic_counts(a, b, bits, stream_len=stream_len, seed=seed,
+                               rng_kind=rng_kind)
+    return stochastic_decode(counts, bits, stream_len)
+
+
+def stochastic_counts(a, b, bits: int, *, stream_len: int, seed: int = 0,
+                      rng_kind: str = "sobol") -> torch.Tensor:
+    """The exact signed pulse counts behind :func:`stochastic_gemm`, int64."""
+    return gemm_sims.signed_slot_counts(
         torch.as_tensor(a), torch.as_tensor(b),
         _slot_groups(bits, int(stream_len), int(seed), rng_kind))
+
+
+def stochastic_decode(counts: torch.Tensor, bits: int,
+                      stream_len: int) -> torch.Tensor:
+    """Float32 estimate ``count * vmax^2 / stream_len`` of the counts."""
     v = vmax(bits)
     return gemm_sims._scaled(counts, v * v, stream_len)
 
@@ -134,6 +148,13 @@ def stochastic_design_spec(stream_len: int, *, seed: int = 0,
         return stochastic_gemm_stream(a, b, bits, stream_len=stream_len,
                                       seed=seed, rng_kind=rng_kind)
 
+    def count_fn(a, b, bits):
+        return stochastic_counts(a, b, bits, stream_len=stream_len, seed=seed,
+                                 rng_kind=rng_kind)
+
+    def decode_fn(counts, bits):
+        return stochastic_decode(counts, bits, stream_len)
+
     return gemm_sims.DesignSpec(
         name=STOCHASTIC_DESIGN,
         exact_fn=exact_fn,
@@ -141,6 +162,8 @@ def stochastic_design_spec(stream_len: int, *, seed: int = 0,
         wc_cycles_fn=lambda bits, common_dim: stream_len,
         sparsity_aware=False,
         exact=False,
+        count_fn=count_fn,
+        decode_fn=decode_fn,
     )
 
 

@@ -656,3 +656,71 @@ def test_ugemm_engines_refuse_operands_on_two_devices(cuda):
         gemm_sims.ugemm_exact(a, b, bits=4)
     with pytest.raises(ValueError, match="different devices"):
         sgemm.stochastic_gemm(a, b, 4, stream_len=16)
+
+
+@pytest.mark.parametrize("grid", [(2, 2), (3, 2)])
+@pytest.mark.parametrize("spec,bits", [("tubgemm_cuda", 2), ("tubgemm_cuda", 4),
+                                       ("tubgemm_cuda", 8), ("tugemm_cuda", 4),
+                                       ("tugemm_cuda", 8), ("bgemm", 4),
+                                       ("ugemm", 4)])
+def test_grid_execute_card_equals_cpu(cuda, spec, bits, grid):
+    """A PE-array grid at a decode site's shape (8 rows into wk, 4096 ->
+    1024): card equal to CPU and to the card's single unit, bit for bit,
+    from flat codes and from the shard blocks; the kernel mirrors launch
+    their kernel once a shard."""
+    from repro_torch import backends
+    rng = np.random.default_rng(bits + grid[0])
+    v = 2 ** (bits - 1) - 1
+    a = torch.from_numpy(rng.integers(-v, v + 1, (8, 4096)).astype(np.int8))
+    w = torch.from_numpy(rng.integers(-v, v + 1, (4096, 1024)).astype(np.int8))
+    unit = backends.resolve(spec, bits=bits)
+    gb = backends.as_grid(unit, *grid)
+    want = gb.execute(a, w)
+    assert torch.equal(want, unit.execute(a, w))
+    ac, wc = a.to(cuda), w.to(cuda)
+    codes = gb.shard_codes(wc)
+    ug.reset_launches()
+    got = gb.execute(ac, codes)
+    name = {"tubgemm_cuda": "tub_gemm", "tugemm_cuda": "tu_gemm"}.get(spec)
+    if name:
+        assert ug.LAUNCHES[name] == grid[0] * grid[1]
+    assert got.is_cuda and torch.equal(got.cpu(), want)
+    assert torch.equal(gb.execute(ac, wc), unit.execute(ac, wc))
+
+
+@pytest.mark.parametrize("bits", [2, 4, 8])
+@pytest.mark.parametrize("spec", ["tubgemm_cuda", "tugemm_cuda"])
+@pytest.mark.parametrize("k,n", [(4096, 1024), (4096, 4096), (4096, 14336),
+                                 (14336, 4096)])
+def test_grid_kernels_exact_at_every_served_shard_shape(cuda, k, n, spec, bits):
+    """A 2x2 grid of a kernel mirror at 8 rows into each distinct
+    llama3-8b dense-site shape, so at every shard shape a grid-served decode
+    step gives the kernels (K of 2048 and 7168): equal bit for bit to the
+    integer product, computed in float64 (exact for these K), and to the
+    card's single unit."""
+    from repro_torch import backends
+    rng = np.random.default_rng(k + n + bits)
+    v = 2 ** (bits - 1) - 1
+    a = torch.from_numpy(rng.integers(-v, v + 1, (8, k)).astype(np.int8))
+    w = torch.from_numpy(rng.integers(-v, v + 1, (k, n)).astype(np.int8))
+    want = (a.double() @ w.double()).to(torch.int32)
+    unit = backends.resolve(spec, bits=bits)
+    gb = backends.as_grid(unit, 2, 2)
+    ac, wc = a.to(cuda), w.to(cuda)
+    ug.reset_launches()
+    got = gb.execute(ac, gb.shard_codes(wc))
+    assert ug.LAUNCHES[{"tubgemm_cuda": "tub_gemm",
+                        "tugemm_cuda": "tu_gemm"}[spec]] == 4
+    assert got.is_cuda and torch.equal(got.cpu(), want)
+    assert torch.equal(got, unit.execute(ac, wc))
+
+
+def test_kernel_crosscheck_on_card(cuda):
+    """The sweet-spot report's cross-check at the reference's (8, 16, 8),
+    far under the kernels' tiles: the kernels launch, and every row's
+    output and cycles agree with the simulators."""
+    from repro_torch.eval import sweetspot
+    ug.reset_launches()
+    rows = sweetspot.kernel_crosscheck(device=cuda)
+    assert len(rows) == 6 and all(r["output_ok"] and r["cycles_ok"] for r in rows)
+    assert ug.LAUNCHES["tub_gemm"] == ug.LAUNCHES["tu_gemm"] == 3

@@ -202,9 +202,17 @@ def test_scopes_and_unported_options(setup):
     with pytest.raises(ValueError):
         with port_common.activation_scaling("per-column"):
             pass
-    with pytest.raises(NotImplementedError):
-        with port_backends.use_backend("tubgemm", bits=4, grid=(2, 2)):
-            pass
+    # grid= shards every dense contraction on a 2x2 grid: the same sites
+    # and logits bit-identical to the single unit's
+    with port_backends.use_backend("tubgemm", bits=4, grid=(2, 2)) as gx:
+        assert port_backends.active_backend().grid == (2, 2)
+        grid_logits, _ = port_model.forward(port_params, port_cfg,
+                                            torch.from_numpy(tokens))
+    with port_backends.use_backend("tubgemm", bits=4) as fx:
+        flat_logits, _ = port_model.forward(port_params, port_cfg,
+                                            torch.from_numpy(tokens))
+    assert [c.site for c in gx.calls] == [c.site for c in fx.calls]
+    assert torch.equal(grid_logits, flat_logits)
     # quant_backend="ugemm" runs uGEMM's multiplier (held to the reference
     # in tests/test_torch_quant_gemm.py and tests/test_torch_serving.py)
     logits, _ = port_model.forward(port_params, port_cfg.replace(

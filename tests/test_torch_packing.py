@@ -145,10 +145,16 @@ def test_bad_inputs_raise():
     store = port_packing.pack_quantized(w, bits=4)
     with pytest.raises(ValueError, match="second width"):
         port_packing.pack_quantized(store, bits=2)
-    with pytest.raises(NotImplementedError, match="grids slice"):
-        port_packing.pack_quantized(w, bits=4, grid_x=2)
-    with pytest.raises(NotImplementedError, match="grids slice"):
-        port_packing.from_quantized(quantize(w, bits=4), grid_x=2)
+    # grid stores (one packed band per K band) are no longer refused: both
+    # entry points equal the reference's grid store word for word
+    from repro.core.quantization import quantize as ref_quantize
+    jw = jnp.asarray(w.numpy())
+    _eq(ref_packing.pack_quantized(jw, bits=4, grid_x=2).packed,
+        port_packing.pack_quantized(w, bits=4, grid_x=2).packed)
+    _eq(ref_packing.from_quantized(ref_quantize(jw, bits=4), grid_x=2).packed,
+        port_packing.from_quantized(quantize(w, bits=4), grid_x=2).packed)
+    with pytest.raises(ValueError, match="grid_x"):
+        port_packing.pack_quantized(w, bits=4, grid_x=0)
     with pytest.raises(ValueError, match=">=2-D"):
         port_packing.pack_quantized(w[0], bits=4)
     with pytest.raises(ValueError, match="tail"):

@@ -3,10 +3,10 @@
 Contracts: site-pattern precedence (exact beats glob, most literal glob
 wins, ties go to the earliest entry, ``*`` crosses ``/``, no match means the
 float path) picks the same entry in both packages; the example flat plan
-loads and re-serialises byte-identically in both; a grid plan raises
-``NotImplementedError`` on the port (the grids slice); ``use_plan`` runs
-each site on its own entry's backend and leaves unmatched sites on the
-plain float matmul, also under ``cfg.quant_kernel``.
+loads and re-serialises byte-identically in both, and so does the example
+grid plan (``load_plan`` sniffs either schema); ``use_plan`` runs each site
+on its own entry's backend (grid-wrapped under ``grid=``) and leaves
+unmatched sites on the plain float matmul, also under ``cfg.quant_kernel``.
 """
 
 import pathlib
@@ -89,8 +89,11 @@ def test_save_load_and_validation(tmp_path):
 
 
 def test_grid_plan_and_stream_entries_raise():
-    with pytest.raises(NotImplementedError, match="grids slice"):
-        port_backends.load_plan(GRID)
+    # the example grid plan loads as a GridPlan equal to the reference's
+    from repro.backends import grid as ref_grid
+    gplan = port_backends.load_plan(GRID)
+    assert isinstance(gplan, port_backends.GridPlan) and gplan.grid == (2, 2)
+    assert gplan.to_json() == ref_grid.load_plan(GRID).to_json()
     # a stream-coded entry resolves to its rate-coded backend
     entry = port_plan.SiteAssignment(pattern="x", design="ugemm_stochastic",
                                      bits=4, stream_len=32)
@@ -98,8 +101,14 @@ def test_grid_plan_and_stream_entries_raise():
     assert (be.name, be.bits, be.stream_len, be.pricing_design) == \
         ("ugemm_stochastic", 4, 32, "ugemm")
     assert be.cycle_scale == 2.0 and be.cycles(4096) == 32
-    with pytest.raises(NotImplementedError):
-        with port_backends.use_plan(FLAT, grid=(2, 2)):
+    # grid= wraps every entry of a flat plan in a 2x2 grid backend
+    with port_backends.use_plan(FLAT, grid=(2, 2)) as ex:
+        grid_be = ex.backend_for("layers/attn/wq")
+    assert isinstance(grid_be, port_backends.GridBackend)
+    assert grid_be.grid == (2, 2)
+    # a grid plan brings its own grid; another one next to it is refused
+    with pytest.raises(ValueError, match="conflicts"):
+        with port_backends.use_plan(GRID, grid=(4, 1)):
             pass
 
 

@@ -5,7 +5,9 @@ The same plan document goes through both packages' ``lint_plan`` (or
 in order: on the example plan and on one plan crafted for each rule.  The
 one deliberate difference is pinned: the port knows the ``*_cuda`` kernel
 mirrors and not the JAX package's ``*_pallas`` ones, so a hand-written plan
-naming ``tubgemm_pallas`` is an ``unknown-design`` error here.
+naming ``tubgemm_pallas`` is an ``unknown-design`` error here.  Grid
+plans (``lint_grid_plan``: per-shard entries at their shard-local K, the
+aggregate at the grid's K split) agree the same way.
 """
 
 import json
@@ -118,9 +120,15 @@ def test_mirror_names_are_the_deliberate_difference():
 
 
 def test_grid_plans_raise():
-    with pytest.raises(NotImplementedError, match="grids slice"):
-        port_lint.lint_plan_file(GRID)
-    with pytest.raises(NotImplementedError, match="grids slice"):
-        port_lint.lint_plan(ref_grid.load_plan(GRID))
+    # grid plans lint in both packages with the same findings: the example
+    # file, and the same document parsed by each package's GridPlan
+    from repro_torch.backends import grid as port_grid
+    assert _keys(port_lint.lint_plan_file(GRID)) == \
+        _keys(ref_lint.lint_plan_file(GRID))
+    text = GRID.read_text()
+    assert _keys(port_lint.lint_plan(port_grid.GridPlan.from_json(text),
+                                     site_names=SITES)) == \
+        _keys(ref_lint.lint_plan(ref_grid.GridPlan.from_json(text),
+                                 site_names=SITES))
     with pytest.raises(TypeError):
         port_lint.lint_plan({"schema": port_plan.SCHEMA})

@@ -249,12 +249,23 @@ def test_packed_forward_bit_identical(setup, selector):
 
 
 def test_pack_weights_and_planner_refusals(setup):
-    _, port_cfg, _, port_params, _ = setup
+    ref_cfg, port_cfg, ref_params, port_params, _ = setup
     plan = port_backends.load_plan(FLAT)
     with pytest.raises(ValueError, match="exactly one"):
         port_backends.pack_weights(port_cfg, port_params, plan, bits=4)
-    with pytest.raises(NotImplementedError, match="grids slice"):
-        port_backends.pack_weights(port_cfg, port_params, plan, grid=(2, 2))
+    # grid= packs per K band: every store equals the reference's grid store
+    ref_grid = ref_backends.pack_weights(ref_cfg, ref_params,
+                                         ref_backends.load_plan(FLAT),
+                                         grid=(2, 2))
+    port_grid = port_backends.pack_weights(port_cfg, port_params, plan,
+                                           grid=(2, 2))
+    ref_leaves = ref_planner._leaf_index(ref_grid)
+    for name, leaf in port_planner._walk(port_grid):
+        if port_packing.is_packed(leaf):
+            ref_leaf = ref_leaves[name]
+            assert leaf.grid_x == ref_leaf.grid_x == 2, name
+            np.testing.assert_array_equal(np.asarray(ref_leaf.packed),
+                                          leaf.packed.numpy())
     packed8 = port_backends.pack_weights(port_cfg, port_params, bits=8)
     with pytest.raises(ValueError, match="packed-width-mismatch"):
         port_backends.pack_weights(port_cfg, packed8, plan)

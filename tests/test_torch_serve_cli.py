@@ -4,8 +4,10 @@ sites; ``traffic`` and the one-shot ``serve`` mode replay it (also from
 packed stores); ``serve --execute-backend`` reports bit-exact integer GEMMs;
 ``--execute-backend ugemm`` and ``ugemm_stochastic:16`` execute prefill and
 decode and report against their oracles; ``plan --stream-lens`` admits
-rate-coded candidates; what the port does not have yet (``--grid``, grid
-plan files) exits 2 and names the slice that brings it."""
+rate-coded candidates; ``plan --grid 2,2`` writes a grid plan that
+``traffic`` and ``serve`` replay on the 2x2 grid (so does a flat plan or a
+backend with ``--grid``); a ``--grid`` that conflicts with a grid plan's
+own, or is malformed, exits 2."""
 
 import pathlib
 
@@ -56,10 +58,10 @@ def test_serve_execute_backend_packed_is_bit_exact(capsys):
 
 
 @pytest.mark.parametrize("argv,names", [
-    (["serve", "--grid", "2,2"], "grids slice"),
-    (["traffic", "--backend-plan",
+    (["serve", "--grid", "2,0"], "grid must be >= 1x1"),
+    (["traffic", "--grid", "4,1", "--backend-plan",
       str(ROOT / "examples" / "plans" / "llama3_8b_smoke.grid2x2.json")],
-     "grids slice"),
+     "conflicts with the grid plan's own grid"),
     (["serve", "--packed"], "--packed needs"),
     (["serve", "--execute-backend", "tubgemm", "--backend-plan",
       str(ROOT / "examples" / "plans" / "llama3_8b_smoke.plan.json")],
@@ -120,3 +122,45 @@ def test_backend_plan_with_stream_entries_replays(tmp_path, capsys):
     assert "(tubgemm@4, ugemm_stochastic@4:16)" in out
     assert "int GEMMs vs exact-uGEMM oracle on ugemm_stochastic@4:16" in out
     assert "int GEMMs vs binary oracle on tubgemm@4: bit-exact" in out
+
+
+@pytest.fixture(scope="module")
+def grid_planned(tmp_path_factory):
+    path = tmp_path_factory.mktemp("grid") / "grid_plan.json"
+    assert serve.main(["plan", *BASE, "--batch", "2", "--grid", "2,2",
+                       "--plan-out", str(path)]) == 0
+    return path
+
+
+def test_grid_plan_mode_writes_a_clean_grid_plan(grid_planned):
+    gplan = backends.load_plan(grid_planned)
+    assert isinstance(gplan, backends.GridPlan) and gplan.grid == (2, 2)
+    sites = [e.pattern for e in gplan.aggregate.sites]
+    assert len(sites) == 8 and [k for k, _ in gplan.shards] == \
+        ["0,0", "0,1", "1,0", "1,1"]
+    assert plan_lint.lint_plan(gplan, site_names=sites) == []
+
+
+@pytest.mark.parametrize("mode,extra,expect", [
+    ("traffic", ["--act-scale", "per-row"], "identical: True"),
+    ("traffic", ["--packed", "--act-scale", "per-row"], "identical: True"),
+    ("serve", ["--tokens", "4"], "per-decode-token per-shard cycle totals")])
+def test_grid_plan_replay(grid_planned, capsys, mode, extra, expect):
+    assert serve.main([mode, *BASE, "--backend-plan", str(grid_planned),
+                       *extra]) == 0
+    out = capsys.readouterr().out
+    assert expect in out and "2x2 grid" in out
+    if mode == "serve":
+        assert "int GEMMs vs unsharded binary oracle" in out
+        assert "bit-exact" in out
+
+
+@pytest.mark.parametrize("argv,expect", [
+    (["traffic", "--grid", "2,2", "--act-scale", "per-row"], "identical: True"),
+    (["serve", "--execute-backend", "tubgemm", "--grid", "2x2", "--tokens",
+      "4"], "int GEMMs vs binary oracle: bit-exact")])
+def test_flat_plan_and_backend_on_a_grid(planned, capsys, argv, expect):
+    extra = ["--backend-plan", str(planned)] if argv[0] == "traffic" else []
+    assert serve.main([*argv, *BASE, *extra]) == 0
+    out = capsys.readouterr().out
+    assert expect in out and "2x2 grid" in out

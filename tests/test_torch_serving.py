@@ -281,9 +281,22 @@ def test_engines_share_weight_cache(setup):
 
 
 def test_engine_argument_checks(setup):
-    _, port_cfg, _, port_params = setup
-    with pytest.raises(NotImplementedError):
-        ServingEngine(port_cfg, port_params, device="cpu", grid=(2, 2))
+    ref_cfg, port_cfg, ref_params, port_params = setup
+    # a grid engine builds; its energy model prices the 2x2 grid exactly as
+    # the reference's does (a GridCost)
+    grid_eng = ServingEngine(port_cfg, port_params, device="cpu", grid=(2, 2),
+                             backend="tubgemm")
+    assert grid_eng.grid == (2, 2)
+    ref_cost = ref_energy.EnergyModel(ref_cfg, ref_params, design="tubgemm",
+                                      bits=4, grid=(2, 2)).step_cost(3)
+    cost = grid_eng.energy.step_cost(3)
+    assert type(cost).__name__ == type(ref_cost).__name__ == "GridCost"
+    assert (cost.units_x, cost.units_y, cost.total_macs) == \
+        (ref_cost.units_x, ref_cost.units_y, ref_cost.total_macs)
+    for field in ("dyn_energy_uj", "wc_energy_uj", "dyn_latency_us",
+                  "hop_energy_uj", "hop_latency_us", "utilization"):
+        assert getattr(cost, field) == pytest.approx(
+            getattr(ref_cost, field), rel=1e-6), field
     for kw in (dict(packed=True), dict(backend="tubgemm", plan=PLAN)):
         with pytest.raises(ValueError):
             ServingEngine(port_cfg, port_params, device="cpu", **kw)
