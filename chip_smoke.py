@@ -91,6 +91,31 @@ Phases, each of which fails the run (non-zero exit) on its own:
    on the card, every row equal to the simulator in output and cycles,
    written to a temporary directory.  The phase runs after ``ugemm`` on the
    served model; its launches are printed, not put on the kernels line.
+11. ``families`` — the attention-transformer families: each of the seven
+   architectures beside llama3-8b at narrow widths that keep its head dims
+   (MLA: q/k 192, V 128), card (kernels) against CPU (plain versions):
+   forward, prefill and three decode steps within 1e-4, greedy tokens
+   equal, and for MoE the routing indices, loss and gradients; then at
+   published widths, cut in depth only: phi3.5-moe (4 layers) through the
+   one-shot serve mode's functions under ``tubgemm_cuda``@4 per-row, with
+   every site, ``lm_head`` included, launching ``tub_gemm`` once a call,
+   prefill against forward (same T) and decode against forward with the
+   expert capacity lifted to T within 1e-3 at fp32, a traced decode step
+   beside one layer's expert loop, and 3 train steps at 2 layers (bf16,
+   remat; losses finite, every parameter moved, the three flash kernels
+   launched); deepseek-v3 (1 layer: 256 experts, MLA) forward (flash at
+   D = 192) and prefill + three absorbed decode steps within 1e-3 at fp32,
+   then under ``tubgemm_cuda`` (``w_uk`` / ``w_uv`` sites of the forward
+   only); gemma-7b, phi3-mini, internlm2 and chameleon (2 layers) serving
+   three requests through ``ServingEngine`` under ``tubgemm_cuda`` with
+   fused decode, fused == gather on the float path; musicgen's forward
+   from embeddings.  Every (M, K, N, bits) at which these paths call
+   ``tub_gemm`` is collected, and after them the kernel is held at each
+   (and at 8 bits at each (K, N)'s smallest and largest M) equal to its
+   plain slot loop and to the integer product.  It runs after the served
+   model is freed; its launches are printed per path and run (zeroed just
+   before each, read just after) and put on the kernels line as
+   ``launches_families``.
 
 Needs a CUDA device: without one (or without the package beside it) the
 script exits non-zero and prints no result.  ``--layers`` / ``--requests``
@@ -187,7 +212,7 @@ REPLACES = {
 FLASH = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
 INT_GEMMS = ("quant_gemm", "packed_gemm")
 ALL_PHASES = ("device", "kernels", "probes", "serve", "quant", "plan", "ugemm",
-              "train", "times", "grid")
+              "train", "times", "grid", "families")
 SITE_LEAVES = (("attn", "wq"), ("attn", "wk"), ("attn", "wv"), ("attn", "wo"),
                ("mlp", "w_up"), ("mlp", "w_gate"), ("mlp", "w_down"))
 
@@ -558,12 +583,14 @@ def phase_kernels() -> dict:
 
 # (BH, Sq, Skv, D): the training path's slabs (B=4 x H=32, S=2048, d=128),
 # a ragged length, Sq != Skv, d=64, and Sq > Skv at d=16 with both lengths
-# one past and one short of the 64-wide tiles; head dims 96 (phi3-mini) and
-# 256 (gemma-7b) at a ragged length and both Sq != Skv
+# one past and one short of the 64-wide tiles; head dims 96 (phi3-mini),
+# 256 (gemma-7b) and 192 (deepseek-v3's MLA q/k) at a ragged length and both
+# Sq != Skv
 FLASH_CASES = ((128, 2048, 2048, 128), (128, 2000, 2000, 128),
                (16, 77, 130, 128), (16, 333, 333, 64), (16, 129, 63, 16),
                (32, 1000, 1000, 96), (16, 129, 63, 96), (32, 777, 777, 256),
-               (16, 77, 130, 256), (16, 129, 63, 256))
+               (16, 77, 130, 256), (16, 129, 63, 256), (32, 777, 777, 192),
+               (16, 77, 130, 192), (16, 129, 63, 192))
 FLASH_TOL = {torch.float32: 1e-4, torch.bfloat16: 1e-2}   # x max|plain|
 # bf16 o, dQ, dK, dV also per element: |kernel - plain| <= FLASH_BF16_ROW_TOL
 # x (|plain| + max|plain| of its row), so that small later rows are held too;
@@ -840,41 +867,8 @@ def _decode_step_profile(engine, cfg, kernels: dict[str, str]) -> None:
             state["lengths"], active)
 
     with engine._scope(), activation_scaling("per-row"):
-        for _ in range(2):
-            one_step()
-        torch.cuda.synchronize()
-        times = []
-        for _ in range(10):
-            t0 = time.perf_counter()
-            one_step()
-            torch.cuda.synchronize()
-            times.append((time.perf_counter() - t0) * 1e3)
-        log(f"  steady decode step (8 slots, context 300): median "
-            f"{statistics.median(times):.2f} ms of host wall with a synchronise per step "
-            f"(min {min(times):.2f}, max {max(times):.2f})")
-        from torch.profiler import ProfilerActivity, profile
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            for _ in range(3):
-                one_step()
-            torch.cuda.synchronize()
-            wall_us = (time.perf_counter() - t0) * 1e6
-        rows = _device_rows(prof)
-        busy_us = sum(r[0] for r in rows)
-        require(busy_us > 0, "the profiler reported no device time for three "
-                             "decode steps: device busy share not measured")
-        log(f"  traced 3 steps: device busy {busy_us / 3e3:.2f} ms/step of "
-            f"{wall_us / 3e3:.2f} ms/step under the profiler = "
-            f"{100 * busy_us / wall_us:.1f} % busy, "
-            f"{100 - 100 * busy_us / wall_us:.1f} % idle; "
-            f"{sum(r[2] for r in rows) // 3} device operations a step")
-        for t, key, count in sorted(rows, reverse=True)[:10]:
-            log(f"    {t / 3e3:8.3f} ms/step  x{count // 3:<5d} {key[:90]}")
-        for name, piece in kernels.items():
-            t, n = (sum(r[i] for r in rows if piece in r[1]) for i in (0, 2))
-            log(f"    {name}: {t / 3e3:.3f} ms/step ({n // 3} launches a step, "
-                f"{100 * t / busy_us:.1f} % of device busy)")
+        _step_profile(one_step, "steady decode step (8 slots, context 300)",
+                      kernels, top=10)
 
 
 def _fused_gather_divergence(cfg, fused, gather, *, steps: int = 4,
@@ -2245,6 +2239,607 @@ def phase_train(layers: int, steps: int) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 11: families (the attention-transformer families at full width)
+# ---------------------------------------------------------------------------
+
+FAMILY_IDS = ("gemma-7b", "phi3-mini-3.8b", "internlm2-1.8b", "chameleon-34b",
+              "musicgen-medium", "phi3.5-moe-42b-a6.6b", "deepseek-v3-671b")
+MOE_ID, MLA_ID, AUDIO_ID = "phi3.5-moe-42b-a6.6b", "deepseek-v3-671b", "musicgen-medium"
+SERVED_DENSE = ("gemma-7b", "phi3-mini-3.8b", "internlm2-1.8b", "chameleon-34b")
+FAMILY_TOL = 1e-4          # card vs CPU, the same port code, fp32
+SELF_TOL = 1e-3            # cached vs full-sequence logits at full width, fp32
+CHECK_STEPS = 3            # decode steps held against the full-sequence pass
+# full-width cuts (widths kept, depth cut): phi3.5-moe is ~1.30 B parameters
+# a layer, deepseek-v3 11.3 B of routed experts in ONE layer (fp32: 53 GB
+# with embedding and head)
+MOE_SERVE = dict(layers=4, batch=4, prompt=64, tokens=16)
+MOE_TRAIN = dict(layers=2, batch=2, seq=1024, steps=3)
+MLA_RUN = dict(layers=1, batch=2, prompt=32)
+DENSE_LAYERS = 2
+FAMILY_REQUESTS = 3
+AUDIO_RUN = dict(batch=2, seq=128)
+
+
+def narrow_family(arch: str):
+    """``arch`` at narrow widths that keep its head dims (MLA: its q/k nope
+    and rope and its V), 2 layers, 4 experts top-2 with the published
+    capacity factor, fp32."""
+    full = configs.get_config(arch)
+    cfg = configs.get_smoke_config(arch).replace(
+        num_layers=2, param_dtype="float32", compute_dtype="float32")
+    if full.attention == "mla":
+        cfg = cfg.replace(num_heads=2, num_kv_heads=2, mla=dataclasses.replace(
+            full.mla, q_lora_rank=64, kv_lora_rank=32))
+    else:
+        cfg = cfg.replace(
+            d_model=2 * full.resolved_head_dim, num_heads=2, head_dim=full.head_dim,
+            num_kv_heads=1 if full.num_kv_heads < full.num_heads else 2)
+    if full.is_moe:
+        cfg = cfg.replace(moe=dataclasses.replace(full.moe, num_experts=4, top_k=2,
+                                                  d_ff_expert=64))
+    return cfg
+
+
+def _no_drop(cfg):
+    """``cfg`` with every expert's capacity at T: no token is dropped.  A
+    forward over T tokens and a prefill over fewer route different tokens
+    past a bounded capacity, so the cached-vs-full comparison of a decode
+    step is made at this capacity (the same weights)."""
+    m = cfg.moe
+    return cfg.replace(moe=dataclasses.replace(
+        m, capacity_factor=m.num_experts / m.top_k))
+
+
+def expected_sites(cfg, cached: bool = False) -> list[str]:
+    """The dense sites one forward records, in order: MLA's ``w_uk`` /
+    ``w_uv`` only without a cache, the MoE's shared expert only (router and
+    routed experts stay float), ``lm_head`` unless tied."""
+    if cfg.attention == "mla":
+        attn = ["w_dq", "w_uq", "w_dkv", "w_kr"] + ([] if cached else ["w_uk", "w_uv"])
+    else:
+        attn = ["wq", "wk", "wv"]
+    gated = ("w_up", "w_gate", "w_down") if cfg.activation in ("swiglu", "geglu") \
+        else ("w_up", "w_down")
+    if cfg.is_moe:
+        ffn = [f"moe/shared/{n}" for n in gated] if cfg.moe.num_shared_experts else []
+    else:
+        ffn = [f"mlp/{n}" for n in gated]
+    layer = [f"layers/attn/{n}" for n in attn + ["wo"]] + [f"layers/{n}" for n in ffn]
+    return layer * cfg.num_layers + ([] if cfg.tie_embeddings else ["lm_head"])
+
+
+def _greedy(logits) -> torch.Tensor:
+    return torch.argmax(logits[:, -1:], dim=-1).to(torch.int32)
+
+
+def _cached_logits(params, cfg, prompt=None, *, embeds=None, steps=CHECK_STEPS):
+    """Prefill then ``steps`` greedy decode steps over a float32 cache:
+    (prefill logits, [last prompt position, then each step's logits],
+    generated tokens (B, steps))."""
+    inp = embeds if embeds is not None else prompt
+    b, s = inp.shape[:2]
+    caches = model_lib.init_caches(cfg, b, s + steps, dtype=torch.float32,
+                                   device=inp.device)
+    pre, caches = model_lib.prefill(params, cfg, prompt, caches=caches,
+                                    embeds=embeds)
+    rows, toks, tok = [pre[:, -1]], [], _greedy(pre)
+    for i in range(steps):
+        step, caches = model_lib.decode_step(params, cfg, tok, caches=caches,
+                                             cache_pos=s + i)
+        toks.append(tok)
+        rows.append(step[:, 0])
+        tok = _greedy(step)
+    return pre, torch.stack(rows, dim=1), torch.cat(toks, dim=1) if toks else None
+
+
+def _decode_vs_forward(params, cfg, prompt) -> float:
+    """max |cached - full| over the last prompt position and CHECK_STEPS
+    decode steps, the full pass over the prompt and the fed tokens."""
+    _, rows, toks = _cached_logits(params, cfg, prompt)
+    s = prompt.shape[1]
+    full, _ = model_lib.forward(params, cfg, torch.cat([prompt, toks], dim=1))
+    return float((rows - full[:, s - 1:]).abs().max())
+
+
+def _sites_run(fn, cfg, spec: str = "tubgemm_cuda"):
+    """Run ``fn`` under ``spec``@4 with per-row scaling: (sites recorded,
+    tub_gemm launches, flash_fwd launches, result)."""
+    ug.reset_launches()
+    flash_lib.reset_launches()
+    with backends.use_backend(spec, bits=4) as ex, activation_scaling("per-row"):
+        out = fn()
+    torch.cuda.synchronize()
+    return ([c.site for c in ex.calls], ug.LAUNCHES["tub_gemm"],
+            flash_lib.LAUNCHES["flash_fwd"], out)
+
+
+def _init_family(cfg, what: str):
+    torch.cuda.reset_peak_memory_stats()
+    gen = torch.Generator(device=DEV)
+    gen.manual_seed(0)
+    t0 = time.perf_counter()
+    params = model_lib.init_params(cfg, gen, device=DEV)
+    torch.cuda.synchronize()
+    n = model_lib.count_params(params)
+    log(f"  {what}: {cfg.arch_id} d_model={cfg.d_model} heads={cfg.num_heads} "
+        f"kv_heads={cfg.num_kv_heads} head_dim={cfg.resolved_head_dim} d_ff="
+        f"{cfg.d_ff} vocab={cfg.vocab_size}"
+        + (f" experts={cfg.moe.num_experts} top_k={cfg.moe.top_k} d_ff_expert="
+           f"{cfg.moe.d_ff_expert} shared={cfg.moe.num_shared_experts}"
+           if cfg.is_moe else "")
+        + (f" mla={dataclasses.asdict(cfg.mla)}" if cfg.attention == "mla" else "")
+        + f", {cfg.num_layers} layers, {n / 1e9:.2f} B parameters "
+        f"({n * 4 / 2**30:.1f} GiB fp32) drawn in {time.perf_counter() - t0:.1f} s")
+    return params
+
+
+def _family_card_vs_cpu(arch: str) -> None:
+    """Narrow ``arch`` on the card (kernels) and the CPU (plain versions),
+    identical parameters and inputs: forward, prefill and CHECK_STEPS
+    decode logits within FAMILY_TOL, greedy tokens equal; for MoE also the
+    routing indices, the loss and every gradient."""
+    cfg = narrow_family(arch)
+    gen = torch.Generator(device="cpu")
+    gen.manual_seed(0)
+    cpu_params = model_lib.init_params(cfg, gen, device="cpu")
+    card_params = _clone_tree(cpu_params, DEV)
+    rng = np.random.default_rng(0)
+    b, s = 2, 40
+    tokens = torch.from_numpy(rng.integers(0, cfg.vocab_size, (b, s)).astype(np.int32))
+    embeds = (torch.from_numpy(rng.standard_normal((b, s, cfg.d_model)).astype(np.float32))
+              if cfg.frontend_stub else None)
+
+    def run(params, dev):
+        kw = ({"embeds": embeds.to(dev)} if embeds is not None
+              else {"tokens": tokens.to(dev)})
+        fwd, aux = model_lib.forward(params, cfg, **kw)
+        pre, rows, toks = _cached_logits(params, cfg, kw.get("tokens"),
+                                         embeds=kw.get("embeds"))
+        return [x.cpu() for x in (fwd, pre, rows)], toks.cpu(), float(aux)
+
+    flash_lib.reset_launches()
+    with torch.no_grad():
+        card, card_toks, card_aux = run(card_params, DEV)
+        torch.cuda.synchronize()
+        fwd_launches = flash_lib.LAUNCHES["flash_fwd"]
+        cpu, cpu_toks, cpu_aux = run(cpu_params, torch.device("cpu"))
+    errs = [float((a - c).abs().max()) for a, c in zip(card, cpu)]
+    d_qk = (cfg.mla.nope_head_dim + cfg.mla.rope_head_dim if cfg.attention == "mla"
+            else cfg.resolved_head_dim)
+    line = (f"  {arch} narrow (d_model {cfg.d_model}, q/k head dim {d_qk}"
+            + (f", V {cfg.mla.v_head_dim}" if cfg.attention == "mla" else "")
+            + f"): card vs CPU max|dlogit| forward {errs[0]:.2e}, prefill "
+            f"{errs[1]:.2e}, {CHECK_STEPS} decode steps {errs[2]:.2e} (tol "
+            f"{FAMILY_TOL:g}); greedy tokens equal {torch.equal(card_toks, cpu_toks)}; "
+            f"flash_fwd launches {fwd_launches}")
+    require(max(errs) <= FAMILY_TOL, f"{arch} narrow: card vs CPU logits {errs}")
+    require(torch.equal(card_toks, cpu_toks), f"{arch} narrow: greedy tokens differ")
+    require(fwd_launches == cfg.num_layers, f"{arch}: flash_fwd launches {fwd_launches}")
+    require(abs(card_aux - cpu_aux) <= FAMILY_TOL, f"{arch}: aux {card_aux} vs {cpu_aux}")
+    if cfg.is_moe:
+        from repro_torch.models import moe as moe_lib
+        x = torch.from_numpy(rng.standard_normal((b * s, cfg.d_model)).astype(np.float32))
+        router = cpu_params["layers"]["moe"]["router"][0]
+        idx_cpu = moe_lib._routing(router, x, cfg)[0]
+        idx_card = moe_lib._routing(router.to(DEV), x.to(DEV), cfg)[0].cpu()
+        require(torch.equal(idx_card, idx_cpu), f"{arch}: routing indices differ")
+        out = []
+        for dev in (DEV, torch.device("cpu")):
+            tree = steps_lib._trainable(_clone_tree(cpu_params, dev))
+            batch = {"tokens": tokens[:, :-1].to(dev), "targets": tokens[:, 1:].to(dev)}
+            flash_lib.reset_launches()
+            loss, parts, grads = steps_lib.loss_and_grads(cfg, tree, batch)
+            out.append((float(loss), float(parts["aux"]),
+                        {k: g.cpu() for k, g in _tree_leaves(grads)},
+                        dict(flash_lib.LAUNCHES)))
+        (loss_g, aux_g, grads_g, launched), (loss_c, aux_c, grads_c, _) = out
+        worst = max((float((grads_g[k] - grads_c[k]).abs().max()), k) for k in grads_c)
+        line += (f"; routing indices equal; loss card {loss_g:.7f} cpu {loss_c:.7f} "
+                 f"(aux {aux_g:.5f}), worst gradient {worst[1]} {worst[0]:.2e}; "
+                 f"backward launches {launched}")
+        require(abs(loss_g - loss_c) <= FAMILY_TOL and worst[0] <= FAMILY_TOL,
+                f"{arch} narrow: loss {loss_g} vs {loss_c}, gradient {worst}")
+        require(aux_g > 0.0, f"{arch}: the MoE aux loss did not reach loss_fn")
+        require(launched == {n: cfg.num_layers for n in FLASH},
+                f"{arch}: flash launches in the gradient run {launched}")
+    log(line)
+
+
+def _step_profile(step, what: str, kernels: dict[str, str] | None = None,
+                  top: int = 6) -> dict:
+    """Host wall of ``step`` (10 runs, a synchronise each) and a trace of 3;
+    ``kernels`` maps each hand-written kernel of the path to a piece of its
+    traced name, whose device time and launches a step are printed."""
+    from torch.profiler import ProfilerActivity, profile
+    for _ in range(2):
+        step()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(10):
+        t0 = time.perf_counter()
+        step()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(3):
+            step()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    rows = _device_rows(prof)
+    busy_us = sum(r[0] for r in rows)
+    require(busy_us > 0, f"{what}: the profiler reported no device time")
+    med = statistics.median(times)
+    log(f"  {what}: median {med:.2f} ms host wall with a synchronise (min "
+        f"{min(times):.2f}, max {max(times):.2f}); traced 3: device busy "
+        f"{busy_us / 3e3:.2f} ms of {wall_us / 3e3:.2f} ms = "
+        f"{100 * busy_us / wall_us:.1f} % busy, {sum(r[2] for r in rows) // 3} "
+        f"device operations each")
+    for t, key, count in sorted(rows, reverse=True)[:top]:
+        log(f"    {t / 3e3:8.3f} ms  x{count // 3:<5d} {key[:90]}")
+    for name, piece in (kernels or {}).items():
+        t, n = (sum(r[i] for r in rows if piece in r[1]) for i in (0, 2))
+        log(f"    {name}: {t / 3e3:.3f} ms/step ({n // 3} launches a step, "
+            f"{100 * t / busy_us:.1f} % of device busy)")
+    return {"wall_ms": med, "busy_ms": busy_us / 3e3}
+
+
+@torch.no_grad()
+def _moe_serve() -> dict:
+    """phi3.5-moe at its published widths, MOE_SERVE['layers'] deep: the
+    one-shot serve mode's functions under tubgemm_cuda@4 per-row, then the
+    cached paths held against the full-sequence forward."""
+    from repro_torch.launch import serve as serve_lib
+    from repro_torch.models import moe as moe_lib
+    cfg = configs.get_config(MOE_ID).replace(
+        num_layers=MOE_SERVE["layers"], param_dtype="float32", compute_dtype="float32")
+    params = _init_family(cfg, "MoE serve")
+    rng = np.random.default_rng(0)
+    b, s, new = MOE_SERVE["batch"], MOE_SERVE["prompt"], MOE_SERVE["tokens"]
+    prompt = torch.from_numpy(rng.integers(0, cfg.vocab_size, (b, s)).astype(np.int32)).to(DEV)
+    t0 = time.perf_counter()
+    toks = serve_lib.generate(cfg, params, prompt, new)
+    torch.cuda.synchronize()
+    log(f"  generate (float path): {tuple(toks.shape)} tokens in "
+        f"{time.perf_counter() - t0:.2f} s")
+    ug.reset_launches()
+    rel = serve_lib.validate_backend_numerics(params, "tubgemm_cuda", 4)
+    tiles = ug.LAUNCHES["tub_gemm"]      # run_backend_execution repeats this check
+    require(rel == 0.0, f"tubgemm_cuda numerics on phi3.5-moe weights: {rel}")
+    t0 = time.perf_counter()
+    rec, stats = serve_lib.build_workload(cfg, params, b, s, 4)
+    names = [c.name for c in rec.calls]
+    require({"layers/moe/router", "layers/moe/w_gate", "layers/moe/w_up",
+             "layers/moe/w_down", "lm_head"} <= set(names),
+            f"build_workload priced {names}")
+    expert = next(c for c in rec.calls if c.name == "layers/moe/w_up")
+    cost = backends.resolve("tubgemm", bits=4).price(rec.calls, unit_n=128, num_units=64)
+    log(f"  build_workload: {len(names)} matrices priced in "
+        f"{time.perf_counter() - t0:.2f} s, the expert stacks as the reference "
+        f"reshapes them (w_up ({expert.k}, {expert.n_out})); tubGEMM@4 "
+        f"{cost.dyn_energy_uj:.2f} uJ a decode step")
+    ug.reset_launches()
+    with activation_scaling("per-row"):
+        res = serve_lib.run_backend_execution(
+            cfg, params, prompt, backends.resolve("tubgemm_cuda", bits=4), new,
+            unit_n=128, num_units=64, stats=stats)
+    sites = expected_sites(cfg)
+    launched = ug.LAUNCHES["tub_gemm"]
+    log(f"  run_backend_execution tubgemm_cuda@4 per-row: {res['sites']} sites, "
+        f"wall {res['wall_s']:.2f} s, drift {res['drift']:.3e}, top-1 agreement "
+        f"{res['top1_agreement']:.3f}, tub_gemm launches {launched} (prefill, "
+        f"{new - 1} decode steps and the prefill-logit pass: "
+        f"{len(sites)} x {new + 1} = {len(sites) * (new + 1)}, + {tiles} numerics tiles)")
+    require(res["sites"] == len(set(sites)), f"sites executed {res['sites']}")
+    require(launched == len(sites) * (new + 1) + tiles,
+            f"run_backend_execution: {launched} tub_gemm launches, want "
+            f"{len(sites)} x {new + 1} + {tiles}")
+    # the cached paths against the full-sequence pass (float path)
+    fwd, aux = model_lib.forward(params, cfg, prompt)
+    pre, _, _ = _cached_logits(params, cfg, prompt, steps=0)
+    err_pre = float((pre - fwd).abs().max())
+    err_dec = _decode_vs_forward(params, _no_drop(cfg), prompt)
+    err_cap = _decode_vs_forward(params, cfg, prompt)
+    log(f"  float path: prefill vs forward over the prompt (same T, so the "
+        f"same capacity) max|dlogit| {err_pre:.3e}; prefill + {CHECK_STEPS} "
+        f"decode steps vs forward, capacity at T {err_dec:.3e} (tol {SELF_TOL:g}); "
+        f"at the published capacity {err_cap:.3e} (reported: tokens past "
+        f"capacity differ between T = {b * s} and T = {b * (s + CHECK_STEPS)}); "
+        f"aux {float(aux):.5f}")
+    require(err_pre <= SELF_TOL and err_dec <= SELF_TOL,
+            f"phi3.5-moe cached vs full: {err_pre}, {err_dec}")
+    # one decode step: every site launches tub_gemm once, lm_head included
+    caches = model_lib.init_caches(cfg, b, s + 1, dtype=torch.float32, device=DEV)
+    _, caches = model_lib.prefill(params, cfg, prompt, caches=caches)
+    tok = toks[:, :1].contiguous()
+
+    def step():
+        return model_lib.decode_step(params, cfg, tok, caches=caches, cache_pos=s)
+
+    got, tub, _, _ = _sites_run(step, cfg)
+    require(got == sites and tub == len(sites),
+            f"decode step under tubgemm_cuda: sites {got}, {tub} launches")
+    with backends.use_backend("tubgemm_cuda", bits=4), activation_scaling("per-row"):
+        prof = _step_profile(step, f"decode step (B={b}, context {s}, "
+                                   f"tubgemm_cuda@4 per-row)")
+        h = torch.randn((b, 1, cfg.d_model), device=DEV)
+        moe0 = model_lib.blocks_lib.layer_slice(params["layers"], 0)["moe"]
+        moe = _step_profile(lambda: moe_lib.moe_fwd(moe0, h, cfg),
+                            f"one layer's moe_fwd at the decode step's {b} tokens "
+                            f"({cfg.moe.num_experts} experts in turn)")
+    share = cfg.num_layers * moe["wall_ms"] / prof["wall_ms"]
+    log(f"  the per-expert loop: {cfg.num_layers} x {moe['wall_ms']:.2f} ms = "
+        f"{100 * share:.1f} % of the decode step's host wall; "
+        f"{cfg.num_layers * moe['busy_ms']:.2f} of {prof['busy_ms']:.2f} ms device busy")
+    peak = torch.cuda.max_memory_allocated()
+    log(f"  peak max_memory_allocated {peak / 2**30:.2f} GiB")
+    return {"tub_gemm": {"run_backend_execution": launched, "decode step": tub},
+            "decode_ms": prof["wall_ms"],
+            "decode_busy_ms": prof["busy_ms"], "peak_gib": peak / 2**30}
+
+
+def _moe_train() -> dict:
+    cfg = configs.get_config(MOE_ID).replace(
+        num_layers=MOE_TRAIN["layers"], param_dtype="float32",
+        compute_dtype="bfloat16", remat=True)
+    steps = MOE_TRAIN["steps"]
+    loop = train_lib.TrainLoopConfig(steps=steps, log_every=1, batch=MOE_TRAIN["batch"],
+                                     seq=MOE_TRAIN["seq"], lr=3e-4, warmup=1, seed=0)
+    torch.cuda.reset_peak_memory_stats()
+    flash_lib.reset_launches()
+    t0 = time.perf_counter()
+    state, history, _ = train_lib.train(cfg, loop, device=DEV)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(flash_lib.LAUNCHES)
+    losses = [m["loss"] for _, m in history]
+    auxes = [m["aux"] for _, m in history]
+    peak = torch.cuda.max_memory_allocated()
+    gen = torch.Generator(device=DEV)
+    gen.manual_seed(loop.seed)
+    init = model_lib.init_params(cfg, gen, device=DEV)
+    still = [k for (k, a), (_, w) in zip(_tree_leaves(init), _tree_leaves(state.params))
+             if torch.equal(a, w)]
+    layers = cfg.num_layers
+    log(f"  MoE train: {cfg.arch_id} published widths, {layers} layers, fp32 "
+        f"parameters, bf16 compute, remat, batch {loop.batch} x {loop.seq}: losses "
+        + " ".join(f"{x:.4f}" for x in losses) + " (aux "
+        + " ".join(f"{x:.4f}" for x in auxes) + f"), step walls "
+        + " ".join(f"{m['step_s']:.2f}" for _, m in history)
+        + f" s, train() {wall:.1f} s incl. init, peak {peak / 2**30:.2f} GiB; "
+        f"launches {launches}; leaves unmoved {still or 'none'}")
+    require(len(losses) == steps and all(math.isfinite(x) for x in losses),
+            f"MoE train losses {losses}")
+    require(all(a > 0 for a in auxes), "MoE train: aux loss is 0")
+    require(not still, f"MoE train: parameters did not move: {still}")
+    require(launches["flash_fwd"] == 2 * layers * steps
+            and launches["flash_bwd_dq"] == launches["flash_bwd_dkv"] == layers * steps,
+            f"MoE train: flash launches {launches}")
+    del state, init
+    return {"launches": launches, "step_s": history[-1][1]["step_s"],
+            "peak_gib": peak / 2**30}
+
+
+@torch.no_grad()
+def _mla_full() -> dict:
+    """deepseek-v3 at its published widths, MLA_RUN['layers'] deep: forward
+    (flash at q/k 192, V 128) against prefill + CHECK_STEPS absorbed decode
+    steps, float path at fp32; then both under tubgemm_cuda@4 per-row."""
+    cfg = configs.get_config(MLA_ID).replace(
+        num_layers=MLA_RUN["layers"], param_dtype="float32", compute_dtype="float32")
+    params = _init_family(cfg, "MLA + MoE")
+    rng = np.random.default_rng(0)
+    b, s = MLA_RUN["batch"], MLA_RUN["prompt"]
+    prompt = torch.from_numpy(rng.integers(0, cfg.vocab_size, (b, s)).astype(np.int32)).to(DEV)
+    flash_lib.reset_launches()
+    t0 = time.perf_counter()
+    fwd, aux = model_lib.forward(params, cfg, prompt)
+    torch.cuda.synchronize()
+    fwd_wall = time.perf_counter() - t0
+    require(flash_lib.LAUNCHES["flash_fwd"] == cfg.num_layers, "MLA forward: flash_fwd")
+    pre, _, _ = _cached_logits(params, cfg, prompt, steps=0)
+    err_pre = float((pre - fwd).abs().max())
+    err_dec = _decode_vs_forward(params, _no_drop(cfg), prompt)
+    log(f"  float path (fp32): forward {fwd_wall:.2f} s (flash_fwd at q/k "
+        f"{cfg.mla.nope_head_dim + cfg.mla.rope_head_dim}, V {cfg.mla.v_head_dim} "
+        f"zero-padded); prefill (absorbed) vs forward max|dlogit| {err_pre:.3e}; "
+        f"prefill + {CHECK_STEPS} absorbed decode steps vs forward, capacity at T "
+        f"{err_dec:.3e} (tol {SELF_TOL:g}); aux {float(aux):.5f}")
+    require(err_pre <= SELF_TOL and err_dec <= SELF_TOL,
+            f"deepseek cached vs full: {err_pre}, {err_dec}")
+    # under tubgemm_cuda: w_uk / w_uv are sites of the forward only
+    got, tub_f, flash_f, (q_fwd, _) = _sites_run(
+        lambda: model_lib.forward(params, cfg, prompt), cfg)
+    require(got == expected_sites(cfg) and tub_f == len(got) and flash_f == cfg.num_layers,
+            f"MLA forward under tubgemm_cuda: {got}, tub {tub_f}, flash {flash_f}")
+    got, tub_c, _, (_, q_rows, _) = _sites_run(
+        lambda: _cached_logits(params, cfg, prompt), cfg)
+    want = expected_sites(cfg, cached=True) * (1 + CHECK_STEPS)
+    require(got == want and tub_c == len(want),
+            f"MLA cached calls under tubgemm_cuda: {got}, tub {tub_c}")
+    log(f"  tubgemm_cuda@4 per-row: forward {tub_f} tub_gemm launches at "
+        f"{len(expected_sites(cfg))} sites (w_uk, w_uv included), prefill + "
+        f"{CHECK_STEPS} decode steps {tub_c} at {len(expected_sites(cfg, True))} "
+        f"sites a call (w_uk, w_uv plain einsums); max|dlogit| forward vs "
+        f"prefill at the last prompt position "
+        f"{float((q_rows[:, 0] - q_fwd[:, -1]).abs().max()):.3e} (reported: the "
+        f"forward quantizes w_uk and w_uv, the absorbed path does not)")
+    caches = model_lib.init_caches(cfg, b, s + 1, dtype=torch.float32, device=DEV)
+    _, caches = model_lib.prefill(params, cfg, prompt, caches=caches)
+    tok = _greedy(pre)
+    with backends.use_backend("tubgemm_cuda", bits=4), activation_scaling("per-row"):
+        prof = _step_profile(lambda: model_lib.decode_step(
+            params, cfg, tok, caches=caches, cache_pos=s),
+            f"absorbed decode step (B={b}, context {s}, tubgemm_cuda@4, "
+            f"{cfg.moe.num_experts} experts in turn)")
+        fprof = _step_profile(lambda: model_lib.forward(params, cfg, prompt),
+                              f"forward (B={b} x {s}, tubgemm_cuda@4)")
+    peak = torch.cuda.max_memory_allocated()
+    log(f"  peak max_memory_allocated {peak / 2**30:.2f} GiB")
+    return {"tub_gemm": {"forward": tub_f, f"prefill + {CHECK_STEPS} decode steps": tub_c},
+            "flash_fwd": flash_f,
+            "decode_ms": prof["wall_ms"], "forward_ms": fprof["wall_ms"],
+            "peak_gib": peak / 2**30}
+
+
+@torch.no_grad()
+def _dense_serve(arch: str) -> dict:
+    cfg = configs.get_config(arch).replace(
+        num_layers=DENSE_LAYERS, param_dtype="float32", compute_dtype="float32")
+    params = _init_family(cfg, "dense serve")
+    trace = serve_trace(FAMILY_REQUESTS)
+    kw = dict(device=DEV, **SERVE_KW)
+    engine = ServingEngine(cfg, params, attention="fused", backend="tubgemm_cuda", **kw)
+    ug.reset_launches()
+    fused_lib.reset_launches()
+    t0 = time.perf_counter()
+    with activation_scaling("per-row"):
+        rep = engine.run(trace, "continuous")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    n_sites = len(expected_sites(cfg))
+    tub, fused = ug.LAUNCHES["tub_gemm"], fused_lib.LAUNCHES["fused_paged_decode"]
+    require(rep.requests == len(trace), f"{arch}: not every request completed")
+    require(fused == cfg.num_layers * rep.decode_steps,
+            f"{arch}: fused decode launches {fused}")
+    require(tub == n_sites * (rep.decode_steps + rep.prefill_calls),
+            f"{arch}: tub_gemm launches {tub}")
+    reps = {}
+    for attention in ("fused", "gather"):
+        eng = ServingEngine(cfg, params, attention=attention, **kw)
+        reps[attention] = eng.run(trace, "continuous")
+        del eng
+    same = reps["fused"].request_tokens == reps["gather"].request_tokens
+    peak = torch.cuda.max_memory_allocated()
+    log(f"  [{arch}, {cfg.num_layers} layers, head dim {cfg.resolved_head_dim}, "
+        f"tubgemm_cuda@4 per-row, fused] {rep.requests} requests, {rep.tokens} "
+        f"tokens, {rep.decode_steps} decode steps in {wall:.2f} s "
+        f"({rep.decode_steps / wall:.2f} decode steps/s); launches fused {fused}, "
+        f"tub {tub} (= {n_sites} sites x {rep.decode_steps + rep.prefill_calls}); "
+        f"float path fused == gather: {same}; peak {peak / 2**30:.2f} GiB")
+    require(same, f"{arch}: fused and gather sampled different tokens (float path)")
+    del engine
+    return {"tub_gemm": tub, "fused_paged_decode": fused, "wall_s": wall,
+            "steps_per_s": rep.decode_steps / wall, "peak_gib": peak / 2**30}
+
+
+@torch.no_grad()
+def _audio_forward() -> dict:
+    cfg = configs.get_config(AUDIO_ID).replace(
+        num_layers=DENSE_LAYERS, param_dtype="float32", compute_dtype="float32")
+    params = _init_family(cfg, "audio frontend stub")
+    rng = np.random.default_rng(0)
+    b, s = AUDIO_RUN["batch"], AUDIO_RUN["seq"]
+    embeds = torch.from_numpy(rng.standard_normal((b, s, cfg.d_model))
+                              .astype(np.float32)).to(DEV)
+    flash_lib.reset_launches()
+    fwd, _ = model_lib.forward(params, cfg, embeds=embeds)
+    launched = flash_lib.LAUNCHES["flash_fwd"]
+    pre, _, _ = _cached_logits(params, cfg, embeds=embeds, steps=0)
+    err = float((pre - fwd).abs().max())
+    got, tub, _, (q_logits, _) = _sites_run(
+        lambda: model_lib.forward(params, cfg, embeds=embeds), cfg)
+    log(f"  [{cfg.arch_id}, {cfg.num_layers} layers, forward from ({b}, {s}, "
+        f"{cfg.d_model}) embeddings] logits {tuple(fwd.shape)}, prefill vs "
+        f"forward max|dlogit| {err:.3e} (tol {SELF_TOL:g}), flash_fwd {launched}; "
+        f"under tubgemm_cuda@4 {tub} tub_gemm launches at {len(got)} sites")
+    require(tuple(fwd.shape) == (b, s, cfg.vocab_size)
+            and bool(torch.isfinite(fwd).all()) and bool(torch.isfinite(q_logits).all()),
+            "musicgen forward: shape or finiteness")
+    require(err <= SELF_TOL and launched == cfg.num_layers, "musicgen prefill vs forward")
+    require(got == expected_sites(cfg) and tub == len(got), f"musicgen sites {got}")
+    return {"tub_gemm": tub, "flash_fwd": launched}
+
+
+@contextlib.contextmanager
+def _tub_gemm_shapes():
+    """Collects each distinct (M, K, N, bits) ``ug.tub_gemm`` is called at
+    inside the block (``ops.tub_matmul`` looks the wrapper up at call time);
+    the wrapper itself, and its launch count, are untouched."""
+    seen: set = set()
+    real = ug.tub_gemm
+
+    def logged(a, b, *, bits=8):
+        seen.add((int(a.shape[0]), int(a.shape[1]), int(b.shape[1]), bits))
+        return real(a, b, bits=bits)
+
+    ug.tub_gemm = logged
+    try:
+        yield seen
+    finally:
+        ug.tub_gemm = real
+
+
+def _family_gemm_exact(seen: set) -> float:
+    """tub_gemm at every (M, K, N, bits) the families paths gave it, and at
+    8 bits at each (K, N)'s smallest and largest M, on fresh codes (the
+    weights over the whole int8 range): EQUAL to its plain slot loop and to
+    the float64 integer product.  Returns the largest |difference| (0)."""
+    gen = torch.Generator(device=DEV)
+    gen.manual_seed(22)
+    by_kn: dict = {}
+    for m, k, n, bits in seen:
+        by_kn.setdefault((k, n), set()).add((m, bits))
+    worst, cases, t0 = 0.0, 0, time.perf_counter()
+    for (k, n), ms in sorted(by_kn.items()):
+        rows = sorted(m for m, _ in ms)
+        cases_kn = ms | {(rows[0], 8), (rows[-1], 8)}
+        b = _full_codes(gen, (k, n), 8)
+        for m, bits in sorted(cases_kn):
+            a = _codes(gen, (m, k), bits)
+            out, _ = ug.tub_gemm(a, b, bits=bits)
+            torch.cuda.synchronize()
+            d = max(int((out.long() - ref_lib.tub_gemm_ref(a, b, bits=bits).long())
+                        .abs().max()),
+                    int((out.long() - _exact_product(a, b).long()).abs().max()))
+            worst = max(worst, float(d))
+            cases += 1
+            require(d == 0, f"tub_gemm ({m},{k},{n}) bits={bits} on a families "
+                            f"site shape: max |kernel - plain| {d}")
+        del b
+        log(f"  tub_gemm == plain == integer product at (K, N) = ({k}, {n}), "
+            f"M {rows}, bits {sorted({bits for _, bits in cases_kn})}")
+    log(f"  tub_gemm held at {cases} (M, K, N, bits) of the families paths in "
+        f"{time.perf_counter() - t0:.1f} s")
+    return worst
+
+
+def phase_families() -> dict:
+    """The attention-transformer families: card against CPU at narrow widths
+    that keep each arch's head dims, then every new arch at its published
+    widths (depth cut).  Kernel launches are counted per path (zeroed just
+    before it, read just after) and printed, not put on the kernels line."""
+    t_phase = time.perf_counter()
+    log("families: card vs CPU at narrow widths, fp32, 2 layers")
+    for arch in FAMILY_IDS:
+        _family_card_vs_cpu(arch)
+    out = {}
+    paths = [("moe_serve", _moe_serve), ("moe_train", _moe_train),
+             ("mla", _mla_full), ("audio", _audio_forward),
+             *((arch, lambda arch=arch: _dense_serve(arch)) for arch in SERVED_DENSE)]
+    with _tub_gemm_shapes() as seen:
+        for name, fn in paths:
+            t0 = time.perf_counter()
+            out[name] = fn()
+            log(f"  ({name}: {time.perf_counter() - t0:.1f} s)")
+            gc.collect()
+            torch.cuda.empty_cache()
+    with torch.no_grad():
+        err = _family_gemm_exact(seen)
+    launches = {
+        "tub_gemm": {k: v["tub_gemm"] for k, v in out.items() if "tub_gemm" in v},
+        "flash_fwd": {"mla (D=192)": out["mla"]["flash_fwd"],
+                      "audio": out["audio"]["flash_fwd"],
+                      "moe_train": out["moe_train"]["launches"]["flash_fwd"]},
+        "flash_bwd_dq": {"moe_train": out["moe_train"]["launches"]["flash_bwd_dq"]},
+        "flash_bwd_dkv": {"moe_train": out["moe_train"]["launches"]["flash_bwd_dkv"]},
+        "fused_paged_decode": {a: out[a]["fused_paged_decode"] for a in SERVED_DENSE}}
+    log(f"  launches by path: {json.dumps(launches)}")
+    log(f"  families phase: {time.perf_counter() - t_phase:.1f} s")
+    return {"launches": launches, "errs": {"tub_gemm": err}}
+
+
+# ---------------------------------------------------------------------------
 # phase 9: times
 # ---------------------------------------------------------------------------
 
@@ -2563,54 +3158,69 @@ def _time_block_stats(gen, errs: dict, launches: dict,
             "per_shape": per_shape}
 
 
-FLASH_TIMED_HEAD_DIMS = (128, 96, 256)    # 128: the training path's; the table's row
+# (q/k head dim, V head dim): 128 is the training path's and the table's
+# row; 192 / 128 is deepseek-v3's MLA, V zero-padded to 192 for the kernels
+FLASH_TIMED_HEAD_DIMS = ((128, 128), (96, 96), (256, 256), (192, 128))
 
 
-def _time_flash_at(gen, d: int, with_plain: bool) -> dict:
-    """The three bf16 flash kernels on B=4 x H=32 slabs, S=2048, head dim
-    ``d``, causal, each beside its bound and SDPA on the same tensors
-    (forward; forward + backward for the two backward kernels, whose work it
-    computes together, and its backward alone); the plain versions too when
-    ``with_plain``.  Rates are the function's operations (:func:`flash_ops`)
-    over the time."""
+def _time_flash_at(gen, d: int, dv: int, with_plain: bool) -> dict:
+    """The three bf16 flash kernels on B=4 x H=32 slabs, S=2048, q/k head
+    dim ``d`` and V head dim ``dv`` (the kernels take V zero-padded to ``d``,
+    as ``flash_attention`` hands it to them), causal, each beside its bound
+    and SDPA on the same tensors (forward; forward + backward for the two
+    backward kernels, whose work it computes together, and its backward
+    alone); the plain versions too when ``with_plain``.  Bounds and rates
+    count the function's work and bytes (:func:`flash_ops` with ``dv``:
+    QK^T at d, PV at dv), not the padded work."""
     b, h, s = 4, 32, 2048
     bh, dt = b * h, torch.bfloat16
-    q, k, v, do = (torch.randn((bh, s, d), generator=gen, device=DEV).to(dt)
-                   for _ in range(4))
-    o, lse = flash_lib.flash_fwd(q, k, v, causal=True)
-    delta = torch.sum(do.float() * o.float(), dim=-1)
+    q, k = (torch.randn((bh, s, d), generator=gen, device=DEV).to(dt) for _ in range(2))
+    v, do = (torch.randn((bh, s, dv), generator=gen, device=DEV).to(dt) for _ in range(2))
+    # what flash_attention hands the kernels for a narrower V
+    vk, dok = (torch.nn.functional.pad(t, (0, d - dv)) for t in (v, do))
+    o, lse = flash_lib.flash_fwd(q, k, vk, causal=True)
+    delta = torch.sum(dok.float() * o.float(), dim=-1)
     calls = {
-        "flash_fwd": (lambda: flash_lib.flash_fwd(q, k, v, causal=True),
+        "flash_fwd": (lambda: flash_lib.flash_fwd(q, k, vk, causal=True),
                       lambda: flash_lib.flash_fwd_plain(q, k, v, causal=True)),
         "flash_bwd_dq": (
-            lambda: flash_lib.flash_bwd_dq(q, k, v, do, lse, delta, causal=True),
+            lambda: flash_lib.flash_bwd_dq(q, k, vk, dok, lse, delta, causal=True),
             lambda: flash_lib.flash_bwd_dq_plain(q, k, v, do, lse, delta, causal=True)),
         "flash_bwd_dkv": (
-            lambda: flash_lib.flash_bwd_dkv(q, k, v, do, lse, delta, causal=True),
+            lambda: flash_lib.flash_bwd_dkv(q, k, vk, dok, lse, delta, causal=True),
             lambda: flash_lib.flash_bwd_dkv_plain(q, k, v, do, lse, delta,
                                                   causal=True)),
     }
     sdpa = torch.nn.functional.scaled_dot_product_attention
-    q4, k4, v4, do4 = (t.view(b, h, s, d) for t in (q, k, v, do))
+    q4, k4 = (t.view(b, h, s, d) for t in (q, k))
+    v4, do4 = (t.view(b, h, s, dv) for t in (v, do))
     qg, kg, vg = (t.detach().requires_grad_(True) for t in (q4, k4, v4))
 
     def sdpa_fwd_bwd():
         out = sdpa(qg, kg, vg, is_causal=True)
         return torch.autograd.grad(out, (qg, kg, vg), do4)
 
-    lib_fwd = _time_ms(lambda: sdpa(q4, k4, v4, is_causal=True))
+    try:
+        lib_fwd = _time_ms(lambda: sdpa(q4, k4, v4, is_causal=True))
+    except RuntimeError as exc:          # no SDPA backend for this dv: pad V
+        log(f"  SDPA refuses d={d} with dv={dv} ({str(exc)[:80]}); timed on V "
+            f"zero-padded to {d}")
+        v4, do4 = (t.view(b, h, s, d) for t in (vk, dok))
+        vg = v4.detach().requires_grad_(True)
+        lib_fwd = _time_ms(lambda: sdpa(q4, k4, v4, is_causal=True))
     with torch.enable_grad():            # the times phase runs under no_grad
         out_g = sdpa(qg, kg, vg, is_causal=True)
         lib_fwd_bwd = _time_ms(sdpa_fwd_bwd)
         lib_bwd = _time_ms(lambda: torch.autograd.grad(
             out_g, (qg, kg, vg), do4, retain_graph=True))
     del out_g
-    ops = flash_lib.flash_ops(bh, s, s, d, causal=True)
-    slab = bh * s * d * 2                     # one bf16 (BH, S, D) tensor
+    ops = flash_lib.flash_ops(bh, s, s, d, causal=True, dv=dv)
+    qk = bh * s * d * 2                       # one bf16 (BH, S, d) tensor
+    vo = bh * s * dv * 2                      # one bf16 (BH, S, dv) tensor
     stats = bh * s * 4                        # one fp32 (BH, S) tensor
-    io_bytes = {"flash_fwd": 3 * slab + slab + stats,            # q,k,v -> o, lse
-                "flash_bwd_dq": 4 * slab + 2 * stats + slab,     # q,k,v,dO,lse,delta -> dQ
-                "flash_bwd_dkv": 4 * slab + 2 * stats + 2 * slab}
+    io_bytes = {"flash_fwd": 2 * qk + vo + vo + stats,            # q,k,v -> o, lse
+                "flash_bwd_dq": 2 * qk + 2 * vo + 2 * stats + qk,  # q,k,v,dO,lse,delta -> dQ
+                "flash_bwd_dkv": 2 * qk + 2 * vo + 2 * stats + qk + vo}
     out = {}
     for name in FLASH:
         kern, plain = calls[name]
@@ -2620,13 +3230,13 @@ def _time_flash_at(gen, d: int, with_plain: bool) -> dict:
         ops_ms = ops[name] / BF16_OPS_PER_S * 1e3
         library_ms = lib_fwd if name == "flash_fwd" else lib_fwd_bwd
         out[name] = {
-            "d": d, "ms": ms, "plain_ms": plain_ms,
+            "d": d, "dv": dv, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": max(bytes_ms, ops_ms),
             "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
             "library_ms": library_ms,
             "library_bwd_only_ms": None if name == "flash_fwd" else lib_bwd,
             "tflops": ops[name] / ms / 1e9}
-        log(f"  {name} BH={bh} S={s} d={d} bf16 causal: {ms:.3f} ms = "
+        log(f"  {name} BH={bh} S={s} d={d} dv={dv} bf16 causal: {ms:.3f} ms = "
             f"{ops[name] / ms / 1e9:.1f} TFLOP/s, plain "
             + (f"{plain_ms:.3f} ms" if with_plain else "not timed")
             + f", bound {max(bytes_ms, ops_ms):.4f} ms "
@@ -2635,16 +3245,17 @@ def _time_flash_at(gen, d: int, with_plain: bool) -> dict:
             f"{'forward' if name == 'flash_fwd' else 'forward + backward'} "
             f"{library_ms:.3f} ms"
             + ("" if name == "flash_fwd" else f" (backward alone {lib_bwd:.3f} ms)"))
-    del q, k, v, do, o, lse, delta, q4, k4, v4, do4, qg, kg, vg
+    del q, k, v, do, vk, dok, o, lse, delta, q4, k4, v4, do4, qg, kg, vg
     return out
 
 
 def _time_flash(gen, errs: dict, launches: dict, launches_run: dict,
                 sass: dict) -> list[dict]:
     """The three flash kernels' rows: the training path's shape (d=128) on
-    the row, head dims 96 and 256 beside it (``per_head_dim``)."""
-    by_d = {d: _time_flash_at(gen, d, with_plain=d == 128)
-            for d in FLASH_TIMED_HEAD_DIMS}
+    the row, head dims 96, 256 and MLA's 192 with a 128-wide V beside it
+    (``per_head_dim``)."""
+    by_d = {d: _time_flash_at(gen, d, dv, with_plain=d == 128)
+            for d, dv in FLASH_TIMED_HEAD_DIMS}
     rows = []
     for name in FLASH:
         head = by_d[128][name]
@@ -2661,7 +3272,8 @@ def _time_flash(gen, errs: dict, launches: dict, launches_run: dict,
                              "+ backward"),
             "sass_bf16": {str(k): u for k, u in sorted(sass.get(name, {}).items())},
             "shape": "BH=128 (B=4 x H=32) S=2048 d=128 bf16 causal",
-            "per_head_dim": [by_d[d][name] for d in FLASH_TIMED_HEAD_DIMS if d != 128]})
+            "per_head_dim": [by_d[d][name] for d, _ in FLASH_TIMED_HEAD_DIMS
+                             if d != 128]})
     return rows
 
 
@@ -2684,6 +3296,7 @@ def main() -> int:
     errs = {name: math.nan for name in KERNELS}
     launches: dict = {}
     launches_run: dict = {}
+    families: dict = {"launches": {}}
     rows: list[dict] = []
     try:
         with torch.no_grad():
@@ -2711,6 +3324,12 @@ def main() -> int:
         # the served parameters and engines are gone
         gc.collect()
         torch.cuda.empty_cache()
+        if "families" in phases:         # trains a MoE: outside no_grad
+            log("phase families")
+            families = phase_families()
+            errs["tub_gemm"] = max(errs["tub_gemm"], families["errs"]["tub_gemm"])
+            gc.collect()
+            torch.cuda.empty_cache()
         if "train" in phases:            # records gradients: outside no_grad
             log("phase train")
             trained = phase_train(TRAIN_LAYERS, TRAIN_STEPS)
@@ -2722,6 +3341,8 @@ def main() -> int:
             log("phase times")
             with torch.no_grad():
                 rows = phase_times(errs, launches, launches_run, args.layers, sass)
+            for row in rows:              # each new path's own launches
+                row["launches_families"] = families["launches"].get(row["name"])
     except Failed as exc:
         log(f"FAILED: {exc}")
         return 1

@@ -3,7 +3,8 @@
 // Replaces the TPU kernels of repro/kernels/flash_attention.py: _fwd_kernel
 // (pallas_call at :95), _dq_kernel (:230) and _dkv_kernel (:248).  q (BH,Sq,D),
 // k and v (BH,Skv,D), all float32 or all bfloat16, rows of D contiguous and
-// each (S,D) slab at its own stride; D in {16, 32, 64, 96, 128, 256}.  Scores are
+// each (S,D) slab at its own stride; D in {16, 32, 64, 96, 128, 192, 256}
+// (192: MLA's q/k head dim, whose narrower V the wrapper zero-pads).  Scores are
 // q.k in fp32, times `scale`, -1e30 where a key is masked (causal: qpos >=
 // kpos, both counted from 0; and every key at or past Skv); fp32 online
 // softmax; P is rounded to the operands' type before P.V, dS before dS.K and
@@ -39,17 +40,18 @@
 //
 // Head dim 256 needs more than one SM's 232,448 bytes of shared memory or
 // 255 registers a thread in three instances, so those split their work
-// without changing the 64-wide tiles (the plain versions walk the same):
+// without changing the 64-wide tiles (the plain versions walk the same; the
+// bf16 split also serves 192, whose fp32 kernels fit as they are):
 //  - fp32 dQ stages K and V in one buffer in turn (V for dP, then K for S
 //    and dS.K), fp32 dK/dV Q and dO in one buffer (dO for dP, Q for S and
 //    dS^T.Q, dO again for P^T.dO): one more tile load an iteration.
 //  - bf16 (all three kernels): 8 warps, the two warps of a pair share 16
 //    rows and each owns half of D's output columns, so the accumulators are
 //    D/4 fp32 registers a thread per output (dK/dV: 2 x D/8 at D <= 128 is
-//    D, above the limit at 256).  Both warps of a pair form the same S and
-//    dP (and run the same online softmax, so they agree bit for bit); the
-//    forward re-reads Q's fragments from shared memory there instead of
-//    holding them.
+//    D, near or above the limit at 192 and 256).  Both warps of a pair
+//    form the same S and dP (and run the same online softmax, so they agree
+//    bit for bit); the forward re-reads Q's fragments from shared memory
+//    there instead of holding them.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -443,7 +445,7 @@ flash_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
 // two-stage ring, fragments by ldmatrix, products on mma.sync.m16n8k16 with
 // fp32 accumulators.  Scores are kept in the log2 domain (scale * log2(e)
 // folded into one multiply, exp2f); lse is written in natural log.  With
-// SPLIT = 2 (D = 256) the block has 8 warps: warp w takes rows of warp w % 4
+// SPLIT = 2 (D = 192, 256) the block has 8 warps: warp w takes rows of warp w % 4
 // and output columns [(w / 4) D / 2, (w / 4 + 1) D / 2).
 // ---------------------------------------------------------------------------
 constexpr int MMA_NT = 128;                    // 4 warps: one per 16 rows
@@ -1080,12 +1082,14 @@ bool bad_shape(int bh, int sq, int skv) {
     case 64: return (int)FN<float, 64>(__VA_ARGS__);                                  \
     case 96: return (int)FN<float, 96>(__VA_ARGS__);                                  \
     case 128: return (int)FN<float, 128>(__VA_ARGS__);                                \
+    case 192: return (int)FN<float, 192>(__VA_ARGS__);                                \
     case 256: return (int)FN<float, 256>(__VA_ARGS__);                                \
     case 1016: return (int)FN<__nv_bfloat16, 16>(__VA_ARGS__);                        \
     case 1032: return (int)FN<__nv_bfloat16, 32>(__VA_ARGS__);                        \
     case 1064: return (int)FN<__nv_bfloat16, 64>(__VA_ARGS__);                        \
     case 1096: return (int)FN<__nv_bfloat16, 96>(__VA_ARGS__);                        \
     case 1128: return (int)FN<__nv_bfloat16, 128>(__VA_ARGS__);                       \
+    case 1192: return (int)FN<__nv_bfloat16, 192>(__VA_ARGS__);                       \
     case 1256: return (int)FN<__nv_bfloat16, 256>(__VA_ARGS__);                       \
     default: return (int)cudaErrorInvalidValue;                                       \
   }

@@ -18,10 +18,16 @@ next product's operands in registers.  Those copies need each slab 16-byte
 aligned, so a bf16 tensor that is not raises ``ValueError`` rather than
 falling back.  Every float32 kernel multiplies on the CUDA cores in fp32
 (tensor cores would take fp32 only as TF32).  Head dims: :data:`HEAD_DIMS`.
-At 256 the bf16 kernels give each pair of warps 16 rows and each warp half
-of D's output columns (registers), and the fp32 dQ and dK/dV kernels stage
-K and V (Q and dO) in one shared buffer in turn (shared memory); all keep
-the 64-wide tiles.
+Above 128 (192, 256) the bf16 kernels give each pair of warps 16 rows and
+each warp half of D's output columns (registers), and at 256 the fp32 dQ
+and dK/dV kernels stage K and V (Q and dO) in one shared buffer in turn
+(shared memory); all keep the 64-wide tiles.
+
+:func:`flash_attention` takes a V narrower than Q and K (MLA: q/k head dim
+192, V 128): it zero-pads V to Q's width for the kernels and slices the
+output.  That is exact: the padded columns of O are 0, their dO is 0, so
+dQ, dK and V's real columns of dV do not change.  The kernel wrappers
+themselves take one head dim for all of Q, K and V.
 
 Beside each kernel sits its plain PyTorch version with the reference's
 rounding points: scores in fp32, times the scale, ``-1e30`` where masked; P
@@ -47,7 +53,7 @@ LAUNCHES = {"flash_fwd": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0}
 
 NEG_INF = -1e30
 BQ = BK = 64                     # the kernels' query-row and key tiles
-HEAD_DIMS = (16, 32, 64, 96, 128, 256)    # head dims the kernels are built for
+HEAD_DIMS = (16, 32, 64, 96, 128, 192, 256)  # head dims the kernels are built for
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -82,7 +88,8 @@ def _scores(q, k, scale, mask):
 # ---------------------------------------------------------------------------
 
 def flash_fwd_plain(q, k, v, *, causal: bool):
-    """(BH,Sq,D), (BH,Skv,D) x2 -> (o (BH,Sq,D) in q's type, lse (BH,Sq) fp32).
+    """(BH,Sq,D), (BH,Skv,D), (BH,Skv,Dv) -> (o (BH,Sq,Dv) in q's type, lse
+    (BH,Sq) fp32).  The plain versions take any Dv, the kernels Dv = D.
 
     Online softmax over the kernel's 64-wide key tiles, every query row at
     once.  The
@@ -294,31 +301,45 @@ class _Flash(torch.autograd.Function):
 
 
 def flash_attention(q, k, v, *, causal: bool = True):
-    """q/k/v: (B, S, H, D) -> (B, Sq, H, D).  Differentiable flash attention.
+    """q/k: (B, S, H, D), v: (B, Skv, H, Dv) with Dv <= D -> (B, Sq, H, Dv).
+    Differentiable flash attention.
 
     The reference's semantics at any length: a key at or past Skv is never
     attended (its gradients are zero), causal means ``qpos >= kpos`` with
     both counted from 0 (not SDPA's bottom-right alignment when Sq != Skv).
-    The kernels mask by the true lengths instead of padding to the tile.
+    The kernels mask by the true lengths instead of padding to the tile.  A
+    narrower V is zero-padded to D and the output sliced back (exact, see
+    the module docstring).
     """
     b, sq, h, d = q.shape
-    skv = k.shape[1]
-    qf = q.transpose(1, 2).reshape(b * h, sq, d)
-    kf = k.transpose(1, 2).reshape(b * h, skv, d)
-    vf = v.transpose(1, 2).reshape(b * h, skv, v.shape[3])
+    skv, dv = k.shape[1], v.shape[3]
+    if dv > d:
+        raise ValueError(f"flash_attention: V's head dim {dv} exceeds Q's {d}")
+    if dv < d:
+        v = torch.nn.functional.pad(v, (0, d - dv))
+    # (BH, S, D) slabs with contiguous rows: at B = 1 the reshape is a view
+    # whose rows sit H * D apart, which the kernels do not take
+    qf = q.transpose(1, 2).reshape(b * h, sq, d).contiguous()
+    kf = k.transpose(1, 2).reshape(b * h, skv, d).contiguous()
+    vf = v.transpose(1, 2).reshape(b * h, skv, d).contiguous()
     of = _Flash.apply(qf, kf, vf, causal)
-    return of.reshape(b, h, sq, -1).transpose(1, 2)
+    return of.reshape(b, h, sq, d)[..., :dv].transpose(1, 2)
 
 
-def flash_ops(bh: int, sq: int, skv: int, d: int, *, causal: bool) -> dict:
+def flash_ops(bh: int, sq: int, skv: int, d: int, *, causal: bool,
+              dv: int | None = None) -> dict:
     """Floating-point operations each kernel's function needs (a multiply-add
-    counts 2): forward QK^T and PV (4 x BH Sq Skv D), dQ recomputes QK^T and
-    forms dO V^T and dS K (6 x), dK/dV recomputes QK^T and dO V^T and forms
-    P^T dO and dS^T Q (8 x).  Causal keeps the pairs with qpos >= kpos."""
+    counts 2), with Q and K at head dim ``d`` and V at ``dv`` (default
+    ``d``): forward QK^T (at d) and PV (at dv); dQ recomputes QK^T and forms
+    dO V^T (dv) and dS K (d); dK/dV recomputes QK^T and dO V^T and forms
+    P^T dO (dv) and dS^T Q (d).  At dv = d that is 4, 6 and 8 x BH Sq Skv D.
+    Causal keeps the pairs with qpos >= kpos.  The count is the function's,
+    not the padded work :func:`flash_attention` hands the kernels."""
+    dv = d if dv is None else dv
     if causal:
         pairs = sum(min(i + 1, skv) for i in range(sq))
     else:
         pairs = sq * skv
-    unit = 2.0 * bh * pairs * d
-    return {"flash_fwd": 2 * unit, "flash_bwd_dq": 3 * unit,
-            "flash_bwd_dkv": 4 * unit}
+    unit = 2.0 * bh * pairs
+    return {"flash_fwd": unit * (d + dv), "flash_bwd_dq": unit * (2 * d + dv),
+            "flash_bwd_dkv": unit * (2 * d + 2 * dv)}

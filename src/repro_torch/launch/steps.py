@@ -79,7 +79,15 @@ def loss_and_grads(cfg: ModelConfig, params: dict, batch: dict):
     loss, parts = model_lib.loss_fn(params, cfg, batch.get("tokens"),
                                     batch["targets"], embeds=batch.get("embeds"))
     paths, leaves = zip(*_leaves(params))
-    grads_flat = torch.autograd.grad(loss, leaves)
+    # fed embeddings with an untied head, the loss never reads the token
+    # table: it gets a zero gradient, as jax.grad gives it; every other leaf
+    # must be read
+    unread = (("embed",) if batch.get("embeds") is not None
+              and not cfg.tie_embeddings else None)
+    read = [leaf for path, leaf in zip(paths, leaves) if path != unread]
+    read_grads = iter(torch.autograd.grad(loss, read))
+    grads_flat = [torch.zeros_like(leaf) if path == unread else next(read_grads)
+                  for path, leaf in zip(paths, leaves)]
     grads: dict = {}
     for path, g in zip(paths, grads_flat):
         node = grads

@@ -1,4 +1,4 @@
-"""GQA/MQA/MHA attention: full-sequence (train / no-cache) and cached decode.
+"""Attention: GQA/MQA/MHA and MLA (DeepSeek), full-sequence and cached.
 
 The contiguous KV cache is updated **in place** (the reference's functional
 ``dynamic_update_slice`` becomes an index write into the tensor it was
@@ -6,7 +6,16 @@ handed); callers that need the old cache must clone it first.  The no-cache
 path dispatches like the reference's ``_mixed_attention``: on the card the
 hand-written flash kernels (:mod:`repro_torch.kernels.flash_attention`), on
 the CPU blockwise attention above ``BLOCKWISE_THRESHOLD`` and naive below.
-MLA is not ported yet.
+
+MLA keeps the compressed latent (``ckv``, ``krope``) as its cache and
+attends in the absorbed form (``W_uk`` folded into the query, ``W_uv``
+applied to the latent context) at every cached call, prefill and decode
+alike, so no per-head K/V is materialized there.  Without a cache it
+materializes per-head K (q/k head dim ``nope + rope``) and V (``v_head_dim``)
+and runs the flash kernels.  ``w_uk`` / ``w_uv`` are dense sites on the
+no-cache path and plain einsums in the absorbed form, as in the reference.
+The reference's sequence-sharded decodes (GQA and MLA) need a ``model``
+mesh axis above 1: ROADMAP Queue 1 item 6.
 """
 
 from __future__ import annotations
@@ -16,11 +25,12 @@ import math
 import torch
 
 from repro_torch.models import rope as rope_lib
-from repro_torch.models.common import ParamDef, dense
+from repro_torch.models.common import ParamDef, dense, rmsnorm
 from repro_torch.models.config import ModelConfig
 
-__all__ = ["gqa_defs", "attention_defs", "init_kv_cache", "attention_fwd",
-           "naive_attention", "blockwise_attention", "BLOCKWISE_THRESHOLD"]
+__all__ = ["gqa_defs", "mla_defs", "attention_defs", "init_kv_cache",
+           "attention_fwd", "naive_attention", "blockwise_attention",
+           "BLOCKWISE_THRESHOLD"]
 
 _MASK = -1e30
 BLOCKWISE_THRESHOLD = 8192   # chunked attention above this sequence length
@@ -38,16 +48,40 @@ def gqa_defs(cfg: ModelConfig) -> dict:
     }
 
 
+def mla_defs(cfg: ModelConfig) -> dict:
+    assert cfg.mla is not None
+    m = cfg.mla
+    d, h = cfg.d_model, cfg.num_heads
+    qk = m.nope_head_dim + m.rope_head_dim
+    return {
+        "w_dq": ParamDef((d, m.q_lora_rank)),
+        "q_norm": ParamDef((m.q_lora_rank,), init="ones"),
+        "w_uq": ParamDef((m.q_lora_rank, h, qk)),
+        "w_dkv": ParamDef((d, m.kv_lora_rank)),
+        "kv_norm": ParamDef((m.kv_lora_rank,), init="ones"),
+        "w_kr": ParamDef((d, m.rope_head_dim)),
+        "w_uk": ParamDef((m.kv_lora_rank, h, m.nope_head_dim)),
+        "w_uv": ParamDef((m.kv_lora_rank, h, m.v_head_dim)),
+        "wo": ParamDef((h, m.v_head_dim, d), fan_in_axes=(0, 1)),
+    }
+
+
 def attention_defs(cfg: ModelConfig) -> dict:
-    if cfg.attention != "gqa":
-        raise NotImplementedError(
-            f"attention={cfg.attention!r} is not ported yet (GQA only)")
-    return gqa_defs(cfg)
+    return mla_defs(cfg) if cfg.attention == "mla" else gqa_defs(cfg)
 
 
 def init_kv_cache(cfg: ModelConfig, batch: int, max_len: int,
                   dtype: torch.dtype = torch.bfloat16, device="cuda") -> dict:
-    """Zeroed cache dict for one attention layer-instance."""
+    """Zeroed cache dict for one attention layer-instance (MLA: the latent
+    ``ckv`` (B, S, kv_lora_rank) and ``krope`` (B, S, rope_head_dim))."""
+    if cfg.attention == "mla":
+        m = cfg.mla
+        return {
+            "ckv": torch.zeros((batch, max_len, m.kv_lora_rank), dtype=dtype,
+                               device=device),
+            "krope": torch.zeros((batch, max_len, m.rope_head_dim),
+                                 dtype=dtype, device=device),
+        }
     kvh, hd = cfg.num_kv_heads, cfg.resolved_head_dim
     return {
         "k": torch.zeros((batch, max_len, kvh, hd), dtype=dtype, device=device),
@@ -165,9 +199,9 @@ def attention_fwd(params: dict, x: torch.Tensor, cfg: ModelConfig, *,
                   positions: torch.Tensor, cache: dict | None = None,
                   cache_pos=0, kv_valid_len=None):
     """Returns (out (B,S,D), new_cache_or_None)."""
-    if cfg.attention != "gqa":
-        raise NotImplementedError(
-            f"attention={cfg.attention!r} is not ported yet (GQA only)")
+    if cfg.attention == "mla":
+        return _mla_fwd(params, x, cfg, positions=positions, cache=cache,
+                        cache_pos=cache_pos, kv_valid_len=kv_valid_len)
     return _gqa_fwd(params, x, cfg, positions=positions, cache=cache,
                     cache_pos=cache_pos, kv_valid_len=kv_valid_len)
 
@@ -210,3 +244,69 @@ def _out_proj(params, attn_out, cfg):
         x2 = attn_out.reshape(*attn_out.shape[:-2], h * hd)
         return dense(wo.reshape(h * hd, d), x2, cfg, name="wo")
     return torch.einsum("bshd,hde->bse", attn_out, wo.to(attn_out.dtype))
+
+
+def _mla_fwd(params, x, cfg, *, positions, cache, cache_pos, kv_valid_len):
+    m = cfg.mla
+    h = cfg.num_heads
+    # query path: low-rank down -> norm -> up, split nope/rope
+    cq = rmsnorm(params["q_norm"], dense(params["w_dq"], x, cfg, name="w_dq"),
+                 cfg.rms_eps)
+    q = dense(params["w_uq"], cq, cfg, name="w_uq")    # (B,S,H,nope+rope)
+    q_nope, q_rope = torch.split(
+        q, [m.nope_head_dim, q.shape[-1] - m.nope_head_dim], dim=-1)
+    q_rope = rope_lib.apply_rope(q_rope, positions, cfg.rope_theta)
+
+    # KV latent path
+    ckv = rmsnorm(params["kv_norm"],
+                  dense(params["w_dkv"], x, cfg, name="w_dkv"), cfg.rms_eps)
+    krope = dense(params["w_kr"], x, cfg, name="w_kr")[:, :, None, :]  # (B,S,1,rd)
+    krope = rope_lib.apply_rope(krope, positions, cfg.rope_theta)[:, :, 0]
+
+    if cache is not None:
+        ckv_c = _update_cache(cache["ckv"], ckv, cache_pos)
+        krope_c = _update_cache(cache["krope"], krope, cache_pos)
+        new_cache = {"ckv": ckv_c, "krope": krope_c}
+        out = _mla_absorbed_attend(params, q_nope, q_rope, ckv_c.to(q.dtype),
+                                   krope_c.to(q.dtype), cfg, kv_valid_len,
+                                   q_offset=cache_pos)
+    else:
+        new_cache = None
+        # train / no-cache: materialize per-head K/V from the latent
+        k_nope = dense(params["w_uk"], ckv, cfg, name="w_uk")  # (B,S,H,nope)
+        vfull = dense(params["w_uv"], ckv, cfg, name="w_uv")   # (B,S,H,vd)
+        kr = krope[:, :, None, :].expand(*krope.shape[:2], h, m.rope_head_dim)
+        k = torch.cat([k_nope, kr], dim=-1)
+        q_all = torch.cat([q_nope, q_rope], dim=-1)
+        out = _mixed_attention(q_all, k, vfull, causal=True)
+    return _out_proj(params, out, cfg), new_cache
+
+
+def _mla_absorbed_attend(params, q_nope, q_rope, ckv, krope, cfg, kv_valid_len,
+                         q_offset=0):
+    """Absorbed MLA: score and read directly in the latent space.
+
+    scores = (q_nope @ W_uk) . ckv + q_rope . krope ;  out_h = (attn @ ckv) @ W_uv
+    The cache stays (B, S, rank + rd): no per-head K/V.
+    """
+    m = cfg.mla
+    d_qk = m.nope_head_dim + m.rope_head_dim
+    dev = q_nope.device
+    # (B,Sq,H,nope) x (rank,H,nope) -> (B,Sq,H,rank)
+    q_lat = torch.einsum("bqhn,rhn->bqhr", q_nope,
+                         params["w_uk"].to(q_nope.dtype))
+    s_lat = torch.einsum("bqhr,bkr->bhqk", q_lat, ckv)
+    s_rope = torch.einsum("bqhd,bkd->bhqk", q_rope, krope)
+    scores = (s_lat + s_rope).to(torch.float32) / math.sqrt(d_qk)
+    sq, sk = q_nope.shape[1], ckv.shape[1]
+    qpos = torch.arange(sq, device=dev)[:, None] + int(q_offset)
+    kpos = torch.arange(sk, device=dev)[None, :]
+    scores = scores.masked_fill(~(qpos >= kpos)[None, None], _MASK)
+    if kv_valid_len is not None:
+        valid_len = torch.as_tensor(kv_valid_len, device=dev).reshape(-1, 1)
+        valid = torch.arange(sk, device=dev)[None, :] < valid_len
+        scores = scores.masked_fill(~valid[:, None, None, :], _MASK)
+    w = torch.softmax(scores, dim=-1).to(ckv.dtype)
+    ctx_lat = torch.einsum("bhqk,bkr->bqhr", w, ckv)       # (B,Sq,H,rank)
+    return torch.einsum("bqhr,rhv->bqhv", ctx_lat,
+                        params["w_uv"].to(ctx_lat.dtype))

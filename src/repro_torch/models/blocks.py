@@ -1,9 +1,11 @@
-"""Layer blocks and layer stacking for the dense transformer family.
+"""Layer blocks and layer stacking for the attention-transformer families.
 
-All per-layer parameters are stacked with a leading ``layers`` axis — the
-reference's layout, so converting its parameter tree is a plain copy — and
-consumed by a Python loop over that axis (the reference scans it).  MoE,
-SSM, RWKV and hybrid stacks are not ported yet.
+Families: dense / moe / audio / vlm — pre-norm attention (GQA or MLA) +
+(MLP | MoE) blocks.  All per-layer parameters are stacked with a leading
+``layers`` axis — the reference's layout, so converting its parameter tree
+is a plain copy — and consumed by a Python loop over that axis (the
+reference scans it).  The recurrent families (SSM, RWKV and the hybrid
+stack) are not ported yet (ROADMAP Queue 1 item 8b).
 """
 
 from __future__ import annotations
@@ -16,6 +18,7 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.backends.runtime import site_scope
 from repro_torch.core import packing
 from repro_torch.models import attention as attn_lib
+from repro_torch.models import moe as moe_lib
 from repro_torch.models.common import ParamDef, rmsnorm
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.mlp import mlp_defs, mlp_fwd
@@ -25,22 +28,25 @@ __all__ = ["layer_defs", "stacked_layer_defs", "stack_fwd",
 
 
 def _check_family(cfg: ModelConfig) -> None:
-    if cfg.family not in ("dense", "audio", "vlm") or cfg.is_moe \
-            or cfg.ssm is not None or cfg.rwkv is not None:
+    if cfg.ssm is not None or cfg.rwkv is not None or cfg.family == "hybrid":
         raise NotImplementedError(
-            f"family={cfg.family!r} is not ported yet (dense GQA "
-            f"transformers only)")
+            f"family={cfg.family!r} (recurrent state) is not ported yet: "
+            f"ROADMAP Queue 1 item 8b")
 
 
 def layer_defs(cfg: ModelConfig) -> dict:
     """ParamDefs for ONE layer."""
     _check_family(cfg)
-    return {
+    defs = {
         "ln1": ParamDef((cfg.d_model,), init="ones"),
         "attn": attn_lib.attention_defs(cfg),
         "ln2": ParamDef((cfg.d_model,), init="ones"),
-        "mlp": mlp_defs(cfg),
     }
+    if cfg.is_moe:
+        defs["moe"] = moe_lib.moe_defs(cfg)
+    else:
+        defs["mlp"] = mlp_defs(cfg)
+    return defs
 
 
 def _map_defs(fn, defs):
@@ -89,9 +95,13 @@ def _transformer_block(layer_params, x, cfg: ModelConfig, *, positions,
             cache_pos=cache_pos, kv_valid_len=kv_valid_len)
     x = x + attn_out
     h = rmsnorm(layer_params["ln2"], x, cfg.rms_eps)
-    with site_scope("mlp"):
-        out = mlp_fwd(layer_params["mlp"], h, cfg)
-    return x + out, new_cache
+    if cfg.is_moe:
+        with site_scope("moe"):
+            out, aux = moe_lib.moe_fwd(layer_params["moe"], h, cfg)
+    else:
+        with site_scope("mlp"):
+            out, aux = mlp_fwd(layer_params["mlp"], h, cfg), None
+    return x + out, new_cache, aux
 
 
 def stack_fwd(params: dict, x: torch.Tensor, cfg: ModelConfig, *,
@@ -99,35 +109,41 @@ def stack_fwd(params: dict, x: torch.Tensor, cfg: ModelConfig, *,
               kv_valid_len=None):
     """Run the full layer stack.  Returns (x, new_caches, aux_loss).
 
-    ``caches`` is ``{"attn": {"k": (L,B,S,KVH,hd), "v": ...}}``; each layer
-    writes its slice **in place**, so the returned caches are the tensors
-    that were passed in.
+    ``caches`` is ``{"attn": {"k": (L,B,S,KVH,hd), "v": ...}}`` (MLA:
+    ``{"ckv": (L,B,S,rank), "krope": (L,B,S,rd)}``); each layer writes its
+    slice **in place**, so the returned caches are the tensors that were
+    passed in.  ``aux_loss`` is the float32 sum over layers of the MoE
+    load-balance loss (0 for the dense family), added in layer order as the
+    reference's scan carries it.
     """
     _check_family(cfg)
     lc = caches["attn"] if caches is not None else None
 
     def layer(lp, x, cache):
         with site_scope("layers"):
-            return _transformer_block(
+            out, _, aux = _transformer_block(
                 lp, x, cfg, positions=positions, cache=cache,
-                cache_pos=cache_pos, kv_valid_len=kv_valid_len)[0]
+                cache_pos=cache_pos, kv_valid_len=kv_valid_len)
+        return out, aux
 
     remat = cfg.remat and lc is None and torch.is_grad_enabled()
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for i, lp in enumerate(_unstack(params["layers"], cfg.num_layers)):
         if remat:
-            x = checkpoint(layer, lp, x, None, use_reentrant=False)
+            x, a = checkpoint(layer, lp, x, None, use_reentrant=False)
         else:
-            x = layer(lp, x, None if lc is None else layer_slice(lc, i))
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+            x, a = layer(lp, x, None if lc is None else layer_slice(lc, i))
+        if a is not None:
+            aux = aux + a
     return x, caches, aux
 
 
 def init_layer_caches(cfg: ModelConfig, batch: int, max_len: int,
                       dtype: torch.dtype = torch.bfloat16,
                       device="cuda") -> dict:
-    """Stacked caches matching stack_fwd's expectations."""
+    """Stacked caches matching stack_fwd's expectations: one layer's
+    :func:`attention.init_kv_cache` with a leading ``layers`` axis."""
     _check_family(cfg)
-    kvh, hd = cfg.num_kv_heads, cfg.resolved_head_dim
-    shape = (cfg.num_layers, batch, max_len, kvh, hd)
-    return {"attn": {"k": torch.zeros(shape, dtype=dtype, device=device),
-                     "v": torch.zeros(shape, dtype=dtype, device=device)}}
+    one = attn_lib.init_kv_cache(cfg, batch, max_len, dtype, device="meta")
+    return {"attn": {k: torch.zeros((cfg.num_layers, *v.shape), dtype=dtype,
+                                    device=device) for k, v in one.items()}}

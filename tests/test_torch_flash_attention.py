@@ -167,12 +167,32 @@ def test_lse_is_the_row_logsumexp():
 
 def test_kernel_head_dims():
     """The head dims the kernels are built for: the reference's configs'
-    (16 .. 128, phi3-mini's 96, gemma-7b's 256); any other raises on a CUDA
-    tensor (tests/test_torch_gpu.py), and the CPU path takes every head
-    dim."""
-    assert port_flash.HEAD_DIMS == (16, 32, 64, 96, 128, 256)
+    (16 .. 128, phi3-mini's 96, deepseek-v3's MLA q/k 192, gemma-7b's 256);
+    any other raises on a CUDA tensor (tests/test_torch_gpu.py), and the
+    CPU path takes every head dim."""
+    assert port_flash.HEAD_DIMS == (16, 32, 64, 96, 128, 192, 256)
     q = torch.randn(1, 9, 1, 48)
     assert port_flash.flash_attention(q, q, q).shape == (1, 9, 1, 48)
+
+
+@pytest.mark.parametrize("b,h,dv", [(1, 2, 16), (1, 3, 8), (2, 2, 16)])
+def test_slabs_handed_to_the_kernels_pass_their_checks(monkeypatch, b, h, dv):
+    """What ``flash_attention`` hands the kernel wrappers passes their
+    layout check (contiguous rows, one head dim), at batch 1 too, where the
+    (BH, S, D) reshape alone is a view whose rows sit H * D apart."""
+    seen = []
+    real = port_flash._Flash.apply
+
+    def spy(q, k, v, causal):
+        seen.append((q, k, v))
+        return real(q, k, v, causal)
+
+    monkeypatch.setattr(port_flash._Flash, "apply", spy)
+    q = torch.randn(b, 9, h, 16)
+    v = torch.randn(b, 9, h, dv)
+    out = port_flash.flash_attention(q, q, v)
+    assert out.shape == (b, 9, h, dv)
+    port_flash._check("flash_fwd", *seen[0])
 
 
 def test_cpu_tensors_never_launch_a_kernel():
@@ -217,6 +237,11 @@ def test_flash_ops_counts_visible_pairs():
         assert ops["flash_bwd_dq"] == 6 * 2 * pairs * 8
         assert ops["flash_bwd_dkv"] == 8 * 2 * pairs * 8
     assert port_flash.flash_ops(1, 4, 6, 2, causal=False)["flash_fwd"] == 4 * 24 * 2
+    # a narrower V: QK^T at d, PV at dv, whatever the kernels are handed
+    ops = port_flash.flash_ops(2, 5, 5, 192, causal=True, dv=128)
+    assert ops == {"flash_fwd": 2 * 2 * 15 * (192 + 128),
+                   "flash_bwd_dq": 2 * 2 * 15 * (2 * 192 + 128),
+                   "flash_bwd_dkv": 2 * 2 * 15 * (2 * 192 + 2 * 128)}
 
 
 @pytest.mark.parametrize("causal", [True, False])

@@ -65,6 +65,32 @@ def test_unary_gemm_kernels_equal_plain(cuda, bits, shape):
         assert torch.equal(out, plain(a, b, bits=bits))
 
 
+# (K, N) of the dense sites the attention families add, at decode rows:
+# phi3.5-moe / phi3-mini lm_head (N = 32064, off the 128-wide tile),
+# deepseek-v3's w_kr (N = 64), w_dkv (N = 512), w_uk (K = 512), w_uq
+# (K = 1536, N = 128 x 192), wo (K = 16384), gemma-7b's w_up / w_down
+FAMILY_SITE_SHAPES = [(4096, 32064), (3072, 32064), (7168, 64), (7168, 512),
+                      (512, 16384), (1536, 24576), (16384, 7168),
+                      (3072, 24576), (24576, 3072)]
+
+
+@pytest.mark.parametrize("bits", [4, 8])
+@pytest.mark.parametrize("m", [4, 8, 27])
+@pytest.mark.parametrize("k,n", FAMILY_SITE_SHAPES)
+def test_tub_gemm_at_family_site_shapes(cuda, k, n, m, bits):
+    rng = np.random.default_rng(k + n + m + bits)
+    v = 2 ** (bits - 1) - 1
+    a = torch.from_numpy(rng.integers(-v, v + 1, (m, k)).astype(np.int8)).to(cuda)
+    b = torch.from_numpy(rng.integers(-v, v + 1, (k, n)).astype(np.int8)).to(cuda)
+    before = ug.LAUNCHES["tub_gemm"]
+    out, _ = ug.tub_gemm(a, b, bits=bits)
+    torch.cuda.synchronize()
+    assert ug.LAUNCHES["tub_gemm"] == before + 1
+    # float64 products are exact here (|sum| < 2^53)
+    assert torch.equal(out, (a.double() @ b.double()).to(torch.int32))
+    assert torch.equal(out, ref_lib.tub_gemm_ref(a, b, bits=bits))
+
+
 @pytest.mark.parametrize("design", ["tu", "tub"])
 @pytest.mark.parametrize("splits", [None, 1, 3], ids=["planned", "unsplit", "split3"])
 @pytest.mark.parametrize("bits", range(2, 9))
@@ -224,7 +250,13 @@ FLASH_BF16_ROW_TOL = 1.2e-2
                                          (2, 1, 1, 96), (2, 15, 17, 256),
                                          (2, 63, 65, 96), (2, 65, 63, 256),
                                          (2, 129, 129, 96), (2, 100, 100, 256),
-                                         (2, 1, 129, 256), (2, 129, 1, 96)])
+                                         (2, 1, 129, 256), (2, 129, 1, 96),
+                                         # head dim 192 (deepseek-v3's MLA
+                                         # q/k): the same edges
+                                         (3, 77, 77, 192), (2, 130, 50, 192),
+                                         (2, 1, 1, 192), (2, 63, 65, 192),
+                                         (2, 65, 63, 192), (2, 1, 129, 192),
+                                         (2, 129, 1, 192)])
 def test_flash_kernels_match_plain(cuda, dtype, causal, bh, sq, skv, d):
     gen = torch.Generator(device=cuda)
     gen.manual_seed(sq + skv + d)
@@ -312,9 +344,48 @@ def test_flash_wrappers_raise_rather_than_fall_back(cuda):
     q = torch.zeros((1, 8, 48), device=cuda)          # head dim 48: not built
     with pytest.raises(ValueError):
         flash_lib.flash_fwd(q, q, q, causal=True)
+    for d in (160, 320):                               # nor these
+        q4 = torch.zeros((1, 8, 2, d), device=cuda)
+        with pytest.raises(ValueError, match="head dims"):
+            flash_lib.flash_attention(q4, q4, q4[..., :128])
+    q4 = torch.zeros((1, 8, 2, 128), device=cuda)
+    with pytest.raises(ValueError, match="exceeds"):  # V wider than Q
+        flash_lib.flash_attention(q4, q4, torch.zeros((1, 8, 2, 192), device=cuda))
     h = torch.zeros((1, 8, 16), dtype=torch.float16, device=cuda)
     with pytest.raises(TypeError):
         flash_lib.flash_fwd(h, h, h, causal=True)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("b,sq,skv,h,d,dv", [(2, 130, 130, 3, 192, 128),
+                                             (1, 77, 40, 2, 192, 128),
+                                             (2, 65, 65, 2, 128, 64),
+                                             (1, 33, 100, 2, 128, 96)])
+def test_flash_attention_narrow_v_card_equals_cpu(cuda, dtype, causal, b, sq, skv,
+                                                  h, d, dv):
+    """MLA's shapes through the differentiable wrapper: V zero-padded to D
+    for the kernels, the output sliced.  Values and the three gradients on
+    the card within the flash tolerance of the same wrapper on the CPU
+    (the plain versions), one launch of each kernel."""
+    gen = torch.Generator(device="cpu")
+    gen.manual_seed(b * sq + skv + d + dv)
+    q, k = (torch.randn((b, n, h, d), generator=gen).to(dtype) for n in (sq, skv))
+    v = torch.randn((b, skv, h, dv), generator=gen).to(dtype)
+    g = torch.randn((b, sq, h, dv), generator=gen).to(dtype)
+    outs = {}
+    for dev in ("cpu", cuda):
+        leaves = [t.to(dev).requires_grad_(True) for t in (q, k, v)]
+        flash_lib.reset_launches()
+        o = flash_lib.flash_attention(*leaves, causal=causal)
+        grads = torch.autograd.grad(o, leaves, g.to(dev))
+        outs[str(dev)] = [o.detach().cpu().float()] + [x.cpu().float() for x in grads]
+        launched = dict(flash_lib.LAUNCHES)
+    assert launched == {"flash_fwd": 1, "flash_bwd_dq": 1, "flash_bwd_dkv": 1}
+    for name, got, want in zip(("o", "dq", "dk", "dv"), outs[str(cuda)], outs["cpu"]):
+        assert got.shape == want.shape and bool(torch.isfinite(got).all()), name
+        err = float((got - want).abs().max())
+        assert err <= FLASH_TOL[dtype] * float(want.abs().max()), (name, err)
 
 
 @pytest.mark.parametrize("fault", ["data_ptr", "slab_stride"])
@@ -724,3 +795,27 @@ def test_kernel_crosscheck_on_card(cuda):
     rows = sweetspot.kernel_crosscheck(device=cuda)
     assert len(rows) == 6 and all(r["output_ok"] and r["cycles_ok"] for r in rows)
     assert ug.LAUNCHES["tub_gemm"] == ug.LAUNCHES["tu_gemm"] == 3
+
+
+def _chip_smoke():
+    """``chip_smoke.py`` (beside ``tests/``) as a module, imported on a card
+    only: the script exits at import on a host without CUDA."""
+    import importlib.util
+    import pathlib
+    path = pathlib.Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+@pytest.mark.parametrize("arch", ["phi3.5-moe-42b-a6.6b", "deepseek-v3-671b"])
+def test_moe_and_mla_models_card_equal_cpu(cuda, arch):
+    """The narrow MoE and MLA models on the card (flash at their head dims,
+    D = 192 with a 128-wide V for MLA) against the same code on the CPU,
+    through the one body chip_smoke.py's families phase runs
+    (``narrow_family``, ``_family_card_vs_cpu``): routing indices equal,
+    forward / prefill / three decode logits within 1e-4, greedy tokens
+    equal, loss and every gradient within 1e-4, the flash kernels launched
+    once a layer.  A mismatch raises ``chip_smoke.Failed``."""
+    _chip_smoke()._family_card_vs_cpu(arch)

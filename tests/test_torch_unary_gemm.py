@@ -63,6 +63,24 @@ def test_plain_equals_reference_ref(bits, shape):
         port_ref.tu_gemm_ref(ta, tb, bits=bits).numpy())
 
 
+# small stand-ins for the families' site edges: N = 64, N % 128 = 64 (as
+# 32064), K = 1536 and K = 512 (deepseek-v3's w_uq and w_uk)
+FAMILY_EDGES = [(4, 1536, 64), (4, 512, 192), (8, 96, 320)]
+
+
+@pytest.mark.parametrize("bits", [4, 8])
+@pytest.mark.parametrize("shape", FAMILY_EDGES)
+def test_plain_equals_reference_kernel_at_family_edges(bits, shape):
+    a, b = _operands(bits, shape, seed=5)
+    ref_out, ref_cycles = ref_ops.tub_matmul(jnp.asarray(a), jnp.asarray(b),
+                                             bits=bits, block=(8, 128, 128),
+                                             interpret=True)
+    out, cycles = port_ops.tub_matmul(torch.from_numpy(a), torch.from_numpy(b),
+                                      bits=bits)
+    np.testing.assert_array_equal(np.asarray(ref_out), out.numpy())
+    assert int(ref_cycles) == cycles
+
+
 @pytest.mark.parametrize("bits", BITS)
 def test_cycle_formulas_and_mirrors(bits):
     from repro.kernels import unary_gemm as ref_ug
@@ -104,7 +122,13 @@ def test_cpu_tensors_never_count_as_launches():
     (8, 4096, 14336, 5, 5), (8, 4096, 4096, 5, 20), (8, 4096, 1024, 5, 64),
     (8, 14336, 4096, 5, 20), (8, 4096, 128256, 5, 1), (512, 4096, 14336, 3, 1),
     (512, 4096, 1024, 3, 6), (13, 203, 77, 5, 4), (1, 1, 1, 5, 1),
-    (8, 4096, 14336, 4, 4), (512, 4096, 1024, 4, 8), (32, 4096, 4096, 4, 16)])
+    (8, 4096, 14336, 4, 4), (512, 4096, 1024, 4, 8), (32, 4096, 4096, 4, 16),
+    # the attention families' sites: phi3.5-moe's lm_head (N = 32064, off the
+    # 128-wide tile), deepseek-v3's w_kr (N = 64), w_dkv, w_uk (K = 512),
+    # w_uq (K = 1536), wo (K = 16384), gemma-7b's w_down (K = 24576)
+    (8, 4096, 32064, 5, 2), (8, 7168, 64, 5, 112), (8, 7168, 512, 5, 112),
+    (8, 512, 16384, 5, 5), (8, 1536, 24576, 5, 3), (8, 16384, 7168, 5, 11),
+    (8, 24576, 3072, 5, 27)])
 def test_tu_split_plan(m, k, n, resident, want):
     """The slot loop's plan, one for tu and tub: the most K slices (at most
     the 64-wide K tiles) that keep the grid within one wave of the
