@@ -116,6 +116,29 @@ Phases, each of which fails the run (non-zero exit) on its own:
    model is freed; its launches are printed per path and run (zeroed just
    before each, read just after) and put on the kernels line as
    ``launches_families``.
+12. ``recurrent`` — the recurrent families: zamba2-1.2b (Mamba2 + the shared
+   attention block), rwkv6-3b and a pure Mamba2 stack at narrow widths
+   that keep the SSD state / head / chunk (64), the RWKV head (64) and
+   zamba2's attention head dim (64), card against CPU: forward, prefill
+   and three decode steps within 1e-4, greedy tokens equal, every cache
+   leaf (state, conv tails, token-shift buffers, shared KV), the loss and
+   every gradient within 1e-4 of max(1, max|CPU|); then zamba2-1.2b (38
+   layers) and rwkv6-3b (32 layers) at their published widths and depth,
+   fp32, batch 4, prompt 100 (the padding path of both chunk sizes):
+   forward at T against prefill of T - 3 and three decode steps within
+   ``RECURRENT_TOL``, greedy tokens equal, then the one-shot serve mode's
+   functions under ``tubgemm_cuda``@4 per-row for 16 new tokens, every
+   dense site launching ``tub_gemm`` once a pass, a traced decode step
+   beside one layer's block; then 3 train steps of zamba2 and of rwkv6
+   at full depth (bf16, remat, 2 x 1024; losses, gradient norms and
+   parameters finite, every parameter moved, flash at D = 64 forward and
+   backward once per shared-block application), and rwkv6's gradients at
+   init on the trainer's second batch in bf16 and fp32 compute (norms and
+   largest leaves, logged); then ``tub_gemm`` at every (M, K, N, bits)
+   those paths gave it, equal to its plain slot loop, and the flash kernels
+   at every (BH, Sq, Skv, D) they gave flash, in fp32 and bf16, causal and
+   not, against their plain versions.  Its launches are put on the kernels
+   line as ``launches_recurrent``.
 
 Needs a CUDA device: without one (or without the package beside it) the
 script exits non-zero and prints no result.  ``--layers`` / ``--requests``
@@ -149,11 +172,6 @@ except ImportError as exc:  # pragma: no cover - environment without torch
     sys.stderr.write(f"chip_smoke: torch is not importable: {exc}\n")
     sys.exit(3)
 
-if not torch.cuda.is_available():
-    sys.stderr.write("chip_smoke: torch.cuda.is_available() is False — this "
-                     "check only means something on a CUDA device\n")
-    sys.exit(2)
-
 HERE = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(HERE, "src"))
 
@@ -175,10 +193,12 @@ try:
     from repro_torch.kernels import ref as ref_lib
     from repro_torch.kernels import unary_gemm as ug
     from repro_torch.analysis import ranges
+    from repro_torch.eval import planner as planner_lib
     from repro_torch.launch import steps as steps_lib
     from repro_torch.launch import train as train_lib
     from repro_torch.models import model as model_lib
     from repro_torch.models.common import activation_scaling
+    from repro_torch.models.config import ModelConfig
     from repro_torch.optim import AdamWConfig, adamw_init, cosine_schedule
     from repro_torch.launch.serve import validate_backend_numerics
     from repro_torch.stochastic import sgemm
@@ -212,7 +232,7 @@ REPLACES = {
 FLASH = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
 INT_GEMMS = ("quant_gemm", "packed_gemm")
 ALL_PHASES = ("device", "kernels", "probes", "serve", "quant", "plan", "ugemm",
-              "train", "times", "grid", "families")
+              "train", "times", "grid", "families", "recurrent")
 SITE_LEAVES = (("attn", "wq"), ("attn", "wk"), ("attn", "wv"), ("attn", "wo"),
                ("mlp", "w_up"), ("mlp", "w_gate"), ("mlp", "w_down"))
 
@@ -615,75 +635,80 @@ def _row_relative_err(got, want) -> float:
 
 def _flash_kernels(gen, errs: dict) -> None:
     """Forward, dQ and dK/dV against their plain versions: fp32 and bf16,
-    causal and not, every shape of FLASH_CASES; the slabs' padded tails are
-    NaN, so a kernel that read one would fail the finiteness check."""
+    causal and not, every shape of FLASH_CASES."""
     for dtype in (torch.float32, torch.bfloat16):
         for (bh, sq, skv, d) in FLASH_CASES:
             for causal in (True, False):
-                q = _poisoned(gen, bh, sq, d, dtype)
-                k = _poisoned(gen, bh, skv, d, dtype)
-                v = _poisoned(gen, bh, skv, d, dtype)
-                do = _poisoned(gen, bh, sq, d, dtype)
-                o, lse = flash_lib.flash_fwd(q, k, v, causal=causal)
-                delta = torch.sum(do.float() * o.float(), dim=-1)
-                dq = flash_lib.flash_bwd_dq(q, k, v, do, lse, delta, causal=causal)
-                dk, dv = flash_lib.flash_bwd_dkv(q, k, v, do, lse, delta,
-                                                 causal=causal)
-                torch.cuda.synchronize()
-                p_o, p_lse = flash_lib.flash_fwd_plain(q, k, v, causal=causal)
-                p_dq = flash_lib.flash_bwd_dq_plain(q, k, v, do, p_lse, delta,
-                                                    causal=causal)
-                p_dk, p_dv = flash_lib.flash_bwd_dkv_plain(q, k, v, do, p_lse,
-                                                           delta, causal=causal)
-                rel, row_rel = {}, {}
-                for name, kern, got, want in (
-                        ("o", "flash_fwd", o, p_o), ("lse", "flash_fwd", lse, p_lse),
-                        ("dq", "flash_bwd_dq", dq, p_dq),
-                        ("dk", "flash_bwd_dkv", dk, p_dk),
-                        ("dv", "flash_bwd_dkv", dv, p_dv)):
-                    require(bool(torch.isfinite(got.float()).all()),
-                            f"flash {name} not finite (a NaN-poisoned tail was read?)")
-                    err = float((got.float() - want.float()).abs().max())
-                    top = float(want.float().abs().max())
-                    rel[name] = err / top
-                    if dtype == torch.float32:
-                        errs[kern] = max(errs[kern], err)
-                    require(err <= FLASH_TOL[dtype] * top,
-                            f"flash {name} ({bh},{sq},{skv},{d}) {dtype} causal="
-                            f"{causal}: max |kernel-plain| {err:.3e} > "
-                            f"{FLASH_TOL[dtype]:g} x max|plain| {top:.3e}")
-                    if dtype == torch.bfloat16 and name != "lse":
-                        if name == "dq" and causal:
-                            # query 0 sees key 0 alone, so its dS = P (dP -
-                            # delta) cancels exactly: its dQ row is fp32
-                            # rounding noise in kernel and plain alike, held
-                            # to 64 fp32 ulps of the cancelling terms' scale
-                            # (as in tests/test_torch_gpu.py), the other rows
-                            # to the per-row check
-                            bound = 64 * 2.0 ** -23 * d ** 0.5 * float(
-                                do.float().abs().max() * v.float().abs().max()
-                                * torch.maximum(q.float().abs().max(),
-                                                k.float().abs().max()))
-                            err0 = float((got[:, 0].float() - want[:, 0].float())
-                                         .abs().max())
-                            require(err0 <= bound,
-                                    f"flash dq ({bh},{sq},{skv},{d}) bf16 causal: "
-                                    f"query 0's cancelled row off by {err0:.3e} > "
-                                    f"{bound:.3e}")
-                            got, want = got[:, 1:], want[:, 1:]
-                        row_rel[name] = _row_relative_err(got, want)
-                        require(row_rel[name] <= FLASH_BF16_ROW_TOL,
-                                f"flash {name} ({bh},{sq},{skv},{d}) bf16 causal="
-                                f"{causal}: |kernel-plain| / (|plain| + row max"
-                                f" |plain|) {row_rel[name]:.3e} > "
-                                f"{FLASH_BF16_ROW_TOL:g}")
-                log(f"  flash BH={bh} Sq={sq} Skv={skv} d={d} "
-                    f"{str(dtype).split('.')[-1]} causal={causal}: max|kernel-plain|"
-                    f" / max|plain| " + ", ".join(f"{n} {r:.2e}" for n, r in rel.items())
-                    + f" (tol {FLASH_TOL[dtype]:g})"
-                    + ("; per row " + ", ".join(f"{n} {r:.2e}" for n, r in row_rel.items())
-                       + f" (tol {FLASH_BF16_ROW_TOL:g})" if row_rel else ""))
-                del q, k, v, do, o, lse, dq, dk, dv, p_o, p_lse, p_dq, p_dk, p_dv
+                _flash_case(gen, errs, bh, sq, skv, d, dtype, causal)
+
+
+def _flash_case(gen, errs: dict, bh: int, sq: int, skv: int, d: int, dtype,
+                causal: bool) -> None:
+    """The three flash kernels at one (BH, Sq, Skv, D, dtype, causal) against
+    their plain versions, within FLASH_TOL (and FLASH_BF16_ROW_TOL per row in
+    bf16); the slabs' padded tails are NaN, so a kernel that read one would
+    fail the finiteness check.  fp32 errors raise ``errs``' entries."""
+    q = _poisoned(gen, bh, sq, d, dtype)
+    k = _poisoned(gen, bh, skv, d, dtype)
+    v = _poisoned(gen, bh, skv, d, dtype)
+    do = _poisoned(gen, bh, sq, d, dtype)
+    o, lse = flash_lib.flash_fwd(q, k, v, causal=causal)
+    delta = torch.sum(do.float() * o.float(), dim=-1)
+    dq = flash_lib.flash_bwd_dq(q, k, v, do, lse, delta, causal=causal)
+    dk, dv = flash_lib.flash_bwd_dkv(q, k, v, do, lse, delta, causal=causal)
+    torch.cuda.synchronize()
+    p_o, p_lse = flash_lib.flash_fwd_plain(q, k, v, causal=causal)
+    p_dq = flash_lib.flash_bwd_dq_plain(q, k, v, do, p_lse, delta, causal=causal)
+    p_dk, p_dv = flash_lib.flash_bwd_dkv_plain(q, k, v, do, p_lse, delta,
+                                               causal=causal)
+    rel, row_rel = {}, {}
+    for name, kern, got, want in (
+            ("o", "flash_fwd", o, p_o), ("lse", "flash_fwd", lse, p_lse),
+            ("dq", "flash_bwd_dq", dq, p_dq),
+            ("dk", "flash_bwd_dkv", dk, p_dk),
+            ("dv", "flash_bwd_dkv", dv, p_dv)):
+        require(bool(torch.isfinite(got.float()).all()),
+                f"flash {name} not finite (a NaN-poisoned tail was read?)")
+        err = float((got.float() - want.float()).abs().max())
+        top = float(want.float().abs().max())
+        rel[name] = err / top
+        if dtype == torch.float32:
+            errs[kern] = max(errs[kern], err)
+        require(err <= FLASH_TOL[dtype] * top,
+                f"flash {name} ({bh},{sq},{skv},{d}) {dtype} causal="
+                f"{causal}: max |kernel-plain| {err:.3e} > "
+                f"{FLASH_TOL[dtype]:g} x max|plain| {top:.3e}")
+        if dtype == torch.bfloat16 and name != "lse":
+            if name == "dq" and causal:
+                # query 0 sees key 0 alone, so its dS = P (dP - delta)
+                # cancels exactly: its dQ row is fp32 rounding noise in
+                # kernel and plain alike, held to 64 fp32 ulps of the
+                # cancelling terms' scale (as in tests/test_torch_gpu.py),
+                # the other rows to the per-row check
+                bound = 64 * 2.0 ** -23 * d ** 0.5 * float(
+                    do.float().abs().max() * v.float().abs().max()
+                    * torch.maximum(q.float().abs().max(),
+                                    k.float().abs().max()))
+                err0 = float((got[:, 0].float() - want[:, 0].float())
+                             .abs().max())
+                require(err0 <= bound,
+                        f"flash dq ({bh},{sq},{skv},{d}) bf16 causal: "
+                        f"query 0's cancelled row off by {err0:.3e} > "
+                        f"{bound:.3e}")
+                got, want = got[:, 1:], want[:, 1:]
+            row_rel[name] = _row_relative_err(got, want)
+            require(row_rel[name] <= FLASH_BF16_ROW_TOL,
+                    f"flash {name} ({bh},{sq},{skv},{d}) bf16 causal="
+                    f"{causal}: |kernel-plain| / (|plain| + row max"
+                    f" |plain|) {row_rel[name]:.3e} > "
+                    f"{FLASH_BF16_ROW_TOL:g}")
+    log(f"  flash BH={bh} Sq={sq} Skv={skv} d={d} "
+        f"{str(dtype).split('.')[-1]} causal={causal}: max|kernel-plain|"
+        f" / max|plain| " + ", ".join(f"{n} {r:.2e}" for n, r in rel.items())
+        + f" (tol {FLASH_TOL[dtype]:g})"
+        + ("; per row " + ", ".join(f"{n} {r:.2e}" for n, r in row_rel.items())
+           + f" (tol {FLASH_BF16_ROW_TOL:g})" if row_rel else ""))
+    del q, k, v, do, o, lse, dq, dk, dv, p_o, p_lse, p_dq, p_dk, p_dv
 
 
 def _full_codes(gen, shape, bits):
@@ -2312,14 +2337,16 @@ def _greedy(logits) -> torch.Tensor:
     return torch.argmax(logits[:, -1:], dim=-1).to(torch.int32)
 
 
-def _cached_logits(params, cfg, prompt=None, *, embeds=None, steps=CHECK_STEPS):
-    """Prefill then ``steps`` greedy decode steps over a float32 cache:
-    (prefill logits, [last prompt position, then each step's logits],
-    generated tokens (B, steps))."""
+def _cached_logits(params, cfg, prompt=None, *, embeds=None, steps=CHECK_STEPS,
+                   caches=None):
+    """Prefill then ``steps`` greedy decode steps over a float32 cache (new,
+    or ``caches``, which the model writes in place): (prefill logits, [last
+    prompt position, then each step's logits], generated tokens (B, steps))."""
     inp = embeds if embeds is not None else prompt
     b, s = inp.shape[:2]
-    caches = model_lib.init_caches(cfg, b, s + steps, dtype=torch.float32,
-                                   device=inp.device)
+    if caches is None:
+        caches = model_lib.init_caches(cfg, b, s + steps, dtype=torch.float32,
+                                       device=inp.device)
     pre, caches = model_lib.prefill(params, cfg, prompt, caches=caches,
                                     embeds=embeds)
     rows, toks, tok = [pre[:, -1]], [], _greedy(pre)
@@ -2770,8 +2797,8 @@ def _tub_gemm_shapes():
         ug.tub_gemm = real
 
 
-def _family_gemm_exact(seen: set) -> float:
-    """tub_gemm at every (M, K, N, bits) the families paths gave it, and at
+def _family_gemm_exact(seen: set, what: str = "families") -> float:
+    """tub_gemm at every (M, K, N, bits) ``what``'s paths gave it, and at
     8 bits at each (K, N)'s smallest and largest M, on fresh codes (the
     weights over the whole int8 range): EQUAL to its plain slot loop and to
     the float64 integer product.  Returns the largest |difference| (0)."""
@@ -2794,14 +2821,62 @@ def _family_gemm_exact(seen: set) -> float:
                     int((out.long() - _exact_product(a, b).long()).abs().max()))
             worst = max(worst, float(d))
             cases += 1
-            require(d == 0, f"tub_gemm ({m},{k},{n}) bits={bits} on a families "
+            require(d == 0, f"tub_gemm ({m},{k},{n}) bits={bits} on a {what} "
                             f"site shape: max |kernel - plain| {d}")
         del b
         log(f"  tub_gemm == plain == integer product at (K, N) = ({k}, {n}), "
             f"M {rows}, bits {sorted({bits for _, bits in cases_kn})}")
-    log(f"  tub_gemm held at {cases} (M, K, N, bits) of the families paths in "
+    log(f"  tub_gemm held at {cases} (M, K, N, bits) of the {what} paths in "
         f"{time.perf_counter() - t0:.1f} s")
     return worst
+
+
+@contextlib.contextmanager
+def _flash_shapes():
+    """Collects each distinct (BH, Sq, Skv, D, dtype, causal) the three flash
+    wrappers are called at inside the block (``flash_attention`` looks them
+    up at call time); the wrappers, and their launch counts, are untouched."""
+    seen: set = set()
+    real = {name: getattr(flash_lib, name) for name in FLASH}
+
+    def logged(name):
+        def call(q, k, v, *rest, causal):
+            seen.add((int(q.shape[0]), int(q.shape[1]), int(k.shape[1]),
+                      int(q.shape[2]), q.dtype, causal))
+            return real[name](q, k, v, *rest, causal=causal)
+        return call
+
+    for name in FLASH:
+        setattr(flash_lib, name, logged(name))
+    try:
+        yield seen
+    finally:
+        for name, fn in real.items():
+            setattr(flash_lib, name, fn)
+
+
+def _flash_exact(seen: set, what: str) -> dict:
+    """The three flash kernels at every (BH, Sq, Skv, D) ``what``'s paths
+    gave them, on fresh NaN-tailed slabs, in fp32 and bf16, causal and not,
+    against their plain versions (``_flash_case``).  Returns each kernel's
+    largest fp32 |kernel - plain|."""
+    gen = torch.Generator(device=DEV)
+    gen.manual_seed(23)
+    errs = {name: 0.0 for name in FLASH}
+    shapes: dict = {}
+    for bh, sq, skv, d, dtype, causal in seen:
+        shapes.setdefault((bh, sq, skv, d), set()).add(
+            f"{str(dtype).split('.')[-1]} causal={causal}")
+    t0 = time.perf_counter()
+    for (bh, sq, skv, d), met in sorted(shapes.items()):
+        log(f"  flash at a {what} shape BH={bh} Sq={sq} Skv={skv} d={d} (met as "
+            f"{', '.join(sorted(met))})")
+        for dtype in (torch.float32, torch.bfloat16):
+            for causal in (True, False):
+                _flash_case(gen, errs, bh, sq, skv, d, dtype, causal)
+    log(f"  flash held at the {len(shapes)} (BH, Sq, Skv, D) of the {what} paths "
+        f"in {time.perf_counter() - t0:.1f} s")
+    return errs
 
 
 def phase_families() -> dict:
@@ -2837,6 +2912,501 @@ def phase_families() -> dict:
     log(f"  launches by path: {json.dumps(launches)}")
     log(f"  families phase: {time.perf_counter() - t_phase:.1f} s")
     return {"launches": launches, "errs": {"tub_gemm": err}}
+
+
+# ---------------------------------------------------------------------------
+# phase 12: recurrent (Mamba2 SSD, RWKV6, the zamba2 hybrid stack)
+# ---------------------------------------------------------------------------
+
+HYBRID_ID, RWKV_ID = "zamba2-1.2b", "rwkv6-3b"
+MAMBA_ID = "mamba2"            # a pure Mamba2 stack (family "ssm"), narrow only
+RECURRENT_IDS = (HYBRID_ID, RWKV_ID, MAMBA_ID)
+# batch 4, prompt 100: not a multiple of the SSD chunk (64) or the WKV chunk
+# (32), so the padding path runs; published widths and depth (zamba2 38
+# layers, 1.17 B parameters; rwkv6 32 layers, 3.07 B)
+RECURRENT_SERVE = dict(batch=4, prompt=100, tokens=16)
+# fp32 parameters + fp32 AdamW moments: zamba2 18.7 GB, rwkv6 49.2 GB; both
+# fit 80 GB at full depth with remat.  Three steps: the first runs at lr 0
+# (warmup), and RWKV's mu_w has no gradient while the decay LoRA's wb is
+# still at its zero init, so it moves at the third
+RECURRENT_TRAIN = dict(batch=2, seq=1024, steps=3)
+# forward at T against prefill of T - 3 and 3 decode steps, fp32, full width
+# and depth (stated in PERF.md before the first run)
+RECURRENT_TOL = 1e-3
+
+
+def narrow_recurrent(arch: str):
+    """``arch`` at narrow widths that keep its recurrent dims (SSD state 64,
+    head 64, chunk 64; RWKV head 64, decay LoRA 64) and zamba2's attention
+    head dim 64: d_model 128, fp32.  zamba2 at 3 layers with the shared
+    block after 2 (one application and a tail layer); the pure Mamba2 stack
+    with two B/C groups."""
+    kw = dict(d_model=128, num_heads=2, num_kv_heads=2, d_ff=256, vocab_size=512,
+              param_dtype="float32", compute_dtype="float32", remat=False)
+    if arch == MAMBA_ID:
+        full = configs.get_config(HYBRID_ID)
+        return ModelConfig(arch_id=MAMBA_ID, family="ssm", attention="none",
+                           num_layers=2, ssm=dataclasses.replace(full.ssm, n_groups=2),
+                           **kw)
+    if arch == HYBRID_ID:
+        return configs.get_config(arch).replace(num_layers=3, hybrid_attn_every=2, **kw)
+    return configs.get_config(arch).replace(num_layers=2, **kw)
+
+
+def real_values(defs, params, rng):
+    """``params`` (numpy arrays, or CPU tensors) as a new numpy tree in which
+    every zeros / ones leaf has seeded random values: ``mu_*`` uniform in
+    [0, 1), other zeros N(0, 0.3²), ones 1 + N(0, 0.3²).  At init those leaves
+    (token-shift mixes, the decay LoRA's ``wb``, the bonus ``u``, norm scales
+    and biases, conv biases, ``d_skip``) would leave the token shift, the
+    decay LoRA and the bonus without effect.  ``tests/test_torch_recurrent.py``
+    gives the reference and the port their parameters through this too."""
+    out = {}
+    for k in params:
+        d, p = defs[k], params[k]
+        if isinstance(p, dict):
+            out[k] = real_values(d, p, rng)
+        elif d.init == "zeros":
+            out[k] = (rng.random(tuple(p.shape)) if k.startswith("mu_")
+                      else 0.3 * rng.standard_normal(tuple(p.shape))).astype(np.float32)
+        elif d.init == "ones":
+            out[k] = (1.0 + 0.3 * rng.standard_normal(tuple(p.shape))).astype(np.float32)
+        else:
+            out[k] = np.asarray(p)
+    return out
+
+
+def recorded_sites(cfg, params) -> list[str]:
+    """The dense sites one float pass records, in order (a pass over T
+    tokens, a prefill or one decode step alike): a forward on the ``meta``
+    device, which computes nothing."""
+    meta = planner_lib._meta_like(params)
+    with torch.no_grad(), backends.record_sites() as rec:
+        model_lib.forward(meta, cfg, torch.zeros((1, 1), dtype=torch.int32,
+                                                 device="meta"))
+    return [c.site for c in rec.calls]
+
+
+def _shared_applications(cfg) -> int:
+    return model_lib.blocks_lib.hybrid_counts(cfg)[0] if cfg.family == "hybrid" else 0
+
+
+def _recurrent_card_vs_cpu(arch: str) -> None:
+    """Narrow ``arch`` on the card (flash for zamba2's shared attention) and
+    the CPU (plain versions), identical parameters and inputs: forward,
+    prefill and CHECK_STEPS decode logits within FAMILY_TOL, greedy tokens
+    equal, every cache leaf (SSD / WKV state, conv tails, token-shift
+    buffers, the shared block's KV) and the loss and every gradient within
+    FAMILY_TOL of max(1, max|CPU|)."""
+    cfg = narrow_recurrent(arch)
+    gen = torch.Generator(device="cpu")
+    gen.manual_seed(0)
+    cpu_params = model_lib.params_from_numpy(real_values(
+        model_lib.model_defs(cfg), model_lib.init_params(cfg, gen, device="cpu"),
+        np.random.default_rng(0)), device="cpu")
+    card_params = _clone_tree(cpu_params, DEV)
+    rng = np.random.default_rng(0)
+    b, s = 2, 40
+    tokens = torch.from_numpy(rng.integers(0, cfg.vocab_size, (b, s)).astype(np.int32))
+
+    def run(params, dev):
+        fwd, _ = model_lib.forward(params, cfg, tokens.to(dev))
+        caches = model_lib.init_caches(cfg, b, s + CHECK_STEPS, dtype=torch.float32,
+                                       device=dev)
+        pre, rows, toks = _cached_logits(params, cfg, tokens.to(dev), caches=caches)
+        return ([x.cpu() for x in (fwd, pre, rows)], toks.cpu(),
+                {k: v.cpu() for k, v in _tree_leaves(caches)})
+
+    def rel(a, c):
+        return float((a - c).abs().max()) / max(1.0, float(c.abs().max()))
+
+    flash_lib.reset_launches()
+    with torch.no_grad():
+        card, card_toks, card_c = run(card_params, DEV)
+        torch.cuda.synchronize()
+        fwd_launches = flash_lib.LAUNCHES["flash_fwd"]
+        cpu, cpu_toks, cpu_c = run(cpu_params, torch.device("cpu"))
+    errs = [float((a - c).abs().max()) for a, c in zip(card, cpu)]
+    cache_errs = {k: rel(card_c[k], cpu_c[k]) for k in cpu_c}
+    out = []
+    for dev in (DEV, torch.device("cpu")):
+        tree = steps_lib._trainable(_clone_tree(cpu_params, dev))
+        batch = {"tokens": tokens[:, :-1].to(dev), "targets": tokens[:, 1:].to(dev)}
+        flash_lib.reset_launches()
+        loss, _, grads = steps_lib.loss_and_grads(cfg, tree, batch)
+        out.append((float(loss), {k: g.cpu() for k, g in _tree_leaves(grads)},
+                    dict(flash_lib.LAUNCHES)))
+    (loss_g, grads_g, launched), (loss_c, grads_c, _) = out
+    worst = max((rel(grads_g[k], grads_c[k]), k) for k in grads_c)
+    apps = _shared_applications(cfg)
+    log(f"  {arch} narrow (d_model {cfg.d_model}, {cfg.num_layers} layers"
+        + (f", SSD state {cfg.ssm.state_dim} head {cfg.ssm.head_dim} groups "
+           f"{cfg.ssm.n_groups} chunk {cfg.ssm.chunk}" if cfg.ssm else "")
+        + (f", RWKV head {cfg.rwkv.head_dim}" if cfg.rwkv else "")
+        + (f", shared attention x{apps} at head dim {cfg.resolved_head_dim}" if apps else "")
+        + f"): card vs CPU max|dlogit| forward {errs[0]:.2e}, prefill {errs[1]:.2e}, "
+        f"{CHECK_STEPS} decode steps {errs[2]:.2e} (tol {FAMILY_TOL:g}); greedy tokens "
+        f"equal {torch.equal(card_toks, cpu_toks)}; caches (tol {FAMILY_TOL:g} x "
+        f"max(1, max|cpu|)) " + ", ".join(f"{k} {v:.2e}" for k, v in cache_errs.items())
+        + f"; loss card {loss_g:.7f} cpu {loss_c:.7f}, worst gradient {worst[1]} "
+        f"{worst[0]:.2e}; flash launches forward {fwd_launches}, gradient run {launched}")
+    require(max(errs) <= FAMILY_TOL, f"{arch} narrow: card vs CPU logits {errs}")
+    require(torch.equal(card_toks, cpu_toks), f"{arch} narrow: greedy tokens differ")
+    require(max(cache_errs.values()) <= FAMILY_TOL, f"{arch} narrow: caches {cache_errs}")
+    require(abs(loss_g - loss_c) <= FAMILY_TOL * abs(loss_c) and worst[0] <= FAMILY_TOL,
+            f"{arch} narrow: loss {loss_g} vs {loss_c}, gradient {worst}")
+    require(fwd_launches == apps and launched == {n: apps for n in FLASH},
+            f"{arch}: flash launches {fwd_launches}, {launched}")
+
+
+@torch.no_grad()
+def _recurrent_serve(arch: str) -> dict:
+    """``arch`` at its published widths and depth: forward at T against
+    prefill of T - 3 and 3 greedy decode steps (fp32), then the one-shot
+    serve mode's functions under tubgemm_cuda@4 per-row, a traced decode
+    step and one layer's block at the decode token."""
+    from repro_torch.launch import serve as serve_lib
+    from repro_torch.models import rwkv as rwkv_lib
+    from repro_torch.models import ssm as ssm_lib
+    cfg = configs.get_config(arch).replace(param_dtype="float32", compute_dtype="float32")
+    params = _init_family(cfg, "recurrent serve")
+    rng = np.random.default_rng(0)
+    b, s, new = RECURRENT_SERVE["batch"], RECURRENT_SERVE["prompt"], RECURRENT_SERVE["tokens"]
+    prompt = torch.from_numpy(rng.integers(0, cfg.vocab_size, (b, s)).astype(np.int32)).to(DEV)
+    apps = _shared_applications(cfg)
+    t0 = time.perf_counter()
+    toks = serve_lib.generate(cfg, params, prompt, new)
+    torch.cuda.synchronize()
+    log(f"  generate (float path): {tuple(toks.shape)} tokens in "
+        f"{time.perf_counter() - t0:.2f} s")
+    # the cached paths against the full-sequence pass (float path)
+    flash_lib.reset_launches()
+    _, rows, dec = _cached_logits(params, cfg, prompt)
+    flash_cached = flash_lib.LAUNCHES["flash_fwd"]
+    flash_lib.reset_launches()
+    full, _ = model_lib.forward(params, cfg, torch.cat([prompt, dec], dim=1))
+    torch.cuda.synchronize()
+    flash_full = flash_lib.LAUNCHES["flash_fwd"]
+    ref = full[:, s - 1:]
+    err = float((rows - ref).abs().max())
+    same = torch.equal(rows.argmax(-1), ref.argmax(-1))
+    log(f"  float path: prefill of T - {CHECK_STEPS} = {s} + {CHECK_STEPS} decode steps "
+        f"vs forward at T = {s + CHECK_STEPS}: max|dlogit| {err:.3e} (tol "
+        f"{RECURRENT_TOL:g}, max|logit| {float(ref.abs().max()):.2f}), greedy tokens "
+        f"equal {same}; flash_fwd launches forward {flash_full}, cached {flash_cached}")
+    require(err <= RECURRENT_TOL and same, f"{arch} cached vs full: {err}, tokens {same}")
+    require(flash_full == apps and flash_cached == 0,
+            f"{arch}: flash_fwd forward {flash_full}, cached {flash_cached}")
+    ug.reset_launches()
+    rel = serve_lib.validate_backend_numerics(params, "tubgemm_cuda", 4)
+    tiles = ug.LAUNCHES["tub_gemm"]      # run_backend_execution repeats this check
+    require(rel == 0.0, f"tubgemm_cuda numerics on {arch} weights: {rel}")
+    t0 = time.perf_counter()
+    rec, stats = serve_lib.build_workload(cfg, params, b, s, 4)
+    cost = backends.resolve("tubgemm", bits=4).price(rec.calls, unit_n=128, num_units=64)
+    log(f"  build_workload: {len(rec.calls)} matrices priced in "
+        f"{time.perf_counter() - t0:.2f} s; tubGEMM@4 {cost.dyn_energy_uj:.2f} uJ a "
+        f"decode step")
+    ug.reset_launches()
+    flash_lib.reset_launches()
+    with activation_scaling("per-row"):
+        res = serve_lib.run_backend_execution(
+            cfg, params, prompt, backends.resolve("tubgemm_cuda", bits=4), new,
+            unit_n=128, num_units=64, stats=stats)
+    sites = recorded_sites(cfg, params)
+    launched, flash_exec = ug.LAUNCHES["tub_gemm"], flash_lib.LAUNCHES["flash_fwd"]
+    log(f"  run_backend_execution tubgemm_cuda@4 per-row: {res['sites']} sites, "
+        f"wall {res['wall_s']:.2f} s, drift {res['drift']:.3e}, top-1 agreement "
+        f"{res['top1_agreement']:.3f}, tub_gemm launches {launched} (prefill, "
+        f"{new - 1} decode steps and the prefill-logit pass: {len(sites)} x {new + 1} "
+        f"= {len(sites) * (new + 1)}, + {tiles} numerics tiles), flash_fwd {flash_exec}")
+    require(res["sites"] == len(set(sites)), f"sites executed {res['sites']}")
+    require(launched == len(sites) * (new + 1) + tiles,
+            f"run_backend_execution: {launched} tub_gemm launches, want "
+            f"{len(sites)} x {new + 1} + {tiles}")
+    # one decode step: every site launches tub_gemm once, lm_head included
+    caches = model_lib.init_caches(cfg, b, s + 1, dtype=torch.float32, device=DEV)
+    _, caches = model_lib.prefill(params, cfg, prompt, caches=caches)
+    tok = toks[:, :1].contiguous()
+
+    def step():
+        return model_lib.decode_step(params, cfg, tok, caches=caches, cache_pos=s)
+
+    got, tub, _, _ = _sites_run(step, cfg)
+    require(got == sites and tub == len(sites),
+            f"decode step under tubgemm_cuda: {len(got)} sites, {tub} launches")
+    h = torch.randn((b, 1, cfg.d_model), device=DEV)
+    lp = model_lib.blocks_lib.layer_slice(params["layers"], 0)
+    if cfg.rwkv is not None:
+        lc = model_lib.blocks_lib.layer_slice(caches["rwkv"], 0)
+        block, name = (lambda: rwkv_lib.rwkv_block_fwd(lp, h, cfg, cache=lc)), "rwkv_block_fwd"
+    else:
+        lc = model_lib.blocks_lib.layer_slice(caches["ssm"], 0)
+        block, name = (lambda: ssm_lib.ssm_fwd(lp["ssm"], h, cfg, cache=lc)), "ssm_fwd"
+    with backends.use_backend("tubgemm_cuda", bits=4), activation_scaling("per-row"):
+        prof = _step_profile(step, f"decode step (B={b}, context {s}, "
+                                   f"tubgemm_cuda@4 per-row, {len(sites)} sites)",
+                             {"tub_gemm": "unary_mma_kernel"})
+        one = _step_profile(block, f"one layer's {name} at the decode token")
+    share = cfg.num_layers * one["wall_ms"] / prof["wall_ms"]
+    log(f"  the recurrent layers: {cfg.num_layers} x {one['wall_ms']:.2f} ms = "
+        f"{100 * share:.1f} % of the decode step's host wall; "
+        f"{cfg.num_layers * one['busy_ms']:.2f} of {prof['busy_ms']:.2f} ms device busy")
+    # the same step and the prompt's forward on the float path: the
+    # recurrence's own cost, without the per-site quantize / tub_gemm chain
+    chunk = cfg.ssm.chunk if cfg.ssm is not None else rwkv_lib.CHUNK
+    fprof = _step_profile(step, "decode step, float path")
+    fwd = _step_profile(lambda: model_lib.forward(params, cfg, prompt),
+                        f"forward, float path ({b} x {s}, {-(-s // chunk)} chunks "
+                        f"of {chunk} a layer)")
+    log(f"  the backend chain: {prof['wall_ms'] - fprof['wall_ms']:.2f} ms of the "
+        f"decode step's {prof['wall_ms']:.2f} ms host wall")
+    peak = torch.cuda.max_memory_allocated()
+    log(f"  peak max_memory_allocated {peak / 2**30:.2f} GiB")
+    return {"tub_gemm": {"run_backend_execution": launched, "decode step": tub},
+            "flash_fwd": flash_full, "decode_ms": prof["wall_ms"],
+            "decode_busy_ms": prof["busy_ms"], "float_decode_ms": fprof["wall_ms"],
+            "forward_ms": fwd["wall_ms"], "peak_gib": peak / 2**30}
+
+
+def _recurrent_train(arch: str) -> dict:
+    """``arch`` at its published widths and depth: bf16 compute, remat,
+    AdamW on SyntheticLM; losses, every gradient (through its norm) and
+    every parameter finite, every parameter moved; zamba2's shared
+    attention through flash at D = 64, forward and backward."""
+    t = RECURRENT_TRAIN
+    cfg = configs.get_config(arch).replace(param_dtype="float32",
+                                           compute_dtype="bfloat16", remat=True)
+    loop = train_lib.TrainLoopConfig(steps=t["steps"], log_every=1, batch=t["batch"],
+                                     seq=t["seq"], lr=3e-4, warmup=1, seed=0)
+    torch.cuda.reset_peak_memory_stats()
+    flash_lib.reset_launches()
+    t0 = time.perf_counter()
+    state, history, _ = train_lib.train(cfg, loop, device=DEV)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(flash_lib.LAUNCHES)
+    losses = [m["loss"] for _, m in history]
+    norms = [m["grad_norm"] for _, m in history]
+    peak = torch.cuda.max_memory_allocated()
+    state.opt = None                  # room for the init tree beside the trained one
+    finite = all(bool(torch.isfinite(w).all()) for _, w in _tree_leaves(state.params))
+    gen = torch.Generator(device=DEV)
+    gen.manual_seed(loop.seed)
+    init = model_lib.init_params(cfg, gen, device=DEV)
+    still = [k for (k, a), (_, w) in zip(_tree_leaves(init), _tree_leaves(state.params))
+             if torch.equal(a, w)]
+    apps = _shared_applications(cfg)
+    log(f"  train: {arch} published widths, {cfg.num_layers} layers "
+        f"({model_lib.count_params(state.params) / 1e9:.3f} B parameters), fp32 "
+        f"parameters, bf16 compute, remat, batch {loop.batch} x {loop.seq}: losses "
+        + " ".join(f"{x:.4f}" for x in losses) + ", gradient norms "
+        + " ".join(f"{x:.3f}" for x in norms) + ", step walls "
+        + " ".join(f"{m['step_s']:.2f}" for _, m in history)
+        + f" s, train() {wall:.1f} s incl. init, peak {peak / 2**30:.2f} GiB; "
+        f"parameters finite {finite}; launches {launches} (want {apps} x "
+        f"{loop.steps} each); leaves unmoved {still or 'none'}")
+    require(len(losses) == loop.steps and all(map(math.isfinite, losses + norms)),
+            f"{arch} train: losses {losses}, gradient norms {norms}")
+    require(finite and not still, f"{arch} train: finite {finite}, unmoved {still}")
+    require(launches == {n: apps * loop.steps for n in FLASH},
+            f"{arch} train: flash launches {launches}")
+    del state
+    gc.collect()
+    torch.cuda.empty_cache()
+    if cfg.rwkv is not None:
+        _init_gradients(cfg, loop, init, norms[:2])
+    del init
+    return {"launches": launches, "step_s": history[-1][1]["step_s"],
+            "peak_gib": peak / 2**30}
+
+
+# the rwkv6 init-gradient witness: a relative perturbation of every
+# parameter (fp32 rounding is 6e-8) and the depths it is also taken at
+INIT_GRAD_PERTURB = 1e-7
+INIT_GRAD_DEPTHS = (2, 8)
+
+
+def _init_gradients(cfg, loop, params, trainer_norms: list) -> None:
+    """A second witness for RWKV's gradient norm at init, at the trainer's
+    init parameters (``params``; its first step runs at lr 0, so its first
+    two steps' gradients are both taken there) and on its first two
+    batches: each global norm in bf16 compute (the trainer's) and fp32
+    beside the trainer's, the norm without the bonus ``u`` and the largest
+    leaves; on the second batch also the bf16 gradients' distance from the
+    fp32 ones, ``u``'s fp32 norm by layer, the fp32 gradient at parameters
+    perturbed by INIT_GRAD_PERTURB (its conditioning), and both dtypes at
+    the first INIT_GRAD_DEPTHS layers.  Requires every norm finite."""
+    data = iter(SyntheticLM(DataConfig(batch_size=loop.batch, seq_len=loop.seq + 1,
+                                       vocab_size=cfg.vocab_size, seed=loop.seed)))
+    batches = [{k: torch.from_numpy(v).to(DEV) for k, v in next(data).items()
+                if k in ("tokens", "targets")} for _ in trainer_norms]
+    steps_lib._trainable(params)
+    name = cfg.arch_id
+
+    def grads_of(tree, dtype, batch, layers=cfg.num_layers):
+        _, _, g = steps_lib.loss_and_grads(
+            cfg.replace(compute_dtype=dtype, num_layers=layers), tree, batch)
+        torch.cuda.synchronize()
+        return dict(_tree_leaves(g))
+
+    def summary(grads, what):
+        leaf = {k: float(g.float().norm()) for k, g in grads.items()}
+        total = math.sqrt(sum(x * x for x in leaf.values()))
+        rest = math.sqrt(sum(x * x for k, x in leaf.items() if k != "layers/tm/u"))
+        top = sorted(leaf.items(), key=lambda kv: -kv[1])[:3]
+        log(f"  {name} gradients at init, {what}: global norm {total:.6g}, without "
+            f"layers/tm/u {rest:.6g}; largest leaves "
+            + ", ".join(f"{k} {x:.6g}" for k, x in top))
+        require(math.isfinite(total), f"{name} gradients at init, {what}: {total}")
+
+    kept = {}
+    for i, (batch, trainer) in enumerate(zip(batches, trainer_norms), start=1):
+        for dtype in ("bfloat16", "float32"):
+            grads = grads_of(params, dtype, batch)
+            summary(grads, f"the trainer's batch {i} ({loop.batch} x {loop.seq}), "
+                           f"{dtype} compute (the trainer's step {i}: {trainer:.6g})")
+            if i == 2:
+                kept[dtype] = grads
+            del grads
+    fp32 = kept["float32"]
+    gap = {k: float((kept["bfloat16"][k].float() - g).norm()) for k, g in fp32.items()}
+    del kept
+    u = fp32["layers/tm/u"].flatten(1).norm(dim=1).tolist()
+    all32 = math.sqrt(sum(float(g.norm()) ** 2 for g in fp32.values()))
+    log(f"  |bf16 - fp32| gradient, batch 2: layers/tm/u {gap['layers/tm/u']:.6g} of "
+        f"{float(fp32['layers/tm/u'].norm()):.6g}, all leaves "
+        f"{math.sqrt(sum(x * x for x in gap.values())):.6g} of {all32:.6g}; fp32 "
+        f"layers/tm/u norm by layer (first three, last three) "
+        + " ".join(f"{x:.4g}" for x in u[:3]) + " ... "
+        + " ".join(f"{x:.4g}" for x in u[-3:]))
+    gen = torch.Generator(device=DEV)
+    gen.manual_seed(7)
+    moved = _new_leaves(params, lambda t: t * (1 + INIT_GRAD_PERTURB * torch.randn(
+        t.shape, generator=gen, device=DEV)))
+    again = grads_of(moved, "float32", batches[1])
+    del moved
+    shift = math.sqrt(sum(float((again[k] - g).norm()) ** 2 for k, g in fp32.items()))
+    summary(again, f"batch 2, fp32, every parameter x (1 + {INIT_GRAD_PERTURB:g} N(0, 1))")
+    log(f"  the perturbation moved the fp32 gradient by {shift:.6g} (its norm "
+        f"{all32:.6g}); layers/tm/u by "
+        f"{float((again['layers/tm/u'] - fp32['layers/tm/u']).norm()):.6g}")
+    del again, fp32
+    for layers in INIT_GRAD_DEPTHS:
+        cut = {**params, "layers": _new_leaves(params["layers"], lambda t: t[:layers])}
+        for dtype in ("bfloat16", "float32"):
+            summary(grads_of(cut, dtype, batches[1], layers),
+                    f"batch 2, the first {layers} layers, {dtype} compute")
+        if layers == INIT_GRAD_DEPTHS[0]:
+            _init_gradients_card_vs_cpu(cfg.replace(num_layers=layers), cut, batches[1])
+        del cut
+
+
+def _init_gradients_card_vs_cpu(cfg, params, batch) -> None:
+    """``params`` (a cut of the trainer's init, on the card) and ``batch``:
+    the global gradient norm and ``u``'s by layer on the CPU in bf16 and on
+    the card in fp32 and bf16 compute, from identical inputs; on the card
+    in bf16 also without remat and with cuBLAS's reduced-precision bf16
+    reductions turned off; the leaves whose bf16 gradient differs most
+    between the card and the CPU; and each run's smallest per-head variance
+    of a WKV output at t = 1.  With ``u`` = 0 that output is ``v_0`` times
+    one dot product r_1 . k_0 a head; where the product nearly cancels, the
+    variance falls below group norm's eps (1e-5) and the gradient through
+    it turns on the last bits of that sum."""
+    from repro_torch.models import rwkv as rwkv_lib
+    matmul = torch.backends.cuda.matmul
+    cpu = torch.device("cpu")
+    runs, kept, var1 = {}, {}, []
+    group_norm = rwkv_lib._group_norm
+
+    def watched(x, s, b, n_heads, eps=1e-5):
+        var1.append(float(x.detach().reshape(*x.shape[:2], n_heads, -1).float()
+                          .var(-1, unbiased=False)[:, 1].min()))
+        return group_norm(x, s, b, n_heads, eps)
+
+    for key, dev, dtype, remat, reduced in (
+            ("cpu bf16", cpu, "bfloat16", True, None),
+            ("card fp32", DEV, "float32", True, None),
+            ("card bf16", DEV, "bfloat16", True, None),
+            ("card bf16 without remat", DEV, "bfloat16", False, None),
+            ("card bf16, reduced-precision bf16 reductions off", DEV, "bfloat16",
+             True, False)):
+        tree = _new_leaves(params, lambda t: t.to(dev))
+        before = matmul.allow_bf16_reduced_precision_reduction
+        if reduced is not None:
+            matmul.allow_bf16_reduced_precision_reduction = reduced
+        var1.clear()
+        rwkv_lib._group_norm = watched
+        try:
+            loss, _, g = steps_lib.loss_and_grads(
+                cfg.replace(compute_dtype=dtype, remat=remat), tree,
+                {k: v.to(dev) for k, v in batch.items()})
+        finally:
+            matmul.allow_bf16_reduced_precision_reduction = before
+            rwkv_lib._group_norm = group_norm
+        g = dict(_tree_leaves(g))
+        total = math.sqrt(sum(float(x.float().norm()) ** 2 for x in g.values()))
+        runs[key] = (float(loss), total,
+                     g["layers/tm/u"].float().flatten(1).norm(dim=1).tolist(), min(var1))
+        require(math.isfinite(total), f"{key}: gradient norm {total}")
+        if key in ("cpu bf16", "card bf16"):
+            kept[key] = {k: x.float().cpu() for k, x in g.items()}
+        del tree, g
+    gap = sorted(((float((kept["card bf16"][k] - x).norm()) / max(float(x.norm()), 1e-30), k)
+                  for k, x in kept["cpu bf16"].items()), reverse=True)[:4]
+    log(f"  {cfg.arch_id}, the same {cfg.num_layers} layers and batch on the card and "
+        f"the CPU: loss, global gradient norm, layers/tm/u's by layer, smallest "
+        f"head variance of a WKV output at t = 1: "
+        + "; ".join(f"{k} {loss:.7f}, {t:.6g}, " + " ".join(f"{x:.6g}" for x in u)
+                    + f", {v:.4g}" for k, (loss, t, u, v) in runs.items())
+        + "; largest |card - cpu| / |cpu| of the bf16 gradients: "
+        + ", ".join(f"{k} {r:.3g}" for r, k in gap))
+
+
+def _new_leaves(tree, fn):
+    """``tree`` with every leaf replaced by ``fn(leaf)``, a new trainable
+    tensor."""
+    if isinstance(tree, dict):
+        return {k: _new_leaves(v, fn) for k, v in tree.items()}
+    with torch.no_grad():
+        return fn(tree).clone().requires_grad_(True)
+
+
+def phase_recurrent() -> dict:
+    """The recurrent families: card against CPU at narrow widths, then
+    zamba2-1.2b and rwkv6-3b at their published widths and depth (serve and
+    train), then tub_gemm and flash at every shape those paths gave them.
+    Launches are counted per path (zeroed just before it, read just after)."""
+    t_phase = time.perf_counter()
+    log("recurrent: card vs CPU at narrow widths, fp32")
+    for arch in RECURRENT_IDS:
+        _recurrent_card_vs_cpu(arch)
+    out = {}
+    paths = [("zamba2_serve", lambda: _recurrent_serve(HYBRID_ID)),
+             ("rwkv6_serve", lambda: _recurrent_serve(RWKV_ID)),
+             ("zamba2_train", lambda: _recurrent_train(HYBRID_ID)),
+             ("rwkv6_train", lambda: _recurrent_train(RWKV_ID))]
+    with _tub_gemm_shapes() as seen, _flash_shapes() as flash_seen:
+        for name, fn in paths:
+            t0 = time.perf_counter()
+            out[name] = fn()
+            log(f"  ({name}: {time.perf_counter() - t0:.1f} s)")
+            gc.collect()
+            torch.cuda.empty_cache()
+    with torch.no_grad():
+        err = _family_gemm_exact(seen, "recurrent")
+        flash_errs = _flash_exact(flash_seen, "recurrent")
+    require({d for _, _, _, d, _, _ in flash_seen} == {64},
+            f"recurrent paths: flash met at {sorted(flash_seen, key=str)}")
+    launches = {
+        "tub_gemm": {k: v["tub_gemm"] for k, v in out.items() if "tub_gemm" in v},
+        "flash_fwd": {"zamba2_serve (forward, D=64)": out["zamba2_serve"]["flash_fwd"],
+                      "zamba2_train": out["zamba2_train"]["launches"]["flash_fwd"]},
+        "flash_bwd_dq": {"zamba2_train": out["zamba2_train"]["launches"]["flash_bwd_dq"]},
+        "flash_bwd_dkv": {"zamba2_train": out["zamba2_train"]["launches"]["flash_bwd_dkv"]}}
+    log(f"  launches by path: {json.dumps(launches)}")
+    log(f"  recurrent phase: {time.perf_counter() - t_phase:.1f} s")
+    return {"launches": launches, "errs": {"tub_gemm": err, **flash_errs}}
 
 
 # ---------------------------------------------------------------------------
@@ -3287,6 +3857,10 @@ def main() -> int:
     ap.add_argument("--phases", default=",".join(ALL_PHASES),
                     help="comma-separated subset, for iterating on one phase")
     args = ap.parse_args()
+    if not torch.cuda.is_available():
+        sys.stderr.write("chip_smoke: torch.cuda.is_available() is False — this "
+                         "check only means something on a CUDA device\n")
+        return 2
     phases = args.phases.split(",")
     # fp32 products in full fp32 everywhere (the train probe compares card
     # and CPU at 1e-5); both are PyTorch's defaults for matmuls, stated here
@@ -3297,6 +3871,7 @@ def main() -> int:
     launches: dict = {}
     launches_run: dict = {}
     families: dict = {"launches": {}}
+    recurrent: dict = {"launches": {}}
     rows: list[dict] = []
     try:
         with torch.no_grad():
@@ -3330,6 +3905,13 @@ def main() -> int:
             errs["tub_gemm"] = max(errs["tub_gemm"], families["errs"]["tub_gemm"])
             gc.collect()
             torch.cuda.empty_cache()
+        if "recurrent" in phases:        # trains zamba2 and rwkv6: outside no_grad
+            log("phase recurrent")
+            recurrent = phase_recurrent()
+            for name, err in recurrent["errs"].items():
+                errs[name] = max(errs[name], err)
+            gc.collect()
+            torch.cuda.empty_cache()
         if "train" in phases:            # records gradients: outside no_grad
             log("phase train")
             trained = phase_train(TRAIN_LAYERS, TRAIN_STEPS)
@@ -3343,6 +3925,7 @@ def main() -> int:
                 rows = phase_times(errs, launches, launches_run, args.layers, sass)
             for row in rows:              # each new path's own launches
                 row["launches_families"] = families["launches"].get(row["name"])
+                row["launches_recurrent"] = recurrent["launches"].get(row["name"])
     except Failed as exc:
         log(f"FAILED: {exc}")
         return 1

@@ -191,8 +191,9 @@ def discover_sites(cfg, params, *, batch: int = 1,
     ``repro_torch.backends.record_sites`` scope, and joins the recorded
     (site, k, n_out) against the parameter tree by the same ``/``-joined
     path ``serving/energy.py`` walks.  ``count`` per site is ``leaf size /
-    (k · n_out)`` (the stacked-layers multiplier).  Sites hold the parameter
-    leaves by reference.
+    (k · n_out)`` (the stacked-layers multiplier), times the number of
+    shared-block applications for the hybrid family's ``shared/…`` sites.
+    Sites hold the parameter leaves by reference.
 
     ``m`` is reported for a *decode step*: ``batch`` rows per invocation
     (``seq_len`` only shapes the discovery pass).  Returns sites in model
@@ -213,6 +214,11 @@ def discover_sites(cfg, params, *, batch: int = 1,
             model_lib.forward(meta, cfg, tokens)
 
     leaves = _leaf_index(params)
+    shared_applications = 1
+    if getattr(cfg, "family", None) == "hybrid":
+        from repro_torch.models import blocks as blocks_lib
+        shared_applications = blocks_lib.hybrid_counts(cfg)[0]
+
     sites: list[GemmSite] = []
     seen: set[str] = set()
     for call in rec.calls:
@@ -230,6 +236,8 @@ def discover_sites(cfg, params, *, batch: int = 1,
             raise ValueError(
                 f"site {call.site!r}: leaf shape {tuple(leaf.shape)} is not "
                 f"a stack of (k={call.k}, n_out={call.n_out}) matrices")
+        if call.site.startswith("shared/"):
+            count *= shared_applications
         sites.append(GemmSite(name=call.site, m=max(int(batch), 1),
                               k=call.k, n_out=call.n_out, count=count,
                               leaf=leaf))

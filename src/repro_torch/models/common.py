@@ -35,7 +35,7 @@ _TLS = threading.local()
 @dataclasses.dataclass(frozen=True)
 class ParamDef:
     shape: tuple[int, ...]
-    init: str = "lecun"           # lecun | zeros | ones | normal(σ=0.02)
+    init: str = "lecun"           # lecun | zeros | ones | normal(σ=0.02) | ssm_a | ssm_dt
     fan_in_axes: tuple[int, ...] = (0,)
 
     def materialize(self, generator: torch.Generator, device,
@@ -44,6 +44,19 @@ class ParamDef:
             return torch.zeros(self.shape, dtype=dtype, device=device)
         if self.init == "ones":
             return torch.ones(self.shape, dtype=dtype, device=device)
+        if self.init == "ssm_a":
+            # A_log init: log of [1, 16] over heads (Mamba2 convention),
+            # broadcast across any leading (stacked-layer) axes
+            base = torch.log(torch.linspace(1.0, 16.0, self.shape[-1],
+                                            dtype=torch.float32, device=device))
+            return base.expand(self.shape).to(dtype).contiguous()
+        if self.init == "ssm_dt":
+            # dt bias ~ softplus-inverse of a log-uniform dt in [1e-3, 1e-1]
+            u = torch.rand(self.shape, generator=generator, device=device,
+                           dtype=torch.float32)
+            dt = torch.exp(u * (math.log(0.1) - math.log(0.001))
+                           + math.log(0.001))
+            return torch.log(torch.expm1(dt)).to(dtype)
         if self.init == "normal":
             scale = 0.02
         elif self.init == "lecun":

@@ -50,6 +50,8 @@ def model_defs(cfg: ModelConfig) -> dict:
         "final_norm": ParamDef((cfg.d_model,), init="ones"),
         "layers": blocks_lib.stacked_layer_defs(cfg),
     }
+    if cfg.family == "hybrid":
+        defs["shared"] = blocks_lib.shared_attn_defs(cfg)
     if not cfg.tie_embeddings:
         defs["lm_head"] = ParamDef((cfg.d_model, cfg.vocab_size))
     return defs
@@ -146,7 +148,8 @@ def init_caches(cfg: ModelConfig, batch: int, max_len: int,
 
 def prefill(params: dict, cfg: ModelConfig, tokens=None, *, caches,
             embeds=None):
-    """Populate caches (in place) from a prompt.  Returns (logits, caches)."""
+    """Populate caches (in place) from a prompt: KV, recurrent states, conv
+    tails and token-shift buffers.  Returns (logits, caches)."""
     x = _embed_in(params, cfg, tokens, embeds)
     s = x.shape[1]
     positions = torch.arange(s, device=x.device)[None, :]

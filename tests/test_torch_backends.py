@@ -229,9 +229,8 @@ def test_copied_modules_equal():
         for fn in ("get_config", "get_smoke_config"):
             assert dataclasses.asdict(getattr(ref_configs, fn)(arch)) \
                 == dataclasses.asdict(getattr(port_configs, fn)(arch))
-    # the reference's registry in its order, less the recurrent families
-    assert port_configs.ARCH_IDS == tuple(
-        a for a in ref_configs.ARCH_IDS if a not in ("zamba2-1.2b", "rwkv6-3b"))
+    # the reference's registry in its order
+    assert port_configs.ARCH_IDS == ref_configs.ARCH_IDS
     assert ref_paper.DESIGNS == port_paper.DESIGNS
     for grid in ("table_grid", "tpu_grid"):
         assert [dataclasses.astuple(c) for c in getattr(ref_paper, grid)()] \

@@ -16,8 +16,10 @@ vlm frontend stubs) from the test's own ``np.random.default_rng(seed)``.
   ``jax.value_and_grad`` (the unread token table: a zero gradient);
 * full-config parameter counts from ``model_defs`` EQUAL for every
   registered id;
-* ``ServingEngine`` refuses MoE and MLA with the reference's message;
-* the recurrent families raise ``NotImplementedError`` naming item 8b.
+* ``ServingEngine`` refuses MoE and MLA with the reference's message.
+
+The recurrent families (zamba2-1.2b, rwkv6-3b and a pure Mamba2 stack) are
+held against the reference in ``tests/test_torch_recurrent.py``.
 """
 
 import dataclasses
@@ -40,13 +42,11 @@ from repro_torch import configs as port_configs
 from repro_torch.eval import planner as port_planner
 from repro_torch.launch import steps as port_steps
 from repro_torch.models import common as port_common
-from repro_torch.models import config as port_config
 from repro_torch.models import model as port_model
 from repro_torch.serving import ServingEngine
 
 NEW_ARCHS = ("gemma-7b", "phi3-mini-3.8b", "internlm2-1.8b", "chameleon-34b",
              "musicgen-medium", "phi3.5-moe-42b-a6.6b", "deepseek-v3-671b")
-RECURRENT = ("zamba2-1.2b", "rwkv6-3b")
 TOL = 1e-4
 B, S, STEPS = 2, 9, 3
 
@@ -57,17 +57,6 @@ def _leaves(tree, prefix=()):
             yield from _leaves(tree[k], prefix + (k,))
         else:
             yield prefix + (k,), tree[k]
-
-
-def _port_cfg(ref_cfg):
-    """The reference's ModelConfig as the port's (the same dataclasses)."""
-    kw = {}
-    for f in dataclasses.fields(ref_cfg):
-        v = getattr(ref_cfg, f.name)
-        if dataclasses.is_dataclass(v):
-            v = getattr(port_config, type(v).__name__)(**dataclasses.asdict(v))
-        kw[f.name] = v
-    return port_config.ModelConfig(**kw)
 
 
 @pytest.fixture(scope="module")
@@ -260,8 +249,7 @@ def _def_count(defs, param_def) -> int:
 
 
 def test_full_config_parameter_counts_equal_reference():
-    assert port_configs.ARCH_IDS == tuple(
-        a for a in ref_configs.ARCH_IDS if a not in RECURRENT)
+    assert port_configs.ARCH_IDS == ref_configs.ARCH_IDS
     for arch in port_configs.ARCH_IDS:
         ref_n = _def_count(ref_model.model_defs(ref_configs.get_config(arch)),
                            ref_common.ParamDef)
@@ -281,16 +269,3 @@ def test_engine_refuses_moe_and_mla_like_the_reference(arch, arch_setup):
     with pytest.raises(ValueError) as port_err:
         ServingEngine(port_cfg, port_params)
     assert str(port_err.value) == str(ref_err.value)
-
-
-@pytest.mark.parametrize("arch", RECURRENT)
-def test_recurrent_families_raise_naming_item_8b(arch):
-    assert arch not in port_configs.ARCH_IDS
-    for get in (port_configs.get_config, port_configs.get_smoke_config):
-        with pytest.raises(NotImplementedError, match="item 8b"):
-            get(arch)
-    cfg = _port_cfg(ref_configs.get_smoke_config(arch))
-    with pytest.raises(NotImplementedError, match="item 8b"):
-        port_model.model_defs(cfg)
-    with pytest.raises(NotImplementedError, match="item 8b"):
-        port_model.init_caches(cfg, 1, 4, device="cpu")

@@ -798,8 +798,8 @@ def test_kernel_crosscheck_on_card(cuda):
 
 
 def _chip_smoke():
-    """``chip_smoke.py`` (beside ``tests/``) as a module, imported on a card
-    only: the script exits at import on a host without CUDA."""
+    """``chip_smoke.py`` (beside ``tests/``) as a module; its ``main``
+    refuses a host without CUDA, its card checks need one."""
     import importlib.util
     import pathlib
     path = pathlib.Path(__file__).resolve().parents[1] / "chip_smoke.py"
@@ -819,3 +819,16 @@ def test_moe_and_mla_models_card_equal_cpu(cuda, arch):
     equal, loss and every gradient within 1e-4, the flash kernels launched
     once a layer.  A mismatch raises ``chip_smoke.Failed``."""
     _chip_smoke()._family_card_vs_cpu(arch)
+
+
+@pytest.mark.parametrize("arch", ["zamba2-1.2b", "rwkv6-3b", "mamba2"])
+def test_recurrent_models_card_equal_cpu(cuda, arch):
+    """The narrow recurrent models (zamba2's hybrid stack with flash at
+    D = 64, rwkv6, a pure Mamba2 stack; SSD and WKV dims as published) on
+    the card against the same code on the CPU, through the one body
+    chip_smoke.py's recurrent phase runs (``narrow_recurrent``,
+    ``_recurrent_card_vs_cpu``): forward / prefill / three decode logits
+    within 1e-4, greedy tokens equal, every cache leaf, the loss and every
+    gradient within 1e-4 of max(1, max|CPU|), flash launched once per
+    shared-block application.  A mismatch raises ``chip_smoke.Failed``."""
+    _chip_smoke()._recurrent_card_vs_cpu(arch)
