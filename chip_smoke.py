@@ -139,6 +139,33 @@ Phases, each of which fails the run (non-zero exit) on its own:
    at every (BH, Sq, Skv, D) they gave flash, in fp32 and bf16, causal and
    not, against their plain versions.  Its launches are put on the kernels
    line as ``launches_recurrent``.
+13. ``analysis`` — the port's static gate (``python -m repro_torch.analysis``)
+   in process at its default scope: the ten published configs at full
+   depth on ``meta``, grids 1x1/2x2/4x1, the shipped plans and the source
+   lint; gated on exit 0, the reference's GEMM site count for every arch
+   and its eight warnings (as (rule, where), written here as
+   ``REFERENCE_WARNINGS``); each arch's wall time logged.
+14. ``pipeline`` — ``launch/pipeline.py`` on the card: llama3-8b at full
+   width, 8 layers in 4 stages of 2 (the transformer block through
+   ``stack_fwd``), 4 microbatches of 1 x 2048, fp32, remat; the forward
+   equal bit for bit to a sequential run over the same microbatches and
+   within 1e-5 x max|ref| of one whole-batch run, the gradient of
+   sum(out**2) for every stacked leaf within 1e-4 x max|ref grad|, the
+   flash launches of the pipeline's forward and backward put on the
+   kernels line as ``launches_pipeline``; the three flash kernels then held
+   against their plain versions at the shape the pipeline gave them (BH =
+   1 x 32 heads, S = 2048, D = 128), fp32 and bf16, causal and not; wall
+   and peak logged.
+15. ``dryrun`` — ``launch/dryrun.py``: llama3-8b ``train_4k``,
+   ``prefill_32k``, ``decode_32k`` and zamba2-1.2b ``long_500k`` traced on
+   ``meta`` (roofline terms logged); then the train cell of phase 8 (8
+   layers, 4 x 2048, bf16, remat, AdamW) traced and run for 3 steps on the
+   card, gated on the trace's argument bytes equal to what the state and
+   the batch add to ``memory_allocated()`` within 1 % and on finite
+   losses; the step time against the model-FLOPs fraction of 989 TFLOP/s,
+   the counted flops and the trace's peak against ``max_memory_allocated``
+   logged.  A watchdog writes every thread's stack to stderr if the phase
+   runs past ``DRYRUN_WATCHDOG_S``.
 
 Needs a CUDA device: without one (or without the package beside it) the
 script exits non-zero and prints no result.  ``--layers`` / ``--requests``
@@ -152,6 +179,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import dataclasses
+import faulthandler
 import gc
 import json
 import math
@@ -232,7 +260,8 @@ REPLACES = {
 FLASH = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
 INT_GEMMS = ("quant_gemm", "packed_gemm")
 ALL_PHASES = ("device", "kernels", "probes", "serve", "quant", "plan", "ugemm",
-              "train", "times", "grid", "families", "recurrent")
+              "train", "times", "grid", "families", "recurrent", "analysis",
+              "pipeline", "dryrun")
 SITE_LEAVES = (("attn", "wq"), ("attn", "wk"), ("attn", "wv"), ("attn", "wo"),
                ("mlp", "w_up"), ("mlp", "w_gate"), ("mlp", "w_down"))
 
@@ -2834,15 +2863,18 @@ def _family_gemm_exact(seen: set, what: str = "families") -> float:
 @contextlib.contextmanager
 def _flash_shapes():
     """Collects each distinct (BH, Sq, Skv, D, dtype, causal) the three flash
-    wrappers are called at inside the block (``flash_attention`` looks them
-    up at call time); the wrappers, and their launch counts, are untouched."""
+    wrappers launch their kernels at inside the block (``flash_attention``
+    looks them up at call time); calls on ``meta`` (a plan's site
+    discovery) launch nothing and are left out.  The wrappers, and their
+    launch counts, are untouched."""
     seen: set = set()
     real = {name: getattr(flash_lib, name) for name in FLASH}
 
     def logged(name):
         def call(q, k, v, *rest, causal):
-            seen.add((int(q.shape[0]), int(q.shape[1]), int(k.shape[1]),
-                      int(q.shape[2]), q.dtype, causal))
+            if q.device.type == "cuda":
+                seen.add((int(q.shape[0]), int(q.shape[1]), int(k.shape[1]),
+                          int(q.shape[2]), q.dtype, causal))
             return real[name](q, k, v, *rest, causal=causal)
         return call
 
@@ -2980,7 +3012,7 @@ def recorded_sites(cfg, params) -> list[str]:
     """The dense sites one float pass records, in order (a pass over T
     tokens, a prefill or one decode step alike): a forward on the ``meta``
     device, which computes nothing."""
-    meta = planner_lib._meta_like(params)
+    meta = planner_lib.meta_like(params)
     with torch.no_grad(), backends.record_sites() as rec:
         model_lib.forward(meta, cfg, torch.zeros((1, 1), dtype=torch.int32,
                                                  device="meta"))
@@ -3407,6 +3439,272 @@ def phase_recurrent() -> dict:
     log(f"  launches by path: {json.dumps(launches)}")
     log(f"  recurrent phase: {time.perf_counter() - t_phase:.1f} s")
     return {"launches": launches, "errs": {"tub_gemm": err, **flash_errs}}
+
+
+# ---------------------------------------------------------------------------
+# phase 13: analysis (the static gate, python -m repro_torch.analysis)
+# ---------------------------------------------------------------------------
+
+# what the reference's gate (python -m repro.analysis) reports on the same
+# ten published configs: GEMM sites per arch, and its eight warnings
+ANALYSIS_SITES = {"zamba2-1.2b": 14, "gemma-7b": 7, "phi3-mini-3.8b": 8,
+                  "internlm2-1.8b": 8, "llama3-8b": 8, "deepseek-v3-671b": 11,
+                  "phi3.5-moe-42b-a6.6b": 5, "rwkv6-3b": 8,
+                  "musicgen-medium": 7, "chameleon-34b": 8}
+REFERENCE_WARNINGS = tuple(("planner-invisible-gemm", where) for where in (
+    "gemma-7b/embed", "deepseek-v3-671b/layers/moe/router",
+    "phi3.5-moe-42b-a6.6b/layers/moe/router",
+    "phi3.5-moe-42b-a6.6b/layers/moe/w_gate",
+    "phi3.5-moe-42b-a6.6b/layers/moe/w_up",
+    "phi3.5-moe-42b-a6.6b/layers/moe/w_down",
+    "rwkv6-3b/layers/tm/wa", "rwkv6-3b/layers/tm/wb"))
+
+
+def phase_analysis() -> dict:
+    """The port's analysis gate in process at its default scope (all ten
+    published configs at full depth on ``meta``, grids 1x1/2x2/4x1, the
+    shipped plans, the source lint): exit 0, the reference's site counts
+    and its eight warnings; the wall time of each arch's ranges pass."""
+    from repro_torch.analysis.__main__ import main as analysis_main
+
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        report = os.path.join(tmp, "findings.json")
+        rc = analysis_main(["--root", HERE, "--json", report])
+        with open(report) as f:
+            doc = json.load(f)
+    wall = time.perf_counter() - t0
+    per_arch = doc["ranges"]
+    for arch, stats in per_arch.items():
+        log(f"  analysis {arch}: {stats['seconds']:.2f} s, {stats['sites']} sites, "
+            f"{stats['dot_generals']} dispatched products, "
+            f"{stats['points_checked']} envelope points")
+    found = {(f["rule"], f["where"]) for f in doc["findings"]}
+    errors = [f for f in doc["findings"] if f["severity"] == "error"]
+    log(f"  analysis gate: exit {rc}, {doc['verdict']}, {wall:.1f} s "
+        f"(ranges {sum(s['seconds'] for s in per_arch.values()):.1f} s)")
+    require(rc == 0 and not errors, f"analysis gate: exit {rc}, {errors[:3]}")
+    sites = {a: s["sites"] for a, s in per_arch.items()}
+    require(sites == ANALYSIS_SITES, f"analysis: site counts {sites}")
+    require(found == set(REFERENCE_WARNINGS),
+            f"analysis: warnings differ from the reference's: only ours "
+            f"{sorted(found - set(REFERENCE_WARNINGS))}, only the reference's "
+            f"{sorted(set(REFERENCE_WARNINGS) - found)}")
+    return {"wall_s": wall,
+            "per_arch_s": {a: s["seconds"] for a, s in per_arch.items()}}
+
+
+# ---------------------------------------------------------------------------
+# phase 14: pipeline (launch/pipeline.py on the card)
+# ---------------------------------------------------------------------------
+
+PIPELINE_RUN = dict(layers=8, stages=4, micro=4, mb=1, seq=2048)
+
+
+def phase_pipeline() -> dict:
+    """llama3-8b at full width, 8 layers in 4 stages of 2 (the port's
+    transformer block through ``stack_fwd``), 4 microbatches of 1 x 2048,
+    fp32 with remat, through ``pipeline_apply`` on the card, forward and
+    the gradient of sum(out**2): the forward equal bit for bit to a
+    sequential run over the same microbatches and within 1e-5 x max|ref|
+    of one whole-batch run, every stacked leaf's gradient within 1e-4 x
+    max|ref grad| of the whole-batch run's.  Flash launches are counted
+    over the pipeline's forward and backward only; then the three flash
+    kernels are held against their plain versions at the shape that run
+    gave them (``_flash_exact``), whose fp32 errors the kernels line takes."""
+    from repro_torch.launch.mesh import make_pipeline_mesh
+    from repro_torch.launch.pipeline import (bubble_fraction, pipeline_apply,
+                                             split_stages)
+    from repro_torch.models import blocks
+    from repro_torch.models.common import init_tree
+
+    run = PIPELINE_RUN
+    cfg = configs.get_config("llama3-8b").replace(
+        num_layers=run["layers"], param_dtype="float32",
+        compute_dtype="float32", remat=True)
+    stage_cfg = cfg.replace(num_layers=run["layers"] // run["stages"])
+    gen = torch.Generator(device=DEV)
+    gen.manual_seed(0)
+    layers = init_tree(blocks.stacked_layer_defs(cfg), gen, DEV, torch.float32)
+    leaves = dict(_tree_leaves(layers))
+    for leaf in leaves.values():
+        leaf.requires_grad_(True)
+    x = torch.randn((run["micro"], run["mb"], run["seq"], cfg.d_model),
+                    generator=gen, device=DEV)
+    positions = torch.arange(run["seq"], device=DEV)[None, :]
+
+    def stage(stage_params, h):
+        return blocks.stack_fwd({"layers": stage_params}, h, stage_cfg,
+                                positions=positions)[0]
+
+    names = sorted(leaves)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    flash_lib.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with _flash_shapes() as flash_seen:
+        out = pipeline_apply(stage, split_stages(layers, run["stages"]), x,
+                             make_pipeline_mesh(run["stages"], DEV))
+        grads = torch.autograd.grad(torch.sum(out ** 2),
+                                    [leaves[n] for n in names])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(flash_lib.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    log(f"  pipeline: llama3-8b widths, {run['layers']} layers in "
+        f"{run['stages']} stages, {run['micro']} microbatches of {run['mb']} x "
+        f"{run['seq']}, fp32, remat: forward + backward {wall:.2f} s, peak "
+        f"{peak / 2**30:.2f} GiB, flash launches {launches}; the reference "
+        f"schedule's bubble {bubble_fraction(run['stages'], run['micro']):.3f} "
+        f"(not executed)")
+    n_calls = run["layers"] * run["micro"]
+    require(launches == {"flash_fwd": 2 * n_calls, "flash_bwd_dq": n_calls,
+                         "flash_bwd_dkv": n_calls},
+            f"pipeline: flash launches {launches}, want forward 2 x {n_calls} "
+            f"(remat) and {n_calls} each backward")
+    out = out.detach()
+    with torch.no_grad():
+        seq = torch.stack([blocks.stack_fwd({"layers": layers}, x[i], cfg,
+                                            positions=positions)[0]
+                           for i in range(run["micro"])])
+    require(torch.equal(out, seq), "pipeline: forward differs from the "
+            f"sequential run over the same microbatches by "
+            f"{float((out - seq).abs().max()):.3e}")
+    del seq
+    whole = blocks.stack_fwd({"layers": layers},
+                             x.reshape(-1, run["seq"], cfg.d_model), cfg,
+                             positions=positions)[0].reshape(out.shape)
+    ref_grads = torch.autograd.grad(torch.sum(whole ** 2),
+                                    [leaves[n] for n in names])
+    whole = whole.detach()
+    fwd_err = float((out - whole).abs().max()) / float(whole.abs().max())
+    grad_errs = {n: float((g - r).abs().max()) / float(r.abs().max())
+                 for n, g, r in zip(names, grads, ref_grads)}
+    worst = max(grad_errs, key=grad_errs.get)
+    log(f"  pipeline vs one whole-batch run: forward max|diff| / max|ref| "
+        f"{fwd_err:.2e} (tol 1e-5); worst gradient leaf {worst} "
+        f"{grad_errs[worst]:.2e} (tol 1e-4); sequential run: bit for bit")
+    require(fwd_err <= 1e-5, f"pipeline: forward off by {fwd_err:.3e}")
+    require(grad_errs[worst] <= 1e-4,
+            f"pipeline: gradient of {worst} off by {grad_errs[worst]:.3e}")
+    del out, whole, grads, ref_grads
+    with torch.no_grad():
+        errs = _flash_exact(flash_seen, "pipeline")
+    want = (run["mb"] * cfg.num_heads, run["seq"], run["seq"],
+            cfg.resolved_head_dim)
+    require({(bh, sq, skv, d) for bh, sq, skv, d, _, _ in flash_seen} == {want},
+            f"pipeline: flash met at {sorted(flash_seen, key=str)}, want {want}")
+    return {"launches": launches, "wall_s": wall, "peak_gib": peak / 2**30,
+            "errs": errs}
+
+
+# ---------------------------------------------------------------------------
+# phase 15: dryrun (launch/dryrun.py: meta traces, then the train cell run)
+# ---------------------------------------------------------------------------
+
+DRYRUN_CELLS = (("llama3-8b", "train_4k"), ("llama3-8b", "prefill_32k"),
+                ("llama3-8b", "decode_32k"), ("zamba2-1.2b", "long_500k"))
+DRYRUN_TRAIN = dict(layers=8, batch=4, seq=2048, steps=3)
+# the phase takes under a minute; past this every thread's Python stack is
+# written to stderr, and again each time it passes, so that a stall leaves
+# where it stood
+DRYRUN_WATCHDOG_S = 180
+
+
+def phase_dryrun() -> dict:
+    """:func:`_dryrun_cells` with a watchdog: a stall dumps the stacks."""
+    faulthandler.dump_traceback_later(DRYRUN_WATCHDOG_S, repeat=True)
+    try:
+        return _dryrun_cells()
+    finally:
+        faulthandler.cancel_dump_traceback_later()
+
+
+def _dryrun_cells() -> dict:
+    """The dry run's meta traces of four published cells (their roofline
+    terms logged), then the train phase's cell (llama3-8b, 8 layers, 4 x
+    2048, bf16 compute, remat, AdamW) traced and run for 3 steps on the
+    card: its argument bytes equal to what the state and batch add to
+    ``memory_allocated()`` within 1 %; the measured step against the
+    model-FLOPs fraction, the counted flops and the trace's peak logged."""
+    from repro_torch.launch import dryrun as dryrun_lib
+
+    for arch, shape in DRYRUN_CELLS:
+        rec = dryrun_lib.run_cell(arch, shape, out_dir=None)
+        r, mem = rec["roofline"], rec["memory_analysis"]
+        log(f"  dryrun {arch} x {shape}: trace {rec['trace_s']} s, counted "
+            f"{rec['hlo_cost']['flops']:.4e} flops, {rec['hlo_cost']['bytes']:.4e} "
+            f"bytes; terms compute {r['compute_s']:.4e} s, memory "
+            f"{r['memory_s']:.4e} s, collective {r['collective_s']:.1f} s "
+            f"({r['dominant']}); model flops {r['model_flops']:.4e}, useful "
+            f"{r['useful_flops_ratio']:.3f}, roofline fraction "
+            f"{r['roofline_fraction']:.4f}; arguments "
+            f"{mem['argument_size_in_bytes'] / 2**30:.2f} GiB, eager peak "
+            f"{mem['temp_peak_live_bytes_eager'] / 2**30:.1f} GiB")
+
+    run = DRYRUN_TRAIN
+    cfg = configs.get_config("llama3-8b").replace(
+        num_layers=run["layers"], param_dtype="float32",
+        compute_dtype="bfloat16", remat=True)
+    opt_cfg = AdamWConfig(lr=3e-4)
+    traced = dryrun_lib.trace_step(cfg, "train", run["batch"], run["seq"],
+                                   opt_cfg=opt_cfg)
+    cost = traced["cost"]
+    tokens = run["batch"] * run["seq"]
+    model_flops = 6.0 * dryrun_lib._param_sizes(cfg)[1] * tokens
+    gc.collect()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    gen = torch.Generator(device=DEV)
+    gen.manual_seed(0)
+    state = steps_lib.init_train_state(cfg, opt_cfg, gen, device=DEV)
+    batch = {k: torch.randint(0, cfg.vocab_size, (run["batch"], run["seq"]),
+                              generator=gen, device=DEV, dtype=torch.int32)
+             for k in ("tokens", "targets")}
+    # what earlier phases leave allocated (library workspaces, per-device
+    # kernel buffers) is not the step's: the arguments are what the state
+    # and the batch add
+    allocated = torch.cuda.memory_allocated()
+    rel = abs(allocated - base - traced["argument_bytes"]) / traced["argument_bytes"]
+    log(f"  dryrun train cell (llama3-8b, {run['layers']} layers, "
+        f"{run['batch']} x {run['seq']}, bf16 compute, remat, AdamW fp32): "
+        f"argument bytes {traced['argument_bytes']} against the "
+        f"{allocated - base} the state and batch allocated (rel {rel:.2e}, "
+        f"tol 1e-2); memory_allocated {allocated} before the first step, "
+        f"{base} before the state was built")
+    require(rel <= 1e-2, f"dryrun: argument bytes {traced['argument_bytes']} "
+                         f"vs {allocated - base} allocated for them")
+    step_fn = steps_lib.make_train_step(cfg, opt_cfg)
+    torch.cuda.reset_peak_memory_stats()
+    flash_lib.reset_launches()
+    secs, losses = [], []
+    for _ in range(run["steps"]):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, metrics = step_fn(state, batch)
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+        losses.append(float(metrics["loss"]))
+        log(f"    step {len(secs)}: {secs[-1]:.3f} s, loss {losses[-1]:.4f}")
+    peak = torch.cuda.max_memory_allocated()
+    step_s = statistics.median(secs[1:])
+    mfu = model_flops / (step_s * BF16_OPS_PER_S)
+    log(f"  dryrun train cell: step wall (host clock, a synchronise per step) "
+        + " ".join(f"{s:.3f}" for s in secs) + f" s, median of the last "
+        f"{len(secs) - 1} {step_s:.3f} s; model flops 6 x "
+        f"{dryrun_lib._param_sizes(cfg)[1]:.4e} x {tokens} = {model_flops:.4e} "
+        f"-> {100 * mfu:.2f} % of 989 TFLOP/s (predicted 20-25 %); counted "
+        f"flops {cost.flops:.4e} (useful {model_flops / cost.flops:.3f}), "
+        f"counted bytes {cost.bytes_accessed:.4e}, {cost.ops} operations; "
+        f"trace peak (arguments + eager live) "
+        f"{(traced['argument_bytes'] + cost.peak_live_bytes) / 2**30:.2f} GiB "
+        f"against max_memory_allocated {peak / 2**30:.2f} GiB (not gated); "
+        f"losses {' '.join(f'{x:.4f}' for x in losses)}; flash launches "
+        f"{dict(flash_lib.LAUNCHES)}")
+    require(all(math.isfinite(x) for x in losses), "dryrun: a loss is not finite")
+    return {"step_s": step_s, "mfu": mfu}
 
 
 # ---------------------------------------------------------------------------
@@ -3872,6 +4170,7 @@ def main() -> int:
     launches_run: dict = {}
     families: dict = {"launches": {}}
     recurrent: dict = {"launches": {}}
+    pipeline: dict = {"launches": {}}
     rows: list[dict] = []
     try:
         with torch.no_grad():
@@ -3919,6 +4218,21 @@ def main() -> int:
             launches_run.update(trained["launches_run"])
             gc.collect()
             torch.cuda.empty_cache()
+        if "analysis" in phases:         # the CPU and meta only
+            log("phase analysis")
+            phase_analysis()
+        if "pipeline" in phases:         # gradients: outside no_grad
+            log("phase pipeline")
+            pipeline = phase_pipeline()
+            for name, err in pipeline["errs"].items():
+                errs[name] = max(errs[name], err)
+            gc.collect()
+            torch.cuda.empty_cache()
+        if "dryrun" in phases:           # trains: outside no_grad
+            log("phase dryrun")
+            phase_dryrun()
+            gc.collect()
+            torch.cuda.empty_cache()
         if "times" in phases:
             log("phase times")
             with torch.no_grad():
@@ -3926,6 +4240,7 @@ def main() -> int:
             for row in rows:              # each new path's own launches
                 row["launches_families"] = families["launches"].get(row["name"])
                 row["launches_recurrent"] = recurrent["launches"].get(row["name"])
+                row["launches_pipeline"] = pipeline["launches"].get(row["name"])
     except Failed as exc:
         log(f"FAILED: {exc}")
         return 1

@@ -68,6 +68,9 @@ __all__ = [
     "GemmSite",
     "Candidate",
     "discover_sites",
+    "meta_forward",
+    "meta_like",
+    "sites_from_calls",
     "quantization_rel_mse",
     "price_site",
     "prune_infeasible",
@@ -173,11 +176,11 @@ def _leaf_index(params) -> dict:
     return dict(_walk(params))
 
 
-def _meta_like(tree):
+def meta_like(tree):
     """The tree's geometry on the ``meta`` device (packed stores by their
     logical shape): what discovery runs the forward on."""
     if isinstance(tree, dict):
-        return {k: _meta_like(v) for k, v in tree.items()}
+        return {k: meta_like(v) for k, v in tree.items()}
     dtype = tree.scale.dtype if packing.is_packed(tree) else tree.dtype
     return torch.empty(tuple(tree.shape), dtype=dtype, device="meta")
 
@@ -200,19 +203,28 @@ def discover_sites(cfg, params, *, batch: int = 1,
     order, deduplicated by name.
     """
     from repro_torch import backends
+
+    with torch.no_grad(), backends.record_sites() as rec:
+        meta_forward(cfg, meta_like(params), batch=batch, seq_len=seq_len)
+    return sites_from_calls(cfg, params, rec.calls, batch=batch)
+
+
+def meta_forward(cfg, meta_params, *, batch: int = 1, seq_len: int = 8):
+    """One forward of ``cfg``'s model on ``meta`` parameters and inputs
+    (token ids, or float32 embeddings for a frontend stub): shapes only."""
     from repro_torch.models import model as model_lib
 
-    meta = _meta_like(params)
-    with torch.no_grad(), backends.record_sites() as rec:
-        if getattr(cfg, "frontend_stub", False):
-            embeds = torch.empty((batch, seq_len, cfg.d_model),
-                                 dtype=torch.float32, device="meta")
-            model_lib.forward(meta, cfg, embeds=embeds)
-        else:
-            tokens = torch.zeros((batch, seq_len), dtype=torch.int32,
-                                 device="meta")
-            model_lib.forward(meta, cfg, tokens)
+    if getattr(cfg, "frontend_stub", False):
+        embeds = torch.empty((batch, seq_len, cfg.d_model),
+                             dtype=torch.float32, device="meta")
+        return model_lib.forward(meta_params, cfg, embeds=embeds)
+    tokens = torch.zeros((batch, seq_len), dtype=torch.int32, device="meta")
+    return model_lib.forward(meta_params, cfg, tokens)
 
+
+def sites_from_calls(cfg, params, calls, *, batch: int = 1) -> list[GemmSite]:
+    """Join the ``record_sites`` calls of a discovery forward against the
+    parameter tree (see :func:`discover_sites`)."""
     leaves = _leaf_index(params)
     shared_applications = 1
     if getattr(cfg, "family", None) == "hybrid":
@@ -221,7 +233,7 @@ def discover_sites(cfg, params, *, batch: int = 1,
 
     sites: list[GemmSite] = []
     seen: set[str] = set()
-    for call in rec.calls:
+    for call in calls:
         if call.site in seen:
             continue
         seen.add(call.site)

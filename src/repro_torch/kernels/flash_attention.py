@@ -35,7 +35,10 @@ rounded to V's type before P.V and to dO's before P^T.dO; dS rounded to K's
 (Q's) type before dS.K (dS^T.Q); ``max(l, 1e-30)``.  The plain versions walk
 the same 64-wide tiles as the kernels (keys for the forward and dQ, query
 rows for dK/dV), so the online softmax rounds alike.  A CPU tensor runs the
-plain version; a CUDA tensor launches the kernel or raises.
+plain version; a CUDA tensor launches the kernel or raises; a ``meta``
+tensor gives one operation per kernel (``repro_torch::flash_fwd``, ...)
+that returns the kernel's output shapes, so a trace on ``meta`` counts the
+kernel's traffic, not the plain version's.
 """
 
 from __future__ import annotations
@@ -205,8 +208,60 @@ def _stream(t):
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
+# On ``meta`` each kernel is one operation that gives its outputs' shapes,
+# so a shape trace or a cost count (``launch/hlo_cost``) of a step sees
+# what the card runs: the operands read once, the outputs written once, and
+# no score tile.  Only the wrappers' ``meta`` branch calls them; the shapes
+# come from each operation's fake implementation.  They take any head dim
+# (a smoke config's, say), as the plain versions do: a trace on ``meta``
+# discovers and counts, and does not refuse what the kernels would.
+
+def _meta_only(name):
+    raise NotImplementedError(f"repro_torch::{name} runs on meta tensors only")
+
+
+@torch.library.custom_op("repro_torch::flash_fwd", mutates_args=())
+def _flash_fwd_meta(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    causal: bool) -> tuple[torch.Tensor, torch.Tensor]:
+    _meta_only("flash_fwd")
+
+
+@_flash_fwd_meta.register_fake
+def _(q, k, v, causal):
+    bh, sq, d = q.shape
+    return q.new_empty((bh, sq, d)), q.new_empty((bh, sq), dtype=torch.float32)
+
+
+@torch.library.custom_op("repro_torch::flash_bwd_dq", mutates_args=())
+def _flash_bwd_dq_meta(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                       do: torch.Tensor, lse: torch.Tensor, delta: torch.Tensor,
+                       causal: bool) -> torch.Tensor:
+    _meta_only("flash_bwd_dq")
+
+
+@_flash_bwd_dq_meta.register_fake
+def _(q, k, v, do, lse, delta, causal):
+    return q.new_empty(q.shape)
+
+
+@torch.library.custom_op("repro_torch::flash_bwd_dkv", mutates_args=())
+def _flash_bwd_dkv_meta(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        do: torch.Tensor, lse: torch.Tensor,
+                        delta: torch.Tensor,
+                        causal: bool) -> tuple[torch.Tensor, torch.Tensor]:
+    _meta_only("flash_bwd_dkv")
+
+
+@_flash_bwd_dkv_meta.register_fake
+def _(q, k, v, do, lse, delta, causal):
+    return k.new_empty(k.shape), v.new_empty(v.shape)
+
+
 def flash_fwd(q, k, v, *, causal: bool):
-    """Forward on (BH,S,D) slabs -> (o, lse).  CUDA: the kernel; CPU: plain."""
+    """Forward on (BH,S,D) slabs -> (o, lse).  CUDA: the kernel; meta: one
+    operation of the kernel's shapes; CPU: plain."""
+    if q.device.type == "meta":
+        return _flash_fwd_meta(q, k, v, causal)
     if q.device.type != "cuda":
         return flash_fwd_plain(q, k, v, causal=causal)
     _check("flash_fwd", q, k, v)
@@ -227,7 +282,10 @@ def flash_fwd(q, k, v, *, causal: bool):
 
 
 def flash_bwd_dq(q, k, v, do, lse, delta, *, causal: bool):
-    """dQ (BH,Sq,D) in q's type.  CUDA: the kernel; CPU: plain."""
+    """dQ (BH,Sq,D) in q's type.  CUDA: the kernel; meta: one operation of
+    the kernel's shape; CPU: plain."""
+    if q.device.type == "meta":
+        return _flash_bwd_dq_meta(q, k, v, do, lse, delta, causal)
     if q.device.type != "cuda":
         return flash_bwd_dq_plain(q, k, v, do, lse, delta, causal=causal)
     _check("flash_bwd_dq", q, k, v, ("do", do))
@@ -252,7 +310,10 @@ def flash_bwd_dq(q, k, v, do, lse, delta, *, causal: bool):
 
 
 def flash_bwd_dkv(q, k, v, do, lse, delta, *, causal: bool):
-    """(dK, dV), each (BH,Skv,D) in k's type.  CUDA: the kernel; CPU: plain."""
+    """(dK, dV), each (BH,Skv,D) in k's type.  CUDA: the kernel; meta: one
+    operation of the kernel's shapes; CPU: plain."""
+    if q.device.type == "meta":
+        return _flash_bwd_dkv_meta(q, k, v, do, lse, delta, causal)
     if q.device.type != "cuda":
         return flash_bwd_dkv_plain(q, k, v, do, lse, delta, causal=causal)
     _check("flash_bwd_dkv", q, k, v, ("do", do))
@@ -336,8 +397,9 @@ def flash_ops(bh: int, sq: int, skv: int, d: int, *, causal: bool,
     Causal keeps the pairs with qpos >= kpos.  The count is the function's,
     not the padded work :func:`flash_attention` hands the kernels."""
     dv = d if dv is None else dv
-    if causal:
-        pairs = sum(min(i + 1, skv) for i in range(sq))
+    if causal:               # sum over query rows i of min(i + 1, skv)
+        full = min(sq, skv)
+        pairs = full * (full + 1) // 2 + (sq - full) * skv
     else:
         pairs = sq * skv
     unit = 2.0 * bh * pairs

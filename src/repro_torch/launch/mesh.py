@@ -11,7 +11,8 @@ card, partial sums reduced by a collective).
 Meshes that need one device per position — the production pod meshes of
 ``launch/train.py --mesh pod|multipod``, or any :func:`make_mesh` of more
 than one position — raise ``NotImplementedError`` (ROADMAP Queue 1 item 6,
-multi-device meshes).
+multi-device meshes).  :func:`make_pipeline_mesh` does for pipeline stages
+what :func:`make_grid_mesh` does for grid positions.
 """
 
 from __future__ import annotations
@@ -21,7 +22,8 @@ import math
 
 import torch
 
-__all__ = ["Mesh", "make_production_mesh", "make_mesh", "make_grid_mesh"]
+__all__ = ["Mesh", "make_production_mesh", "make_mesh", "make_grid_mesh",
+           "make_pipeline_mesh"]
 
 _MULTI_DEVICE_MSG = ("needs one device per position, which the port does not "
                      "have yet (ROADMAP Queue 1 item 6, multi-device meshes)")
@@ -94,3 +96,11 @@ def make_grid_mesh(units_x: int, units_y: int, device="cuda") -> Mesh:
     return Mesh((units_x, units_y), ("gx", "gy"),
                 (torch.device(device),) * (units_x * units_y))
 
+
+def make_pipeline_mesh(n_stages: int, device="cuda") -> Mesh:
+    """The ``("pod",)`` mesh of an ``n_stages``-stage layer pipeline
+    (``repro_torch.launch.pipeline``), every stage on ``device``."""
+    n_stages = int(n_stages)
+    if n_stages < 1:
+        raise ValueError(f"a pipeline needs >= 1 stage, got {n_stages}")
+    return Mesh((n_stages,), ("pod",), (torch.device(device),) * n_stages)

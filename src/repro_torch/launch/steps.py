@@ -18,7 +18,8 @@ from repro_torch.models.config import ModelConfig
 from repro_torch.optim import AdamWConfig, OptState, adamw_init, adamw_update
 
 __all__ = ["TrainState", "init_train_state", "train_state_from_numpy",
-           "loss_and_grads", "make_train_step"]
+           "loss_and_grads", "make_train_step", "input_specs",
+           "step_inputs", "cache_input_specs"]
 
 
 @dataclasses.dataclass
@@ -95,6 +96,50 @@ def loss_and_grads(cfg: ModelConfig, params: dict, batch: dict):
             node = node.setdefault(k, {})
         node[path[-1]] = g
     return loss.detach(), {k: v.detach() for k, v in parts.items()}, grads
+
+
+def input_specs(cfg: ModelConfig, shape_name: str, device="meta") -> dict:
+    """Inputs of one dry-run cell (``configs.SHAPES``), as tensors on
+    ``device`` (``meta``: shapes only).
+
+    train   : {"tokens"|"embeds", "targets"}
+    prefill : {"tokens"|"embeds"} (+ caches built via cache_input_specs)
+    decode  : {"tokens" (B,1), "cache_pos" 0-dim} (+ caches)
+    """
+    from repro_torch.configs import SHAPES
+
+    sh = SHAPES[shape_name]
+    return step_inputs(cfg, sh["step"], sh["global_batch"], sh["seq_len"],
+                       device=device)
+
+
+def step_inputs(cfg: ModelConfig, step: str, batch: int, seq_len: int,
+                device="meta") -> dict:
+    """:func:`input_specs` of a ``step`` ("train", "prefill" or "decode")
+    at any ``batch`` x ``seq_len``."""
+    def spec(shape, dtype):
+        return torch.empty(shape, dtype=dtype, device=device)
+
+    b, s, i32 = batch, seq_len, torch.int32
+    if step == "train":
+        if cfg.frontend_stub:
+            return {"embeds": spec((b, s, cfg.d_model), torch.bfloat16),
+                    "targets": spec((b, s), i32)}
+        return {"tokens": spec((b, s), i32), "targets": spec((b, s), i32)}
+    if step == "prefill":
+        if cfg.frontend_stub:
+            return {"embeds": spec((b, s, cfg.d_model), torch.bfloat16)}
+        return {"tokens": spec((b, s), i32)}
+    # decode: one new token against a seq_len cache
+    return {"tokens": spec((b, 1), i32), "cache_pos": spec((), i32)}
+
+
+def cache_input_specs(cfg: ModelConfig, batch: int, max_len: int,
+                      device="meta") -> dict:
+    """The caches of ``batch`` sequences of ``max_len``, bf16, on
+    ``device`` (``meta``: no allocation)."""
+    return model_lib.init_caches(cfg, batch, max_len, dtype=torch.bfloat16,
+                                 device=device)
 
 
 def make_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig, lr_schedule=None):

@@ -170,10 +170,12 @@ def _mixed_attention(q, k, v, *, causal: bool) -> torch.Tensor:
     """Dispatch for full-sequence (no-cache) attention.
 
     A CUDA tensor takes the flash kernels (score tiles stay on chip, the
-    backward is the two hand-written kernels); elsewhere blockwise above
-    ``BLOCKWISE_THRESHOLD`` and naive below, as the reference does off TPU.
+    backward is the two hand-written kernels), and so does a ``meta`` tensor,
+    so that a trace on ``meta`` follows the card's path; elsewhere blockwise
+    above ``BLOCKWISE_THRESHOLD`` and naive below, as the reference does off
+    TPU.
     """
-    if q.device.type == "cuda":
+    if q.device.type in ("cuda", "meta"):
         from repro_torch.kernels.flash_attention import flash_attention
         return flash_attention(q, k, v, causal=causal)
     if q.shape[1] > BLOCKWISE_THRESHOLD:
