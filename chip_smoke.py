@@ -166,6 +166,32 @@ Phases, each of which fails the run (non-zero exit) on its own:
    the counted flops and the trace's peak against ``max_memory_allocated``
    logged.  A watchdog writes every thread's stack to stderr if the phase
    runs past ``DRYRUN_WATCHDOG_S``.
+16. ``mesh``  — multi-device serving on a ``torch.distributed`` mesh: one
+   rank per visible card (NCCL, spawned from this script, killed past
+   ``MESH_CHILD_LIMIT_S``; any rank's failure fails the run).  On one card
+   (world 1) the sharded functions run directly on the NCCL group of one:
+   the 1x1 grid equal bit for bit to the unit at llama3-8b's site shapes
+   (``tub_gemm`` / ``tu_gemm`` launched once a call, put on the kernels
+   line as ``launches_mesh``), the sequence-sharded GQA decode (llama3-8b
+   heads, 4,096 positions) and MLA decode (deepseek-v3 heads and ranks)
+   within 1e-5 x max|ref| of ``naive_attention`` / ``_mla_absorbed_attend``,
+   EP psum within 1e-4 of the local MoE path and a2a of psum with the
+   capacity lifted (phi3.5-moe widths).  On four cards, after their
+   one-card counterparts ran in this process: the grid serve (llama3-8b,
+   32 layers, fp32, the serve trace, ``tubgemm_cuda``@4 per-row, fused
+   decode) on a 2x2 grid of cards, streams identical to the one-card 2x2
+   grid and flat runs; ``decode_32k`` (llama3-8b, (data 1, model 4), bf16
+   cache of 32,768 positions seeded from numpy, batch 16, 8 steps through
+   ``make_decode_step``) against one card at batch 2, bf16 and fp32
+   compute; phi3.5-moe with 4 experts a card, at 4 layers against one card
+   (psum; a2a with the capacity lifted), then at 32 layers (prefill 4 x 64
+   through a2a, 16 decode steps through psum); deepseek-v3 with 64
+   experts a card and the latent cache split over the cards, at 1 layer
+   against one card, then at ``MLA_EP['layers']``.  Each cell logs its
+   wall, steps/s or tokens/s, every rank's peak (gated under 80 GiB), one
+   traced step on rank 0 (busy share, NCCL device ms, kernel launches) and
+   the bytes its collectives move a decode step, reckoned from shapes,
+   against 450 GB/s NVLink.
 
 Needs a CUDA device: without one (or without the package beside it) the
 script exits non-zero and prints no result.  ``--layers`` / ``--requests``
@@ -261,7 +287,7 @@ FLASH = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
 INT_GEMMS = ("quant_gemm", "packed_gemm")
 ALL_PHASES = ("device", "kernels", "probes", "serve", "quant", "plan", "ugemm",
               "train", "times", "grid", "families", "recurrent", "analysis",
-              "pipeline", "dryrun")
+              "pipeline", "dryrun", "mesh")
 SITE_LEAVES = (("attn", "wq"), ("attn", "wk"), ("attn", "wv"), ("attn", "wo"),
                ("mlp", "w_up"), ("mlp", "w_gate"), ("mlp", "w_down"))
 
@@ -309,8 +335,15 @@ def require(cond: bool, what: str) -> None:
         raise Failed(what)
 
 
+#: this process's rank inside the mesh phase's spawned ranks (None outside)
+_RANK: int | None = None
+
+
 def log(msg: str) -> None:
-    print(msg, flush=True)
+    """Print a line; inside the mesh phase's ranks only rank 0 does (every
+    rank runs the same steps)."""
+    if not _RANK:
+        print(msg, flush=True)
 
 
 # ---------------------------------------------------------------------------
@@ -2533,11 +2566,14 @@ def _step_profile(step, what: str, kernels: dict[str, str] | None = None,
         f"device operations each")
     for t, key, count in sorted(rows, reverse=True)[:top]:
         log(f"    {t / 3e3:8.3f} ms  x{count // 3:<5d} {key[:90]}")
+    by_kernel = {}
     for name, piece in (kernels or {}).items():
         t, n = (sum(r[i] for r in rows if piece in r[1]) for i in (0, 2))
         log(f"    {name}: {t / 3e3:.3f} ms/step ({n // 3} launches a step, "
             f"{100 * t / busy_us:.1f} % of device busy)")
-    return {"wall_ms": med, "busy_ms": busy_us / 3e3}
+        by_kernel[name] = {"ms": t / 3e3, "launches": n // 3}
+    return {"wall_ms": med, "busy_ms": busy_us / 3e3,
+            "busy_share": busy_us / wall_us, "kernels": by_kernel}
 
 
 @torch.no_grad()
@@ -3708,6 +3744,698 @@ def _dryrun_cells() -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 16: mesh (one rank per visible card, torch.distributed over NCCL)
+# ---------------------------------------------------------------------------
+
+#: the ranks' wall-clock limit: past it the parent kills them and fails
+MESH_CHILD_LIMIT_S = 900
+#: the process group's timeout: a rank left waiting in a collective fails
+MESH_PG_TIMEOUT_S = 300
+NVLINK_BYTES_PER_S = 450e9
+MESH_TOL = {"decode": 1e-5, "ep": 1e-4}       # x max|one-card|
+#: decode_32k: llama3-8b, config dtypes, bf16 cache, 8 steps at the end of
+#: 32,768 positions; the one-card reference runs rows 0-1 of the batch
+#: (compute dtype, tolerance x max|ref|): the config's bf16 (the combine
+#: sums bf16 partial contexts across cards, as the reference's psum does)
+#: and fp32 compute over the same bf16 cache
+DECODE_32K = dict(batch=16, ref_batch=2, max_len=32768, steps=8,
+                  tol={"bfloat16": 1e-1, "float32": 1e-4})
+#: moe EP: phi3.5-moe, fp32; checked against one card at ``check_layers``,
+#: then run at its published 32 layers (4 experts a card)
+MOE_EP = dict(layers=32, check_layers=4, batch=4, prompt=64, tokens=16,
+              lifted=16.0)
+#: mla decode: deepseek-v3 widths, fp32, 64 experts a card; checked against
+#: one card at 1 layer, run at ``layers`` (what fits a card)
+MLA_EP = dict(check_layers=1, layers=4, batch=2, prompt=32, tokens=4)
+#: the traced steps' NCCL kernels and hand-written kernels, by name piece
+MESH_KERNELS = {"nccl": "nccl", "tub_gemm": "TubPulses",
+                "fused_paged_decode": "fused_decode"}
+
+
+def _sync() -> None:
+    if DEV.type == "cuda":
+        torch.cuda.synchronize()
+
+
+def _peak_gib() -> float:
+    return (torch.cuda.max_memory_allocated() / 2**30 if DEV.type == "cuda"
+            else 0.0)
+
+
+def _reset_peak() -> None:
+    if DEV.type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+
+
+def _free() -> None:
+    gc.collect()
+    if DEV.type == "cuda":
+        torch.cuda.empty_cache()
+
+
+def _ring_bytes(op: str, nbytes: float, p: int) -> float:
+    """Bytes one rank sends for a ring collective of an ``nbytes`` buffer
+    over ``p`` ranks: all_reduce 2 (p-1)/p, all_gather / all_to_all
+    (p-1)/p of the whole (gathered / exchanged) buffer."""
+    if p == 1:
+        return 0.0
+    return nbytes * (2 * (p - 1) / p if op == "all_reduce" else (p - 1) / p)
+
+
+def _seeded_tree(cfg, seed: int, experts: tuple[int, int] | None = None):
+    """Parameters drawn leaf by leaf, each stacked layer — and each expert of
+    a MoE stack — from its own seed, so any depth's tree starts with the
+    same layers and any rank's expert slice (``experts`` = (first, end))
+    holds the values a one-card tree holds there.  Init rules as
+    ``ParamDef.materialize``; no leaf is ever drawn whole."""
+    from repro_torch.models import moe as moe_lib
+    from repro_torch.models.common import ParamDef, dtype_of
+    dtype = dtype_of(cfg.param_dtype)
+    gen = torch.Generator(device=DEV)
+    ids = iter(range(10**6))
+
+    def one(d: ParamDef, cut: int) -> ParamDef:
+        return dataclasses.replace(d, shape=d.shape[cut:], fan_in_axes=tuple(
+            a - cut for a in d.fan_in_axes))
+
+    def draw(d: ParamDef, *key):
+        gen.manual_seed(seed * 1_000_003 + 7919 * key[0]
+                        + sum(k * m for k, m in zip(key[1:], (104_729, 131))))
+        return d.materialize(gen, DEV, dtype)
+
+    def walk(defs, path):
+        if not isinstance(defs, ParamDef):
+            return {k: walk(defs[k], path + (k,)) for k in sorted(defs)}
+        leaf = next(ids)
+        if path[0] != "layers":
+            return draw(defs, leaf)
+        n_layers = defs.shape[0]
+        if path[-2:-1] == ("moe",) and path[-1] in moe_lib.EXPERT_LEAVES:
+            first, end = experts or (0, defs.shape[1])
+            per = one(defs, 2)
+            out = torch.empty((n_layers, end - first, *per.shape), dtype=dtype,
+                              device=DEV)
+            for i in range(n_layers):
+                for e in range(first, end):
+                    out[i, e - first] = draw(per, leaf, i, e)
+            return out
+        per = one(defs, 1)
+        out = torch.empty(defs.shape, dtype=dtype, device=DEV)
+        for i in range(n_layers):
+            out[i] = draw(per, leaf, i)
+        return out
+
+    return walk(model_lib.model_defs(cfg), ())
+
+
+def _moe_cfg(layers: int, **moe_kw):
+    cfg = configs.get_config("phi3.5-moe-42b-a6.6b").replace(
+        num_layers=layers, param_dtype="float32", compute_dtype="float32")
+    return cfg.replace(moe=dataclasses.replace(cfg.moe, **moe_kw)) if moe_kw \
+        else cfg
+
+
+def _mla_cfg(layers: int):
+    return configs.get_config("deepseek-v3-671b").replace(
+        num_layers=layers, param_dtype="float32", compute_dtype="float32")
+
+
+def _decode32k_cfg():
+    return configs.get_config("llama3-8b")        # config dtypes
+
+
+def _step_tokens(cfg, seed: int, steps: int, batch: int) -> torch.Tensor:
+    rng = np.random.default_rng(seed)
+    return torch.from_numpy(rng.integers(0, cfg.vocab_size, (steps, batch, 1))
+                            .astype(np.int32)).to(DEV)
+
+
+def _prompt_tokens(cfg, seed: int, batch: int, length: int) -> torch.Tensor:
+    rng = np.random.default_rng(seed)
+    return torch.from_numpy(rng.integers(0, cfg.vocab_size, (batch, length))
+                            .astype(np.int32)).to(DEV)
+
+
+def _seed_decode32k_cache(caches, cfg, rows: int, first_pos: int) -> None:
+    """Fill a (L, rows, S, KVH, hd) cache slice from numpy: position p of
+    row b holds pattern (p + 7 b) % 64 of a seeded (L, 64, KVH, hd) base, so
+    every rank's slice and the one-card reference agree by construction."""
+    rng = np.random.default_rng(32)
+    kv = caches["attn"]
+    n_layers, s_local = kv["k"].shape[0], kv["k"].shape[2]
+    pos = torch.arange(first_pos, first_pos + s_local, device=DEV)
+    idx = (pos[None, :] + 7 * torch.arange(rows, device=DEV)[:, None]) % 64
+    for name in ("k", "v"):
+        base = torch.from_numpy(rng.normal(
+            0, 1, (n_layers, 64, cfg.num_kv_heads, cfg.resolved_head_dim))
+            .astype(np.float32)).to(DEV, kv[name].dtype)
+        for i in range(n_layers):
+            kv[name][i].copy_(base[i][idx])
+
+
+def _greedy_run(cfg, params, mesh, *, batch: int, prompt_len: int,
+                steps: int, max_len: int, seed: int, cache_dtype=torch.float32):
+    """Prefill a seeded prompt and ``steps`` teacher-forced decode steps
+    through ``make_prefill_step`` / ``make_decode_step``; returns the
+    (B, 1 + steps, V) float32 logits, the prefill and decode walls."""
+    prompt = _prompt_tokens(cfg, seed, batch, prompt_len)
+    toks = _step_tokens(cfg, seed + 1, steps, batch)
+    caches = model_lib.init_caches(cfg, batch, max_len, cache_dtype, DEV,
+                                   mesh=mesh)
+    prefill = steps_lib.make_prefill_step(cfg, mesh, batch, max_len, params)
+    decode = steps_lib.make_decode_step(cfg, mesh, batch, max_len, params)
+    _sync()
+    t0 = time.perf_counter()
+    logits, caches = prefill(params, {"tokens": prompt}, caches)
+    _sync()
+    t_prefill = time.perf_counter() - t0
+    outs = [logits[:, -1:].float()]
+    t0 = time.perf_counter()
+    for i in range(steps):
+        logits, caches = decode(params, toks[i], caches, prompt_len + i)
+        outs.append(logits.float())
+    _sync()
+    return torch.cat(outs, dim=1), t_prefill, time.perf_counter() - t0, \
+        (decode, caches, toks)
+
+
+def _rel(got: torch.Tensor, want: torch.Tensor) -> float:
+    want = want.to(got.device, torch.float32)
+    return float((got.float() - want).abs().max()) / max(
+        float(want.abs().max()), 1e-30)
+
+
+def _mesh_references(requests: int) -> dict:
+    """The four cells' one-card counterparts, in the parent on card 0,
+    before the ranks start (each freed before the next)."""
+    from repro_torch.launch import mesh as mesh_lib
+    refs: dict = {}
+    one = mesh_lib.Mesh((1, 1), ("data", "model"), (DEV,))
+    # grid serve: the same trace on a 2x2 grid shard by shard, and flat
+    cfg, params = served_model(32)
+    trace = serve_trace(requests)
+    for tag, kw in (("grid", {"grid": GRID}), ("flat", {})):
+        _, rep, wall, _ = _grid_serve(cfg, params, trace,
+                                      backend="tubgemm_cuda", **kw)
+        refs[f"{tag}_streams"] = rep.request_tokens
+        refs[f"{tag}_wall"] = wall
+    del params
+    _free()
+    # decode_32k: rows 0-1 on one card
+    c = DECODE_32K
+    cfg = _decode32k_cfg()
+    gen = torch.Generator(device=DEV)
+    gen.manual_seed(0)
+    params = model_lib.init_params(cfg, gen, device=DEV)
+    caches = model_lib.init_caches(cfg, c["ref_batch"], c["max_len"],
+                                   torch.bfloat16, DEV)
+    _seed_decode32k_cache(caches, cfg, c["ref_batch"], 0)
+    toks = _step_tokens(cfg, 33, c["steps"], c["batch"])[:, :c["ref_batch"]]
+    for dt in c["tol"]:
+        decode = steps_lib.make_decode_step(cfg.replace(compute_dtype=dt), one,
+                                            c["ref_batch"], c["max_len"])
+        outs = []
+        for i in range(c["steps"]):
+            logits, caches = decode(params, toks[i], caches,
+                                    c["max_len"] - c["steps"] + i)
+            outs.append(logits.float())
+        refs[f"decode32k_{dt}"] = torch.cat(outs, dim=1).cpu().numpy()
+    log(f"  mesh reference decode_32k (one card, batch {c['ref_batch']}): "
+        f"peak {_peak_gib():.2f} GiB")
+    del params, caches
+    _free()
+    # moe EP: phi3.5-moe at check depth, all experts on one card
+    m = MOE_EP
+    for tag, kw in (("moe", {}), ("moe_lifted", {"capacity_factor": m["lifted"]})):
+        cfg = _moe_cfg(m["check_layers"], **kw)
+        params = _seeded_tree(cfg, 7)
+        logits, *_ = _greedy_run(cfg, params, one, batch=m["batch"],
+                                 prompt_len=m["prompt"], steps=m["tokens"],
+                                 max_len=m["prompt"] + m["tokens"], seed=40)
+        refs[tag] = logits.cpu().numpy()
+        del params
+        _free()
+    # mla: deepseek-v3 at check depth, all 256 experts on one card
+    m = MLA_EP
+    cfg = _mla_cfg(m["check_layers"])
+    params = _seeded_tree(cfg, 8)
+    logits, *_ = _greedy_run(cfg, params, one, batch=m["batch"],
+                             prompt_len=m["prompt"], steps=m["tokens"],
+                             max_len=m["prompt"] + m["tokens"], seed=50)
+    refs["mla"] = logits.cpu().numpy()
+    log(f"  mesh reference mla (one card, {m['check_layers']} layer, 256 "
+        f"experts): peak {_peak_gib():.2f} GiB")
+    del params
+    _free()
+    return refs
+
+
+def _traced(step, what: str) -> dict:
+    """One traced step (all ranks run it; rank 0 logs): its host wall,
+    device busy and the NCCL kernels' device ms."""
+    if DEV.type != "cuda":
+        step()
+        return {}
+    return _step_profile(step, what, MESH_KERNELS)
+
+
+def _world1_checks(mesh, out: dict) -> None:
+    """World 1: the sharded functions called directly on the NCCL group of
+    one, each against its one-card counterpart at the main path's widths."""
+    from repro_torch.models import attention as attn_lib
+    from repro_torch.models import moe as moe_lib
+    log("  world 1: no collective crosses a card")
+    gen = torch.Generator(device=DEV)
+    gen.manual_seed(25)
+    # the grid on a 1x1 mesh, at each llama3-8b site shape, decode rows
+    launches = {"tub_gemm": 0, "tu_gemm": 0}
+    for spec in ("tubgemm_cuda", "tugemm_cuda"):
+        kernel = spec[:-5].replace("gemm", "_gemm")
+        unit = backends.resolve(spec, bits=QUANT_BITS)
+        grid = backends.as_grid(unit, 1, 1)
+        require(grid.mesh() is not None and grid.mesh().distributed,
+                "world 1: the 1x1 grid did not take the process group")
+        for k, n in sorted(set(SITE_SHAPES)):
+            a, b = _codes(gen, (8, k), QUANT_BITS), _codes(gen, (k, n), QUANT_BITS)
+            ug.reset_launches()
+            got = grid.execute(a, b)
+            launches[kernel] += ug.LAUNCHES[kernel]
+            require(ug.LAUNCHES[kernel] == 1,
+                    f"world 1: the 1x1 {spec} grid did not launch {kernel} "
+                    f"once")
+            require(torch.equal(got, unit.execute(a, b)),
+                    f"world 1: 1x1 {spec} grid != unit at ({k}, {n})")
+    log(f"  world 1: 1x1 grid == unit bit for bit (tubgemm_cuda, tugemm_cuda "
+        f"at {sorted(set(SITE_SHAPES))}, M 8; launches {launches})")
+    out["launches"] = launches
+    # GQA at llama3-8b's heads: 8 rows, 4,096 positions, query at 4,090
+    bsz, s, h, kvh, d, pos = 8, 4096, 32, 8, 128, 4090
+    q = torch.randn((bsz, 1, h, d), generator=gen, device=DEV)
+    kc = torch.randn((bsz, s, kvh, d), generator=gen, device=DEV)
+    vc = torch.randn((bsz, s, kvh, d), generator=gen, device=DEV)
+    got = attn_lib._sharded_decode_attention(q, kc, vc, h, q_offset=pos,
+                                             kv_valid_len=pos + 1, mesh=mesh)
+    want = attn_lib.naive_attention(
+        q, attn_lib._repeat_kv(kc, h), attn_lib._repeat_kv(vc, h),
+        causal=True, q_offset=pos,
+        kv_valid_len=torch.full((bsz,), pos + 1, device=DEV))
+    err = _rel(got, want)
+    log(f"  world 1: sharded GQA decode vs naive_attention (B {bsz}, S {s}, "
+        f"H {h}, KVH {kvh}, D {d}, pos {pos}): {err:.2e} x max|ref| (tol "
+        f"{MESH_TOL['decode']:.0e})")
+    require(err <= MESH_TOL["decode"], f"world 1: sharded GQA decode {err}")
+    # MLA at deepseek-v3's heads and ranks
+    cfg = _mla_cfg(1)
+    ml = cfg.mla
+    params = {"w_uk": torch.randn((ml.kv_lora_rank, cfg.num_heads,
+                                   ml.nope_head_dim), generator=gen,
+                                  device=DEV) * 0.05,
+              "w_uv": torch.randn((ml.kv_lora_rank, cfg.num_heads,
+                                   ml.v_head_dim), generator=gen,
+                                  device=DEV) * 0.05}
+    bsz, s, pos = 2, 1024, 1000
+    qn = torch.randn((bsz, 1, cfg.num_heads, ml.nope_head_dim), generator=gen,
+                     device=DEV)
+    qr = torch.randn((bsz, 1, cfg.num_heads, ml.rope_head_dim), generator=gen,
+                     device=DEV)
+    ckv = torch.randn((bsz, s, ml.kv_lora_rank), generator=gen, device=DEV)
+    kr = torch.randn((bsz, s, ml.rope_head_dim), generator=gen, device=DEV)
+    ctx = attn_lib._mla_sharded_decode(params, qn, qr, ckv, kr, cfg,
+                                       q_offset=pos, kv_valid_len=pos + 1,
+                                       mesh=mesh)
+    got = torch.einsum("bqhr,rhv->bqhv", ctx, params["w_uv"])
+    want = attn_lib._mla_absorbed_attend(
+        params, qn, qr, ckv, kr, cfg, torch.full((bsz,), pos + 1, device=DEV),
+        q_offset=pos)
+    err = _rel(got, want)
+    log(f"  world 1: sharded MLA decode vs _mla_absorbed_attend (B {bsz}, S "
+        f"{s}, H {cfg.num_heads}, rank {ml.kv_lora_rank}): {err:.2e} x "
+        f"max|ref| (tol {MESH_TOL['decode']:.0e})")
+    require(err <= MESH_TOL["decode"], f"world 1: sharded MLA decode {err}")
+    # EP with n = 1 at phi3.5-moe's widths, one layer
+    cfg = _moe_cfg(1)
+    lifted = _moe_cfg(1, capacity_factor=MOE_EP["lifted"])
+    layer = {k: v[0] for k, v in _seeded_tree(cfg, 9)["layers"]["moe"].items()}
+    x = torch.randn((MOE_EP["batch"] * MOE_EP["prompt"], cfg.d_model),
+                    generator=gen, device=DEV)
+    local, _ = moe_lib.moe_fwd(layer, x[None], cfg)
+    psum, _ = moe_lib._moe_ep_psum(layer, x, cfg, mesh)
+    err_psum = _rel(psum, local[0])
+    a2a, _ = moe_lib._moe_ep_a2a(layer, x, lifted, mesh)
+    psum_l, _ = moe_lib._moe_ep_psum(layer, x, lifted, mesh)
+    err_a2a = _rel(a2a, psum_l)
+    log(f"  world 1: EP psum vs the local path {err_psum:.2e}, a2a vs psum "
+        f"(capacity lifted) {err_a2a:.2e} x max|ref| (T {x.shape[0]}, E "
+        f"{cfg.moe.num_experts}, D {cfg.d_model}, F {cfg.moe.d_ff_expert}; "
+        f"tol {MESH_TOL['ep']:.0e})")
+    require(max(err_psum, err_a2a) <= MESH_TOL["ep"],
+            f"world 1: EP psum {err_psum}, a2a {err_a2a}")
+
+
+def _cell_grid(refs: dict, requests: int, n: int) -> dict:
+    """The grid serve on a 2x2 mesh of cards: streams identical to the
+    one-card grid and flat runs of the same trace."""
+    cfg, params = served_model(32)
+    trace = serve_trace(requests)
+    engine, rep, wall, launches = _grid_serve(cfg, params, trace,
+                                              backend="tubgemm_cuda",
+                                              grid=GRID)
+    require(engine.mesh is not None and engine.mesh.size == n,
+            "grid serve: the engine did not take the card mesh")
+    same_grid = rep.request_tokens == refs["grid_streams"]
+    same_flat = rep.request_tokens == refs["flat_streams"]
+    log(f"  grid serve on {n} cards: streams identical to the one-card "
+        f"2x2 grid run: {same_grid}, to the flat run: {same_flat}; "
+        f"wall {wall:.2f} s against {refs['grid_wall']:.2f} s (one card, "
+        f"shards in turn) and {refs['flat_wall']:.2f} s (flat)")
+    require(same_grid and same_flat,
+            "grid serve: the card mesh's streams differ from one card's")
+    # collectives of one decode step (8 slots): per dense site an int32
+    # (8, ceil(N/2)) all_reduce over gx and all_gather over gy, then the
+    # token check's all_gather of 8 int32 over the 4 ranks
+    nbytes = 0.0
+    for k, n_out in (*SITE_SHAPES, (cfg.d_model, cfg.vocab_size)):
+        mult = cfg.num_layers if (k, n_out) in SITE_SHAPES else 1
+        part = 8 * -(-n_out // GRID[1]) * 4
+        nbytes += mult * (_ring_bytes("all_reduce", part, GRID[0])
+                          + _ring_bytes("all_gather", GRID[1] * part, GRID[1]))
+    nbytes += _ring_bytes("all_gather", n * 8 * 4, n)
+    prof = _decode_step_profile_mesh(engine, cfg)
+    return {"wall_s": wall, "decode_steps": rep.decode_steps,
+            "steps_per_s": rep.decode_steps / wall, "tokens_per_s":
+            rep.tokens / wall, "launches": launches, "peak_gib": _peak_gib(),
+            "collective_bytes_step": nbytes, "trace": prof}
+
+
+def _decode_step_profile_mesh(engine, cfg) -> dict:
+    """``_decode_step_profile``'s steady step, on every rank (SPMD), traced
+    on all and logged by rank 0."""
+    dev = engine.device
+    b = engine.max_batch
+    ctx = min(300, engine.max_seq_len - 100)
+    cache = engine.new_cache()
+    tables = []
+    for i in range(b):
+        cache.allocate(i, ctx + 100)
+        tables.append(cache.block_table_row(i))
+    d_bt = torch.from_numpy(np.stack(tables)).to(dev)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(2)
+    cache.k_pool.normal_(generator=gen)
+    cache.v_pool.normal_(generator=gen)
+    tokens = torch.randint(0, cfg.vocab_size, (b, 1), generator=gen, device=dev,
+                           dtype=torch.int32)
+    active = torch.ones((b,), dtype=torch.bool, device=dev)
+    state = {"lengths": torch.full((b,), ctx, dtype=torch.int32, device=dev)}
+
+    def one_step():
+        _, _, _, state["lengths"] = engine._decode(
+            engine._exec_params, tokens, cache.k_pool, cache.v_pool, d_bt,
+            state["lengths"], active)
+
+    with engine.mesh, engine._scope(), activation_scaling("per-row"):
+        return _traced(one_step, f"grid decode step on the card mesh ({b} "
+                                 f"slots, context {ctx})")
+
+
+def _cell_decode32k(refs: dict, mesh, n: int) -> dict:
+    """llama3-8b decode at 32k on a (data 1, model n) mesh: the cache's
+    sequence split over the cards, flash-decoding combined across them."""
+    from repro_torch.models import attention as attn_lib
+    c = DECODE_32K
+    cfg = _decode32k_cfg()
+    require(attn_lib.seq_shards(cfg, mesh) == n,
+            "decode_32k: the mesh does not shard the cache's sequence")
+    _reset_peak()
+    gen = torch.Generator(device=DEV)
+    gen.manual_seed(0)
+    params = model_lib.init_params(cfg, gen, device=DEV)
+    caches = model_lib.init_caches(cfg, c["batch"], c["max_len"],
+                                   torch.bfloat16, DEV, mesh=mesh)
+    s_local = c["max_len"] // n
+    require(caches["attn"]["k"].shape[2] == s_local,
+            "decode_32k: the cache slice is not max_len / n long")
+    _seed_decode32k_cache(caches, cfg, c["batch"], mesh.axis_index("model")
+                          * s_local)
+    toks = _step_tokens(cfg, 33, c["steps"], c["batch"])
+    res: dict = {}
+    for dt, tol in c["tol"].items():
+        decode = steps_lib.make_decode_step(cfg.replace(compute_dtype=dt), mesh,
+                                            c["batch"], c["max_len"], params)
+        outs, walls = [], []
+        for i in range(c["steps"]):
+            _sync()
+            t0 = time.perf_counter()
+            logits, caches = decode(params, toks[i], caches,
+                                    c["max_len"] - c["steps"] + i)
+            _sync()
+            walls.append(time.perf_counter() - t0)
+            outs.append(logits.float())
+        got = torch.cat(outs, dim=1)
+        require(bool(torch.isfinite(got).all()),
+                f"decode_32k {dt}: non-finite logits")
+        ref = torch.from_numpy(refs[f"decode32k_{dt}"])
+        err = _rel(got[:c["ref_batch"]], ref)
+        agree = float((got[:c["ref_batch"]].argmax(-1).cpu()
+                       == ref.argmax(-1)).float().mean())
+        log(f"  decode_32k on {n} cards, {dt} compute (batch {c['batch']}, "
+            f"cache {c['max_len']} positions, {s_local} a card, bf16): steps "
+            + " ".join(f"{w * 1e3:.1f}" for w in walls) + f" ms; rows "
+            f"0-{c['ref_batch'] - 1} vs one card at batch {c['ref_batch']}: "
+            f"{err:.2e} x max|ref| (tol {tol:.0e}), top-1 agreement "
+            f"{agree:.3f}")
+        require(err <= tol, f"decode_32k {dt}: {err} off the one-card run")
+        res[dt] = {"step_ms": [w * 1e3 for w in walls], "err": err,
+                   "top1": agree, "steps_per_s": len(walls) / sum(walls)}
+    # per layer: all_reduce MAX of m (B, H, 1) f32, SUM of l (B, H, 1) f32
+    # and of the context (B, H, 1, hd) in the compute dtype
+    stat = c["batch"] * cfg.num_heads * 4
+    ctx = c["batch"] * cfg.num_heads * cfg.resolved_head_dim * 2
+    nbytes = cfg.num_layers * sum(_ring_bytes("all_reduce", x, n)
+                                  for x in (stat, stat, ctx))
+    decode = steps_lib.make_decode_step(cfg, mesh, c["batch"], c["max_len"],
+                                        params)
+    pos = c["max_len"] - 1
+    prof = _traced(lambda: decode(params, toks[-1], caches, pos),
+                   f"decode_32k step on {n} cards (batch {c['batch']}, bf16)")
+    return {**res, "peak_gib": _peak_gib(), "collective_bytes_step": nbytes,
+            "trace": prof}
+
+
+def _ep_run(cfg, mesh, n: int, *, seed: int, run: dict, prompt_seed: int):
+    """The rank's expert slice of a seeded tree, then ``_greedy_run``."""
+    from repro_torch.models import moe as moe_lib
+    e_local = cfg.moe.num_experts // n
+    r = mesh.axis_index("model")
+    require(moe_lib.ep_shards(cfg, mesh) == n,
+            "the mesh does not split the experts")
+    params = _seeded_tree(cfg, seed, (r * e_local, (r + 1) * e_local))
+    out = _greedy_run(cfg, params, mesh, batch=run["batch"],
+                      prompt_len=run["prompt"], steps=run["tokens"],
+                      max_len=run["prompt"] + run["tokens"], seed=prompt_seed)
+    return params, out
+
+
+def _cell_moe(refs: dict, mesh, n: int) -> dict:
+    """phi3.5-moe with its experts split over the cards: at check depth
+    against one card (psum) and a2a against psum with the capacity lifted,
+    then at its published 32 layers (prefill through a2a, decode psum)."""
+    m = MOE_EP
+    res: dict = {}
+    for tag, kw in (("moe", {}),
+                    ("moe_lifted", {"capacity_factor": m["lifted"],
+                                    "ep_impl": "a2a"})):
+        cfg = _moe_cfg(m["check_layers"], **kw)
+        params, (logits, *_) = _ep_run(cfg, mesh, n, seed=7, run=m,
+                                       prompt_seed=40)
+        err = _rel(logits, torch.from_numpy(refs[tag]))
+        what = ("psum vs one card" if tag == "moe" else
+                "a2a prefill vs one card, capacity lifted")
+        log(f"  moe EP at {m['check_layers']} layers, {what}: "
+            f"{err:.2e} x max|ref| (tol {MESH_TOL['ep']:.0e})")
+        require(err <= MESH_TOL["ep"], f"moe EP {tag}: {err}")
+        res[f"err_{tag}"] = err
+        del params
+        _free()
+    _reset_peak()
+    cfg = _moe_cfg(m["layers"], ep_impl="a2a")
+    t0 = time.perf_counter()
+    params, (logits, t_pre, t_dec, (decode, caches, toks)) = _ep_run(
+        cfg, mesh, n, seed=7, run=m, prompt_seed=40)
+    _sync()
+    init_s = time.perf_counter() - t0 - t_pre - t_dec
+    require(bool(torch.isfinite(logits).all()), "moe EP: non-finite logits")
+    tokens = m["batch"] * m["tokens"]
+    log(f"  moe EP, phi3.5-moe {m['layers']} layers, "
+        f"{cfg.moe.num_experts // n} experts a card: init {init_s:.1f} s, "
+        f"prefill {m['batch']} x {m['prompt']} (a2a) {t_pre:.2f} s, "
+        f"{m['tokens']} decode steps (psum) {t_dec:.2f} s = "
+        f"{tokens / t_dec:.1f} tokens/s; peak {_peak_gib():.2f} GiB")
+    t_pf, d = m["batch"] * m["prompt"], cfg.d_model
+    cap = min(t_pf // n, max(4, math.ceil(t_pf // n * cfg.moe.top_k
+                                          / cfg.moe.num_experts
+                                          * cfg.moe.capacity_factor)))
+    a2a = 2 * _ring_bytes("all_to_all", cfg.moe.num_experts * cap * d * 4, n)
+    prefill_bytes = cfg.num_layers * (
+        a2a + _ring_bytes("all_reduce", t_pf * d * 4, n)
+        + _ring_bytes("all_reduce", 4, n))
+    decode_bytes = cfg.num_layers * _ring_bytes(
+        "all_reduce", m["batch"] * d * 4, n) + cfg.num_layers * sum(
+        _ring_bytes("all_reduce", x, n) for x in (
+            m["batch"] * cfg.num_heads * 4,
+            (1 + cfg.resolved_head_dim) * m["batch"] * cfg.num_heads * 4))
+    pos = m["prompt"] + m["tokens"] - 1
+    prof = _traced(lambda: decode(params, toks[-1], caches, pos),
+                   f"moe EP decode step on {n} cards (phi3.5-moe, "
+                   f"{m['layers']} layers, batch {m['batch']})")
+    res.update(prefill_s=t_pre, decode_s=t_dec, tokens_per_s=tokens / t_dec,
+               peak_gib=_peak_gib(), collective_bytes_prefill=prefill_bytes,
+               collective_bytes_step=decode_bytes, trace=prof)
+    return res
+
+
+def _cell_mla(refs: dict, mesh, n: int) -> dict:
+    """deepseek-v3 with the latent cache's sequence and the experts split
+    over the cards: at 1 layer against one card, then at ``layers``."""
+    m = MLA_EP
+    cfg = _mla_cfg(m["check_layers"])
+    params, (logits, *_) = _ep_run(cfg, mesh, n, seed=8, run=m, prompt_seed=50)
+    err = _rel(logits, torch.from_numpy(refs["mla"]))
+    log(f"  mla decode at {m['check_layers']} layer vs one card "
+        f"(absorbed, all experts): {err:.2e} x max|ref| (tol "
+        f"{MESH_TOL['ep']:.0e})")
+    require(err <= MESH_TOL["ep"], f"mla: {err} off the one-card run")
+    del params
+    _free()
+    _reset_peak()
+    cfg = _mla_cfg(m["layers"])
+    params, (logits, t_pre, t_dec, (decode, caches, toks)) = _ep_run(
+        cfg, mesh, n, seed=8, run=m, prompt_seed=50)
+    require(bool(torch.isfinite(logits).all()), "mla: non-finite logits")
+    tokens = m["batch"] * m["tokens"]
+    log(f"  mla decode, deepseek-v3 {m['layers']} layers, "
+        f"{cfg.moe.num_experts // n} experts a card: prefill "
+        f"{m['batch']} x {m['prompt']} {t_pre:.2f} s, {m['tokens']} "
+        f"decode steps {t_dec:.2f} s = {tokens / t_dec:.1f} tokens/s; "
+        f"peak {_peak_gib():.2f} GiB")
+    ml, d = cfg.mla, cfg.d_model
+    decode_bytes = cfg.num_layers * (
+        _ring_bytes("all_reduce", m["batch"] * d * 4, n) + sum(
+            _ring_bytes("all_reduce", x, n) for x in (
+                m["batch"] * cfg.num_heads * 4,
+                (1 + ml.kv_lora_rank) * m["batch"] * cfg.num_heads * 4)))
+    pos = m["prompt"] + m["tokens"] - 1
+    prof = _traced(lambda: decode(params, toks[-1], caches, pos),
+                   f"mla decode step on {n} cards (deepseek-v3, "
+                   f"{m['layers']} layers, batch {m['batch']})")
+    return {"err": err, "prefill_s": t_pre, "decode_s": t_dec,
+            "tokens_per_s": tokens / t_dec, "peak_gib": _peak_gib(),
+            "collective_bytes_step": decode_bytes, "trace": prof}
+
+
+def _mesh_rank(rank: int, n: int, port: int, refs: dict | None,
+               requests: int, out_dir: str) -> None:
+    """One rank of the mesh phase (a spawned process on card ``rank``)."""
+    global DEV, _RANK
+    from repro_torch.launch import mesh as mesh_lib
+    _RANK = rank
+    dev = mesh_lib.init_distributed(
+        DEV.type, init_method=f"tcp://localhost:{port}", rank_=rank, world=n,
+        timeout_s=MESH_PG_TIMEOUT_S)
+    DEV = dev
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    out: dict = {"rank": rank, "device": str(dev)}
+    mesh = mesh_lib.make_mesh((1, n), ("data", "model"), DEV.type)
+    try:
+        with torch.no_grad():
+            if n == 1:
+                _world1_checks(mesh, out)
+            else:
+                for name, cell in (
+                        ("grid", lambda: _cell_grid(refs, requests, n)),
+                        ("decode_32k", lambda: _cell_decode32k(refs, mesh, n)),
+                        ("moe", lambda: _cell_moe(refs, mesh, n)),
+                        ("mla", lambda: _cell_mla(refs, mesh, n))):
+                    _reset_peak()
+                    t0 = time.perf_counter()
+                    out[name] = cell()
+                    out[name]["cell_s"] = time.perf_counter() - t0
+                    out[name]["peak_gib"] = _peak_gib()
+                    _free()
+        with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as fh:
+            json.dump(out, fh, default=float)
+    finally:
+        torch.distributed.destroy_process_group()
+
+
+def _free_port() -> int:
+    import socket
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def phase_mesh(requests: int) -> dict:
+    """One rank per visible card.  World 1 (one card): the sharded functions
+    on the NCCL group of one.  World 4: the four cells, after their
+    one-card counterparts ran here."""
+    import torch.multiprocessing as mp
+    n = torch.cuda.device_count() if DEV.type == "cuda" else 4
+    if n not in (1, 4):
+        raise Failed(f"mesh: {n} cards; the phase runs on 1 or 4")
+    t0 = time.perf_counter()
+    refs = _mesh_references(requests) if n > 1 else None
+    t_refs = time.perf_counter() - t0
+    _free()
+    with tempfile.TemporaryDirectory() as out_dir:
+        ctx = mp.start_processes(
+            _mesh_rank, args=(n, _free_port(), refs, requests, out_dir),
+            nprocs=n, join=False, start_method="spawn")
+        deadline = time.perf_counter() + MESH_CHILD_LIMIT_S
+        try:
+            # join returns False each time one rank of several ends
+            while not ctx.join(timeout=max(1.0, deadline - time.perf_counter())):
+                if time.perf_counter() > deadline:
+                    raise Failed(f"mesh: the {n} ranks ran past "
+                                 f"{MESH_CHILD_LIMIT_S} s")
+        except mp.ProcessRaisedException as exc:
+            raise Failed(f"mesh: a rank failed:\n{exc}") from None
+        except mp.ProcessExitedException as exc:
+            raise Failed(f"mesh: a rank died: {exc}") from None
+        finally:
+            for p in ctx.processes:
+                if p.is_alive():
+                    p.kill()
+        results = []
+        for r in range(n):
+            path = os.path.join(out_dir, f"rank{r}.json")
+            require(os.path.exists(path), f"mesh: rank {r} wrote no result")
+            with open(path) as fh:
+                results.append(json.load(fh))
+    wall = time.perf_counter() - t0
+    log(f"  mesh phase: world {n}, one-card references {t_refs:.1f} s, "
+        f"{wall:.1f} s in all")
+    if n == 1:
+        return {"launches": results[0]["launches"]}
+    for cell in ("grid", "decode_32k", "moe", "mla"):
+        peaks = [res[cell]["peak_gib"] for res in results]
+        log(f"  {cell}: {results[0][cell]['cell_s']:.1f} s on rank 0; "
+            f"max_memory_allocated by rank " + ", ".join(
+                f"{p:.2f}" for p in peaks) + " GiB; collectives "
+            f"{results[0][cell]['collective_bytes_step'] / 1e6:.3f} MB a rank "
+            f"a decode step (reckoned from shapes) = "
+            f"{results[0][cell]['collective_bytes_step'] / NVLINK_BYTES_PER_S * 1e6:.2f}"
+            f" us at 450 GB/s NVLink")
+        require(max(peaks) < 80, f"mesh {cell}: a card's peak is {max(peaks)} GiB")
+    log("  grid serve tub_gemm launches by rank: " + ", ".join(
+        str(res["grid"]["launches"]["tub_gemm"]) for res in results))
+    return {"launches": {"tub_gemm": results[0]["grid"]["launches"]["tub_gemm"],
+                         "fused_paged_decode":
+                         results[0]["grid"]["launches"]["fused_paged_decode"]}}
+
+
+# ---------------------------------------------------------------------------
 # phase 9: times
 # ---------------------------------------------------------------------------
 
@@ -4171,6 +4899,7 @@ def main() -> int:
     families: dict = {"launches": {}}
     recurrent: dict = {"launches": {}}
     pipeline: dict = {"launches": {}}
+    mesh: dict = {"launches": {}}
     rows: list[dict] = []
     try:
         with torch.no_grad():
@@ -4233,6 +4962,11 @@ def main() -> int:
             phase_dryrun()
             gc.collect()
             torch.cuda.empty_cache()
+        if "mesh" in phases:             # spawns one rank per card
+            log("phase mesh")
+            mesh = phase_mesh(args.requests)
+            gc.collect()
+            torch.cuda.empty_cache()
         if "times" in phases:
             log("phase times")
             with torch.no_grad():
@@ -4241,6 +4975,7 @@ def main() -> int:
                 row["launches_families"] = families["launches"].get(row["name"])
                 row["launches_recurrent"] = recurrent["launches"].get(row["name"])
                 row["launches_pipeline"] = pipeline["launches"].get(row["name"])
+                row["launches_mesh"] = mesh["launches"].get(row["name"])
     except Failed as exc:
         log(f"FAILED: {exc}")
         return 1

@@ -6,15 +6,19 @@ them fed by a partitioned model.  This module composes any resolved
 ``units_y`` tensor-parallel grid that is at once
 
 * **executable** — :meth:`GridBackend.execute` splits the contraction dim K
-  over ``gx`` (ceil-sized row bands) and the output columns over ``gy``, and
-  runs the shards one after another on the device the operands live on
-  (``launch.mesh.make_grid_mesh`` places every grid position there).  Each
-  shard calls the unit's own ``exact_fn`` on its slice — for the ``*_cuda``
-  mirrors that is the hand-written kernel — and the ``gx`` partial sums are
-  added explicitly.  Int32 partial sums (the exact designs) add exactly in
-  any order; uGEMM and the rate-coded family reduce their shards as int64
-  counts and decode once (``DesignSpec.count_fn`` / ``decode_fn``), so a
-  grid of any design is **bit-identical** to the single unit;
+  over ``gx`` (ceil-sized row bands) and the output columns over ``gy``.
+  Each shard calls the unit's own ``exact_fn`` on its slice — for the
+  ``*_cuda`` mirrors that is the hand-written kernel.  With a
+  ``torch.distributed`` process group up, the grid runs on
+  ``launch.mesh.grid_mesh``: one unit per rank (per card), each rank
+  computing only its own ``(gx, gy)`` shard, an ``all_reduce`` of the
+  partial sums over its ``gx`` line and an ``all_gather`` of the column
+  bands over its ``gy`` line.  Without one, the shards run one after
+  another on the device the operands live on and the ``gx`` partial sums
+  are added explicitly.  Int32 partial sums (the exact designs) add exactly
+  in any order; uGEMM and the rate-coded family reduce their shards as
+  int64 counts and decode once (``DesignSpec.count_fn`` / ``decode_fn``),
+  so a grid of any design is **bit-identical** to the single unit;
 * **priceable** — :meth:`GridBackend.cycles` / :meth:`~GridBackend.dyn_cycles`
   account per-shard tile counts plus the interconnect-hop term, and
   :meth:`~repro_torch.backends.base.GemmBackend.price` routes through
@@ -25,14 +29,17 @@ them fed by a partitioned model.  This module composes any resolved
   weight slice has its own sparsity profile, so assignments may differ
   across shards) plus the *aggregate* plan execution replays.
 
-**No padding, no per-call copies of the weight.**  A ragged last shard is
-simply smaller (zero codes would contribute exact zeros, so padding them in
-changes nothing); cycle accounting still uses the ceil split
-(:meth:`GridBackend.shard_common_dim`).  :meth:`GridBackend.shard_codes`
-cuts a ``(k, n)`` code matrix into :class:`ShardedCodes`, each shard
-contiguous, once; ``execute`` takes either the flat codes (cut at every
-call) or a :class:`ShardedCodes` (the serving engine's weight-code cache
-keeps this layout in place of the flat codes).
+**No per-call copies of the weight.**  On one device a ragged last shard
+is simply smaller (zero codes would contribute exact zeros, so padding them
+in changes nothing); across ranks the last column band is zero-padded to
+the ceil width for the gather (NCCL wants equal sizes) and cut after it.
+Cycle accounting uses the ceil split (:meth:`GridBackend.shard_common_dim`).
+:meth:`GridBackend.shard_codes` cuts a ``(k, n)`` code matrix into
+:class:`ShardedCodes`, each shard contiguous, once — on a rank only the
+rank's own shard, so a card holds 1/(X·Y) of the codes; ``execute`` takes
+either the flat codes (cut at every call) or a :class:`ShardedCodes` (the
+serving engine's weight-code cache keeps this layout in place of the flat
+codes).
 
 **Shard-local site names.**  A grid plan addresses a single shard's
 assignment with the shard-qualified name ``"{gx},{gy}/{site}"`` (see
@@ -58,6 +65,7 @@ from repro_torch.backends.base import GemmBackend
 from repro_torch.backends.plan import SCHEMA as PLAN_SCHEMA
 from repro_torch.backends.plan import BackendPlan
 from repro_torch.core import ppa
+from repro_torch.launch import mesh as mesh_lib
 
 __all__ = ["GRID_SCHEMA", "GridBackend", "GridPlan", "ShardedCodes", "as_grid",
            "parse_grid", "shard_site", "shard_slices", "grid_matrix_cycles",
@@ -114,10 +122,11 @@ class ShardedCodes:
     """A ``(k, n)`` code matrix cut into a grid's shards, each contiguous.
 
     ``shards`` maps ``(gx, gy)`` to the shard's own ``(rows, cols)`` block
-    (a pure-padding shard is an empty block).  Built by
-    :meth:`GridBackend.shard_codes`; :meth:`GridBackend.execute` takes it in
-    place of the flat codes.  The blocks together hold exactly the flat
-    matrix's bytes.
+    (a pure-padding shard is an empty block).  On one device it holds every
+    shard, and the blocks together hold exactly the flat matrix's bytes; on
+    a rank of a distributed grid it holds the rank's own shard only
+    (``owner``).  Built by :meth:`GridBackend.shard_codes`;
+    :meth:`GridBackend.execute` takes it in place of the flat codes.
     """
 
     k: int
@@ -125,6 +134,7 @@ class ShardedCodes:
     units_x: int
     units_y: int
     shards: dict
+    owner: tuple[int, int] | None = None
 
     @property
     def grid(self) -> tuple[int, int]:
@@ -140,17 +150,20 @@ class ShardedCodes:
 
     @property
     def device(self) -> torch.device:
-        return self.shards[(0, 0)].device
+        return next(iter(self.shards.values())).device
 
     @property
     def dtype(self) -> torch.dtype:
-        return self.shards[(0, 0)].dtype
+        return next(iter(self.shards.values())).dtype
 
     def nbytes(self) -> int:
         return sum(t.numel() * t.element_size() for t in self.shards.values())
 
     def flat(self) -> torch.Tensor:
         """The ``(k, n)`` matrix reassembled (a copy; tests and checks)."""
+        if self.owner is not None:
+            raise ValueError(f"a rank's ShardedCodes hold shard {self.owner} "
+                             f"only")
         return torch.cat([
             torch.cat([self.shards[(gx, gy)] for gy in range(self.units_y)],
                       dim=1)
@@ -222,27 +235,42 @@ class GridBackend(GemmBackend):
             if sub.numel():
                 yield coord, sub
 
+    def mesh(self) -> mesh_lib.Mesh | None:
+        """The distributed mesh this grid executes on (one unit per rank),
+        or None without a process group (shards in turn on one device)."""
+        return mesh_lib.grid_mesh(self.units_x, self.units_y)
+
     def shard_codes(self, b: torch.Tensor) -> ShardedCodes:
         """Cut a ``(k, n)`` code matrix into this grid's contiguous shards.
 
-        A row band that spans every column is already contiguous and stays
-        a view; a column band is copied once here.
+        On one device every shard: a row band that spans every column is
+        already contiguous and stays a view; a column band is copied once
+        here.  On a rank of a distributed grid (:meth:`mesh`) only the
+        rank's own shard is kept.
         """
+        mesh = self.mesh()
+        owner = mesh.rank_coord if mesh is not None else None
         if isinstance(b, ShardedCodes):
             if b.grid != self.grid:
                 raise ValueError(f"codes sharded for a {b.units_x}x"
                                  f"{b.units_y} grid, backend is "
                                  f"{self.units_x}x{self.units_y}")
+            if b.owner != owner:
+                raise ValueError(f"codes sharded for position {b.owner}, "
+                                 f"this process executes {owner}")
             return b
         if b.ndim != 2:
             raise ValueError(f"shard_codes wants (K, N) codes, got "
                              f"{tuple(b.shape)}")
         k, n = int(b.shape[0]), int(b.shape[1])
+        slices = shard_slices(k, n, self.units_x, self.units_y)
+        if owner is not None:
+            slices = {owner: slices[owner]}
         return ShardedCodes(
             k=k, n=n, units_x=self.units_x, units_y=self.units_y,
             shards={coord: b[rows, cols].contiguous()
-                    for coord, (rows, cols) in shard_slices(
-                        k, n, self.units_x, self.units_y).items()})
+                    for coord, (rows, cols) in slices.items()},
+            owner=owner)
 
     # -- execution ----------------------------------------------------------
 
@@ -253,12 +281,14 @@ class GridBackend(GemmBackend):
         Shapes as :meth:`GemmBackend.execute`; ``b`` may also be the
         :class:`ShardedCodes` of a shared ``(K, N)`` weight.  K is split over
         ``gx`` and N over ``gy``; each shard runs the unit's ``exact_fn``
-        (or ``count_fn`` for the count-decoded designs) on the operands'
-        device (``launch.mesh.make_grid_mesh`` puts every position there on
-        one card), and the ``gx`` partial sums are added in int32 (exact
-        designs) or int64 counts decoded once (uGEMM and the rate-coded
-        family), so the reduction order cannot change the result.  Batched
-        operands recurse on the 2-D path.
+        (or ``count_fn`` for the count-decoded designs).  With a process
+        group up every rank runs its own shard and the partial sums reduce
+        with collectives (:meth:`_execute_on_mesh`); without one the shards
+        run in turn on the operands' device and the ``gx`` partial sums are
+        added there.  Either way the sums are int32 (exact designs) or int64
+        counts decoded once (uGEMM and the rate-coded family), so the
+        reduction order cannot change the result.  Batched operands recurse
+        on the 2-D path.
         """
         if a.ndim == 3:
             if isinstance(b, torch.Tensor) and b.ndim == 3:
@@ -281,6 +311,14 @@ class GridBackend(GemmBackend):
         count_fn = self.spec.count_fn
         fn = count_fn if count_fn is not None else self.spec.exact_fn
         slices = shard_slices(k, codes.n, self.units_x, self.units_y)
+        if codes.owner is not None:
+            out = self._execute_on_mesh(a, codes, fn, slices)
+        else:
+            out = self._execute_in_turn(a, codes, fn, slices)
+        return self.spec.decode_fn(out, self.bits) if count_fn else out
+
+    def _execute_in_turn(self, a, codes: ShardedCodes, fn, slices):
+        """Every shard on the operands' device, one after another."""
         # the activation's K band of each gx, copied once and shared by the
         # units_y shards of that band; pure-padding bands are skipped (band
         # 0 always runs, so an empty K still yields an output)
@@ -298,8 +336,40 @@ class GridBackend(GemmBackend):
                 part = fn(a_bands[gx], codes.shards[(gx, gy)], self.bits)
                 acc = part if acc is None else acc.add_(part)
             columns.append(acc)
-        out = columns[0] if len(columns) == 1 else torch.cat(columns, dim=1)
-        return self.spec.decode_fn(out, self.bits) if count_fn else out
+        return columns[0] if len(columns) == 1 else torch.cat(columns, dim=1)
+
+    def _execute_on_mesh(self, a, codes: ShardedCodes, fn, slices):
+        """This rank's shard, then ``all_reduce(SUM)`` over its ``gx`` line
+        and ``all_gather`` of the column bands over its ``gy`` line.
+
+        Every rank of the grid must make the same calls in the same order
+        (SPMD).  A pure-padding shard contributes zeros; the ragged last
+        column band is zero-padded to the ceil width (the gather wants equal
+        sizes) and cut after it.
+        """
+        import torch.distributed as dist
+
+        mesh = self.mesh()
+        coord = codes.owner
+        rows, cols = slices[coord]
+        m = int(a.shape[0])
+        ns = -(-codes.n // self.units_y)
+        acc_dtype = torch.int64 if self.spec.count_fn is not None \
+            else torch.int32
+        block = codes.shards[coord]
+        part = torch.zeros((m, ns), dtype=acc_dtype, device=a.device)
+        width = cols.stop - cols.start
+        if rows.stop > rows.start and width > 0:
+            part[:, :width] = fn(a[:, rows].contiguous(), block, self.bits)
+        dist.all_reduce(part, op=dist.ReduceOp.SUM,
+                        group=mesh.axis_group("gx"))
+        gathered = torch.empty((self.units_y * m, ns), dtype=acc_dtype,
+                               device=a.device)
+        dist.all_gather_into_tensor(gathered, part,
+                                    group=mesh.axis_group("gy"))
+        # (Y, M, ns) -> (M, Y * ns), then cut the padding of the last band
+        out = gathered.view(self.units_y, m, ns).permute(1, 0, 2)
+        return out.reshape(m, self.units_y * ns)[:, :codes.n].contiguous()
 
     def stream(self, a: torch.Tensor, b: torch.Tensor):
         """Grids have no single cycle-faithful stream — the schedule is

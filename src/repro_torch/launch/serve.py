@@ -25,10 +25,15 @@ Three modes, as in the reference:
 * **grid serving** (``--grid X,Y``): everything above on a tensor-parallel
   PE-array grid.  ``serve plan --grid X,Y`` derives a per-shard
   ``GridPlan`` (each shard profiles its own weight slice); execution shards
-  every dense contraction (K over ``gx``, output columns over ``gy``) and
-  runs the shards one after another on the one device, bit-identical to the
-  single unit.  A grid plan loaded by ``--backend-plan`` brings its own
-  grid; a flat plan with ``--grid`` is wrapped in one.
+  every dense contraction (K over ``gx``, output columns over ``gy``),
+  bit-identical to the single unit: run as one process, the shards run one
+  after another on the one device; under ``torchrun --nproc-per-node X*Y``
+  each rank is one unit on its own card (``launch.mesh``: partial sums
+  all-reduced over ``gx``, column bands gathered over ``gy``), every rank
+  serves the same seeded requests, and only rank 0 prints and writes
+  files.  The world size must equal X*Y.  A grid plan loaded by
+  ``--backend-plan`` brings its own grid; a flat plan with ``--grid`` is
+  wrapped in one.
 
 Runs on the card by default; ``--device cpu`` runs the same code on the
 kernels' plain versions.
@@ -47,12 +52,18 @@ kernels' plain versions.
     PYTHONPATH=src python -m repro_torch.launch.serve traffic --arch llama3-8b \\
         --smoke --device cpu --backend-plan /tmp/grid_plan.json \\
         --act-scale per-row
+    PYTHONPATH=src torchrun --standalone --nproc-per-node 4 \\
+        -m repro_torch.launch.serve traffic --grid 2,2 \\
+        --execute-backend tubgemm_cuda --act-scale per-row
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import math
+import os
+import sys
 import time
 
 import numpy as np
@@ -65,6 +76,7 @@ from repro_torch.core import gemm_sims as gemm_sims_lib
 from repro_torch.core.quantization import quantize
 from repro_torch.eval import planner as planner_lib
 from repro_torch.eval import sweetspot as sweetspot_lib
+from repro_torch.launch import mesh as mesh_lib
 from repro_torch.models import common as common_lib
 from repro_torch.models import model as model_lib
 from repro_torch.serving import (FUSED_LOGIT_TOL, ServingEngine, TrafficConfig,
@@ -353,7 +365,7 @@ def run_plan_mode(args, cfg, params) -> int:
         num_units=args.units, sites=site_list, designs=designs,
         stream_lens=stream_lens)
     wall = time.perf_counter() - t0
-    path = plan.save(args.plan_out)
+    path = plan.save(args.plan_out) if mesh_lib.rank() == 0 else args.plan_out
     meta = plan.metadata()
     totals = meta["totals"]
     sites = {s.name: s for s in site_list}
@@ -418,7 +430,7 @@ def run_grid_plan_mode(args, cfg, params, grid: tuple[int, int]) -> int:
         cfg, params, grid=grid, batch=args.batch, unit_n=args.unit_n,
         num_units=args.units, sites=site_list)
     wall = time.perf_counter() - t0
-    path = gplan.save(args.plan_out)
+    path = gplan.save(args.plan_out) if mesh_lib.rank() == 0 else args.plan_out
     meta = gplan.metadata()
     totals = meta["totals"]
     agg = totals["aggregate"]
@@ -592,8 +604,12 @@ def _report_backend(args, cfg, params, prompt, costs, stats,
     if grid is not None:
         backend = backends_lib.as_grid(backend, *grid)
     ltag = f", L={backend.stream_len} bitstreams" if backend.stream_len else ""
-    gtag = (f" on a {grid[0]}x{grid[1]} grid (shards in turn, partial sums "
-            f"added over k)" if grid else "")
+    gtag = ("" if not grid else
+            f" on a {grid[0]}x{grid[1]} grid (one unit per rank: partial "
+            f"sums all-reduced over gx, columns gathered over gy)"
+            if mesh_lib.distributed() else
+            f" on a {grid[0]}x{grid[1]} grid (shards in turn, partial sums "
+            f"added over k)")
     print(f"\n=== executing model on {backend.name} "
           f"({backend.bits}-bit int tiles{ltag}){gtag} ===")
     result = run_backend_execution(
@@ -827,8 +843,9 @@ def main(argv=None) -> int:
                     help="tensor-parallel PE-array grid: 'plan' derives a "
                          "per-shard heterogeneous GridPlan; execution modes "
                          "shard every dense contraction (K over X, output "
-                         "columns over Y) and run the shards one after "
-                         "another on the one device")
+                         "columns over Y): under torchrun with X*Y ranks one "
+                         "unit per rank, else the shards one after another "
+                         "on the one device")
     args = ap.parse_args(argv)
 
     try:
@@ -868,6 +885,27 @@ def main(argv=None) -> int:
         print("error: --device cuda requested but no CUDA device is "
               "available (pass --device cpu to run on the CPU)")
         return 2
+    world = int(os.environ.get("WORLD_SIZE", "1"))
+    if "RANK" not in os.environ or (world == 1 and grid is None):
+        return _serve(args, plan, grid, device)
+    # under torchrun: one grid unit per rank
+    if grid is None or world != grid[0] * grid[1]:
+        print(f"error: torchrun started {world} ranks; --grid X,Y with "
+              f"X*Y == {world} is needed (got --grid {args.grid})")
+        return 2
+    device = mesh_lib.init_distributed(device.type)
+    args.device = str(device)
+    quiet = (open(os.devnull, "w") if mesh_lib.rank()
+             else contextlib.nullcontext(sys.stdout))
+    try:
+        with quiet as out, contextlib.redirect_stdout(out):
+            return _serve(args, plan, grid, device)
+    finally:
+        torch.distributed.destroy_process_group()
+
+
+def _serve(args, plan, grid, device) -> int:
+    """Run ``args.mode`` on ``device`` (a rank's own card under torchrun)."""
     cfg = (configs.get_smoke_config(args.arch) if args.smoke
            else configs.get_config(args.arch))
     # Serves with float32 activations whatever the config says.  At

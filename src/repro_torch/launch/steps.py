@@ -1,8 +1,16 @@
-"""Training step on one device: ``TrainState`` and ``make_train_step``.
+"""Steps: training on one device (``TrainState``, ``make_train_step``) and
+inference on a mesh (``make_prefill_step``, ``make_decode_step``).
 
 The reference jits a sharded ``(state, batch) -> (state, metrics)`` over a
-mesh; here the step runs eagerly on the device the state lives on, with no
-sharding.  Gradients come from ``torch.autograd.grad`` of
+mesh; here the train step runs eagerly on the device the state lives on,
+with no sharding (training on a mesh is ROADMAP Queue 1 item 6's part that
+is left).  The inference steps run SPMD on a distributed mesh
+(``launch.mesh``): each rank calls them with the same inputs, its own
+parameter tree (``model.rank_params``) and its own cache slice
+(``model.init_caches(..., mesh=)``), and gets the whole batch's logits;
+inside, the batch splits over ``data``, the caches' sequence over ``model``
+(the sharded decodes of ``models/attention.py``) and a MoE's experts over
+``model`` (``models/moe.py``).  Gradients come from ``torch.autograd.grad`` of
 ``models.model.loss_fn`` with respect to the parameter leaves, and AdamW
 updates the state's tensors in place (``optim.optimizer``).
 """
@@ -19,7 +27,8 @@ from repro_torch.optim import AdamWConfig, OptState, adamw_init, adamw_update
 
 __all__ = ["TrainState", "init_train_state", "train_state_from_numpy",
            "loss_and_grads", "make_train_step", "input_specs",
-           "step_inputs", "cache_input_specs"]
+           "step_inputs", "cache_input_specs", "make_prefill_step",
+           "make_decode_step"]
 
 
 @dataclasses.dataclass
@@ -166,5 +175,95 @@ def make_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig, lr_schedule=None):
         metrics = {"loss": loss, "nll": parts["nll"], "aux": parts["aux"],
                    "lr": lr, **om}
         return TrainState(params=params, opt=opt, step=state.step + 1), metrics
+
+    return step_fn
+
+
+def _rank_rows(x, mesh, n_b: int):
+    """This ``data`` rank's rows of a batch-leading input (all of it when
+    the batch is replicated)."""
+    if x is None or n_b == 1:
+        return x
+    rows = x.shape[0] // n_b
+    r = mesh.axis_index("data")
+    return x[r * rows:(r + 1) * rows]
+
+
+def _all_rows(x: torch.Tensor, mesh, n_b: int) -> torch.Tensor:
+    """The whole batch of a per-rank output, gathered over ``data``."""
+    if n_b == 1:
+        return x
+    import torch.distributed as dist
+    x = x.contiguous()
+    out = torch.empty((n_b * x.shape[0], *x.shape[1:]), dtype=x.dtype,
+                      device=x.device)
+    dist.all_gather_into_tensor(out, x, group=mesh.axis_group("data"))
+    return out
+
+
+def _check_caches(caches, cfg: ModelConfig, mesh, batch_size, max_len):
+    """The rank's caches must be the slice ``init_caches(mesh=)`` builds."""
+    if batch_size is None or max_len is None:
+        return
+    want = model_lib.init_caches(cfg, batch_size, max_len, device="meta",
+                                 mesh=mesh)
+    for path, leaf in _leaves(want):
+        got = caches
+        for k in path:
+            got = got[k]
+        if tuple(got.shape) != tuple(leaf.shape):
+            raise ValueError(f"cache {'/'.join(path)} has shape "
+                             f"{tuple(got.shape)}; this rank's slice of "
+                             f"{batch_size} x {max_len} is {tuple(leaf.shape)}")
+
+
+def make_prefill_step(cfg: ModelConfig, mesh, batch_size: int | None = None,
+                      max_len: int | None = None, params_like=None):
+    """``(params, inputs, caches) -> (logits, caches)`` on ``mesh``.
+
+    ``inputs`` holds ``tokens`` (B, S) or ``embeds`` (B, S, D), the same on
+    every rank; ``params`` is the rank's tree and ``caches`` its slice of
+    ``batch_size`` x ``max_len`` (filled in place).  Returns the whole
+    batch's logits.  ``params_like`` is the reference's argument for packed
+    stores' sharding specs; parameters stay replicated here, so it is only
+    checked to be a tree.
+    """
+    if params_like is not None and not isinstance(params_like, dict):
+        raise TypeError("params_like must be a parameter tree")
+
+    @torch.no_grad()
+    def step_fn(params, inputs, caches):
+        tokens, embeds = inputs.get("tokens"), inputs.get("embeds")
+        lead = (tokens if tokens is not None else embeds).shape[0]
+        n_b = model_lib.batch_shards(mesh, lead)
+        _check_caches(caches, cfg, mesh, batch_size, max_len)
+        with mesh:
+            logits, caches = model_lib.prefill(
+                params, cfg, _rank_rows(tokens, mesh, n_b), caches=caches,
+                embeds=_rank_rows(embeds, mesh, n_b))
+        return _all_rows(logits, mesh, n_b), caches
+
+    return step_fn
+
+
+def make_decode_step(cfg: ModelConfig, mesh, batch_size: int | None = None,
+                     max_len: int | None = None, params_like=None):
+    """``(params, tokens (B, 1), caches, cache_pos) -> (logits, caches)`` on
+    ``mesh``, as :func:`make_prefill_step`: the same tokens on every rank,
+    the rank's tree and cache slice (updated in place), the whole batch's
+    logits back.  A mesh whose ``model`` axis shards the caches takes the
+    sequence-sharded decode."""
+    if params_like is not None and not isinstance(params_like, dict):
+        raise TypeError("params_like must be a parameter tree")
+
+    @torch.no_grad()
+    def step_fn(params, tokens, caches, cache_pos):
+        n_b = model_lib.batch_shards(mesh, tokens.shape[0])
+        _check_caches(caches, cfg, mesh, batch_size, max_len)
+        with mesh:
+            logits, caches = model_lib.decode_step(
+                params, cfg, _rank_rows(tokens, mesh, n_b), caches=caches,
+                cache_pos=cache_pos)
+        return _all_rows(logits, mesh, n_b), caches
 
     return step_fn

@@ -14,8 +14,19 @@ alike, so no per-head K/V is materialized there.  Without a cache it
 materializes per-head K (q/k head dim ``nope + rope``) and V (``v_head_dim``)
 and runs the flash kernels.  ``w_uk`` / ``w_uv`` are dense sites on the
 no-cache path and plain einsums in the absorbed form, as in the reference.
-The reference's sequence-sharded decodes (GQA and MLA) need a ``model``
-mesh axis above 1: ROADMAP Queue 1 item 6.
+
+**Sequence-sharded caches.**  Under a distributed mesh
+(``launch.mesh``, ``with mesh:``) with a ``model`` axis above 1 and
+``cfg.dp_over_model`` off, each ``model`` rank holds the slice
+``[r * s_local, (r + 1) * s_local)`` of every cache's sequence axis
+(:func:`seq_shards`; ``models.model.init_caches`` builds it).  A one-token
+decode then runs flash-decoding across the ranks
+(:func:`_sharded_decode_attention`, :func:`_mla_sharded_decode`): shard-local
+``(max, sum, context)`` combined with an ``all_reduce(MAX)`` and one
+``all_reduce(SUM)``, as the reference's shard_map does with ``pmax`` /
+``psum``.  :func:`_update_cache` writes only the positions the rank owns.
+A multi-token cached call (prefill) must start at position 0 and attends
+over the prompt's own K/V, everything the cache holds at that point.
 """
 
 from __future__ import annotations
@@ -23,14 +34,16 @@ from __future__ import annotations
 import math
 
 import torch
+import torch.distributed as dist
 
+from repro_torch.launch import mesh as mesh_lib
 from repro_torch.models import rope as rope_lib
 from repro_torch.models.common import ParamDef, dense, rmsnorm
 from repro_torch.models.config import ModelConfig
 
 __all__ = ["gqa_defs", "mla_defs", "attention_defs", "init_kv_cache",
            "attention_fwd", "naive_attention", "blockwise_attention",
-           "BLOCKWISE_THRESHOLD"]
+           "BLOCKWISE_THRESHOLD", "seq_shards"]
 
 _MASK = -1e30
 BLOCKWISE_THRESHOLD = 8192   # chunked attention above this sequence length
@@ -190,11 +203,111 @@ def _repeat_kv(kv: torch.Tensor, h: int) -> torch.Tensor:
     return torch.repeat_interleave(kv, h // kvh, dim=2)
 
 
-def _update_cache(cache_arr: torch.Tensor, new: torch.Tensor, pos) -> torch.Tensor:
-    """Write ``new`` (B, S_new, ...) into the seq axis at ``pos`` — in place."""
+def seq_shards(cfg: ModelConfig, mesh=None) -> int:
+    """How many ``model`` ranks share each cache's sequence axis under
+    ``mesh`` (default: the current one): the ``model`` size of a distributed
+    mesh unless ``cfg.dp_over_model``, else 1 (every rank holds the whole
+    cache)."""
+    mesh = mesh_lib.current_mesh() if mesh is None else mesh
+    if (mesh is None or not mesh.distributed or "model" not in mesh.axes
+            or cfg.dp_over_model):
+        return 1
+    return mesh.axis_size("model")
+
+
+def _update_cache(cache_arr: torch.Tensor, new: torch.Tensor, pos,
+                  mesh=None) -> torch.Tensor:
+    """Write ``new`` (B, S_new, ...) into the seq axis at ``pos`` — in place.
+
+    With ``mesh`` (a sequence-sharded cache, :func:`seq_shards`) the cache
+    is this ``model`` rank's slice and only the positions it owns are
+    written.
+    """
     pos = int(pos)
-    cache_arr[:, pos: pos + new.shape[1]] = new.to(cache_arr.dtype)
+    if mesh is None:
+        cache_arr[:, pos: pos + new.shape[1]] = new.to(cache_arr.dtype)
+        return cache_arr
+    s_local = cache_arr.shape[1]
+    first = mesh.axis_index("model") * s_local
+    lo, hi = max(pos, first), min(pos + new.shape[1], first + s_local)
+    if lo < hi:
+        cache_arr[:, lo - first: hi - first] = \
+            new[:, lo - pos: hi - pos].to(cache_arr.dtype)
     return cache_arr
+
+
+def _prompt_only(cache_pos) -> None:
+    """A multi-token call on a sequence-sharded cache must start at position
+    0: it then attends over the prompt's own K/V, all the cache holds."""
+    if int(cache_pos) != 0:
+        raise ValueError(f"a multi-token call at position {int(cache_pos)} on "
+                         f"a sequence-sharded cache (only prefill from 0 and "
+                         f"one-token decode are served on a model mesh)")
+
+
+def _lse_combine(m, l, ctx, mesh) -> torch.Tensor:
+    """Combine shard-local softmax partials across ``model``.
+
+    m, l: (B, H, Sq) float32 max and sum of ``exp(s - m)``; ctx: (B, H, Sq,
+    d).  ``all_reduce(MAX)`` on m, then ``all_reduce(SUM)`` of ``l * alpha``
+    and ``ctx * alpha`` (one packed buffer when ctx is float32).  Returns
+    (B, Sq, H, d) in ctx's dtype.
+    """
+    group = mesh.axis_group("model")
+    m_g = m.clone()
+    dist.all_reduce(m_g, op=dist.ReduceOp.MAX, group=group)
+    alpha = torch.exp(m - m_g)
+    l_a = l * alpha
+    ctx_a = ctx * alpha[..., None].to(ctx.dtype)
+    if ctx_a.dtype == torch.float32:
+        packed = torch.cat([l_a.reshape(-1), ctx_a.reshape(-1)])
+        dist.all_reduce(packed, op=dist.ReduceOp.SUM, group=group)
+        l_g = packed[: l_a.numel()].reshape(l_a.shape)
+        ctx_g = packed[l_a.numel():].reshape(ctx_a.shape)
+    else:
+        l_g, ctx_g = l_a.contiguous(), ctx_a.contiguous()
+        dist.all_reduce(l_g, op=dist.ReduceOp.SUM, group=group)
+        dist.all_reduce(ctx_g, op=dist.ReduceOp.SUM, group=group)
+    out = ctx_g / torch.clamp(l_g[..., None], min=1e-30).to(ctx_g.dtype)
+    return out.permute(0, 2, 1, 3)
+
+
+def _shard_partials(s: torch.Tensor, q_offset, kv_valid_len, mesh):
+    """Mask one rank's (B, H, Sq, S_local) float32 scores as the reference
+    does (``qpos >= kpos``, ``kpos < valid``, ``-1e30``) and take the
+    shard-local max, ``exp(s - max)`` and its sum."""
+    dev = s.device
+    sq, s_local = s.shape[2], s.shape[3]
+    qpos = torch.arange(sq, device=dev)[:, None] + int(q_offset)
+    kpos = mesh.axis_index("model") * s_local + torch.arange(s_local,
+                                                             device=dev)
+    valid = torch.as_tensor(kv_valid_len, device=dev).reshape(-1, 1)
+    mask = ((qpos >= kpos[None, :])[None, None]
+            & (kpos[None, :] < valid)[:, None, None, :])
+    s = torch.where(mask, s, torch.full((), _MASK, dtype=s.dtype, device=dev))
+    m = s.amax(dim=-1)
+    p = torch.exp(s - m[..., None])
+    return m, p, p.sum(dim=-1)
+
+
+def _sharded_decode_attention(q, kc, vc, h: int, *, q_offset, kv_valid_len,
+                              mesh) -> torch.Tensor:
+    """Flash-decoding over the sequence-sharded KV cache.
+
+    q: (B, Sq, H, hd), the same on every ``model`` rank; kc / vc: this
+    rank's (B, S_local, KVH, hd) slice.  Each rank scores its own keys and
+    the ``(max, sum, context)`` partials combine across ``model``
+    (:func:`_lse_combine`): the only traffic is (B, H, Sq)-sized statistics
+    and the (B, H, Sq, hd) partial context.
+    """
+    kb = _repeat_kv(kc.to(q.dtype), h)
+    vb = _repeat_kv(vc.to(q.dtype), h)
+    d = q.shape[-1]
+    s = torch.einsum("bqhd,bkhd->bhqk", q, kb).to(torch.float32)
+    s = s / math.sqrt(d)
+    m, p, l = _shard_partials(s, q_offset, kv_valid_len, mesh)
+    ctx = torch.einsum("bhqk,bkhd->bhqd", p.to(vb.dtype), vb)
+    return _lse_combine(m, l, ctx, mesh)
 
 
 def attention_fwd(params: dict, x: torch.Tensor, cfg: ModelConfig, *,
@@ -218,13 +331,24 @@ def _gqa_fwd(params, x, cfg, *, positions, cache, cache_pos, kv_valid_len):
 
     new_cache = None
     if cache is not None:
-        kc = _update_cache(cache["k"], k, cache_pos)
-        vc = _update_cache(cache["v"], v, cache_pos)
+        mesh = mesh_lib.current_mesh() if seq_shards(cfg) > 1 else None
+        kc = _update_cache(cache["k"], k, cache_pos, mesh)
+        vc = _update_cache(cache["v"], v, cache_pos, mesh)
         new_cache = {"k": kc, "v": vc}
-        k_full = _repeat_kv(kc.to(q.dtype), h)
-        v_full = _repeat_kv(vc.to(q.dtype), h)
-        out = naive_attention(q, k_full, v_full, causal=True,
-                              q_offset=cache_pos, kv_valid_len=kv_valid_len)
+        if mesh is not None and x.shape[1] == 1:
+            out = _sharded_decode_attention(
+                q, kc, vc, h, q_offset=cache_pos,
+                kv_valid_len=kv_valid_len if kv_valid_len is not None
+                else int(cache_pos) + 1, mesh=mesh)
+        else:
+            if mesh is not None:
+                # the prompt's own K/V, rounded as the cache rounds them
+                _prompt_only(cache_pos)
+                kc, vc = k.to(kc.dtype), v.to(vc.dtype)
+            k_full = _repeat_kv(kc.to(q.dtype), h)
+            v_full = _repeat_kv(vc.to(q.dtype), h)
+            out = naive_attention(q, k_full, v_full, causal=True,
+                                  q_offset=cache_pos, kv_valid_len=kv_valid_len)
     else:
         out = _mixed_attention(q, _repeat_kv(k, h), _repeat_kv(v, h),
                                causal=True)
@@ -266,12 +390,25 @@ def _mla_fwd(params, x, cfg, *, positions, cache, cache_pos, kv_valid_len):
     krope = rope_lib.apply_rope(krope, positions, cfg.rope_theta)[:, :, 0]
 
     if cache is not None:
-        ckv_c = _update_cache(cache["ckv"], ckv, cache_pos)
-        krope_c = _update_cache(cache["krope"], krope, cache_pos)
+        mesh = mesh_lib.current_mesh() if seq_shards(cfg) > 1 else None
+        ckv_c = _update_cache(cache["ckv"], ckv, cache_pos, mesh)
+        krope_c = _update_cache(cache["krope"], krope, cache_pos, mesh)
         new_cache = {"ckv": ckv_c, "krope": krope_c}
-        out = _mla_absorbed_attend(params, q_nope, q_rope, ckv_c.to(q.dtype),
-                                   krope_c.to(q.dtype), cfg, kv_valid_len,
-                                   q_offset=cache_pos)
+        if mesh is not None and x.shape[1] == 1:
+            ctx_lat = _mla_sharded_decode(
+                params, q_nope, q_rope, ckv_c.to(q.dtype),
+                krope_c.to(q.dtype), cfg, q_offset=cache_pos,
+                kv_valid_len=kv_valid_len if kv_valid_len is not None
+                else int(cache_pos) + 1, mesh=mesh)
+            out = torch.einsum("bqhr,rhv->bqhv", ctx_lat,
+                               params["w_uv"].to(ctx_lat.dtype))
+        else:
+            if mesh is not None:
+                _prompt_only(cache_pos)
+                ckv_c, krope_c = ckv.to(ckv_c.dtype), krope.to(krope_c.dtype)
+            out = _mla_absorbed_attend(params, q_nope, q_rope,
+                                       ckv_c.to(q.dtype), krope_c.to(q.dtype),
+                                       cfg, kv_valid_len, q_offset=cache_pos)
     else:
         new_cache = None
         # train / no-cache: materialize per-head K/V from the latent
@@ -282,6 +419,28 @@ def _mla_fwd(params, x, cfg, *, positions, cache, cache_pos, kv_valid_len):
         q_all = torch.cat([q_nope, q_rope], dim=-1)
         out = _mixed_attention(q_all, k, vfull, causal=True)
     return _out_proj(params, out, cfg), new_cache
+
+
+def _mla_sharded_decode(params, q_nope, q_rope, ckv, krope, cfg, *,
+                        q_offset, kv_valid_len, mesh):
+    """Flash-decoding for MLA: absorbed scoring against this ``model``
+    rank's slice of the latent cache, combined across ``model`` as in
+    :func:`_sharded_decode_attention`.
+
+    Returns the combined latent context (B, Sq, H, rank); the caller applies
+    ``W_uv``.
+    """
+    m = cfg.mla
+    d_qk = m.nope_head_dim + m.rope_head_dim
+    # absorb W_uk into the query once
+    q_lat = torch.einsum("bqhn,rhn->bqhr", q_nope,
+                         params["w_uk"].to(q_nope.dtype))
+    s_lat = torch.einsum("bqhr,bkr->bhqk", q_lat, ckv)
+    s_rope = torch.einsum("bqhd,bkd->bhqk", q_rope, krope)
+    s = (s_lat + s_rope).to(torch.float32) / math.sqrt(d_qk)
+    mx, p, l = _shard_partials(s, q_offset, kv_valid_len, mesh)
+    ctx = torch.einsum("bhqk,bkr->bhqr", p.to(ckv.dtype), ckv)
+    return _lse_combine(mx, l, ctx, mesh)
 
 
 def _mla_absorbed_attend(params, q_nope, q_rope, ckv, krope, cfg, kv_valid_len,

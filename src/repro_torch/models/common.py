@@ -203,8 +203,8 @@ def _weight_codes(execution, backend, w2: torch.Tensor):
     handed to another tensor while the cache lives; parameters must not be
     written in place meanwhile.  Under a PE-array grid backend the cached
     codes are the grid's contiguous shard blocks
-    (:class:`~repro_torch.backends.grid.ShardedCodes`), in place of the flat
-    matrix.
+    (:class:`~repro_torch.backends.grid.ShardedCodes`; on a rank of a
+    distributed grid the rank's own block), in place of the flat matrix.
     """
     cache = execution.weight_cache
     if cache is None:
@@ -212,7 +212,9 @@ def _weight_codes(execution, backend, w2: torch.Tensor):
     grid = getattr(backend, "grid", None)
     key = (w2.data_ptr(), tuple(w2.shape), w2.dtype, backend.bits)
     if grid is not None:
-        key += (grid,)
+        # a rank of a distributed grid caches its own shard only
+        mesh = backend.mesh()
+        key += (grid, None if mesh is None else mesh.rank)
     entry = cache.get(key)
     if entry is None:
         wq = quantize(w2.to(torch.float32), bits=backend.bits)

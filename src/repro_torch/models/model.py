@@ -8,6 +8,12 @@ Entry points:
 plus parameter/cache initialization and ``params_from_numpy``, which adopts
 the reference package's parameter tree (same keys, same stacked ``(L, ...)``
 layout) so both implementations can run on identical weights.
+
+On a distributed mesh (``launch.mesh``) a rank holds its own slice of what
+the reference shards: :func:`init_caches` with ``mesh=`` builds the rank's
+cache slice (its batch rows over ``data``, its sequence positions over
+``model``), and :func:`rank_params` keeps the rank's experts of a MoE tree.
+Every other parameter stays replicated.
 """
 
 from __future__ import annotations
@@ -26,7 +32,7 @@ from repro_torch.models.config import ModelConfig
 __all__ = [
     "model_defs", "init_params", "params_from_numpy", "forward", "prefill",
     "decode_step", "init_caches", "count_params", "embed_in", "logits_out",
-    "require_device", "loss_fn",
+    "require_device", "loss_fn", "batch_shards", "rank_params",
 ]
 
 
@@ -140,10 +146,58 @@ def forward(params: dict, cfg: ModelConfig, tokens=None, *, embeds=None,
     return _logits_out(params, cfg, x), aux
 
 
+def batch_shards(mesh, batch: int) -> int:
+    """How many ``data`` ranks split a batch of ``batch`` rows under a
+    distributed ``mesh``: the ``data`` size when it divides the batch, else
+    1 (the batch is replicated), as the reference's ``shardable_batch_axes``
+    decides.  A ``pod`` axis above 1 is not served here."""
+    if mesh is None or not mesh.distributed:
+        return 1
+    if "pod" in mesh.axes and mesh.axis_size("pod") > 1:
+        raise NotImplementedError("a serving mesh with a pod axis above 1")
+    if "data" not in mesh.axes:
+        return 1
+    n = mesh.axis_size("data")
+    return n if batch % n == 0 else 1
+
+
 def init_caches(cfg: ModelConfig, batch: int, max_len: int,
-                dtype: torch.dtype = torch.bfloat16, device="cuda") -> dict:
+                dtype: torch.dtype = torch.bfloat16, device="cuda",
+                mesh=None) -> dict:
+    """Zeroed stacked caches of ``batch`` sequences of ``max_len``.
+
+    With a distributed ``mesh``, this rank's slice: its ``batch /
+    batch_shards`` rows and, where the mesh shards the sequence
+    (``attention.seq_shards``), its ``max_len / n`` positions.  The
+    reference replicates a cache whose length the ``model`` size does not
+    divide; here that raises.
+    """
+    if mesh is not None:
+        from repro_torch.models.attention import seq_shards
+        n_seq = seq_shards(cfg, mesh)
+        if max_len % n_seq:
+            raise ValueError(f"a cache of {max_len} positions does not split "
+                             f"over {n_seq} model ranks")
+        batch //= batch_shards(mesh, batch)
+        max_len //= n_seq
     return blocks_lib.init_layer_caches(cfg, batch, max_len, dtype,
                                         require_device(device))
+
+
+def rank_params(params: dict, cfg: ModelConfig, mesh) -> dict:
+    """This rank's parameter tree: a MoE tree keeps the rank's
+    ``E / n`` experts of each stacked expert leaf (``moe.ep_shards``; a
+    copy, so the whole stack can be freed), everything else as given."""
+    from repro_torch.models import moe as moe_lib
+    n = moe_lib.ep_shards(cfg, mesh) if cfg.is_moe else 1
+    if n == 1:
+        return params
+    e_local = cfg.moe.num_experts // n
+    r = mesh.axis_index("model")
+    moe = dict(params["layers"]["moe"])
+    for name in moe_lib.EXPERT_LEAVES:
+        moe[name] = moe[name][:, r * e_local:(r + 1) * e_local].clone()
+    return {**params, "layers": {**params["layers"], "moe": moe}}
 
 
 def prefill(params: dict, cfg: ModelConfig, tokens=None, *, caches,

@@ -1,4 +1,5 @@
-"""Mixture-of-Experts on one device: routing, capacity-bounded experts, aux.
+"""Mixture-of-Experts: routing, capacity-bounded experts, aux, and expert
+parallelism over the ``model`` axis of a distributed mesh.
 
 Routing: softmax scoring (Switch/Mixtral; every registered MoE arch, as in
 the reference; ``_routing`` also takes DeepSeek-V3's sigmoid), top-k with
@@ -12,9 +13,20 @@ The router and the routed experts' matmuls are float and are not dense
 sites, even under a backend or plan scope; only the shared expert's
 ``w_gate`` / ``w_up`` / ``w_down`` are sites (``…/moe/shared/w_up``).
 
-The reference's expert-parallel paths (a ``psum`` over the ``model`` mesh
-axis, and the all-to-all dispatch) need more than one device: ROADMAP
-Queue 1 item 6.  On one device the reference never takes them.
+Expert parallelism (``launch.mesh``, ``with mesh:``; a distributed mesh
+whose ``model`` axis is above 1 and divides the expert count, as the
+reference selects): each ``model`` rank holds ``E / n`` experts — the
+``w_gate`` / ``w_up`` / ``w_down`` stacks either sliced on the expert axis
+already (the rank's own tree) or whole, then sliced here.  ``psum``
+(:func:`_moe_ep_psum`): every rank routes all its tokens with the
+replicated router, runs its own experts and an ``all_reduce(SUM)`` adds the
+contributions.  ``a2a`` (:func:`_moe_ep_a2a`, ``cfg.moe.ep_impl == "a2a"``
+and T divisible by n with T >= n²): each rank routes its T / n token slice,
+sends each expert's capacity rows to the expert's owner with
+``all_to_all_single``, runs its experts and sends the results back; an
+``all_reduce(SUM)`` reassembles the tokens.  The a2a capacity comes from the
+slice, so at published capacity factors the two drop different tokens, as
+in the reference.
 """
 
 from __future__ import annotations
@@ -22,14 +34,19 @@ from __future__ import annotations
 import math
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 
 from repro_torch.backends.runtime import site_scope
+from repro_torch.launch import mesh as mesh_lib
 from repro_torch.models.common import ParamDef
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.mlp import mlp_defs, mlp_fwd
 
-__all__ = ["moe_defs", "moe_fwd"]
+__all__ = ["moe_defs", "moe_fwd", "ep_shards", "EXPERT_LEAVES"]
+
+#: the expert stacks expert parallelism slices on their expert axis
+EXPERT_LEAVES = ("w_gate", "w_up", "w_down")
 
 
 def moe_defs(cfg: ModelConfig) -> dict:
@@ -77,29 +94,35 @@ def _capacity(t_local: int, cfg: ModelConfig) -> int:
     return min(t_local, max(4, c))
 
 
-def _local_expert_pass(x_flat, topk_idx, topk_w, wg, wu, wd, cfg: ModelConfig):
-    """Capacity-gather each expert's tokens, FFN, weighted scatter-add.
+def _local_expert_pass(x_flat, topk_idx, topk_w, wg, wu, wd, cfg: ModelConfig,
+                       first_global_expert: int = 0):
+    """Capacity-gather each local expert's tokens, FFN, weighted scatter-add.
 
-    x_flat: (T, D); wg/wu/wd: (E, ...) expert stacks.  Experts add
-    into the accumulator one after another in expert order; within an
-    expert the selected rows are distinct, so ``index_add`` is exact.
-    Returns the summed contribution (T, D).
+    x_flat: (T, D); wg/wu/wd: (E_local, ...) local expert stacks, the
+    experts ``first_global_expert`` onwards.  Experts add into the
+    accumulator one after another in expert order; within an expert the
+    selected rows are distinct, so ``index_add`` is exact.  Returns the
+    summed contribution (T, D) of the local experts.
     """
     t_local = x_flat.shape[0]
     cap = _capacity(t_local, cfg)
     acc = torch.zeros_like(x_flat)
     for e in range(wg.shape[0]):
         # per-token weight for this expert (0 if not routed here)
-        hit = topk_idx == e                                             # (T, K)
+        hit = topk_idx == first_global_expert + e                       # (T, K)
         w_tok = torch.where(hit, topk_w, torch.zeros_like(topk_w)).sum(dim=-1)
         sel_w, sel_idx = _top_k(w_tok, cap)                            # capacity
         xs = x_flat[sel_idx]                                            # (C, D)
-        h = F.silu(torch.matmul(xs, wg[e].to(xs.dtype))) * torch.matmul(
-            xs, wu[e].to(xs.dtype))
-        y = torch.matmul(h, wd[e].to(xs.dtype))                         # (C, D)
+        y = _expert_ffn(xs, wg[e], wu[e], wd[e])                        # (C, D)
         y = y * sel_w[:, None].to(y.dtype)          # weight (0 for non-routed)
         acc = acc.index_add(0, sel_idx, y)
     return acc
+
+
+def _expert_ffn(xs, w_g, w_u, w_d):
+    h = F.silu(torch.matmul(xs, w_g.to(xs.dtype))) * torch.matmul(
+        xs, w_u.to(xs.dtype))
+    return torch.matmul(h, w_d.to(xs.dtype))
 
 
 def _aux_loss(probs, topk_idx, cfg: ModelConfig):
@@ -111,18 +134,119 @@ def _aux_loss(probs, topk_idx, cfg: ModelConfig):
     return e * torch.sum(f * p)
 
 
-def moe_fwd(params: dict, x: torch.Tensor, cfg: ModelConfig):
+def ep_shards(cfg: ModelConfig, mesh=None) -> int:
+    """The expert-parallel degree under ``mesh`` (default: the current one):
+    the ``model`` size of a distributed mesh when it is above 1 and divides
+    the expert count, else 1 (the single-device path)."""
+    mesh = mesh_lib.current_mesh() if mesh is None else mesh
+    if mesh is None or not mesh.distributed or "model" not in mesh.axes:
+        return 1
+    n = mesh.axis_size("model")
+    return n if n > 1 and cfg.moe.num_experts % n == 0 else 1
+
+
+def moe_fwd(params: dict, x: torch.Tensor, cfg: ModelConfig,
+            scoring: str = "softmax"):
     """x: (B, S, D) -> (out (B, S, D), aux_loss scalar)."""
+    m = cfg.moe
     b, s, d = x.shape
     x_flat = x.reshape(-1, d)
-    topk_idx, topk_w, probs = _routing(params["router"], x_flat, cfg)
-    out_flat = _local_expert_pass(x_flat, topk_idx, topk_w, params["w_gate"],
-                                  params["w_up"], params["w_down"], cfg)
-    aux = _aux_loss(probs, topk_idx, cfg)
+    n = ep_shards(cfg)
+    if n > 1:
+        mesh = mesh_lib.current_mesh()
+        t = x_flat.shape[0]
+        if m.ep_impl == "a2a" and t % n == 0 and t >= n * n:
+            out_flat, aux = _moe_ep_a2a(params, x_flat, cfg, mesh, scoring)
+        else:
+            out_flat, aux = _moe_ep_psum(params, x_flat, cfg, mesh, scoring)
+    else:
+        if params["w_gate"].shape[0] != m.num_experts:
+            raise ValueError(f"expert stacks hold {params['w_gate'].shape[0]} "
+                             f"of {m.num_experts} experts outside an "
+                             f"expert-parallel mesh")
+        topk_idx, topk_w, probs = _routing(params["router"], x_flat, cfg,
+                                           scoring)
+        out_flat = _local_expert_pass(x_flat, topk_idx, topk_w,
+                                      params["w_gate"], params["w_up"],
+                                      params["w_down"], cfg, 0)
+        aux = _aux_loss(probs, topk_idx, cfg)
     out = out_flat.reshape(b, s, d)
-    if cfg.moe.num_shared_experts:
+    if m.num_shared_experts:
         # site path matches the param tree ("…/moe/shared/w_up"); the
         # routed experts above are not dense sites and stay float
         with site_scope("shared"):
             out = out + mlp_fwd(params["shared"], x, cfg)
     return out, aux
+
+
+def _local_experts(params, cfg: ModelConfig, mesh):
+    """This ``model`` rank's (E_local, ...) expert stacks and its first
+    global expert: the stacks as given when they hold E / n experts, else
+    sliced from the whole stacks."""
+    n, r = mesh.axis_size("model"), mesh.axis_index("model")
+    e = cfg.moe.num_experts
+    e_local = e // n
+    stacks = []
+    for name in EXPERT_LEAVES:
+        w = params[name]
+        if w.shape[0] == e:
+            w = w[r * e_local:(r + 1) * e_local]
+        elif w.shape[0] != e_local:
+            raise ValueError(f"{name} holds {w.shape[0]} experts; an "
+                             f"expert-parallel rank of {n} wants {e_local} "
+                             f"(or all {e})")
+        stacks.append(w)
+    return (*stacks, r * e_local)
+
+
+def _moe_ep_psum(params, x_flat, cfg: ModelConfig, mesh, scoring="softmax"):
+    """Every rank routes all tokens, runs its own experts, and one
+    ``all_reduce(SUM)`` over ``model`` combines; aux is the same on every
+    rank."""
+    wg, wu, wd, first = _local_experts(params, cfg, mesh)
+    topk_idx, topk_w, probs = _routing(params["router"], x_flat, cfg, scoring)
+    out = _local_expert_pass(x_flat, topk_idx, topk_w, wg, wu, wd, cfg, first)
+    dist.all_reduce(out, op=dist.ReduceOp.SUM, group=mesh.axis_group("model"))
+    return out, _aux_loss(probs, topk_idx, cfg)
+
+
+def _moe_ep_a2a(params, x_flat, cfg: ModelConfig, mesh, scoring="softmax"):
+    """All-to-all dispatch: route this rank's T / n token slice, build the
+    (E, C, D) send buffer (capacity from the slice), exchange (n, E_local,
+    C, D) blocks with the expert owners, run the local experts on
+    (E_local, n·C, D), exchange back, weighted scatter-add, then
+    ``all_reduce(SUM)`` of the reassembled (T, D) block.  aux is the mean
+    over ranks of each slice's loss."""
+    group = mesh.axis_group("model")
+    n, r = mesh.axis_size("model"), mesh.axis_index("model")
+    wg, wu, wd, _ = _local_experts(params, cfg, mesh)
+    t, d = x_flat.shape
+    e = cfg.moe.num_experts
+    e_local = e // n
+    t_slice = t // n
+    x_my = x_flat[r * t_slice:(r + 1) * t_slice]
+    topk_idx, topk_w, probs = _routing(params["router"], x_my, cfg, scoring)
+    cap = _capacity(t_slice, cfg)
+    w_tok = torch.zeros((t_slice, e), dtype=x_flat.dtype, device=x_flat.device)
+    w_tok.scatter_add_(1, topk_idx, topk_w.to(x_flat.dtype))      # (T_s, E)
+    sel_w, sel_idx = _top_k(w_tok.transpose(0, 1), cap)           # (E, C)
+    send = x_my[sel_idx.reshape(-1)].reshape(n, e_local, cap, d)
+    recv = torch.empty_like(send)
+    dist.all_to_all_single(recv, send, group=group)     # (n, E_local, C, D)
+    recv = recv.transpose(0, 1).reshape(e_local, n * cap, d)
+    ys = torch.stack([_expert_ffn(recv[i], wg[i], wu[i], wd[i])
+                      for i in range(e_local)])         # (E_local, n*C, D)
+    ys = ys.reshape(e_local, n, cap, d).transpose(0, 1).contiguous()
+    back = torch.empty_like(ys)
+    dist.all_to_all_single(back, ys, group=group)       # (n, E_local, C, D)
+    back = back.reshape(e, cap, d)
+    out_my = torch.zeros((t_slice, d), dtype=x_flat.dtype,
+                         device=x_flat.device)
+    out_my.index_add_(0, sel_idx.reshape(-1),
+                      (back * sel_w[..., None].to(back.dtype)).reshape(-1, d))
+    out = torch.zeros_like(x_flat)
+    out[r * t_slice:(r + 1) * t_slice] = out_my
+    dist.all_reduce(out, op=dist.ReduceOp.SUM, group=group)
+    aux = _aux_loss(probs, topk_idx, cfg)
+    dist.all_reduce(aux, op=dist.ReduceOp.SUM, group=group)
+    return out, aux / n

@@ -2,9 +2,11 @@
 
 Error feedback (Seide et al. / EF-SGD): the quantization residual is carried
 into the next step, so the compression bias vanishes over steps.  This is
-the numerics-only hook inside the optimizer (``--compress-grads``); the
-reference's ``int8_psum`` collective needs a multi-device mesh and is not
-ported yet.
+the numerics-only hook inside the optimizer (``--compress-grads``).  The
+reference's ``int8_psum`` (an int8 all-reduce over a mesh's ``data`` axis)
+belongs to training on a mesh, which is not ported yet: the port's meshes
+(``launch.mesh``) serve only so far (ROADMAP Queue 1 item 6, its training
+part).
 """
 
 from __future__ import annotations

@@ -35,6 +35,15 @@ scales of a live backend scope.
 
 Time is counted in scheduler steps (1 decode step each); energy in Eq.-1
 dynamic µJ via :class:`~repro_torch.serving.energy.EnergyModel`.
+
+On a grid with a ``torch.distributed`` process group up, the engine serves
+under ``launch.mesh.make_grid_mesh(*grid)``, one PE unit per rank: every
+rank runs the same scheduler on the same seeded trace with the same
+parameters, each dense site's shards run one per rank
+(``GridBackend.execute``), and after every decode step a small
+``all_gather`` of the step's token ids checks that every rank sampled the
+same tokens (a rank whose scheduler diverged would deadlock in the next
+collective); a mismatch raises, naming the rank and the step.
 """
 
 from __future__ import annotations
@@ -49,6 +58,7 @@ import torch
 from repro_torch import backends as backends_lib
 from repro_torch.backends.runtime import site_scope
 from repro_torch.kernels import paged_attention as paged_lib
+from repro_torch.launch import mesh as mesh_lib
 from repro_torch.kernels import paged_attention_fused as fused_lib
 from repro_torch.models import attention as attn_lib
 from repro_torch.models import model as model_lib
@@ -313,6 +323,8 @@ class ServingEngine:
         #: optional ``callable(site, int32 GEMM output)`` the backend scope of
         #: :meth:`run` reports every contracted site to (None = off)
         self.on_gemm_output = None
+        #: the distributed grid mesh (one unit per rank), None on one device
+        self.mesh = mesh_lib.grid_mesh(*grid) if grid else None
 
     # -- model steps ----------------------------------------------------------
 
@@ -406,6 +418,24 @@ class ServingEngine:
                 on_output=self.on_gemm_output,
                 weight_cache=self.weight_cache)
         return contextlib.nullcontext()
+
+    def _check_same_tokens(self, ids: torch.Tensor, step: int) -> None:
+        """Raise unless every rank of the mesh sampled ``ids`` (B,) at this
+        decode step."""
+        import torch.distributed as dist
+        ids = ids.contiguous()
+        n = self.mesh.size
+        every = torch.empty((n * ids.shape[0],), dtype=ids.dtype,
+                            device=ids.device)
+        dist.all_gather_into_tensor(every, ids)
+        every = every.view(n, -1)
+        differ = (every != ids[None]).any(dim=1)
+        if bool(differ.any()):
+            ranks = torch.nonzero(differ).flatten().tolist()
+            raise RuntimeError(
+                f"rank {self.mesh.rank}: decode step {step} sampled token ids "
+                f"{ids.tolist()}, ranks {ranks} sampled others "
+                f"({every[ranks].tolist()}): the ranks diverged")
 
     @torch.no_grad()
     def run(self, trace: tuple[TrafficRequest, ...],
@@ -537,7 +567,8 @@ class ServingEngine:
             if req.generated >= spec.output_len:
                 finish(req, at, slot)
 
-        with self._scope():
+        mesh = self.mesh if self.mesh is not None else contextlib.nullcontext()
+        with mesh, self._scope():
             while waiting or any(active):
                 if step > max_steps:
                     raise RuntimeError("serving loop exceeded its step bound "
@@ -550,6 +581,8 @@ class ServingEngine:
                         cache.v_pool, d_btables, d_lengths, d_active)
                     cache.sync_pools(k_pool, v_pool)
                     nxt_dev = torch.argmax(logits[:, 0], dim=-1).to(torch.int32)
+                    if self.mesh is not None:
+                        self._check_same_tokens(nxt_dev, step)
                     d_tokens = nxt_dev[:, None].clone()
                     nxt = nxt_dev.cpu().numpy()
                     decode_ticks += 1

@@ -110,7 +110,7 @@ def test_bad_grids_and_meshes():
             port_grid.parse_grid(bad)
     with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
         port_mesh.make_production_mesh()
-    with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
+    with pytest.raises(RuntimeError, match="no torch.distributed process group"):
         port_mesh.make_mesh((2, 1), ("data", "model"), "cpu")
     mesh = port_mesh.make_grid_mesh(2, 3, "cpu")
     assert mesh.axes == ("gx", "gy") and mesh.size == 6
