@@ -190,8 +190,18 @@ Phases, each of which fails the run (non-zero exit) on its own:
    against one card, then at ``MLA_EP['layers']``.  Each cell logs its
    wall, steps/s or tokens/s, every rank's peak (gated under 80 GiB), one
    traced step on rank 0 (busy share, NCCL device ms, kernel launches) and
-   the bytes its collectives move a decode step, reckoned from shapes,
-   against 450 GB/s NVLink.
+   the bytes its collectives move a step, counted by
+   ``launch.collectives`` (payload and ring bytes a rank sends), against
+   450 GB/s NVLink.  Training on a mesh: at world 1 the sharded train step
+   (llama3-8b full width, 2 layers, fp32, 2 x 512, 2 steps) against the
+   unsharded one, ``int8_psum`` against quantize-dequantize, and the flash
+   kernels at the per-rank shapes the step met; on four cards
+   ``train_2x2`` (8 layers, (data 2, model 2), the train phase's settings,
+   against one card; and a 2-layer fp32-compute pair), ``train_tp4`` (32
+   layers, (data 1, model 4): peak, step time, tokens/s, share of 4 x 989
+   TFLOP/s, bytes a step) and ``decode_tp4`` (32 layers, fp32, weights
+   sharded by ``param_pspecs(phase="inference")``, against one card's
+   replicated decode).
 
 Needs a CUDA device: without one (or without the package beside it) the
 script exits non-zero and prints no result.  ``--layers`` / ``--requests``
@@ -248,12 +258,14 @@ try:
     from repro_torch.kernels import unary_gemm as ug
     from repro_torch.analysis import ranges
     from repro_torch.eval import planner as planner_lib
+    from repro_torch.launch import collectives as coll
     from repro_torch.launch import steps as steps_lib
     from repro_torch.launch import train as train_lib
     from repro_torch.models import model as model_lib
     from repro_torch.models.common import activation_scaling
     from repro_torch.models.config import ModelConfig
-    from repro_torch.optim import AdamWConfig, adamw_init, cosine_schedule
+    from repro_torch.optim import (AdamWConfig, adamw_init, cosine_schedule,
+                                   dequantize_int8, int8_psum, quantize_int8)
     from repro_torch.launch.serve import validate_backend_numerics
     from repro_torch.stochastic import sgemm
     from repro_torch.serving import (FUSED_LOGIT_TOL, ServingEngine,
@@ -3769,7 +3781,30 @@ MOE_EP = dict(layers=32, check_layers=4, batch=4, prompt=64, tokens=16,
 MLA_EP = dict(check_layers=1, layers=4, batch=2, prompt=32, tokens=4)
 #: the traced steps' NCCL kernels and hand-written kernels, by name piece
 MESH_KERNELS = {"nccl": "nccl", "tub_gemm": "TubPulses",
-                "fused_paged_decode": "fused_decode"}
+                "fused_paged_decode": "fused_decode",
+                **{name: f"{name}_mma" for name in FLASH}}
+#: world 1: the sharded train step on the NCCL group of one against the
+#: unsharded step (llama3-8b full width, fp32 compute); the losses and grad
+#: norms agree to ``tol`` relative, the parameters to ``tol`` x max|leaf|:
+#: the sharded loss divides a sum by the global token count where one
+#: device takes a mean, and the norm adds its leaves grouped by their mesh
+#: axes, so the two round differently in the last bits
+W1_TRAIN = dict(layers=2, batch=2, seq=512, steps=2, tol=1e-5)
+#: the four-card training cells: the train phase's settings (fp32
+#: parameters, bf16 compute, remat, batch 4 x 2048, AdamW, cosine lr 3e-4
+#: warmup 2, seed 0); train_2x2 at 8 layers on (data 2, model 2) against
+#: one card, and a fp32-compute pair at 2 layers within ``fp32_tol``
+#: relative; train_tp4 at llama3-8b's 32 layers on (data 1, model 4)
+TRAIN_MESH = dict(layers=8, steps=10, fp32_layers=2, fp32_steps=3,
+                  fp32_tol=1e-5, bf16_gap=5e-2, tp4_layers=32)
+#: decode_tp4: llama3-8b, 32 layers, fp32, weights sharded by
+#: param_pspecs(phase="inference") on (data 1, model 4), against one card
+DECODE_TP4 = dict(batch=4, prompt=64, tokens=8)
+MESH_CELLS = ("grid", "decode_32k", "moe", "mla", "train_2x2", "train_tp4",
+              "decode_tp4")
+#: dense bf16 tensor-core peak of one H100 SXM (NVIDIA's datasheet), for
+#: the train cells' model-FLOPs share
+PEAK_BF16_FLOPS = 989e12
 
 
 def _sync() -> None:
@@ -3791,15 +3826,6 @@ def _free() -> None:
     gc.collect()
     if DEV.type == "cuda":
         torch.cuda.empty_cache()
-
-
-def _ring_bytes(op: str, nbytes: float, p: int) -> float:
-    """Bytes one rank sends for a ring collective of an ``nbytes`` buffer
-    over ``p`` ranks: all_reduce 2 (p-1)/p, all_gather / all_to_all
-    (p-1)/p of the whole (gathered / exchanged) buffer."""
-    if p == 1:
-        return 0.0
-    return nbytes * (2 * (p - 1) / p if op == "all_reduce" else (p - 1) / p)
 
 
 def _seeded_tree(cfg, seed: int, experts: tuple[int, int] | None = None):
@@ -3926,12 +3952,40 @@ def _rel(got: torch.Tensor, want: torch.Tensor) -> float:
 
 
 def _mesh_references(requests: int) -> dict:
-    """The four cells' one-card counterparts, in the parent on card 0,
+    """The four-card cells' one-card counterparts, in the parent on card 0,
     before the ranks start (each freed before the next)."""
     from repro_torch.launch import mesh as mesh_lib
     refs: dict = {}
     one = mesh_lib.Mesh((1, 1), ("data", "model"), (DEV,))
-    # grid serve: the same trace on a 2x2 grid shard by shard, and flat
+    refs.update(_train_references())     # gradients: outside no_grad
+    with torch.no_grad():
+        for fn in (_decode_tp4_reference, lambda one: _grid_reference(requests),
+                   _decode32k_reference, _moe_reference, _mla_reference):
+            refs.update(fn(one))
+    return refs
+
+
+def _decode_tp4_reference(one) -> dict:
+    """decode_tp4: the whole 32-layer fp32 tree, replicated, on one card."""
+    c = DECODE_TP4
+    cfg = _decode_tp4_cfg()
+    gen = torch.Generator(device=DEV)
+    gen.manual_seed(0)
+    params = model_lib.init_params(cfg, gen, device=DEV)
+    logits, _, t_dec, _ = _greedy_run(
+        cfg, params, one, batch=c["batch"], prompt_len=c["prompt"],
+        steps=c["tokens"], max_len=c["prompt"] + c["tokens"], seed=60)
+    log(f"  mesh reference decode_tp4 (one card, replicated): "
+        f"{c['tokens']} steps {t_dec:.3f} s, peak {_peak_gib():.2f} GiB")
+    del params
+    _free()
+    return {"decode_tp4": logits.cpu().numpy(),
+            "decode_tp4_tokens_per_s": c["batch"] * c["tokens"] / t_dec}
+
+
+def _grid_reference(requests: int) -> dict:
+    """grid serve: the same trace on a 2x2 grid shard by shard, and flat."""
+    refs: dict = {}
     cfg, params = served_model(32)
     trace = serve_trace(requests)
     for tag, kw in (("grid", {"grid": GRID}), ("flat", {})):
@@ -3941,7 +3995,12 @@ def _mesh_references(requests: int) -> dict:
         refs[f"{tag}_wall"] = wall
     del params
     _free()
-    # decode_32k: rows 0-1 on one card
+    return refs
+
+
+def _decode32k_reference(one) -> dict:
+    """decode_32k: rows 0-1 on one card."""
+    refs: dict = {}
     c = DECODE_32K
     cfg = _decode32k_cfg()
     gen = torch.Generator(device=DEV)
@@ -3964,7 +4023,12 @@ def _mesh_references(requests: int) -> dict:
         f"peak {_peak_gib():.2f} GiB")
     del params, caches
     _free()
-    # moe EP: phi3.5-moe at check depth, all experts on one card
+    return refs
+
+
+def _moe_reference(one) -> dict:
+    """moe EP: phi3.5-moe at check depth, all experts on one card."""
+    refs: dict = {}
     m = MOE_EP
     for tag, kw in (("moe", {}), ("moe_lifted", {"capacity_factor": m["lifted"]})):
         cfg = _moe_cfg(m["check_layers"], **kw)
@@ -3975,28 +4039,46 @@ def _mesh_references(requests: int) -> dict:
         refs[tag] = logits.cpu().numpy()
         del params
         _free()
-    # mla: deepseek-v3 at check depth, all 256 experts on one card
+    return refs
+
+
+def _mla_reference(one) -> dict:
+    """mla: deepseek-v3 at check depth, all 256 experts on one card."""
     m = MLA_EP
     cfg = _mla_cfg(m["check_layers"])
     params = _seeded_tree(cfg, 8)
     logits, *_ = _greedy_run(cfg, params, one, batch=m["batch"],
                              prompt_len=m["prompt"], steps=m["tokens"],
                              max_len=m["prompt"] + m["tokens"], seed=50)
-    refs["mla"] = logits.cpu().numpy()
     log(f"  mesh reference mla (one card, {m['check_layers']} layer, 256 "
         f"experts): peak {_peak_gib():.2f} GiB")
-    del params
-    _free()
-    return refs
+    return {"mla": logits.cpu().numpy()}
+
+
+def _counted(step) -> dict:
+    """The collectives of one run of ``step``, as ``launch.collectives``
+    counts them: payload bytes, ring bytes this rank sends, calls."""
+    coll.reset()
+    step()
+    _sync()
+    return {"payload": float(sum(coll.BYTES.values())),
+            "sent": float(sum(coll.SENT.values())),
+            "calls": int(sum(coll.CALLS.values())),
+            "by_kind": {k: float(v) for k, v in coll.BYTES.items() if v}}
 
 
 def _traced(step, what: str) -> dict:
-    """One traced step (all ranks run it; rank 0 logs): its host wall,
-    device busy and the NCCL kernels' device ms."""
-    if DEV.type != "cuda":
-        step()
-        return {}
-    return _step_profile(step, what, MESH_KERNELS)
+    """One counted step (:func:`_counted`), then a traced one (all ranks
+    run both; rank 0 logs): its host wall, device busy and the NCCL
+    kernels' device ms."""
+    counted = _counted(step)
+    log(f"  {what}: collectives counted a step {counted['calls']} calls, "
+        f"{counted['payload'] / 1e6:.3f} MB payload, "
+        f"{counted['sent'] / 1e6:.3f} MB sent a rank = "
+        f"{counted['sent'] / NVLINK_BYTES_PER_S * 1e6:.2f} us at 450 GB/s "
+        f"({', '.join(f'{k} {v / 1e6:.3f}' for k, v in counted['by_kind'].items())} MB)")
+    out = {} if DEV.type != "cuda" else _step_profile(step, what, MESH_KERNELS)
+    return {**out, "collective": counted}
 
 
 def _world1_checks(mesh, out: dict) -> None:
@@ -4092,6 +4174,310 @@ def _world1_checks(mesh, out: dict) -> None:
             f"world 1: EP psum {err_psum}, a2a {err_a2a}")
 
 
+def _w1_batches(cfg) -> list[dict]:
+    w = W1_TRAIN
+    rng = np.random.default_rng(5)
+    return [{k: torch.from_numpy(rng.integers(0, cfg.vocab_size,
+                                              (w["batch"], w["seq"]))
+                                 .astype(np.int32)).to(DEV)
+             for k in ("tokens", "targets")} for _ in range(w["steps"])]
+
+
+def _world1_train(mesh, out: dict) -> None:
+    """World 1: the sharded train step (``make_train_step(mesh=)``, the
+    rank's slices of a state drawn with the mesh) on the NCCL group of one
+    against the unsharded step from the same seed; ``int8_psum`` against
+    quantize-dequantize; the flash kernels at the shapes the sharded step
+    met, against their plain versions."""
+    w = W1_TRAIN
+    cfg = configs.get_config("llama3-8b").replace(
+        num_layers=w["layers"], param_dtype="float32",
+        compute_dtype="float32", remat=False)
+    opt = AdamWConfig(lr=3e-4)
+    batches = _w1_batches(cfg)
+
+    def run(m):
+        gen = torch.Generator(device=DEV)
+        gen.manual_seed(0)
+        state = steps_lib.init_train_state(cfg, opt, gen, DEV, mesh=m)
+        step = steps_lib.make_train_step(cfg, opt, mesh=m)
+        losses, norms = [], []
+        for b in batches:
+            state, met = step(state, b)
+            losses.append(float(met["loss"]))
+            norms.append(float(met["grad_norm"]))
+        return state, losses, norms
+
+    t0 = time.perf_counter()
+    state, losses_1, norms_1 = run(None)
+    whole = {k: v.detach().cpu() for k, v in _tree_leaves(state.params)}
+    del state
+    _free()
+    flash_lib.reset_launches()
+    coll.reset()
+    with _flash_shapes() as seen:
+        state, losses_m, norms_m = run(mesh)
+    _sync()
+    launched = dict(flash_lib.LAUNCHES)
+    moved = sum(coll.BYTES.values())
+    worst = max((float((v.detach().cpu() - whole[k]).abs().max())
+                 / max(float(whole[k].abs().max()), 1e-30), k)
+                for k, v in _tree_leaves(state.params))
+    rel_l = max(abs(a - b) / abs(b) for a, b in zip(losses_m, losses_1))
+    rel_n = max(abs(a - b) / abs(b) for a, b in zip(norms_m, norms_1))
+    log(f"  world 1 train: llama3-8b full width, {w['layers']} layers, fp32, "
+        f"batch {w['batch']} x {w['seq']}, {w['steps']} steps, sharded step "
+        f"on the NCCL group of one vs the unsharded step: losses "
+        + " ".join(f"{x:.7f}" for x in losses_m) + " vs "
+        + " ".join(f"{x:.7f}" for x in losses_1)
+        + f" (max rel {rel_l:.2e}), grad norms max rel {rel_n:.2e}, worst "
+        f"parameter leaf {worst[1]} {worst[0]:.2e} x max|leaf| (tol "
+        f"{w['tol']:.0e}: the sharded loss divides a sum by the global token "
+        f"count where one device takes a mean, and the norm sums its leaves "
+        f"grouped by mesh axes); {moved} collective bytes (want 0); flash "
+        f"launches {launched}; {time.perf_counter() - t0:.1f} s")
+    require(rel_l <= w["tol"] and rel_n <= w["tol"] and worst[0] <= w["tol"],
+            f"world 1 train: sharded step off the unsharded one (loss {rel_l}, "
+            f"norm {rel_n}, {worst[1]} {worst[0]})")
+    require(moved == 0, "world 1 train: a collective moved bytes on one card")
+    require(launched == {"flash_fwd": w["layers"] * w["steps"],
+                         "flash_bwd_dq": w["layers"] * w["steps"],
+                         "flash_bwd_dkv": w["layers"] * w["steps"]},
+            f"world 1 train: flash launches {launched}")
+    del state, whole
+    _free()
+    gen = torch.Generator(device=DEV)
+    gen.manual_seed(26)
+    g = {"w": torch.randn((4096, 14336), generator=gen, device=DEV),
+         "b": torch.randn((4096,), generator=gen, device=DEV) * 1e-3}
+    got = int8_psum(g, mesh, "data")
+    same = all(torch.equal(got[k], dequantize_int8(*quantize_int8(g[k])))
+               for k in g)
+    log(f"  world 1: int8_psum over data == dequantize(quantize(g)) bit for "
+        f"bit: {same}")
+    require(same, "world 1: int8_psum != quantize-dequantize")
+    out["flash_errs"] = _flash_exact(seen, "world-1 mesh train")
+    out["launches"].update(launched)
+
+
+def _train_cfg(layers: int, compute: str):
+    return configs.get_config("llama3-8b").replace(
+        num_layers=layers, param_dtype="float32", compute_dtype=compute,
+        remat=True)
+
+
+def _train_loop(steps: int):
+    return train_lib.TrainLoopConfig(steps=steps, log_every=1, batch=4,
+                                     seq=2048, lr=3e-4, warmup=2, seed=0)
+
+
+def _model_flops(cfg, loop) -> float:
+    """Model FLOPs of one train step: 6 x (parameters but the embedding
+    table) x tokens, plus the causal attention's fwd + bwd 6 B S^2 d L."""
+    n = sum(int(math.prod(v)) for _, v in _tree_leaves(
+        model_lib.param_shapes(cfg))) - cfg.vocab_size * cfg.d_model
+    return (6 * n * loop.batch * loop.seq
+            + 6 * loop.batch * loop.seq ** 2 * cfg.d_model * cfg.num_layers)
+
+
+def _train_references() -> dict:
+    """One card, in the parent: the train_2x2 cell's 8-layer bf16 run and
+    2-layer fp32 pair, from the same seed and batches."""
+    t = TRAIN_MESH
+    refs = {}
+    for tag, layers, compute, steps in (
+            ("train_fp32", t["fp32_layers"], "float32", t["fp32_steps"]),
+            ("train_bf16", t["layers"], "bfloat16", t["steps"])):
+        _, hist, _ = train_lib.train(_train_cfg(layers, compute),
+                                     _train_loop(steps), DEV)
+        refs[tag] = [m["loss"] for _, m in hist]
+        refs[f"{tag}_s"] = [m["step_s"] for _, m in hist]
+        _free()
+    log(f"  mesh reference train (one card): fp32 {t['fp32_layers']} layers "
+        + " ".join(f"{x:.6f}" for x in refs["train_fp32"]) + f"; bf16 "
+        f"{t['layers']} layers " + " ".join(f"{x:.4f}" for x in refs["train_bf16"])
+        + f", median step {statistics.median(refs['train_bf16_s'][1:]):.3f} s")
+    return refs
+
+
+def _train_traced(cfg, state, loop, mesh, what: str) -> dict:
+    """One more step of a mesh training run: counted, then traced."""
+    from torch.profiler import ProfilerActivity, profile
+    step_fn = steps_lib.make_train_step(cfg, AdamWConfig(lr=loop.lr), mesh=mesh)
+    batch_np = next(iter(SyntheticLM(DataConfig(
+        batch_size=loop.batch, seq_len=loop.seq + 1, vocab_size=cfg.vocab_size,
+        seed=loop.seed + 1))))
+    batch = {k: torch.from_numpy(v).to(DEV) for k, v in batch_np.items()
+             if k in ("tokens", "targets")}
+    box = {"state": state}
+
+    def one():
+        box["state"], _ = step_fn(box["state"], batch)
+
+    counted = _counted(one)
+    if DEV.type != "cuda":
+        return {"collective": counted}
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        one()
+        _sync()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    rows = _device_rows(prof)
+    busy_us = sum(r[0] for r in rows)
+    require(busy_us > 0, f"{what}: the profiler reported no device time")
+    by_kernel = {}
+    for name, piece in MESH_KERNELS.items():
+        t, k = (sum(r[i] for r in rows if piece in r[1]) for i in (0, 2))
+        by_kernel[name] = {"ms": t / 1e3, "launches": k}
+    log(f"  {what}: collectives counted a step {counted['calls']} calls, "
+        f"{counted['payload'] / 1e9:.3f} GB payload, {counted['sent'] / 1e9:.3f} "
+        f"GB sent a rank = {counted['sent'] / NVLINK_BYTES_PER_S * 1e3:.2f} ms "
+        f"at 450 GB/s ({', '.join(f'{k} {v / 1e9:.3f}' for k, v in counted['by_kind'].items())} GB); "
+        f"traced step {wall_us / 1e3:.1f} ms host, device busy "
+        f"{busy_us / 1e3:.1f} ms ({100 * busy_us / wall_us:.1f} %); "
+        + ", ".join(f"{k} {v['ms']:.1f} ms x{v['launches']}"
+                    for k, v in by_kernel.items() if v["launches"]))
+    for t, key, count in sorted(rows, reverse=True)[:6]:
+        log(f"    {t / 1e3:9.3f} ms  x{count:<6d} {key[:90]}")
+    return {"collective": counted, "wall_ms": wall_us / 1e3,
+            "busy_ms": busy_us / 1e3, "kernels": by_kernel}
+
+
+def _cell_train_2x2(refs: dict) -> dict:
+    """llama3-8b on a (data 2, model 2) mesh: the fp32 pair against one
+    card within ``fp32_tol``, then 8 layers at bf16 compute, the loss gap
+    per step against one card."""
+    from repro_torch.launch import mesh as mesh_lib
+    t = TRAIN_MESH
+    mesh = mesh_lib.make_mesh((2, 2), ("data", "model"), DEV.type)
+    _, hist, _ = train_lib.train(_train_cfg(t["fp32_layers"], "float32"),
+                                 _train_loop(t["fp32_steps"]), DEV, mesh=mesh)
+    losses = [m["loss"] for _, m in hist]
+    err = max(abs(a - b) / abs(b) for a, b in zip(losses, refs["train_fp32"]))
+    log(f"  train_2x2 fp32 pair ({t['fp32_layers']} layers, {t['fp32_steps']} "
+        f"steps): losses " + " ".join(f"{x:.6f}" for x in losses)
+        + f", max rel off one card {err:.2e} (tol {t['fp32_tol']:.0e})")
+    require(err <= t["fp32_tol"], f"train_2x2 fp32: {err} off one card")
+    _free()
+    cfg, loop = _train_cfg(t["layers"], "bfloat16"), _train_loop(t["steps"])
+    _reset_peak()
+    flash_lib.reset_launches()
+    with _flash_shapes() as seen:
+        state, hist, _ = train_lib.train(cfg, loop, DEV, mesh=mesh)
+    _sync()
+    launched = dict(flash_lib.LAUNCHES)
+    losses = [m["loss"] for _, m in hist]
+    secs = [m["step_s"] for _, m in hist]
+    gaps = [(a - b) / b for a, b in zip(losses, refs["train_bf16"])]
+    med = statistics.median(secs[1:])
+    log(f"  train_2x2 bf16 ({t['layers']} layers, batch {loop.batch} x "
+        f"{loop.seq}, {t['steps']} steps): losses "
+        + " ".join(f"{x:.4f}" for x in losses) + "; gap to one card per step "
+        + " ".join(f"{g:+.2e}" for g in gaps) + f" (gate |gap| <= "
+        f"{t['bf16_gap']:.0e}); median step {med:.3f} s (one card "
+        f"{statistics.median(refs['train_bf16_s'][1:]):.3f} s) = "
+        f"{loop.batch * loop.seq / med:.0f} tokens/s; peak {_peak_gib():.2f} "
+        f"GiB; flash launches {launched} at "
+        + ", ".join(f"BH={s[0]} S={s[1]} D={s[3]} {str(s[4]).split('.')[-1]}"
+                    for s in sorted(seen, key=str)))
+    require(all(math.isfinite(x) for x in losses) and losses[-1] < losses[0],
+            "train_2x2: losses not finite and falling")
+    require(max(abs(g) for g in gaps) <= t["bf16_gap"],
+            f"train_2x2 bf16: gap {gaps}")
+    prof = _train_traced(cfg, state, loop, mesh, "train_2x2 step")
+    return {"losses": losses, "gaps": gaps, "step_s": med,
+            "tokens_per_s": loop.batch * loop.seq / med, "peak_gib": _peak_gib(),
+            "launches": launched, "shapes": sorted(map(str, seen)),
+            "collective_bytes_step": prof["collective"]["sent"], "trace": prof,
+            "fp32_err": err}
+
+
+def _cell_train_tp4(mesh, n: int) -> dict:
+    """llama3-8b at its 32 layers on (data 1, model n): one card cannot
+    hold its fp32 state; losses finite and falling over 10 steps."""
+    t = TRAIN_MESH
+    cfg, loop = _train_cfg(t["tp4_layers"], "bfloat16"), _train_loop(t["steps"])
+    _reset_peak()
+    flash_lib.reset_launches()
+    t0 = time.perf_counter()
+    with _flash_shapes() as seen:
+        state, hist, _ = train_lib.train(cfg, loop, DEV, mesh=mesh)
+    _sync()
+    wall = time.perf_counter() - t0
+    launched = dict(flash_lib.LAUNCHES)
+    losses = [m["loss"] for _, m in hist]
+    secs = [m["step_s"] for _, m in hist]
+    med = statistics.median(secs[1:])
+    flops = _model_flops(cfg, loop)
+    state_gib = sum(x.numel() * x.element_size() for tree in (
+        state.params, state.opt.m, state.opt.v) for _, x in _tree_leaves(tree)
+    ) / 2**30
+    log(f"  train_tp4 ({cfg.num_layers} layers, (data 1, model {n}), batch "
+        f"{loop.batch} x {loop.seq}, bf16 compute, remat): losses "
+        + " ".join(f"{x:.4f}" for x in losses) + f"; first step "
+        f"{secs[0]:.3f} s, median of the rest {med:.3f} s (min "
+        f"{min(secs[1:]):.3f}, max {max(secs[1:]):.3f}) = "
+        f"{loop.batch * loop.seq / med:.0f} tokens/s, model FLOPs "
+        f"{flops / 1e12:.1f} T a step = {100 * flops / med / (n * PEAK_BF16_FLOPS):.2f} "
+        f"% of {n} x 989 TFLOP/s; state a card {state_gib:.2f} GiB (params, "
+        f"m, v); peak {_peak_gib():.2f} GiB; train() {wall:.1f} s incl. init; "
+        f"flash launches {launched} at "
+        + ", ".join(f"BH={s[0]} S={s[1]} D={s[3]} {str(s[4]).split('.')[-1]}"
+                    for s in sorted(seen, key=str)))
+    require(all(math.isfinite(x) for x in losses) and losses[-1] < losses[0],
+            f"train_tp4: losses not finite and falling: {losses}")
+    prof = _train_traced(cfg, state, loop, mesh, "train_tp4 step")
+    return {"losses": losses, "step_s": med, "first_step_s": secs[0],
+            "tokens_per_s": loop.batch * loop.seq / med,
+            "flops_share": flops / med / (n * PEAK_BF16_FLOPS),
+            "state_gib": state_gib, "peak_gib": _peak_gib(),
+            "launches": launched, "shapes": sorted(map(str, seen)),
+            "collective_bytes_step": prof["collective"]["sent"], "trace": prof}
+
+
+def _decode_tp4_cfg():
+    return configs.get_config("llama3-8b").replace(param_dtype="float32",
+                                                   compute_dtype="float32")
+
+
+def _cell_decode_tp4(refs: dict, mesh, n: int) -> dict:
+    """llama3-8b, 32 layers, fp32, the rank's slices by
+    ``param_pspecs(phase="inference")`` (heads, MLP and vocabulary over
+    ``model``; the caches' sequence too), against one card's replicated
+    prefill and decode."""
+    c = DECODE_TP4
+    cfg = _decode_tp4_cfg()
+    _reset_peak()
+    gen = torch.Generator(device=DEV)
+    gen.manual_seed(0)
+    params = model_lib.init_params(cfg, gen, DEV, mesh=mesh, phase="inference")
+    require(params["layers"]["attn"]["wq"].shape[2] == cfg.num_heads // n
+            and params["embed"].shape[0] == cfg.vocab_size // n,
+            "decode_tp4: the weights are not sharded over model")
+    mine = sum(x.numel() * x.element_size() for _, x in _tree_leaves(params))
+    logits, t_pre, t_dec, (decode, caches, toks) = _greedy_run(
+        cfg, params, mesh, batch=c["batch"], prompt_len=c["prompt"],
+        steps=c["tokens"], max_len=c["prompt"] + c["tokens"], seed=60)
+    err = _rel(logits, torch.from_numpy(refs["decode_tp4"]))
+    tokens = c["batch"] * c["tokens"]
+    log(f"  decode_tp4 on {n} cards ({cfg.num_layers} layers, fp32, "
+        f"{mine / 2**30:.2f} GiB "
+        f"of weights a card): prefill {c['batch']} x {c['prompt']} "
+        f"{t_pre:.3f} s, {c['tokens']} decode steps {t_dec:.3f} s = "
+        f"{tokens / t_dec:.1f} tokens/s (one card "
+        f"{refs['decode_tp4_tokens_per_s']:.1f}); vs one card's replicated "
+        f"decode {err:.2e} x max|ref| (tol {MESH_TOL['decode']:.0e}); peak "
+        f"{_peak_gib():.2f} GiB")
+    require(err <= MESH_TOL["decode"], f"decode_tp4: {err} off one card")
+    pos = c["prompt"] + c["tokens"] - 1
+    prof = _traced(lambda: decode(params, toks[-1], caches, pos),
+                   f"decode_tp4 step on {n} cards (batch {c['batch']})")
+    return {"err": err, "prefill_s": t_pre, "decode_s": t_dec,
+            "tokens_per_s": tokens / t_dec, "weights_gib": mine / 2**30,
+            "peak_gib": _peak_gib(),
+            "collective_bytes_step": prof["collective"]["sent"], "trace": prof}
+
+
 def _cell_grid(refs: dict, requests: int, n: int) -> dict:
     """The grid serve on a 2x2 mesh of cards: streams identical to the
     one-card grid and flat runs of the same trace."""
@@ -4110,21 +4496,11 @@ def _cell_grid(refs: dict, requests: int, n: int) -> dict:
         f"shards in turn) and {refs['flat_wall']:.2f} s (flat)")
     require(same_grid and same_flat,
             "grid serve: the card mesh's streams differ from one card's")
-    # collectives of one decode step (8 slots): per dense site an int32
-    # (8, ceil(N/2)) all_reduce over gx and all_gather over gy, then the
-    # token check's all_gather of 8 int32 over the 4 ranks
-    nbytes = 0.0
-    for k, n_out in (*SITE_SHAPES, (cfg.d_model, cfg.vocab_size)):
-        mult = cfg.num_layers if (k, n_out) in SITE_SHAPES else 1
-        part = 8 * -(-n_out // GRID[1]) * 4
-        nbytes += mult * (_ring_bytes("all_reduce", part, GRID[0])
-                          + _ring_bytes("all_gather", GRID[1] * part, GRID[1]))
-    nbytes += _ring_bytes("all_gather", n * 8 * 4, n)
     prof = _decode_step_profile_mesh(engine, cfg)
     return {"wall_s": wall, "decode_steps": rep.decode_steps,
             "steps_per_s": rep.decode_steps / wall, "tokens_per_s":
             rep.tokens / wall, "launches": launches, "peak_gib": _peak_gib(),
-            "collective_bytes_step": nbytes, "trace": prof}
+            "collective_bytes_step": prof["collective"]["sent"], "trace": prof}
 
 
 def _decode_step_profile_mesh(engine, cfg) -> dict:
@@ -4169,7 +4545,7 @@ def _cell_decode32k(refs: dict, mesh, n: int) -> dict:
     _reset_peak()
     gen = torch.Generator(device=DEV)
     gen.manual_seed(0)
-    params = model_lib.init_params(cfg, gen, device=DEV)
+    params = model_lib.init_params(cfg, gen, DEV, mesh=mesh, phase="inference")
     caches = model_lib.init_caches(cfg, c["batch"], c["max_len"],
                                    torch.bfloat16, DEV, mesh=mesh)
     s_local = c["max_len"] // n
@@ -4207,29 +4583,32 @@ def _cell_decode32k(refs: dict, mesh, n: int) -> dict:
         require(err <= tol, f"decode_32k {dt}: {err} off the one-card run")
         res[dt] = {"step_ms": [w * 1e3 for w in walls], "err": err,
                    "top1": agree, "steps_per_s": len(walls) / sum(walls)}
-    # per layer: all_reduce MAX of m (B, H, 1) f32, SUM of l (B, H, 1) f32
-    # and of the context (B, H, 1, hd) in the compute dtype
-    stat = c["batch"] * cfg.num_heads * 4
-    ctx = c["batch"] * cfg.num_heads * cfg.resolved_head_dim * 2
-    nbytes = cfg.num_layers * sum(_ring_bytes("all_reduce", x, n)
-                                  for x in (stat, stat, ctx))
     decode = steps_lib.make_decode_step(cfg, mesh, c["batch"], c["max_len"],
                                         params)
     pos = c["max_len"] - 1
     prof = _traced(lambda: decode(params, toks[-1], caches, pos),
                    f"decode_32k step on {n} cards (batch {c['batch']}, bf16)")
-    return {**res, "peak_gib": _peak_gib(), "collective_bytes_step": nbytes,
-            "trace": prof}
+    return {**res, "peak_gib": _peak_gib(),
+            "collective_bytes_step": prof["collective"]["sent"], "trace": prof}
 
 
 def _ep_run(cfg, mesh, n: int, *, seed: int, run: dict, prompt_seed: int):
-    """The rank's expert slice of a seeded tree, then ``_greedy_run``."""
+    """The rank's slices of a seeded tree by ``param_pspecs(phase=
+    "inference")`` (its experts drawn alone), then ``_greedy_run``."""
     from repro_torch.models import moe as moe_lib
     e_local = cfg.moe.num_experts // n
     r = mesh.axis_index("model")
     require(moe_lib.ep_shards(cfg, mesh) == n,
             "the mesh does not split the experts")
     params = _seeded_tree(cfg, seed, (r * e_local, (r + 1) * e_local))
+
+    def cut(leaf, spec, shape):
+        if tuple(leaf.shape) != tuple(shape):        # the rank's experts
+            return leaf
+        return leaf[model_lib.rank_block(spec, shape, mesh)].clone()
+    params = model_lib.map_with_specs(
+        cut, params, model_lib.param_pspecs(cfg, mesh, "inference"),
+        model_lib.param_shapes(cfg))
     out = _greedy_run(cfg, params, mesh, batch=run["batch"],
                       prompt_len=run["prompt"], steps=run["tokens"],
                       max_len=run["prompt"] + run["tokens"], seed=prompt_seed)
@@ -4260,9 +4639,11 @@ def _cell_moe(refs: dict, mesh, n: int) -> dict:
     _reset_peak()
     cfg = _moe_cfg(m["layers"], ep_impl="a2a")
     t0 = time.perf_counter()
+    coll.reset()
     params, (logits, t_pre, t_dec, (decode, caches, toks)) = _ep_run(
         cfg, mesh, n, seed=7, run=m, prompt_seed=40)
     _sync()
+    run_bytes = float(sum(coll.SENT.values()))
     init_s = time.perf_counter() - t0 - t_pre - t_dec
     require(bool(torch.isfinite(logits).all()), "moe EP: non-finite logits")
     tokens = m["batch"] * m["tokens"]
@@ -4270,27 +4651,16 @@ def _cell_moe(refs: dict, mesh, n: int) -> dict:
         f"{cfg.moe.num_experts // n} experts a card: init {init_s:.1f} s, "
         f"prefill {m['batch']} x {m['prompt']} (a2a) {t_pre:.2f} s, "
         f"{m['tokens']} decode steps (psum) {t_dec:.2f} s = "
-        f"{tokens / t_dec:.1f} tokens/s; peak {_peak_gib():.2f} GiB")
-    t_pf, d = m["batch"] * m["prompt"], cfg.d_model
-    cap = min(t_pf // n, max(4, math.ceil(t_pf // n * cfg.moe.top_k
-                                          / cfg.moe.num_experts
-                                          * cfg.moe.capacity_factor)))
-    a2a = 2 * _ring_bytes("all_to_all", cfg.moe.num_experts * cap * d * 4, n)
-    prefill_bytes = cfg.num_layers * (
-        a2a + _ring_bytes("all_reduce", t_pf * d * 4, n)
-        + _ring_bytes("all_reduce", 4, n))
-    decode_bytes = cfg.num_layers * _ring_bytes(
-        "all_reduce", m["batch"] * d * 4, n) + cfg.num_layers * sum(
-        _ring_bytes("all_reduce", x, n) for x in (
-            m["batch"] * cfg.num_heads * 4,
-            (1 + cfg.resolved_head_dim) * m["batch"] * cfg.num_heads * 4))
+        f"{tokens / t_dec:.1f} tokens/s; peak {_peak_gib():.2f} GiB; "
+        f"collectives of the prefill and decode steps {run_bytes / 1e6:.3f} "
+        f"MB sent a rank (counted)")
     pos = m["prompt"] + m["tokens"] - 1
     prof = _traced(lambda: decode(params, toks[-1], caches, pos),
                    f"moe EP decode step on {n} cards (phi3.5-moe, "
                    f"{m['layers']} layers, batch {m['batch']})")
     res.update(prefill_s=t_pre, decode_s=t_dec, tokens_per_s=tokens / t_dec,
-               peak_gib=_peak_gib(), collective_bytes_prefill=prefill_bytes,
-               collective_bytes_step=decode_bytes, trace=prof)
+               peak_gib=_peak_gib(), collective_bytes_run=run_bytes,
+               collective_bytes_step=prof["collective"]["sent"], trace=prof)
     return res
 
 
@@ -4318,19 +4688,13 @@ def _cell_mla(refs: dict, mesh, n: int) -> dict:
         f"{m['batch']} x {m['prompt']} {t_pre:.2f} s, {m['tokens']} "
         f"decode steps {t_dec:.2f} s = {tokens / t_dec:.1f} tokens/s; "
         f"peak {_peak_gib():.2f} GiB")
-    ml, d = cfg.mla, cfg.d_model
-    decode_bytes = cfg.num_layers * (
-        _ring_bytes("all_reduce", m["batch"] * d * 4, n) + sum(
-            _ring_bytes("all_reduce", x, n) for x in (
-                m["batch"] * cfg.num_heads * 4,
-                (1 + ml.kv_lora_rank) * m["batch"] * cfg.num_heads * 4)))
     pos = m["prompt"] + m["tokens"] - 1
     prof = _traced(lambda: decode(params, toks[-1], caches, pos),
                    f"mla decode step on {n} cards (deepseek-v3, "
                    f"{m['layers']} layers, batch {m['batch']})")
     return {"err": err, "prefill_s": t_pre, "decode_s": t_dec,
             "tokens_per_s": tokens / t_dec, "peak_gib": _peak_gib(),
-            "collective_bytes_step": decode_bytes, "trace": prof}
+            "collective_bytes_step": prof["collective"]["sent"], "trace": prof}
 
 
 def _mesh_rank(rank: int, n: int, port: int, refs: dict | None,
@@ -4348,21 +4712,36 @@ def _mesh_rank(rank: int, n: int, port: int, refs: dict | None,
     out: dict = {"rank": rank, "device": str(dev)}
     mesh = mesh_lib.make_mesh((1, n), ("data", "model"), DEV.type)
     try:
-        with torch.no_grad():
-            if n == 1:
+        if n == 1:
+            with torch.no_grad():
                 _world1_checks(mesh, out)
-            else:
-                for name, cell in (
-                        ("grid", lambda: _cell_grid(refs, requests, n)),
-                        ("decode_32k", lambda: _cell_decode32k(refs, mesh, n)),
-                        ("moe", lambda: _cell_moe(refs, mesh, n)),
-                        ("mla", lambda: _cell_mla(refs, mesh, n))):
-                    _reset_peak()
-                    t0 = time.perf_counter()
-                    out[name] = cell()
-                    out[name]["cell_s"] = time.perf_counter() - t0
-                    out[name]["peak_gib"] = _peak_gib()
+            _world1_train(mesh, out)     # gradients: outside no_grad
+        else:
+            failed = []
+            for name, cell in (
+                    ("grid", lambda: _cell_grid(refs, requests, n)),
+                    ("decode_32k", lambda: _cell_decode32k(refs, mesh, n)),
+                    ("moe", lambda: _cell_moe(refs, mesh, n)),
+                    ("mla", lambda: _cell_mla(refs, mesh, n)),
+                    ("train_2x2", lambda: _cell_train_2x2(refs)),
+                    ("train_tp4", lambda: _cell_train_tp4(mesh, n)),
+                    ("decode_tp4", lambda: _cell_decode_tp4(refs, mesh, n))):
+                _reset_peak()
+                t0 = time.perf_counter()
+                try:
+                    with torch.set_grad_enabled(name.startswith("train")):
+                        out[name] = cell()
+                except Failed as exc:
+                    # a gate, met alike on every rank after the cell's
+                    # collectives: the next cells still run
+                    failed.append(f"{name}: {exc}")
+                    log(f"  {name} FAILED: {exc}")
                     _free()
+                    continue
+                out[name]["cell_s"] = time.perf_counter() - t0
+                out[name].setdefault("peak_gib", _peak_gib())
+                _free()
+            require(not failed, "; ".join(failed))
         with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as fh:
             json.dump(out, fh, default=float)
     finally:
@@ -4378,8 +4757,8 @@ def _free_port() -> int:
 
 def phase_mesh(requests: int) -> dict:
     """One rank per visible card.  World 1 (one card): the sharded functions
-    on the NCCL group of one.  World 4: the four cells, after their
-    one-card counterparts ran here."""
+    and the sharded train step on the NCCL group of one.  World 4: the
+    cells of ``MESH_CELLS``, after their one-card counterparts ran here."""
     import torch.multiprocessing as mp
     n = torch.cuda.device_count() if DEV.type == "cuda" else 4
     if n not in (1, 4):
@@ -4417,22 +4796,28 @@ def phase_mesh(requests: int) -> dict:
     log(f"  mesh phase: world {n}, one-card references {t_refs:.1f} s, "
         f"{wall:.1f} s in all")
     if n == 1:
-        return {"launches": results[0]["launches"]}
-    for cell in ("grid", "decode_32k", "moe", "mla"):
+        return {"launches": results[0]["launches"],
+                "errs": results[0]["flash_errs"]}
+    for cell in MESH_CELLS:
         peaks = [res[cell]["peak_gib"] for res in results]
+        sent = [res[cell]["collective_bytes_step"] for res in results]
         log(f"  {cell}: {results[0][cell]['cell_s']:.1f} s on rank 0; "
             f"max_memory_allocated by rank " + ", ".join(
-                f"{p:.2f}" for p in peaks) + " GiB; collectives "
-            f"{results[0][cell]['collective_bytes_step'] / 1e6:.3f} MB a rank "
-            f"a decode step (reckoned from shapes) = "
-            f"{results[0][cell]['collective_bytes_step'] / NVLINK_BYTES_PER_S * 1e6:.2f}"
-            f" us at 450 GB/s NVLink")
+                f"{p:.2f}" for p in peaks) + " GiB; collectives a step sent "
+            "by rank (counted) " + ", ".join(f"{b / 1e6:.3f}" for b in sent)
+            + f" MB = {max(sent) / NVLINK_BYTES_PER_S * 1e6:.2f} us at 450 "
+            f"GB/s NVLink")
         require(max(peaks) < 80, f"mesh {cell}: a card's peak is {max(peaks)} GiB")
     log("  grid serve tub_gemm launches by rank: " + ", ".join(
         str(res["grid"]["launches"]["tub_gemm"]) for res in results))
-    return {"launches": {"tub_gemm": results[0]["grid"]["launches"]["tub_gemm"],
-                         "fused_paged_decode":
-                         results[0]["grid"]["launches"]["fused_paged_decode"]}}
+    launches = {
+        "tub_gemm": results[0]["grid"]["launches"]["tub_gemm"],
+        "fused_paged_decode":
+            results[0]["grid"]["launches"]["fused_paged_decode"]}
+    for cell in ("train_2x2", "train_tp4"):
+        log(f"  {cell} flash launches by rank: " + ", ".join(
+            str(res[cell]["launches"]) for res in results))
+    return {"launches": launches, "errs": {}}
 
 
 # ---------------------------------------------------------------------------
@@ -4965,6 +5350,8 @@ def main() -> int:
         if "mesh" in phases:             # spawns one rank per card
             log("phase mesh")
             mesh = phase_mesh(args.requests)
+            for name, err in mesh["errs"].items():
+                errs[name] = max(errs[name], err)
             gc.collect()
             torch.cuda.empty_cache()
         if "times" in phases:

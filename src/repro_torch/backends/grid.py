@@ -347,7 +347,7 @@ class GridBackend(GemmBackend):
         column band is zero-padded to the ceil width (the gather wants equal
         sizes) and cut after it.
         """
-        import torch.distributed as dist
+        from repro_torch.launch import collectives as coll
 
         mesh = self.mesh()
         coord = codes.owner
@@ -361,12 +361,10 @@ class GridBackend(GemmBackend):
         width = cols.stop - cols.start
         if rows.stop > rows.start and width > 0:
             part[:, :width] = fn(a[:, rows].contiguous(), block, self.bits)
-        dist.all_reduce(part, op=dist.ReduceOp.SUM,
-                        group=mesh.axis_group("gx"))
+        coll.all_reduce_(part, mesh.axis_group("gx"))
         gathered = torch.empty((self.units_y * m, ns), dtype=acc_dtype,
                                device=a.device)
-        dist.all_gather_into_tensor(gathered, part,
-                                    group=mesh.axis_group("gy"))
+        coll.all_gather_into(gathered, part, mesh.axis_group("gy"))
         # (Y, M, ns) -> (M, Y * ns), then cut the padding of the last band
         out = gathered.view(self.units_y, m, ns).permute(1, 0, 2)
         return out.reshape(m, self.units_y * ns)[:, :codes.n].contiguous()

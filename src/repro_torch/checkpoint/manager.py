@@ -13,6 +13,13 @@ reference's pytrees, so either package restores the other's checkpoints.
 bfloat16 leaves are written as float32 (numpy has no bfloat16); ``restore``
 casts every leaf to its target's dtype.  Saves go to ``step_X.tmp`` and are
 renamed into place, so a crash mid-save never corrupts the latest one.
+
+A state sharded over a distributed mesh is saved in the same layout, one
+leaf at a time: the manager's ``shards`` (``launch.steps.StateShards``)
+gather one whole leaf into the writing rank's host memory, a block of rows
+at a time on the card, and it is written and freed before the next, so no
+rank holds more than one whole leaf.  A restore maps each file and copies
+out the rank's slice alone.  A one-device or reference checkpoint resumes on a mesh and back.
 """
 
 from __future__ import annotations
@@ -77,18 +84,28 @@ def _to_numpy(leaf) -> np.ndarray:
 
 def save(ckpt_dir: str, step: int, tree: Any, extras: dict | None = None) -> str:
     """Blocking atomic save.  Returns the final directory path."""
+    return _write(ckpt_dir, step, _flatten(tree), extras)
+
+
+def _write(ckpt_dir: str, step: int, leaves, extras: dict | None) -> str:
+    """:func:`save` of ``(key, leaf)`` pairs in flatten order, each one
+    written (and dropped) before the next is drawn."""
     final = os.path.join(ckpt_dir, f"step_{step:09d}")
     tmp = final + ".tmp"
     if os.path.exists(tmp):
         shutil.rmtree(tmp)
     os.makedirs(tmp, exist_ok=True)
     manifest = {"step": step, "extras": extras or {}, "leaves": {}}
-    for i, (key, leaf) in enumerate(_flatten(tree)):
+    # no enumerate: its cached result tuple would keep the last leaf alive
+    # while the next one is drawn
+    for key, leaf in leaves:
         arr = _to_numpy(leaf)
-        fname = f"leaf_{i:05d}.npy"
+        del leaf
+        fname = f"leaf_{len(manifest['leaves']):05d}.npy"
         np.save(os.path.join(tmp, fname), arr)
         manifest["leaves"][key] = {
             "file": fname, "shape": list(arr.shape), "dtype": str(arr.dtype)}
+        del arr
     with open(os.path.join(tmp, "manifest.json"), "w") as f:
         json.dump(manifest, f)
     with open(os.path.join(tmp, "COMPLETE"), "w") as f:
@@ -112,11 +129,13 @@ def latest_step(ckpt_dir: str) -> int | None:
 
 
 def restore(ckpt_dir: str, target: Any, step: int | None = None,
-            device=None) -> tuple[Any, int, dict]:
+            device=None, cut=None) -> tuple[Any, int, dict]:
     """Restore into the structure of ``target`` (tensor leaves).
 
     Every leaf takes its target's dtype and ``requires_grad`` and lands on
-    ``device`` (default: the target leaf's device).  Returns (tree, step,
+    ``device`` (default: the target leaf's device).  ``cut(key, array)``,
+    if given, takes the part of a (memory-mapped) stored array that the
+    target leaf holds; only that part is read.  Returns (tree, step,
     extras).
     """
     step = latest_step(ckpt_dir) if step is None else step
@@ -130,11 +149,13 @@ def restore(ckpt_dir: str, target: Any, step: int | None = None,
         ent = manifest["leaves"].get(key)
         if ent is None:
             raise KeyError(f"checkpoint missing leaf {key!r}")
-        arr = np.load(os.path.join(d, ent["file"]))
+        arr = np.load(os.path.join(d, ent["file"]), mmap_mode="r")
+        if cut is not None:
+            arr = cut(key, arr)
         if tuple(arr.shape) != tuple(tgt.shape):
             raise ValueError(f"shape mismatch for {key}: ckpt {arr.shape} "
                              f"vs target {tuple(tgt.shape)}")
-        out = torch.from_numpy(arr).to(
+        out = torch.from_numpy(np.array(arr)).to(
             device=tgt.device if device is None else device, dtype=tgt.dtype)
         return out.requires_grad_(tgt.requires_grad)
 
@@ -144,10 +165,18 @@ def restore(ckpt_dir: str, target: Any, step: int | None = None,
 class CheckpointManager:
     """keep-last-k retention + optional async (background-thread) saves."""
 
-    def __init__(self, ckpt_dir: str, keep: int = 3, async_save: bool = True):
+    def __init__(self, ckpt_dir: str, keep: int = 3, async_save: bool = True,
+                 shards=None):
+        """``shards``: for a state sharded over a mesh, an object with
+        ``places(tree)`` (checkpoint key -> where the leaf's slices lie, for
+        the sliced leaves), ``gather(leaf, place, host)`` (the whole leaf
+        on the host when ``host``; every rank calls it), ``cut(array,
+        place)`` (the rank's slice of a whole array), ``writer`` (whether
+        this rank writes) and ``barrier()``.  A sharded save is blocking."""
         self.dir = ckpt_dir
         self.keep = keep
         self.async_save = async_save
+        self.shards = shards
         self._thread: threading.Thread | None = None
         os.makedirs(ckpt_dir, exist_ok=True)
 
@@ -157,6 +186,10 @@ class CheckpointManager:
             self._thread = None
 
     def save(self, step: int, tree: Any, extras: dict | None = None):
+        if self.shards is not None:
+            self.wait()
+            self._save_sharded(step, tree, extras)
+            return
         # copy to host before returning: the training loop updates its
         # tensors in place right after
         host_tree = _rebuild(tree, lambda _, leaf: _to_numpy(leaf))
@@ -172,9 +205,27 @@ class CheckpointManager:
         else:
             work()
 
+    def _save_sharded(self, step: int, tree: Any, extras: dict | None):
+        """One whole leaf at a time: gathered to the writer's host (a block
+        of it at a time on the card), written, freed before the next."""
+        shards = self.shards
+        places = shards.places(tree)
+        if shards.writer:
+            _write(self.dir, step, ((key, shards.gather(leaf, places.get(key)))
+                                    for key, leaf in _flatten(tree)), extras)
+            self._gc()
+        else:
+            for key, leaf in _flatten(tree):
+                shards.gather(leaf, places.get(key), host=False)
+        shards.barrier()            # the checkpoint is complete on every rank
+
     def restore_latest(self, target: Any, device=None):
         self.wait()
-        return restore(self.dir, target, device=device)
+        cut = None
+        if self.shards is not None:
+            places = self.shards.places(target)
+            cut = lambda key, arr: self.shards.cut(arr, places.get(key))
+        return restore(self.dir, target, device=device, cut=cut)
 
     def has_checkpoint(self) -> bool:
         return latest_step(self.dir) is not None

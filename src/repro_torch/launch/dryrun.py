@@ -8,8 +8,9 @@ the ``meta`` device — shapes only, no FLOPs, no memory — under
 autograd gradients, AdamW update in place), prefill into ``seq_len``
 caches, or one decode token against a full ``seq_len`` cache.  The mesh is
 the one device (``"mesh": "1"``, ``"chips": 1``); ``--multi-pod`` and
-``--both`` ask for the reference's production meshes, which raise through
-``launch.mesh.make_production_mesh`` (ROADMAP Queue 1 item 6).  One device
+``--both`` ask for the reference's production meshes, which
+``launch.mesh.make_production_mesh`` refuses in a world of another size
+than theirs (512 ranks for the multi-pod mesh).  One device
 has no expert parallelism, so the reference's ``--ep-impl`` has no
 counterpart.
 
@@ -168,7 +169,7 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool = False,
     """Trace one cell and write its JSON record (``out_dir`` None: none).
     ``cfg`` overrides the published config (a cut, say)."""
     if multi_pod:
-        make_production_mesh(multi_pod=True)        # raises: item 6
+        make_production_mesh(multi_pod=True)   # raises below 512 ranks
     cfg = configs.get_config(arch) if cfg is None else cfg
     rec = {"arch": arch, "shape": shape_name, "mesh": "1", "chips": 1}
     t0 = time.perf_counter()

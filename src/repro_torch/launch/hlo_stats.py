@@ -5,10 +5,12 @@ operations one eager step dispatches (:mod:`repro_torch.launch.hlo_cost`)
 and turns their counts into the three roofline terms here.
 
 ``collective_bytes(hlo_text)`` is not ported, by design: it parses XLA's
-partitioned HLO text, and eager PyTorch emits none.  A one-device step
-runs no collective, so its collective term is 0 bytes; the multi-device
-slice (ROADMAP Queue 1 item 6) brings a count of the
-``torch.distributed`` traffic in its place.
+partitioned HLO text, and eager PyTorch emits none.  In its place every
+collective of the port goes through :mod:`repro_torch.launch.collectives`,
+which counts each call's payload bytes by kind (the names of
+:data:`COLLECTIVES`) and returns them as a :class:`CollectiveStats`
+(``collectives.stats()``).  A one-device step runs no collective, so its
+term is 0 bytes (:func:`no_collectives`).
 """
 
 from __future__ import annotations

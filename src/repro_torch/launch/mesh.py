@@ -21,10 +21,9 @@ Two kinds of mesh, one class:
 ``with mesh:`` makes a mesh the current one (:func:`current_mesh`), standing
 in for the reference's ``_current_mesh()``: the sequence-sharded decodes
 (``models/attention.py``) and expert parallelism (``models/moe.py``) read it.
-:func:`grid_mesh` is the (cached) mesh a grid backend executes on.
-
-The production pod meshes of ``launch/train.py --mesh pod|multipod`` still
-raise: training on a mesh is ROADMAP Queue 1 item 6's part that is left.
+:func:`grid_mesh` is the (cached) mesh a grid backend executes on, and
+:func:`make_production_mesh` the reference's pod meshes of ``launch/train.py
+--mesh pod|multipod``.
 """
 
 from __future__ import annotations
@@ -43,8 +42,9 @@ __all__ = ["Mesh", "make_production_mesh", "make_mesh", "make_grid_mesh",
            "init_distributed", "distributed", "world_size", "rank",
            "DEFAULT_TIMEOUT_S"]
 
-_MULTI_DEVICE_MSG = ("needs one device per position, which the port does not "
-                     "have yet (ROADMAP Queue 1 item 6, multi-device training)")
+_MULTI_DEVICE_MSG = ("needs one device per position, which the port's "
+                     "pipeline does not have yet (ROADMAP Queue 1 item 6, the "
+                     "pipeline across cards)")
 
 #: the process group's timeout: a rank that diverges (and leaves the others
 #: waiting in a collective) fails the run after this long instead of hanging
@@ -265,15 +265,20 @@ def make_mesh(shape: tuple[int, ...], axes: tuple[str, ...],
                 groups=_line_groups(shape, axes, me))
 
 
-def make_production_mesh(*, multi_pod: bool = False) -> Mesh:
-    """The reference's 16x16 (256 chips) or 2x16x16 (512 chips) training
-    mesh: refused, naming its positions against the world size."""
-    shape = (2, 16, 16) if multi_pod else (16, 16)
+def make_production_mesh(*, multi_pod: bool = False, device="cuda") -> Mesh:
+    """The reference's ``("data", "model")`` 16x16 training mesh (256
+    positions) or its ``("pod", "data", "model")`` 2x16x16 (512), one rank
+    a position.  A world of another size raises ``NotImplementedError``,
+    naming both counts (nothing is emulated)."""
+    shape, axes = (((2, 16, 16), ("pod", "data", "model")) if multi_pod
+                   else ((16, 16), ("data", "model")))
     n = math.prod(shape)
-    raise NotImplementedError(
-        f"the {'x'.join(map(str, shape))} production mesh has {n} positions "
-        f"and the world has {world_size()} rank(s); training on a mesh "
-        f"{_MULTI_DEVICE_MSG}")
+    if world_size() != n:
+        raise NotImplementedError(
+            f"the {'x'.join(map(str, shape))} production mesh has {n} "
+            f"positions and the world has {world_size()} rank(s): run one "
+            f"rank a position (torchrun with {n} processes in all)")
+    return make_mesh(shape, axes, device)
 
 
 def make_grid_mesh(units_x: int, units_y: int, device="cuda") -> Mesh:

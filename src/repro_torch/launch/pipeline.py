@@ -18,7 +18,7 @@ the share of the reference schedule those ticks take, ``(P - 1) / (M + P -
 
 The mesh comes from ``launch.mesh.make_pipeline_mesh``: every stage on one
 device.  A mesh whose stages sit on several devices raises
-``NotImplementedError`` (ROADMAP Queue 1 item 6, multi-device meshes).
+``NotImplementedError`` (ROADMAP Queue 1 item 6, the pipeline across cards).
 """
 
 from __future__ import annotations

@@ -27,6 +27,16 @@ decode then runs flash-decoding across the ranks
 ``psum``.  :func:`_update_cache` writes only the positions the rank owns.
 A multi-token cached call (prefill) must start at position 0 and attends
 over the prompt's own K/V, everything the cache holds at that point.
+
+**Head-parallel weights** (a rank's ``model`` slice of ``wq`` / ``w_uq`` /
+``w_uk`` / ``w_uv`` / ``wo``; ``tp=`` a mesh, Megatron style).  Without a
+cache the rank attends with its own heads only: its query heads ``[r H/n,
+(r+1) H/n)`` and the replicated KV heads they read (``wk`` /
+``wv`` sliced to those, their gradient summed over ``model``), through the
+flash kernels at the per-rank head count; ``wo`` is row-parallel with one
+``all_reduce``.  With a cache (serving) the rank's query heads are gathered
+to all of them, the cached paths above run as on one device, and ``wo``
+takes the rank's heads of their output.
 """
 
 from __future__ import annotations
@@ -36,6 +46,7 @@ import math
 import torch
 import torch.distributed as dist
 
+from repro_torch.launch import collectives as coll
 from repro_torch.launch import mesh as mesh_lib
 from repro_torch.models import rope as rope_lib
 from repro_torch.models.common import ParamDef, dense, rmsnorm
@@ -54,10 +65,11 @@ KV_CHUNK = 2048
 def gqa_defs(cfg: ModelConfig) -> dict:
     d, h, kvh, hd = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
     return {
-        "wq": ParamDef((d, h, hd)),
-        "wk": ParamDef((d, kvh, hd)),
-        "wv": ParamDef((d, kvh, hd)),
-        "wo": ParamDef((h, hd, d), fan_in_axes=(0, 1)),
+        "wq": ParamDef((d, h, hd), ("embed", "heads", "head_dim")),
+        "wk": ParamDef((d, kvh, hd), ("embed", "kv_heads", "head_dim")),
+        "wv": ParamDef((d, kvh, hd), ("embed", "kv_heads", "head_dim")),
+        "wo": ParamDef((h, hd, d), ("heads", "head_dim", "embed"),
+                       fan_in_axes=(0, 1)),
     }
 
 
@@ -67,15 +79,18 @@ def mla_defs(cfg: ModelConfig) -> dict:
     d, h = cfg.d_model, cfg.num_heads
     qk = m.nope_head_dim + m.rope_head_dim
     return {
-        "w_dq": ParamDef((d, m.q_lora_rank)),
-        "q_norm": ParamDef((m.q_lora_rank,), init="ones"),
-        "w_uq": ParamDef((m.q_lora_rank, h, qk)),
-        "w_dkv": ParamDef((d, m.kv_lora_rank)),
-        "kv_norm": ParamDef((m.kv_lora_rank,), init="ones"),
-        "w_kr": ParamDef((d, m.rope_head_dim)),
-        "w_uk": ParamDef((m.kv_lora_rank, h, m.nope_head_dim)),
-        "w_uv": ParamDef((m.kv_lora_rank, h, m.v_head_dim)),
-        "wo": ParamDef((h, m.v_head_dim, d), fan_in_axes=(0, 1)),
+        "w_dq": ParamDef((d, m.q_lora_rank), ("embed", "lora")),
+        "q_norm": ParamDef((m.q_lora_rank,), ("lora",), init="ones"),
+        "w_uq": ParamDef((m.q_lora_rank, h, qk), ("lora", "heads", "head_dim")),
+        "w_dkv": ParamDef((d, m.kv_lora_rank), ("embed", "lora")),
+        "kv_norm": ParamDef((m.kv_lora_rank,), ("lora",), init="ones"),
+        "w_kr": ParamDef((d, m.rope_head_dim), ("embed", "head_dim")),
+        "w_uk": ParamDef((m.kv_lora_rank, h, m.nope_head_dim),
+                         ("lora", "heads", "head_dim")),
+        "w_uv": ParamDef((m.kv_lora_rank, h, m.v_head_dim),
+                         ("lora", "heads", "head_dim")),
+        "wo": ParamDef((h, m.v_head_dim, d), ("heads", "head_dim", "embed"),
+                       fan_in_axes=(0, 1)),
     }
 
 
@@ -255,19 +270,19 @@ def _lse_combine(m, l, ctx, mesh) -> torch.Tensor:
     """
     group = mesh.axis_group("model")
     m_g = m.clone()
-    dist.all_reduce(m_g, op=dist.ReduceOp.MAX, group=group)
+    coll.all_reduce_(m_g, group, dist.ReduceOp.MAX)
     alpha = torch.exp(m - m_g)
     l_a = l * alpha
     ctx_a = ctx * alpha[..., None].to(ctx.dtype)
     if ctx_a.dtype == torch.float32:
         packed = torch.cat([l_a.reshape(-1), ctx_a.reshape(-1)])
-        dist.all_reduce(packed, op=dist.ReduceOp.SUM, group=group)
+        coll.all_reduce_(packed, group)
         l_g = packed[: l_a.numel()].reshape(l_a.shape)
         ctx_g = packed[l_a.numel():].reshape(ctx_a.shape)
     else:
         l_g, ctx_g = l_a.contiguous(), ctx_a.contiguous()
-        dist.all_reduce(l_g, op=dist.ReduceOp.SUM, group=group)
-        dist.all_reduce(ctx_g, op=dist.ReduceOp.SUM, group=group)
+        coll.all_reduce_(l_g, group)
+        coll.all_reduce_(ctx_g, group)
     out = ctx_g / torch.clamp(l_g[..., None], min=1e-30).to(ctx_g.dtype)
     return out.permute(0, 2, 1, 3)
 
@@ -312,18 +327,54 @@ def _sharded_decode_attention(q, kc, vc, h: int, *, q_offset, kv_valid_len,
 
 def attention_fwd(params: dict, x: torch.Tensor, cfg: ModelConfig, *,
                   positions: torch.Tensor, cache: dict | None = None,
-                  cache_pos=0, kv_valid_len=None):
-    """Returns (out (B,S,D), new_cache_or_None)."""
+                  cache_pos=0, kv_valid_len=None, tp=None):
+    """Returns (out (B,S,D), new_cache_or_None).  ``tp``: the mesh whose
+    ``model`` ranks each hold a slice of the heads (``common.tp_of``), or
+    None (whole weights)."""
     if cfg.attention == "mla":
         return _mla_fwd(params, x, cfg, positions=positions, cache=cache,
-                        cache_pos=cache_pos, kv_valid_len=kv_valid_len)
+                        cache_pos=cache_pos, kv_valid_len=kv_valid_len, tp=tp)
     return _gqa_fwd(params, x, cfg, positions=positions, cache=cache,
-                    cache_pos=cache_pos, kv_valid_len=kv_valid_len)
+                    cache_pos=cache_pos, kv_valid_len=kv_valid_len, tp=tp)
 
 
-def _gqa_fwd(params, x, cfg, *, positions, cache, cache_pos, kv_valid_len):
+def _kv_span(r: int, h_local: int, h: int, kvh: int) -> tuple[int, int]:
+    """The KV heads ``[k0, k1)`` a rank's query heads ``[r h_local, (r+1)
+    h_local)`` read, so that ``_repeat_kv`` of them to ``h_local`` heads
+    pairs every query head with its own KV head."""
+    g = h // kvh
+    first, last = r * h_local, (r + 1) * h_local - 1
+    k0, k1 = first // g, last // g + 1
+    if h_local % (k1 - k0):
+        raise ValueError(f"{h_local} query heads a rank over {k1 - k0} KV "
+                         f"heads ({h} heads, {kvh} KV heads)")
+    return k0, k1
+
+
+def _gqa_tp_fwd(params, x, cfg, *, positions, tp):
+    """No-cache GQA on the rank's query heads (see the module docstring)."""
+    mesh, r = tp, tp.axis_index("model")
+    h_local = params["wq"].shape[1]
+    k0, k1 = _kv_span(r, h_local, cfg.num_heads, cfg.num_kv_heads)
+    xf = coll.copy_to(x, mesh)
+    q = dense(params["wq"], xf, cfg, name="wq")        # (B,S,H/n,hd)
+    k = dense(coll.copy_to(params["wk"], mesh)[:, k0:k1], xf, cfg, name="wk")
+    v = dense(coll.copy_to(params["wv"], mesh)[:, k0:k1], xf, cfg, name="wv")
+    q = rope_lib.apply_rope(q, positions, cfg.rope_theta)
+    k = rope_lib.apply_rope(k, positions, cfg.rope_theta)
+    out = _mixed_attention(q, _repeat_kv(k, h_local), _repeat_kv(v, h_local),
+                           causal=True)
+    return _out_proj(params, out, cfg, tp)
+
+
+def _gqa_fwd(params, x, cfg, *, positions, cache, cache_pos, kv_valid_len,
+             tp=None):
     h = cfg.num_heads
+    if tp is not None and cache is None:
+        return _gqa_tp_fwd(params, x, cfg, positions=positions, tp=tp), None
     q = dense(params["wq"], x, cfg, name="wq")         # (B,S,H,hd)
+    if tp is not None:
+        q = coll.gather(q, tp, "model", 2, reduce_grad=False)
     k = dense(params["wk"], x, cfg, name="wk")         # (B,S,KVH,hd)
     v = dense(params["wv"], x, cfg, name="wv")
     q = rope_lib.apply_rope(q, positions, cfg.rope_theta)
@@ -352,32 +403,52 @@ def _gqa_fwd(params, x, cfg, *, positions, cache, cache_pos, kv_valid_len):
     else:
         out = _mixed_attention(q, _repeat_kv(k, h), _repeat_kv(v, h),
                                causal=True)
-    return _out_proj(params, out, cfg), new_cache
+    return _out_proj(params, _rank_heads(out, tp), cfg, tp), new_cache
 
 
-def _out_proj(params, attn_out, cfg):
+def _rank_heads(attn_out, tp):
+    """This ``model`` rank's heads of an output over all of them (the
+    cached paths attend with every query head), for its slice of ``wo``."""
+    if tp is None:
+        return attn_out
+    h_local = attn_out.shape[2] // tp.axis_size("model")
+    r = tp.axis_index("model")
+    return attn_out[:, :, r * h_local:(r + 1) * h_local]
+
+
+def _out_proj(params, attn_out, cfg, tp=None):
     """(B,S,H,hd) x (H,hd,D) -> (B,S,D).
 
     Under a backend scope the contraction is routed through ``dense`` as the
     flattened (H*hd, D) GEMM so the output projection is a site
     (``…/attn/wo``) and contracts on the scoped engine; the float path keeps
-    the einsum.
+    the einsum.  With ``tp`` (the rank's heads of ``wo`` and of
+    ``attn_out``) the product is row-parallel: one ``all_reduce``.
     """
     wo = params["wo"]
     from repro_torch.backends import runtime as backend_runtime
     if backend_runtime.active_execution() is not None:
         h, hd, d = wo.shape
         x2 = attn_out.reshape(*attn_out.shape[:-2], h * hd)
-        return dense(wo.reshape(h * hd, d), x2, cfg, name="wo")
-    return torch.einsum("bshd,hde->bse", attn_out, wo.to(attn_out.dtype))
+        out = dense(wo.reshape(h * hd, d), x2, cfg, name="wo")
+    else:
+        out = torch.einsum("bshd,hde->bse", attn_out, wo.to(attn_out.dtype))
+    return out if tp is None else coll.reduce_from(out, tp)
 
 
-def _mla_fwd(params, x, cfg, *, positions, cache, cache_pos, kv_valid_len):
+def _mla_fwd(params, x, cfg, *, positions, cache, cache_pos, kv_valid_len,
+             tp=None):
     m = cfg.mla
     h = cfg.num_heads
+    # the rank's heads of the up-projections (a cached call has them whole:
+    # common.CACHED_GATHERED)
+    tp_up = tp if cache is None else None
     # query path: low-rank down -> norm -> up, split nope/rope
     cq = rmsnorm(params["q_norm"], dense(params["w_dq"], x, cfg, name="w_dq"),
                  cfg.rms_eps)
+    if tp_up is not None:
+        cq = coll.copy_to(cq, tp_up)
+        h = params["w_uq"].shape[1]
     q = dense(params["w_uq"], cq, cfg, name="w_uq")    # (B,S,H,nope+rope)
     q_nope, q_rope = torch.split(
         q, [m.nope_head_dim, q.shape[-1] - m.nope_head_dim], dim=-1)
@@ -409,8 +480,12 @@ def _mla_fwd(params, x, cfg, *, positions, cache, cache_pos, kv_valid_len):
             out = _mla_absorbed_attend(params, q_nope, q_rope,
                                        ckv_c.to(q.dtype), krope_c.to(q.dtype),
                                        cfg, kv_valid_len, q_offset=cache_pos)
+        out = _rank_heads(out, tp)
     else:
         new_cache = None
+        if tp_up is not None:
+            ckv = coll.copy_to(ckv, tp_up)
+            krope = coll.copy_to(krope, tp_up)
         # train / no-cache: materialize per-head K/V from the latent
         k_nope = dense(params["w_uk"], ckv, cfg, name="w_uk")  # (B,S,H,nope)
         vfull = dense(params["w_uv"], ckv, cfg, name="w_uv")   # (B,S,H,vd)
@@ -418,7 +493,7 @@ def _mla_fwd(params, x, cfg, *, positions, cache, cache_pos, kv_valid_len):
         k = torch.cat([k_nope, kr], dim=-1)
         q_all = torch.cat([q_nope, q_rope], dim=-1)
         out = _mixed_attention(q_all, k, vfull, causal=True)
-    return _out_proj(params, out, cfg), new_cache
+    return _out_proj(params, out, cfg, tp), new_cache
 
 
 def _mla_sharded_decode(params, q_nope, q_rope, ckv, krope, cfg, *,

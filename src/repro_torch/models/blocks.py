@@ -29,7 +29,7 @@ from repro_torch.models import attention as attn_lib
 from repro_torch.models import moe as moe_lib
 from repro_torch.models import rwkv as rwkv_lib
 from repro_torch.models import ssm as ssm_lib
-from repro_torch.models.common import ParamDef, rmsnorm
+from repro_torch.models.common import ParamDef, materialize, rmsnorm, tp_of
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.mlp import mlp_defs, mlp_fwd
 
@@ -40,15 +40,15 @@ __all__ = ["layer_defs", "stacked_layer_defs", "shared_attn_defs",
 def layer_defs(cfg: ModelConfig) -> dict:
     """ParamDefs for ONE layer of the given family."""
     if cfg.family == "hybrid" or (cfg.family == "ssm" and cfg.ssm is not None):
-        return {"ln": ParamDef((cfg.d_model,), init="ones"),
+        return {"ln": ParamDef((cfg.d_model,), ("embed",), init="ones"),
                 "ssm": ssm_lib.ssm_defs(cfg)}
     if cfg.family == "ssm" and cfg.rwkv is not None:
         return rwkv_lib.rwkv_defs(cfg)
     # attention transformer
     defs = {
-        "ln1": ParamDef((cfg.d_model,), init="ones"),
+        "ln1": ParamDef((cfg.d_model,), ("embed",), init="ones"),
         "attn": attn_lib.attention_defs(cfg),
-        "ln2": ParamDef((cfg.d_model,), init="ones"),
+        "ln2": ParamDef((cfg.d_model,), ("embed",), init="ones"),
     }
     if cfg.is_moe:
         defs["moe"] = moe_lib.moe_defs(cfg)
@@ -60,9 +60,9 @@ def layer_defs(cfg: ModelConfig) -> dict:
 def shared_attn_defs(cfg: ModelConfig) -> dict:
     """Zamba2 shared attention+MLP block (one copy, applied at many sites)."""
     return {
-        "ln1": ParamDef((cfg.d_model,), init="ones"),
+        "ln1": ParamDef((cfg.d_model,), ("embed",), init="ones"),
         "attn": attn_lib.gqa_defs(cfg),
-        "ln2": ParamDef((cfg.d_model,), init="ones"),
+        "ln2": ParamDef((cfg.d_model,), ("embed",), init="ones"),
         "mlp": mlp_defs(cfg),
     }
 
@@ -81,7 +81,7 @@ def _map_defs(fn, defs):
 
 def _stack_def(d: ParamDef, n: int) -> ParamDef:
     return dataclasses.replace(
-        d, shape=(n, *d.shape),
+        d, shape=(n, *d.shape), logical=("layers", *d.axes),
         fan_in_axes=tuple(a + 1 for a in d.fan_in_axes))
 
 
@@ -111,21 +111,38 @@ def _unstack(stacked, n: int) -> list:
 
 
 def _transformer_block(layer_params, x, cfg: ModelConfig, *, positions,
-                       cache, cache_pos, kv_valid_len):
+                       cache, cache_pos, kv_valid_len, sh=None):
+    specs = None if sh is None else sh.layer_specs
+    layer_params = materialize(layer_params, specs, sh,
+                               cached=cache is not None)
     h = rmsnorm(layer_params["ln1"], x, cfg.rms_eps)
     with site_scope("attn"):
         attn_out, new_cache = attn_lib.attention_fwd(
             layer_params["attn"], h, cfg, positions=positions, cache=cache,
-            cache_pos=cache_pos, kv_valid_len=kv_valid_len)
+            cache_pos=cache_pos, kv_valid_len=kv_valid_len,
+            tp=_tp(sh, specs, "attn"))
     x = x + attn_out
     h = rmsnorm(layer_params["ln2"], x, cfg.rms_eps)
     if cfg.is_moe:
         with site_scope("moe"):
-            out, aux = moe_lib.moe_fwd(layer_params["moe"], h, cfg)
+            out, aux = moe_lib.moe_fwd(layer_params["moe"], h, cfg, sh=sh)
     else:
         with site_scope("mlp"):
-            out, aux = mlp_fwd(layer_params["mlp"], h, cfg), None
+            out = mlp_fwd(layer_params["mlp"], h, cfg,
+                          tp=_tp(sh, specs, "mlp"))
+            aux = None
     return x + out, new_cache, aux
+
+
+def _tp(sh, specs, module: str):
+    """``tp=`` of an attention or MLP ``module`` with pspecs
+    ``specs[module]``: whether its heads (``wo``'s first dimension) or
+    hidden units (``w_up``'s last) are split over ``model``."""
+    if sh is None:
+        return None
+    if module == "attn":
+        return tp_of(sh, specs["attn"]["wo"][0])
+    return tp_of(sh, specs[module]["w_up"][-1])
 
 
 def _mamba_block(layer_params, x, cfg: ModelConfig, *, cache):
@@ -137,22 +154,26 @@ def _mamba_block(layer_params, x, cfg: ModelConfig, *, cache):
 
 
 def _recurrent_layer(block, lp, x, cfg: ModelConfig, caches, i: int,
-                     remat: bool):
+                     remat: bool, sh=None):
     """Layer ``i`` of a recurrent stack (``block``: Mamba2 or RWKV6).
 
     With ``caches`` (the stacked recurrent caches) the layer reads its slice
     and writes the new state, conv tails / token-shift buffers back into it
     with ``copy_``; without, ``remat`` checkpoints it.
     """
+    specs = None if sh is None else sh.layer_specs
+
     def run(lp, x):
         with site_scope("layers"):
-            return block(lp, x, cfg, cache=None)[0]
+            return block(materialize(lp, specs, sh), x, cfg, cache=None)[0]
 
     if caches is None:
-        return checkpoint(run, lp, x, use_reentrant=False) if remat else run(lp, x)
+        return (checkpoint(run, lp, x, use_reentrant=False) if remat
+                else run(lp, x))
     lc = layer_slice(caches, i)
     with site_scope("layers"):
-        x, new = block(lp, x, cfg, cache=lc)
+        x, new = block(materialize(lp, specs, sh, cached=True), x, cfg,
+                       cache=lc)
     for key, val in new.items():
         lc[key].copy_(val)
     return x
@@ -160,7 +181,7 @@ def _recurrent_layer(block, lp, x, cfg: ModelConfig, caches, i: int,
 
 def stack_fwd(params: dict, x: torch.Tensor, cfg: ModelConfig, *,
               positions, caches: dict | None = None, cache_pos=0,
-              kv_valid_len=None):
+              kv_valid_len=None, sh=None):
     """Run the full layer stack.  Returns (x, new_caches, aux_loss).
 
     ``params`` holds "layers" (stacked) and, for the hybrid, "shared".
@@ -172,12 +193,14 @@ def stack_fwd(params: dict, x: torch.Tensor, cfg: ModelConfig, *,
     **in place**, so the returned caches are the tensors that were passed
     in.  ``aux_loss`` is the float32 sum over layers of the MoE
     load-balance loss (0 for every other family), added in layer order as
-    the reference's scan carries it.
+    the reference's scan carries it.  ``sh``: the rank's
+    :class:`~repro_torch.models.common.Sharding` (``params`` its slices),
+    or None.
     """
     zero = torch.zeros((), dtype=torch.float32, device=x.device)
     if cfg.family == "hybrid":
         x = _hybrid_fwd(params, x, cfg, positions=positions, caches=caches,
-                        cache_pos=cache_pos, kv_valid_len=kv_valid_len)
+                        cache_pos=cache_pos, kv_valid_len=kv_valid_len, sh=sh)
         return x, caches, zero
     if cfg.family == "ssm":
         key, block = (("rwkv", rwkv_lib.rwkv_block_fwd) if cfg.rwkv is not None
@@ -185,7 +208,7 @@ def stack_fwd(params: dict, x: torch.Tensor, cfg: ModelConfig, *,
         lc = caches[key] if caches is not None else None
         remat = cfg.remat and lc is None and torch.is_grad_enabled()
         for i, lp in enumerate(_unstack(params["layers"], cfg.num_layers)):
-            x = _recurrent_layer(block, lp, x, cfg, lc, i, remat)
+            x = _recurrent_layer(block, lp, x, cfg, lc, i, remat, sh)
         return x, caches, zero
 
     # attention transformer (dense / moe / audio / vlm)
@@ -195,7 +218,7 @@ def stack_fwd(params: dict, x: torch.Tensor, cfg: ModelConfig, *,
         with site_scope("layers"):
             out, _, aux = _transformer_block(
                 lp, x, cfg, positions=positions, cache=cache,
-                cache_pos=cache_pos, kv_valid_len=kv_valid_len)
+                cache_pos=cache_pos, kv_valid_len=kv_valid_len, sh=sh)
         return out, aux
 
     remat = cfg.remat and lc is None and torch.is_grad_enabled()
@@ -211,7 +234,7 @@ def stack_fwd(params: dict, x: torch.Tensor, cfg: ModelConfig, *,
 
 
 def _hybrid_fwd(params, x, cfg: ModelConfig, *, positions, caches, cache_pos,
-                kv_valid_len):
+                kv_valid_len, sh=None):
     """[group_size Mamba2 layers + the shared block] x n_groups + tail.
 
     The shared block's one weight copy runs at every group's end, with the
@@ -219,26 +242,31 @@ def _hybrid_fwd(params, x, cfg: ModelConfig, *, positions, caches, cache_pos,
     (the reference checkpoints its Mamba2 scan body alone).
     """
     n_groups, gsize, _ = hybrid_counts(cfg)
-    shared = params["shared"]
+    specs = None if sh is None else sh.specs["shared"]
+    shared = materialize(params["shared"], specs, sh,
+                         cached=caches is not None)
     ssm_c = caches["ssm"] if caches is not None else None
     attn_c = caches["attn"] if caches is not None else None
     remat = cfg.remat and caches is None and torch.is_grad_enabled()
     layers = _unstack(params["layers"], cfg.num_layers)
     for g in range(n_groups):
         for i in range(g * gsize, (g + 1) * gsize):
-            x = _recurrent_layer(_mamba_block, layers[i], x, cfg, ssm_c, i, remat)
+            x = _recurrent_layer(_mamba_block, layers[i], x, cfg, ssm_c, i,
+                                 remat, sh)
         h = rmsnorm(shared["ln1"], x, cfg.rms_eps)
         with site_scope("shared"), site_scope("attn"):
             attn_out, _ = attn_lib.attention_fwd(
                 shared["attn"], h, cfg, positions=positions,
                 cache=None if attn_c is None else layer_slice(attn_c, g),
-                cache_pos=cache_pos, kv_valid_len=kv_valid_len)
+                cache_pos=cache_pos, kv_valid_len=kv_valid_len,
+                tp=_tp(sh, specs, "attn"))
         x = x + attn_out
         h = rmsnorm(shared["ln2"], x, cfg.rms_eps)
         with site_scope("shared"), site_scope("mlp"):
-            x = x + mlp_fwd(shared["mlp"], h, cfg)
+            x = x + mlp_fwd(shared["mlp"], h, cfg, tp=_tp(sh, specs, "mlp"))
     for i in range(n_groups * gsize, cfg.num_layers):
-        x = _recurrent_layer(_mamba_block, layers[i], x, cfg, ssm_c, i, remat)
+        x = _recurrent_layer(_mamba_block, layers[i], x, cfg, ssm_c, i,
+                             remat, sh)
     return x
 
 

@@ -1,9 +1,18 @@
-"""Shared modeling primitives: param definitions, dense layers (with optional
-unary-backend quantized execution), norms, embeddings.
+"""Shared modeling primitives: param definitions and their sharding rules,
+dense layers (with optional unary-backend quantized execution), norms,
+embeddings.
 
 Parameters are plain nested dicts of tensors.  Every parameter is declared
-through a ``ParamDef``; one walk materializes init values on a device from an
-explicit ``torch.Generator``.
+through a ``ParamDef`` carrying its *logical axes*; one walk materializes
+init values on a device from an explicit ``torch.Generator``, another maps
+the logical axes to mesh axes (:func:`pspec_tree`) by the reference's rules
+(:data:`DEFAULT_RULES`, :func:`rules_for`).  A "pspec" is a plain tuple with
+one entry a dimension: ``None`` (replicated), a mesh-axis name, or a tuple of
+names, over ``launch.mesh.Mesh``.
+
+Under :func:`sharding` (the step builders enter it on a distributed mesh)
+each rank holds its own slice of every leaf; :func:`materialize` gathers the
+slices a module cannot use as they are, just before use.
 """
 
 from __future__ import annotations
@@ -17,15 +26,118 @@ import torch
 
 from repro_torch.core import packing
 from repro_torch.core.quantization import quantize, quantize_per_row
+from repro_torch.launch import collectives as coll
 from repro_torch.models.config import ModelConfig
 
 __all__ = [
     "ParamDef", "init_tree", "dense", "rmsnorm", "embed_lookup",
     "logits_from_embedding", "dtype_of", "activation_scaling",
-    "activation_scale_mode",
+    "activation_scale_mode", "DEFAULT_RULES", "rules_for",
+    "shardable_batch_axes", "logical_to_pspec", "pspec_tree", "Sharding",
+    "tp_of", "materialize", "TP_LEAVES",
 ]
 
 _TLS = threading.local()
+
+
+# ---------------------------------------------------------------------------
+# Logical axis rules
+# ---------------------------------------------------------------------------
+
+#: logical axis name -> mesh axis (or tuple of axes), the reference's table
+DEFAULT_RULES: dict[str, object] = {
+    "batch": ("pod", "data"),
+    "seq": None,
+    "kv_seq": "model",        # decode-time KV cache sequence sharding
+    "embed": None,
+    "fsdp_embed": "data",     # embed axis when cfg.fsdp is on
+    "heads": "model",
+    "qkv": None,
+    "kv_heads": None,         # kv heads usually < model-axis size: replicate
+    "head_dim": None,
+    "mlp": "model",
+    "vocab": "model",
+    "experts": "model",
+    "expert_mlp": None,
+    "layers": None,
+    "conv": None,
+    "state": None,
+    "lora": None,
+}
+
+
+def rules_for(cfg: ModelConfig) -> dict[str, object]:
+    """The rules of ``cfg``: ``embed`` over ``data`` under ``cfg.fsdp``; under
+    ``cfg.dp_over_model`` heads, mlp and vocab replicate and the batch splits
+    over ``(data, model, pod)`` (``pod`` last, so the divisibility filter
+    spends the batch on data x model first)."""
+    rules = dict(DEFAULT_RULES)
+    if cfg.fsdp:
+        rules["embed"] = "data"
+    if cfg.dp_over_model:
+        rules["batch"] = ("data", "model", "pod")
+        rules["heads"] = None
+        rules["mlp"] = None
+        rules["vocab"] = None
+    return rules
+
+
+def shardable_batch_axes(mesh, batch_size: int,
+                         candidates=("pod", "data")) -> tuple[str, ...]:
+    """The candidate axes, in order, whose running product divides
+    ``batch_size`` (an axis that does not is skipped)."""
+    if isinstance(candidates, str):
+        candidates = (candidates,)
+    keep: list[str] = []
+    prod = 1
+    for a in candidates or ():
+        if a in mesh.axes and batch_size % (prod * mesh.axis_size(a)) == 0:
+            keep.append(a)
+            prod *= mesh.axis_size(a)
+    return tuple(keep)
+
+
+def logical_to_pspec(logical, rules: dict[str, object],
+                     mesh_axes: tuple[str, ...],
+                     shape: tuple[int, ...] | None = None,
+                     mesh_shape: dict[str, int] | None = None) -> tuple:
+    """Map logical axis names to a pspec (one entry a dimension).
+
+    With ``shape`` and ``mesh_shape``, a mesh axis whose size does not
+    divide its dimension is dropped (40 RWKV heads on a 16-way ``model``
+    axis replicate); a mesh axis serves one dimension at most.
+    """
+    spec = []
+    used: set[str] = set()
+    for i, name in enumerate(logical):
+        axis = rules.get(name) if name else None
+        if axis is None:
+            spec.append(None)
+            continue
+        axes = tuple(a for a in (axis if isinstance(axis, (tuple, list))
+                                 else (axis,))
+                     if a in mesh_axes and a not in used)
+        if shape is not None and mesh_shape is not None:
+            kept = []
+            prod = 1
+            for a in axes:
+                if shape[i] % (prod * mesh_shape[a]) == 0:
+                    kept.append(a)
+                    prod *= mesh_shape[a]
+            axes = tuple(kept)
+        used.update(axes)
+        spec.append(None if not axes else axes[0] if len(axes) == 1 else axes)
+    return tuple(spec)
+
+
+def pspec_tree(defs, rules: dict[str, object], mesh_axes: tuple[str, ...],
+               mesh_shape: dict[str, int] | None = None):
+    """The pspec of every ``ParamDef`` of a (nested dict) tree."""
+    if isinstance(defs, ParamDef):
+        return logical_to_pspec(defs.axes, rules, mesh_axes, shape=defs.shape,
+                                mesh_shape=mesh_shape)
+    return {k: pspec_tree(v, rules, mesh_axes, mesh_shape)
+            for k, v in defs.items()}
 
 
 # ---------------------------------------------------------------------------
@@ -35,8 +147,15 @@ _TLS = threading.local()
 @dataclasses.dataclass(frozen=True)
 class ParamDef:
     shape: tuple[int, ...]
+    logical: tuple[str | None, ...] | None = None   # None: all replicated
     init: str = "lecun"           # lecun | zeros | ones | normal(σ=0.02) | ssm_a | ssm_dt
     fan_in_axes: tuple[int, ...] = (0,)
+
+    @property
+    def axes(self) -> tuple[str | None, ...]:
+        """The logical axis of every dimension."""
+        return (self.logical if self.logical is not None
+                else (None,) * len(self.shape))
 
     def materialize(self, generator: torch.Generator, device,
                     dtype: torch.dtype) -> torch.Tensor:
@@ -120,6 +239,95 @@ def activation_scaling(mode: str):
 def activation_scale_mode() -> str:
     """The granularity ``_backend_matmul`` quantizes activations at now."""
     return getattr(_TLS, "act_scale", "per-tensor")
+
+
+
+
+# ---------------------------------------------------------------------------
+# Sharded execution: each rank holds its slices of the parameters
+# ---------------------------------------------------------------------------
+
+#: (parent key, leaf) of the leaves whose ``model`` slice a module uses as it
+#: is (Megatron tensor parallelism, expert parallelism); every other sharded
+#: dimension is gathered before use.  Top-level leaves have parent None.
+TP_LEAVES = frozenset({
+    ("attn", "wq"), ("attn", "wo"), ("attn", "w_uq"), ("attn", "w_uk"),
+    ("attn", "w_uv"), ("mlp", "w_up"), ("mlp", "w_gate"), ("mlp", "w_down"),
+    ("shared", "w_up"), ("shared", "w_gate"), ("shared", "w_down"),
+    ("moe", "w_gate"), ("moe", "w_up"), ("moe", "w_down"),
+    (None, "embed"), (None, "lm_head")})
+#: a cached call (prefill, decode) gathers the MLA up-projections: the
+#: absorbed form reads every head of them
+CACHED_GATHERED = frozenset({("attn", "w_uq"), ("attn", "w_uk"),
+                             ("attn", "w_uv")})
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class Sharding:
+    """How a rank's parameter slices lie on a distributed ``mesh``.  The
+    model's functions take it as ``sh=`` (None: whole parameters, one
+    device); every leaf they are handed is then the rank's slice by its
+    pspec (``model.shard_params``).
+
+    ``specs`` — the pspec of every leaf of the whole model (``model``'s
+    ``param_pspecs``, a packed store's module replicated); ``shapes`` — the
+    whole shapes, same tree; ``batch_axes`` — the mesh axes the batch rows
+    split over, in order; ``layer_specs`` — the stacked layers' pspecs
+    without their layer axis.
+    """
+
+    mesh: object
+    specs: dict
+    shapes: dict
+    batch_axes: tuple[str, ...] = ()
+    layer_specs: dict | None = None
+
+    @property
+    def batch_shards(self) -> int:
+        return math.prod(self.mesh.axis_size(a) for a in self.batch_axes)
+
+    def batch_index(self) -> int:
+        """This rank's block of batch rows (row-major over ``batch_axes``)."""
+        i = 0
+        for a in self.batch_axes:
+            i = i * self.mesh.axis_size(a) + self.mesh.axis_index(a)
+        return i
+
+
+def tp_of(sh: Sharding | None, axis):
+    """The mesh whose ``model`` ranks each hold a slice of a dimension laid
+    out on mesh axis ``axis`` (a pspec entry) — tensor parallelism — else
+    None."""
+    if sh is None or axis != "model" or sh.mesh.axis_size("model") == 1:
+        return None
+    return sh.mesh
+
+
+def materialize(tree, specs, sh: Sharding | None, *, cached: bool = False,
+                path=()):
+    """``tree`` (the rank's slices) with every sharded dimension gathered
+    over its mesh axis, but the ``model`` slices of :data:`TP_LEAVES`, which
+    the modules use as they are.  ``specs`` is the matching subtree of
+    ``sh``'s (a stacked leaf's without the layer axis).  A gather over a
+    batch axis reduce-scatters the gradient; over another axis the rank
+    keeps its own slice of it.  Packed stores replicate, as the reference's
+    ``adapt_param_pspecs`` has them.
+    """
+    if sh is None:
+        return tree
+    if isinstance(tree, dict):
+        return {k: materialize(v, specs[k], sh, cached=cached,
+                               path=path + (k,)) for k, v in tree.items()}
+    if packing.is_packed(tree):
+        return tree
+    key = (path[-2] if len(path) > 1 else None, path[-1])
+    keep_model = key in TP_LEAVES and not (cached and key in CACHED_GATHERED)
+    for d, axis in enumerate(specs):
+        if axis is None or (axis == "model" and keep_model):
+            continue
+        tree = coll.gather(tree, sh.mesh, axis, d,
+                           reduce_grad=axis in sh.batch_axes)
+    return tree
 
 
 # ---------------------------------------------------------------------------

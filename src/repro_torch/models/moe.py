@@ -27,6 +27,16 @@ sends each expert's capacity rows to the expert's owner with
 ``all_reduce(SUM)`` reassembles the tokens.  The a2a capacity comes from the
 slice, so at published capacity factors the two drop different tokens, as
 in the reference.
+
+In training (``sh=``, a ``models.common.Sharding``) the collectives are
+autograd ones (``launch.collectives``): the tokens and routing weights enter
+the rank's experts through ``copy_to`` and the combine is ``reduce_from``,
+so the router's gradient is whole on every ``model`` rank.  Capacity comes from the
+rank's own tokens (its ``data`` block), as in the reference's shard_map.
+The aux loss is taken from load fractions summed over the batch axes first:
+the local and psum paths' is the whole batch's, the a2a path's the mean
+over the ``model`` ranks of each token slice's, that slice taken on every
+batch rank together.
 """
 
 from __future__ import annotations
@@ -34,12 +44,12 @@ from __future__ import annotations
 import math
 
 import torch
-import torch.distributed as dist
 import torch.nn.functional as F
 
 from repro_torch.backends.runtime import site_scope
+from repro_torch.launch import collectives as coll
 from repro_torch.launch import mesh as mesh_lib
-from repro_torch.models.common import ParamDef
+from repro_torch.models.common import ParamDef, tp_of
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.mlp import mlp_defs, mlp_fwd
 
@@ -54,10 +64,13 @@ def moe_defs(cfg: ModelConfig) -> dict:
     m, d = cfg.moe, cfg.d_model
     ffe = m.d_ff_expert
     defs = {
-        "router": ParamDef((d, m.num_experts)),
-        "w_gate": ParamDef((m.num_experts, d, ffe), fan_in_axes=(1,)),
-        "w_up": ParamDef((m.num_experts, d, ffe), fan_in_axes=(1,)),
-        "w_down": ParamDef((m.num_experts, ffe, d), fan_in_axes=(1,)),
+        "router": ParamDef((d, m.num_experts), ("embed", "experts")),
+        "w_gate": ParamDef((m.num_experts, d, ffe),
+                           ("experts", "embed", "expert_mlp"), fan_in_axes=(1,)),
+        "w_up": ParamDef((m.num_experts, d, ffe),
+                         ("experts", "embed", "expert_mlp"), fan_in_axes=(1,)),
+        "w_down": ParamDef((m.num_experts, ffe, d),
+                           ("experts", "expert_mlp", "embed"), fan_in_axes=(1,)),
     }
     if m.num_shared_experts:
         defs["shared"] = mlp_defs(cfg, d_ff=m.num_shared_experts * ffe)
@@ -125,13 +138,26 @@ def _expert_ffn(xs, w_g, w_u, w_d):
     return torch.matmul(h, w_d.to(xs.dtype))
 
 
-def _aux_loss(probs, topk_idx, cfg: ModelConfig):
-    """Switch-style load-balance loss: E * sum_e f_e * p_e."""
+def _aux_loss(probs, topk_idx, cfg: ModelConfig, sh=None):
+    """Switch-style load-balance loss: E * sum_e f_e * p_e.
+
+    Under a sharding ``sh`` whose batch splits over several ranks, the
+    fractions are summed over the batch axes before the product
+    (``reduce_from``: each rank's gradient is its own tokens'), so the loss
+    is that of every rank's tokens together.
+    """
     e = cfg.moe.num_experts
     hits = F.one_hot(topk_idx[..., 0], e).to(torch.float32)     # primary expert
-    f = hits.mean(dim=0)
-    p = probs.mean(dim=0)
-    return e * torch.sum(f * p)
+    if sh is None or sh.batch_shards == 1:
+        f = hits.mean(dim=0)
+        p = probs.mean(dim=0)
+        return e * torch.sum(f * p)
+    t = probs.shape[0] * sh.batch_shards
+    f, p = hits.sum(dim=0), probs.sum(dim=0)
+    for axis in sh.batch_axes:
+        f = coll.reduce_from(f, sh.mesh, axis)
+        p = coll.reduce_from(p, sh.mesh, axis)
+    return e * torch.sum((f / t) * (p / t))
 
 
 def ep_shards(cfg: ModelConfig, mesh=None) -> int:
@@ -146,8 +172,10 @@ def ep_shards(cfg: ModelConfig, mesh=None) -> int:
 
 
 def moe_fwd(params: dict, x: torch.Tensor, cfg: ModelConfig,
-            scoring: str = "softmax"):
-    """x: (B, S, D) -> (out (B, S, D), aux_loss scalar)."""
+            scoring: str = "softmax", sh=None):
+    """x: (B, S, D) -> (out (B, S, D), aux_loss scalar).  ``sh``: the
+    training sharding (``models.common.Sharding``; the layer's pspecs are
+    ``sh.layer_specs["moe"]``), or None."""
     m = cfg.moe
     b, s, d = x.shape
     x_flat = x.reshape(-1, d)
@@ -156,9 +184,11 @@ def moe_fwd(params: dict, x: torch.Tensor, cfg: ModelConfig,
         mesh = mesh_lib.current_mesh()
         t = x_flat.shape[0]
         if m.ep_impl == "a2a" and t % n == 0 and t >= n * n:
-            out_flat, aux = _moe_ep_a2a(params, x_flat, cfg, mesh, scoring)
+            out_flat, aux = _moe_ep_a2a(params, x_flat, cfg, mesh, scoring,
+                                        sh)
         else:
-            out_flat, aux = _moe_ep_psum(params, x_flat, cfg, mesh, scoring)
+            out_flat, aux = _moe_ep_psum(params, x_flat, cfg, mesh, scoring,
+                                         sh)
     else:
         if params["w_gate"].shape[0] != m.num_experts:
             raise ValueError(f"expert stacks hold {params['w_gate'].shape[0]} "
@@ -169,13 +199,15 @@ def moe_fwd(params: dict, x: torch.Tensor, cfg: ModelConfig,
         out_flat = _local_expert_pass(x_flat, topk_idx, topk_w,
                                       params["w_gate"], params["w_up"],
                                       params["w_down"], cfg, 0)
-        aux = _aux_loss(probs, topk_idx, cfg)
+        aux = _aux_loss(probs, topk_idx, cfg, sh)
     out = out_flat.reshape(b, s, d)
     if m.num_shared_experts:
         # site path matches the param tree ("…/moe/shared/w_up"); the
         # routed experts above are not dense sites and stay float
         with site_scope("shared"):
-            out = out + mlp_fwd(params["shared"], x, cfg)
+            tp = None if sh is None else tp_of(
+                sh, sh.layer_specs["moe"]["shared"]["w_up"][-1])
+            out = out + mlp_fwd(params["shared"], x, cfg, tp=tp)
     return out, aux
 
 
@@ -199,54 +231,59 @@ def _local_experts(params, cfg: ModelConfig, mesh):
     return (*stacks, r * e_local)
 
 
-def _moe_ep_psum(params, x_flat, cfg: ModelConfig, mesh, scoring="softmax"):
+def _moe_ep_psum(params, x_flat, cfg: ModelConfig, mesh, scoring="softmax",
+                 sh=None):
     """Every rank routes all tokens, runs its own experts, and one
     ``all_reduce(SUM)`` over ``model`` combines; aux is the same on every
     rank."""
     wg, wu, wd, first = _local_experts(params, cfg, mesh)
     topk_idx, topk_w, probs = _routing(params["router"], x_flat, cfg, scoring)
-    out = _local_expert_pass(x_flat, topk_idx, topk_w, wg, wu, wd, cfg, first)
-    dist.all_reduce(out, op=dist.ReduceOp.SUM, group=mesh.axis_group("model"))
-    return out, _aux_loss(probs, topk_idx, cfg)
+    out = _local_expert_pass(coll.copy_to(x_flat, mesh), topk_idx,
+                             coll.copy_to(topk_w, mesh), wg, wu, wd, cfg, first)
+    return coll.reduce_from(out, mesh), _aux_loss(probs, topk_idx, cfg, sh)
 
 
-def _moe_ep_a2a(params, x_flat, cfg: ModelConfig, mesh, scoring="softmax"):
+def _moe_ep_a2a(params, x_flat, cfg: ModelConfig, mesh, scoring="softmax",
+                sh=None):
     """All-to-all dispatch: route this rank's T / n token slice, build the
     (E, C, D) send buffer (capacity from the slice), exchange (n, E_local,
     C, D) blocks with the expert owners, run the local experts on
     (E_local, n·C, D), exchange back, weighted scatter-add, then
     ``all_reduce(SUM)`` of the reassembled (T, D) block.  aux is the mean
-    over ranks of each slice's loss."""
-    group = mesh.axis_group("model")
+    over the ``model`` ranks of each slice's loss, as in the reference;
+    under a sharding ``sh`` a slice's fractions are those of the same slice
+    of every batch rank together (:func:`_aux_loss`)."""
     n, r = mesh.axis_size("model"), mesh.axis_index("model")
     wg, wu, wd, _ = _local_experts(params, cfg, mesh)
     t, d = x_flat.shape
     e = cfg.moe.num_experts
     e_local = e // n
     t_slice = t // n
-    x_my = x_flat[r * t_slice:(r + 1) * t_slice]
-    topk_idx, topk_w, probs = _routing(params["router"], x_my, cfg, scoring)
+    # the rank routes its own token slice: the router's and the tokens'
+    # gradients are partial on each rank, so they enter through copy_to
+    x_my = coll.copy_to(x_flat, mesh)[r * t_slice:(r + 1) * t_slice]
+    topk_idx, topk_w, probs = _routing(coll.copy_to(params["router"], mesh),
+                                       x_my, cfg, scoring)
     cap = _capacity(t_slice, cfg)
     w_tok = torch.zeros((t_slice, e), dtype=x_flat.dtype, device=x_flat.device)
-    w_tok.scatter_add_(1, topk_idx, topk_w.to(x_flat.dtype))      # (T_s, E)
+    w_tok = w_tok.scatter_add(1, topk_idx, topk_w.to(x_flat.dtype))  # (T_s, E)
     sel_w, sel_idx = _top_k(w_tok.transpose(0, 1), cap)           # (E, C)
     send = x_my[sel_idx.reshape(-1)].reshape(n, e_local, cap, d)
-    recv = torch.empty_like(send)
-    dist.all_to_all_single(recv, send, group=group)     # (n, E_local, C, D)
+    recv = coll.all_to_all(send, mesh)                  # (n, E_local, C, D)
     recv = recv.transpose(0, 1).reshape(e_local, n * cap, d)
     ys = torch.stack([_expert_ffn(recv[i], wg[i], wu[i], wd[i])
                       for i in range(e_local)])         # (E_local, n*C, D)
     ys = ys.reshape(e_local, n, cap, d).transpose(0, 1).contiguous()
-    back = torch.empty_like(ys)
-    dist.all_to_all_single(back, ys, group=group)       # (n, E_local, C, D)
+    back = coll.all_to_all(ys, mesh)                    # (n, E_local, C, D)
     back = back.reshape(e, cap, d)
     out_my = torch.zeros((t_slice, d), dtype=x_flat.dtype,
                          device=x_flat.device)
-    out_my.index_add_(0, sel_idx.reshape(-1),
-                      (back * sel_w[..., None].to(back.dtype)).reshape(-1, d))
-    out = torch.zeros_like(x_flat)
-    out[r * t_slice:(r + 1) * t_slice] = out_my
-    dist.all_reduce(out, op=dist.ReduceOp.SUM, group=group)
-    aux = _aux_loss(probs, topk_idx, cfg)
-    dist.all_reduce(aux, op=dist.ReduceOp.SUM, group=group)
-    return out, aux / n
+    out_my = out_my.index_add(
+        0, sel_idx.reshape(-1),
+        (back * sel_w[..., None].to(back.dtype)).reshape(-1, d))
+    out = torch.cat([torch.zeros((r * t_slice, d), dtype=x_flat.dtype,
+                                 device=x_flat.device), out_my,
+                     torch.zeros((t - (r + 1) * t_slice, d),
+                                 dtype=x_flat.dtype, device=x_flat.device)])
+    aux = coll.reduce_from(_aux_loss(probs, topk_idx, cfg, sh), mesh)
+    return coll.reduce_from(out, mesh), aux / n

@@ -46,34 +46,35 @@ def rwkv_defs(cfg: ModelConfig) -> dict:
     h, k = _dims(cfg)
     r = cfg.rwkv.decay_lora
     return {
-        "ln1_s": ParamDef((d,), init="ones"),
-        "ln1_b": ParamDef((d,), init="zeros"),
-        "ln2_s": ParamDef((d,), init="ones"),
-        "ln2_b": ParamDef((d,), init="zeros"),
+        "ln1_s": ParamDef((d,), ("embed",), init="ones"),
+        "ln1_b": ParamDef((d,), ("embed",), init="zeros"),
+        "ln2_s": ParamDef((d,), ("embed",), init="ones"),
+        "ln2_b": ParamDef((d,), ("embed",), init="zeros"),
         "tm": {
-            "mu_r": ParamDef((d,), init="zeros"),
-            "mu_k": ParamDef((d,), init="zeros"),
-            "mu_v": ParamDef((d,), init="zeros"),
-            "mu_w": ParamDef((d,), init="zeros"),
-            "mu_g": ParamDef((d,), init="zeros"),
-            "w_r": ParamDef((d, h, k)),
-            "w_k": ParamDef((d, h, k)),
-            "w_v": ParamDef((d, h, k)),
-            "w_g": ParamDef((d, h, k)),
-            "w0": ParamDef((h, k), init="ssm_dt"),
-            "wa": ParamDef((d, r)),
-            "wb": ParamDef((r, h, k), init="zeros"),
-            "u": ParamDef((h, k), init="zeros"),
-            "gn_s": ParamDef((d,), init="ones"),
-            "gn_b": ParamDef((d,), init="zeros"),
-            "w_o": ParamDef((h, k, d), fan_in_axes=(0, 1)),
+            "mu_r": ParamDef((d,), ("embed",), init="zeros"),
+            "mu_k": ParamDef((d,), ("embed",), init="zeros"),
+            "mu_v": ParamDef((d,), ("embed",), init="zeros"),
+            "mu_w": ParamDef((d,), ("embed",), init="zeros"),
+            "mu_g": ParamDef((d,), ("embed",), init="zeros"),
+            "w_r": ParamDef((d, h, k), ("embed", "heads", "head_dim")),
+            "w_k": ParamDef((d, h, k), ("embed", "heads", "head_dim")),
+            "w_v": ParamDef((d, h, k), ("embed", "heads", "head_dim")),
+            "w_g": ParamDef((d, h, k), ("embed", "heads", "head_dim")),
+            "w0": ParamDef((h, k), ("heads", "head_dim"), init="ssm_dt"),
+            "wa": ParamDef((d, r), ("embed", "lora")),
+            "wb": ParamDef((r, h, k), ("lora", "heads", "head_dim"), init="zeros"),
+            "u": ParamDef((h, k), ("heads", "head_dim"), init="zeros"),
+            "gn_s": ParamDef((d,), ("embed",), init="ones"),
+            "gn_b": ParamDef((d,), ("embed",), init="zeros"),
+            "w_o": ParamDef((h, k, d), ("heads", "head_dim", "embed"),
+                            fan_in_axes=(0, 1)),
         },
         "cm": {
-            "mu_k": ParamDef((d,), init="zeros"),
-            "mu_r": ParamDef((d,), init="zeros"),
-            "w_k": ParamDef((d, cfg.d_ff)),
-            "w_v": ParamDef((cfg.d_ff, d)),
-            "w_r": ParamDef((d, d)),
+            "mu_k": ParamDef((d,), ("embed",), init="zeros"),
+            "mu_r": ParamDef((d,), ("embed",), init="zeros"),
+            "w_k": ParamDef((d, cfg.d_ff), ("embed", "mlp")),
+            "w_v": ParamDef((cfg.d_ff, d), ("mlp", "embed")),
+            "w_r": ParamDef((d, d), ("embed", "embed")),
         },
     }
 

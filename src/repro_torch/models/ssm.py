@@ -44,20 +44,20 @@ def ssm_defs(cfg: ModelConfig) -> dict:
     s, d_inner, n_heads = _dims(cfg)
     gn = s.n_groups * s.state_dim
     return {
-        "w_z": ParamDef((cfg.d_model, d_inner)),
-        "w_x": ParamDef((cfg.d_model, d_inner)),
-        "w_b": ParamDef((cfg.d_model, gn)),
-        "w_c": ParamDef((cfg.d_model, gn)),
-        "w_dt": ParamDef((cfg.d_model, n_heads)),
-        "conv_x_w": ParamDef((s.conv_kernel, d_inner)),
-        "conv_x_b": ParamDef((d_inner,), init="zeros"),
-        "conv_bc_w": ParamDef((s.conv_kernel, 2 * gn)),
-        "conv_bc_b": ParamDef((2 * gn,), init="zeros"),
-        "a_log": ParamDef((n_heads,), init="ssm_a"),
-        "dt_bias": ParamDef((n_heads,), init="ssm_dt"),
-        "d_skip": ParamDef((n_heads,), init="ones"),
-        "norm": ParamDef((d_inner,), init="ones"),
-        "out_proj": ParamDef((d_inner, cfg.d_model)),
+        "w_z": ParamDef((cfg.d_model, d_inner), ("embed", "mlp")),
+        "w_x": ParamDef((cfg.d_model, d_inner), ("embed", "mlp")),
+        "w_b": ParamDef((cfg.d_model, gn), ("embed", None)),
+        "w_c": ParamDef((cfg.d_model, gn), ("embed", None)),
+        "w_dt": ParamDef((cfg.d_model, n_heads), ("embed", "heads")),
+        "conv_x_w": ParamDef((s.conv_kernel, d_inner), ("conv", "mlp")),
+        "conv_x_b": ParamDef((d_inner,), ("mlp",), init="zeros"),
+        "conv_bc_w": ParamDef((s.conv_kernel, 2 * gn), ("conv", None)),
+        "conv_bc_b": ParamDef((2 * gn,), (None,), init="zeros"),
+        "a_log": ParamDef((n_heads,), ("heads",), init="ssm_a"),
+        "dt_bias": ParamDef((n_heads,), ("heads",), init="ssm_dt"),
+        "d_skip": ParamDef((n_heads,), ("heads",), init="ones"),
+        "norm": ParamDef((d_inner,), ("mlp",), init="ones"),
+        "out_proj": ParamDef((d_inner, cfg.d_model), ("mlp", "embed")),
     }
 
 

@@ -71,41 +71,69 @@ def adamw_init(params: dict, cfg: AdamWConfig) -> OptState:
                     m=_map(zeros, params), v=_map(zeros, params), ef=ef)
 
 
-def global_norm(tree) -> torch.Tensor:
-    return torch.sqrt(sum(torch.sum(torch.square(x.to(torch.float32)))
-                          for x in _leaves(tree)))
+def _sliced_axes(specs) -> list:
+    """Per leaf (in ``_leaves`` order), the mesh axes it is sliced over."""
+    return [tuple(sorted({a for a in spec if a is not None}))
+            for spec in _leaves(specs)] if specs is not None else None
 
 
-def clip_by_global_norm(grads: dict, max_norm: float):
+def global_norm(tree, sharded=None) -> torch.Tensor:
+    """The L2 norm of every leaf together.  ``sharded`` = ``(mesh, specs)``:
+    the leaves are a rank's slices by the pspec tree ``specs``; each leaf's
+    sum of squares is summed over the axes it is sliced on, so a replicated
+    leaf counts once."""
+    sq = [torch.sum(torch.square(x.to(torch.float32))) for x in _leaves(tree)]
+    if sharded is None:
+        return torch.sqrt(sum(sq))
+    from repro_torch.launch import collectives as coll
+    mesh, specs = sharded
+    groups: dict = {}
+    for axes, s in zip(_sliced_axes(specs), sq):
+        groups[axes] = groups.get(axes, 0.0) + s
+    total = 0.0
+    for axes, s in sorted(groups.items()):
+        s = s.clone()
+        for axis in axes:
+            group = coll.axis_group(mesh, axis)
+            if group is not None:
+                coll.all_reduce_(s, group)
+        total = total + s
+    return torch.sqrt(total)
+
+
+def clip_by_global_norm(grads: dict, max_norm: float, sharded=None):
     """Scale ``grads`` to a global norm of at most ``max_norm``.
 
     Returns (float32 grads, norm); float32 leaves are scaled in place.
     """
-    norm = global_norm(grads)
+    norm = global_norm(grads, sharded)
     scale = torch.clamp(max_norm / torch.clamp(norm, min=1e-9), max=1.0)
     return _map(lambda g: g.to(torch.float32).mul_(scale), grads), norm
 
 
 def adamw_update(grads: dict, state: OptState, params: dict, cfg: AdamWConfig,
-                 lr: torch.Tensor | float):
+                 lr: torch.Tensor | float, sharded=None):
     """One AdamW step, in place.  Returns (params, new_state, metrics).
 
     Clip by global norm, bias-corrected moments, decoupled weight decay on
     matrices (``ndim >= 2``) only -- the reference's update, term for term.
     ``params`` and the moment trees are the caller's, updated in place.
+    ``sharded`` = ``(mesh, specs)``: every tree holds a rank's slices by the
+    pspec tree ``specs`` and the gradients are whole-batch; the norm and the
+    compression scales are then the whole leaves', the update slice-wise.
     """
     metrics = {}
     if cfg.compress_grads and state.ef is not None:
         from repro_torch.optim.compression import compress_with_error_feedback
-        grads, new_ef = compress_with_error_feedback(grads, state.ef)
+        grads, new_ef = compress_with_error_feedback(grads, state.ef, sharded)
     else:
         new_ef = state.ef
 
     if cfg.clip_norm is not None:
-        grads, gnorm = clip_by_global_norm(grads, cfg.clip_norm)
+        grads, gnorm = clip_by_global_norm(grads, cfg.clip_norm, sharded)
     else:
         grads = _map(lambda g: g.to(torch.float32), grads)
-        gnorm = global_norm(grads)
+        gnorm = global_norm(grads, sharded)
     metrics["grad_norm"] = gnorm
 
     step = state.step + 1

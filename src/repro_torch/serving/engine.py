@@ -422,12 +422,12 @@ class ServingEngine:
     def _check_same_tokens(self, ids: torch.Tensor, step: int) -> None:
         """Raise unless every rank of the mesh sampled ``ids`` (B,) at this
         decode step."""
-        import torch.distributed as dist
+        from repro_torch.launch import collectives as coll
         ids = ids.contiguous()
         n = self.mesh.size
         every = torch.empty((n * ids.shape[0],), dtype=ids.dtype,
                             device=ids.device)
-        dist.all_gather_into_tensor(every, ids)
+        coll.all_gather_into(every, ids)
         every = every.view(n, -1)
         differ = (every != ids[None]).any(dim=1)
         if bool(differ.any()):

@@ -108,7 +108,7 @@ def test_bad_grids_and_meshes():
     for bad in ("2,0", "2", (0, 1)):
         with pytest.raises(ValueError):
             port_grid.parse_grid(bad)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
+    with pytest.raises(NotImplementedError, match="256 positions and the world has 1 rank"):
         port_mesh.make_production_mesh()
     with pytest.raises(RuntimeError, match="no torch.distributed process group"):
         port_mesh.make_mesh((2, 1), ("data", "model"), "cpu")

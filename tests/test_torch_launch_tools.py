@@ -291,7 +291,7 @@ def test_meta_attention_is_one_operation_per_flash_kernel():
 
 
 def test_multi_pod_is_refused_naming_item_6():
-    with pytest.raises(NotImplementedError, match="item 6"):
+    with pytest.raises(NotImplementedError, match="512 positions"):
         dryrun.run_cell("llama3-8b", "decode_32k", multi_pod=True, out_dir=None)
 
 

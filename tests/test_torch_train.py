@@ -466,7 +466,7 @@ def test_cli_trains_and_refuses_meshes(capsys):
     assert port_train.main(["--smoke", "--steps", "2", "--batch", "2", "--seq",
                             "8", "--device", "cpu"]) == 0
     assert "loss" in capsys.readouterr().out
-    with pytest.raises(NotImplementedError, match="Queue 1 item 6, multi-device"):
+    with pytest.raises(NotImplementedError, match="256 positions and the world has 1 rank"):
         port_train.main(["--smoke", "--mesh", "pod", "--device", "cpu"])
 
 
