@@ -195,13 +195,25 @@ Phases, each of which fails the run (non-zero exit) on its own:
    450 GB/s NVLink.  Training on a mesh: at world 1 the sharded train step
    (llama3-8b full width, 2 layers, fp32, 2 x 512, 2 steps) against the
    unsharded one, ``int8_psum`` against quantize-dequantize, and the flash
-   kernels at the per-rank shapes the step met; on four cards
+   kernels at the per-rank shapes the step met; ``pipeline_apply`` on a
+   one-stage ``pod`` mesh over the group of one (llama3-8b full width, 2
+   layers, 4 microbatches of 1 x 2048, fp32, remat), output and gradients
+   equal to the local pipeline, its flash launches put on the kernels line
+   as ``launches_mesh_pipeline``; on four cards
    ``train_2x2`` (8 layers, (data 2, model 2), the train phase's settings,
    against one card; and a 2-layer fp32-compute pair), ``train_tp4`` (32
    layers, (data 1, model 4): peak, step time, tokens/s, share of 4 x 989
    TFLOP/s, bytes a step) and ``decode_tp4`` (32 layers, fp32, weights
    sharded by ``param_pspecs(phase="inference")``, against one card's
-   replicated decode).
+   replicated decode).  The layer pipeline across cards: ``pipeline_4``
+   (llama3-8b, fp32, remat, microbatches of 1 x 2048, one stage a card):
+   8 layers in stages of 2 equal to the local pipeline on one card
+   (gradients within 1e-4 x max|ref grad|), then the 32 layers, 8 a card
+   (each card draws only its own), at 4 and 8 microbatches, the forward
+   within 1e-5 x max|ref| of one card's sequential run of the 32 layers;
+   step wall, tokens/s, the idle share (1 - M x one stage's time alone /
+   step) against the schedule's (P-1)/(M+P-1), peaks, the permute bytes
+   a step and a traced step.
 
 Needs a CUDA device: without one (or without the package beside it) the
 script exits non-zero and prints no result.  ``--layers`` / ``--requests``
@@ -3567,10 +3579,7 @@ def phase_pipeline() -> dict:
     from repro_torch.models.common import init_tree
 
     run = PIPELINE_RUN
-    cfg = configs.get_config("llama3-8b").replace(
-        num_layers=run["layers"], param_dtype="float32",
-        compute_dtype="float32", remat=True)
-    stage_cfg = cfg.replace(num_layers=run["layers"] // run["stages"])
+    cfg = _pipeline_cfg(run["layers"])
     gen = torch.Generator(device=DEV)
     gen.manual_seed(0)
     layers = init_tree(blocks.stacked_layer_defs(cfg), gen, DEV, torch.float32)
@@ -3580,11 +3589,7 @@ def phase_pipeline() -> dict:
     x = torch.randn((run["micro"], run["mb"], run["seq"], cfg.d_model),
                     generator=gen, device=DEV)
     positions = torch.arange(run["seq"], device=DEV)[None, :]
-
-    def stage(stage_params, h):
-        return blocks.stack_fwd({"layers": stage_params}, h, stage_cfg,
-                                positions=positions)[0]
-
+    stage = _pipeline_stage(cfg, run["stages"])
     names = sorted(leaves)
     gc.collect()
     torch.cuda.empty_cache()
@@ -3800,8 +3805,20 @@ TRAIN_MESH = dict(layers=8, steps=10, fp32_layers=2, fp32_steps=3,
 #: decode_tp4: llama3-8b, 32 layers, fp32, weights sharded by
 #: param_pspecs(phase="inference") on (data 1, model 4), against one card
 DECODE_TP4 = dict(batch=4, prompt=64, tokens=8)
+#: pipeline_4: llama3-8b at full width, fp32 parameters and compute, remat,
+#: microbatches of 1 x 2048 through ``pipeline_apply`` one stage a card:
+#: ``check_layers`` in stages of 2 against phase 14's local pipeline on each
+#: card, then all 32 layers (8 a card) at each of ``micro``, the forward
+#: within ``fwd_tol`` x max|ref| of one card's sequential run of the same
+#: layers; ``timed`` steps a count; world 1 runs ``w1_layers`` in one stage
+#: over the NCCL group of one against the local pipeline
+PIPELINE_4 = dict(layers=32, check_layers=8, micro=(4, 8), mb=1, seq=2048,
+                  timed=2, fwd_tol=1e-5, grad_tol=1e-4, w1_layers=2,
+                  w1_micro=4, seed=11)
 MESH_CELLS = ("grid", "decode_32k", "moe", "mla", "train_2x2", "train_tp4",
-              "decode_tp4")
+              "decode_tp4", "pipeline_4")
+#: the cells that take gradients
+GRAD_CELLS = ("train_2x2", "train_tp4", "pipeline_4")
 #: dense bf16 tensor-core peak of one H100 SXM (NVIDIA's datasheet), for
 #: the train cells' model-FLOPs share
 PEAK_BF16_FLOPS = 989e12
@@ -3839,15 +3856,10 @@ def _seeded_tree(cfg, seed: int, experts: tuple[int, int] | None = None):
     dtype = dtype_of(cfg.param_dtype)
     gen = torch.Generator(device=DEV)
     ids = iter(range(10**6))
-
-    def one(d: ParamDef, cut: int) -> ParamDef:
-        return dataclasses.replace(d, shape=d.shape[cut:], fan_in_axes=tuple(
-            a - cut for a in d.fan_in_axes))
+    one = _cut_def
 
     def draw(d: ParamDef, *key):
-        gen.manual_seed(seed * 1_000_003 + 7919 * key[0]
-                        + sum(k * m for k, m in zip(key[1:], (104_729, 131))))
-        return d.materialize(gen, DEV, dtype)
+        return _draw(gen, d, dtype, seed, *key)
 
     def walk(defs, path):
         if not isinstance(defs, ParamDef):
@@ -3872,6 +3884,41 @@ def _seeded_tree(cfg, seed: int, experts: tuple[int, int] | None = None):
         return out
 
     return walk(model_lib.model_defs(cfg), ())
+
+
+def _cut_def(d, cut: int):
+    """``d`` without its ``cut`` leading (stacked) axes."""
+    return dataclasses.replace(d, shape=d.shape[cut:], fan_in_axes=tuple(
+        a - cut for a in d.fan_in_axes))
+
+
+def _draw(gen, d, dtype, seed: int, *key) -> torch.Tensor:
+    """``d`` materialized from the seed of (``seed``, leaf, layer[, expert])."""
+    gen.manual_seed(seed * 1_000_003 + 7919 * key[0]
+                    + sum(k * m for k, m in zip(key[1:], (104_729, 131))))
+    return d.materialize(gen, DEV, dtype)
+
+
+def _seeded_layers(cfg, seed: int, first: int, end: int) -> dict:
+    """Layers ``first`` to ``end`` of ``cfg``'s stacked transformer layers,
+    each layer of each leaf drawn from its own seed (as :func:`_seeded_tree`
+    draws them), so a pipeline rank's stage holds the values a one-card
+    tree of every layer holds there."""
+    from repro_torch.models import blocks
+    from repro_torch.models.common import dtype_of
+    dtype = dtype_of(cfg.param_dtype)
+    gen = torch.Generator(device=DEV)
+    defs = dict(_tree_leaves(blocks.stacked_layer_defs(cfg, 1)))
+    out: dict = {}
+    for leaf, (name, d) in enumerate(sorted(defs.items())):
+        per = _cut_def(d, 1)
+        node = out
+        *path, last = name.split("/")
+        for k in path:
+            node = node.setdefault(k, {})
+        node[last] = torch.stack([_draw(gen, per, dtype, seed, leaf, i)
+                                  for i in range(first, end)])
+    return out
 
 
 def _moe_cfg(layers: int, **moe_kw):
@@ -3960,7 +4007,8 @@ def _mesh_references(requests: int) -> dict:
     refs.update(_train_references())     # gradients: outside no_grad
     with torch.no_grad():
         for fn in (_decode_tp4_reference, lambda one: _grid_reference(requests),
-                   _decode32k_reference, _moe_reference, _mla_reference):
+                   _decode32k_reference, _moe_reference, _mla_reference,
+                   _pipeline_reference):
             refs.update(fn(one))
     return refs
 
@@ -4053,6 +4101,55 @@ def _mla_reference(one) -> dict:
     log(f"  mesh reference mla (one card, {m['check_layers']} layer, 256 "
         f"experts): peak {_peak_gib():.2f} GiB")
     return {"mla": logits.cpu().numpy()}
+
+
+def _pipeline_cfg(layers: int):
+    return configs.get_config("llama3-8b").replace(
+        num_layers=layers, param_dtype="float32", compute_dtype="float32",
+        remat=True)
+
+
+def _pipeline_x(cfg) -> torch.Tensor:
+    """The largest run's microbatches (fp32), drawn alike on every card; a
+    run of M takes the first M."""
+    c = PIPELINE_4
+    gen = torch.Generator(device=DEV)
+    gen.manual_seed(c["seed"] + 1)
+    return torch.randn((max(c["micro"]), c["mb"], c["seq"], cfg.d_model),
+                       generator=gen, device=DEV)
+
+
+def _pipeline_stage(cfg, n_stages: int):
+    """One of ``n_stages`` stages of ``cfg``'s layers through ``stack_fwd``,
+    on (mb, seq, d_model) activations."""
+    from repro_torch.models import blocks
+    stage_cfg = cfg.replace(num_layers=cfg.num_layers // n_stages)
+
+    def stage(stage_params, h):
+        positions = torch.arange(h.shape[1], device=h.device)[None, :]
+        return blocks.stack_fwd({"layers": stage_params}, h, stage_cfg,
+                                positions=positions)[0]
+    return stage
+
+
+def _pipeline_reference(one) -> dict:
+    """pipeline_4: its 32 layers in sequence on one card over every
+    microbatch of the largest run."""
+    c = PIPELINE_4
+    cfg = _pipeline_cfg(c["layers"])
+    layers = _seeded_layers(cfg, c["seed"], 0, c["layers"])
+    x = _pipeline_x(cfg)
+    whole = _pipeline_stage(cfg, 1)
+    _sync()
+    t0 = time.perf_counter()
+    out = torch.stack([whole(layers, x[i]) for i in range(len(x))])
+    _sync()
+    log(f"  mesh reference pipeline_4 (one card, {c['layers']} layers in "
+        f"sequence, {len(x)} microbatches, fp32): {time.perf_counter() - t0:.2f} "
+        f"s, peak {_peak_gib():.2f} GiB")
+    del layers
+    _free()
+    return {"pipeline_4": out.cpu().numpy()}
 
 
 def _counted(step) -> dict:
@@ -4172,6 +4269,58 @@ def _world1_checks(mesh, out: dict) -> None:
         f"tol {MESH_TOL['ep']:.0e})")
     require(max(err_psum, err_a2a) <= MESH_TOL["ep"],
             f"world 1: EP psum {err_psum}, a2a {err_a2a}")
+
+
+def _world1_pipeline(out: dict) -> None:
+    """World 1: ``pipeline_apply`` on a one-stage ``pod`` mesh over the NCCL
+    group of one (its distributed executor) against the local pipeline:
+    llama3-8b full width, ``w1_layers`` layers, ``w1_micro`` microbatches
+    of 1 x 2048, fp32, remat; output and every gradient equal."""
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.launch.pipeline import pipeline_apply, split_stages
+    c = PIPELINE_4
+    cfg = _pipeline_cfg(c["w1_layers"])
+    mesh = mesh_lib.make_pipeline_mesh(1, DEV.type)
+    require(mesh.distributed, "world 1 pipeline: the pod mesh did not take "
+            "the process group")
+    layers = _seeded_layers(cfg, c["seed"], 0, c["w1_layers"])
+    leaves = [leaf.requires_grad_(True) for _, leaf in _tree_leaves(layers)]
+    x = _pipeline_x(cfg)[:c["w1_micro"]]
+    stage = _pipeline_stage(cfg, 1)
+    runs = {}
+    t0 = time.perf_counter()
+    for tag, m in (("mesh", mesh),
+                   ("local", mesh_lib.Mesh((1,), ("pod",), (DEV,)))):
+        flash_lib.reset_launches()
+        coll.reset()
+        with _flash_shapes() as seen:
+            o = pipeline_apply(stage, split_stages(layers, 1), x, m)
+            g = torch.autograd.grad(torch.sum(o ** 2), leaves)
+        _sync()
+        runs[tag] = (o.detach(), g, dict(flash_lib.LAUNCHES),
+                     sum(coll.BYTES.values()))
+    (o_m, g_m, launched, moved), (o_l, g_l, _, _) = runs["mesh"], runs["local"]
+    same = torch.equal(o_m, o_l) and all(map(torch.equal, g_m, g_l))
+    n_calls = c["w1_layers"] * c["w1_micro"]
+    log(f"  world 1 pipeline: llama3-8b full width, {c['w1_layers']} layers in "
+        f"one stage over the NCCL group of one, {c['w1_micro']} microbatches "
+        f"of {c['mb']} x {c['seq']}, fp32, remat: output and gradients equal "
+        f"to the local pipeline bit for bit: {same}; {moved} collective bytes "
+        f"(want 0); flash launches {launched}; "
+        f"{time.perf_counter() - t0:.1f} s")
+    require(same, "world 1 pipeline: the pod mesh's run differs from the "
+            "local pipeline")
+    require(moved == 0, "world 1 pipeline: a collective moved bytes")
+    require(launched == {"flash_fwd": 2 * n_calls, "flash_bwd_dq": n_calls,
+                         "flash_bwd_dkv": n_calls},
+            f"world 1 pipeline: flash launches {launched}, want forward 2 x "
+            f"{n_calls} (remat) and {n_calls} each backward")
+    out["launches_pipeline"] = launched
+    del runs, o_m, g_m, o_l, g_l, layers, leaves
+    _free()
+    with torch.no_grad():
+        errs = _flash_exact(seen, "world-1 pipeline")
+    out["flash_errs"] = {k: max(v, errs[k]) for k, v in out["flash_errs"].items()}
 
 
 def _w1_batches(cfg) -> list[dict]:
@@ -4302,7 +4451,6 @@ def _train_references() -> dict:
 
 def _train_traced(cfg, state, loop, mesh, what: str) -> dict:
     """One more step of a mesh training run: counted, then traced."""
-    from torch.profiler import ProfilerActivity, profile
     step_fn = steps_lib.make_train_step(cfg, AdamWConfig(lr=loop.lr), mesh=mesh)
     batch_np = next(iter(SyntheticLM(DataConfig(
         batch_size=loop.batch, seq_len=loop.seq + 1, vocab_size=cfg.vocab_size,
@@ -4314,6 +4462,14 @@ def _train_traced(cfg, state, loop, mesh, what: str) -> dict:
     def one():
         box["state"], _ = step_fn(box["state"], batch)
 
+    return _traced_once(one, what)
+
+
+def _traced_once(one, what: str) -> dict:
+    """One counted run of ``one`` (:func:`_counted`), then one traced (all
+    ranks run both; rank 0 logs): host wall, device busy, the NCCL and
+    hand-written kernels' device ms, the top kernels."""
+    from torch.profiler import ProfilerActivity, profile
     counted = _counted(one)
     if DEV.type != "cuda":
         return {"collective": counted}
@@ -4433,6 +4589,144 @@ def _cell_train_tp4(mesh, n: int) -> dict:
             "state_gib": state_gib, "peak_gib": _peak_gib(),
             "launches": launched, "shapes": sorted(map(str, seen)),
             "collective_bytes_step": prof["collective"]["sent"], "trace": prof}
+
+
+def _cell_pipeline_4(refs: dict, n: int) -> dict:
+    """llama3-8b through ``pipeline_apply`` one stage a card (fp32, remat,
+    microbatches of 1 x 2048): ``check_layers`` layers in stages of 2
+    against the local pipeline on this card (forward equal, every gradient
+    within ``grad_tol`` x max|ref grad|), then the 32 layers, 8 a card (its
+    own only, drawn alone), at each ``micro``: forward within ``fwd_tol`` x
+    max|ref| of one card's sequential run, step wall, tokens/s, the idle
+    share, peak, counted permute bytes and one traced step."""
+    from torch.utils import _pytree as pytree
+
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.launch.pipeline import (bubble_fraction, pipeline_apply,
+                                             split_stages)
+    c = PIPELINE_4
+    mesh = mesh_lib.make_pipeline_mesh(n, DEV.type)
+    p = mesh.axis_index("pod")
+    res: dict = {}
+    # check_layers in n stages: the local pipeline on this card, the rank's
+    # stage of its gradient kept, against the stage a card
+    cfg = _pipeline_cfg(c["check_layers"])
+    per = c["check_layers"] // n
+    x = _pipeline_x(cfg)[:c["micro"][0]]
+    stage = _pipeline_stage(cfg, n)
+    layers = _seeded_layers(cfg, c["seed"], 0, c["check_layers"])
+    leaves = [leaf.requires_grad_(True) for _, leaf in _tree_leaves(layers)]
+    local = mesh_lib.Mesh((n,), ("pod",), (DEV,) * n)
+    out_l = pipeline_apply(stage, split_stages(layers, n), x, local)
+    ref_grads = [g[p * per:(p + 1) * per].clone() for g in
+                 torch.autograd.grad(torch.sum(out_l ** 2), leaves)]
+    out_l = out_l.detach()
+    del layers, leaves
+    _free()
+    own = _seeded_layers(cfg, c["seed"], p * per, (p + 1) * per)
+    leaves = [leaf.requires_grad_(True) for _, leaf in _tree_leaves(own)]
+    out_d = pipeline_apply(stage, pytree.tree_map(lambda a: a[None], own), x,
+                           mesh)
+    grads = torch.autograd.grad(torch.sum(out_d ** 2), leaves)
+    same = torch.equal(out_d.detach(), out_l)
+    worst = max(_rel(g, r) for g, r in zip(grads, ref_grads))
+    log(f"  pipeline_4 check: {c['check_layers']} layers in {n} stages of "
+        f"{per} on {n} cards, {len(x)} microbatches: forward equal to the "
+        f"local pipeline on one card: {same}; worst gradient "
+        f"{worst:.2e} x max|ref grad| (tol {c['grad_tol']:.0e})")
+    require(same, "pipeline_4: the cards' forward differs from the local "
+            f"pipeline by {_rel(out_d.detach(), out_l):.3e} x max|ref|")
+    require(worst <= c["grad_tol"], f"pipeline_4: gradient off by {worst}")
+    res["check"] = {"forward_equal": same, "grad_err": worst}
+    del own, leaves, out_d, out_l, grads, ref_grads
+    _free()
+    # the 32 layers, this card's 8 only
+    cfg = _pipeline_cfg(c["layers"])
+    per = c["layers"] // n
+    stage = _pipeline_stage(cfg, n)
+    own = _seeded_layers(cfg, c["seed"], p * per, (p + 1) * per)
+    leaves = [leaf.requires_grad_(True) for _, leaf in _tree_leaves(own)]
+    staged = pytree.tree_map(lambda a: a[None], own)
+    own_gib = sum(v.numel() * v.element_size() for v in leaves) / 2**30
+    xs = _pipeline_x(cfg)
+    ref = torch.from_numpy(refs["pipeline_4"])
+
+    def solo():
+        torch.autograd.grad(torch.sum(stage(own, xs[0]) ** 2), leaves)
+
+    solo()
+    walls = []
+    for _ in range(3):
+        _sync()
+        t0 = time.perf_counter()
+        solo()
+        _sync()
+        walls.append(time.perf_counter() - t0)
+    t_stage = statistics.median(walls)
+    log(f"  pipeline_4: {per} layers a card ({own_gib:.2f} GiB of fp32 "
+        f"weights); one stage's forward + backward on one microbatch alone "
+        f"{t_stage * 1e3:.1f} ms (median of 3)")
+    res["stage_s"] = t_stage
+    for m in c["micro"]:
+        x = xs[:m]
+
+        def step():
+            o = pipeline_apply(stage, staged, x, mesh)
+            return o, torch.autograd.grad(torch.sum(o ** 2), leaves)
+
+        _reset_peak()
+        flash_lib.reset_launches()
+        t0 = time.perf_counter()
+        with _flash_shapes() as seen:
+            out, grads = step()
+        _sync()
+        first = time.perf_counter() - t0
+        launched = dict(flash_lib.LAUNCHES)
+        ticks = m + n - 1
+        err = _rel(out.detach(), ref[:m])
+        finite = all(bool(torch.isfinite(g).all()) for g in grads)
+        del out, grads
+        walls = []
+        for _ in range(c["timed"]):
+            _sync()
+            t0 = time.perf_counter()
+            step()
+            _sync()
+            walls.append(time.perf_counter() - t0)
+        wall = statistics.median(walls)
+        idle = 1 - m * t_stage / wall
+        tokens = m * c["mb"] * c["seq"]
+        log(f"  pipeline_4 M {m} ({ticks} ticks): forward vs one card's "
+            f"sequential run {err:.2e} x max|ref| (tol {c['fwd_tol']:.0e}); "
+            f"gradients finite: {finite}; first step {first:.3f} s, then "
+            + " ".join(f"{w:.3f}" for w in walls) + f" s = {tokens / wall:.0f} "
+            f"tokens/s; idle share 1 - M x stage / step = {idle:.3f} against "
+            f"(P-1)/(M+P-1) = {bubble_fraction(n, m):.3f}; flash launches "
+            f"{launched}")
+        require(err <= c["fwd_tol"], f"pipeline_4 M {m}: forward off by {err}")
+        require(finite, f"pipeline_4 M {m}: non-finite gradients")
+        require(launched == {"flash_fwd": 2 * per * ticks,
+                             "flash_bwd_dq": per * ticks,
+                             "flash_bwd_dkv": per * ticks},
+                f"pipeline_4 M {m}: flash launches {launched}, want forward "
+                f"2 x {per} x {ticks} (remat, idle ticks too), {per} x "
+                f"{ticks} each backward")
+        prof = _traced_once(step, f"pipeline_4 step, M {m}, on {n} cards")
+        permute = prof["collective"]["by_kind"].get("collective-permute", 0.0)
+        log(f"  pipeline_4 M {m}: permute bytes a step (counted, this rank "
+            f"sends) {permute / 1e6:.1f} MB = {permute / NVLINK_BYTES_PER_S * 1e3:.3f} "
+            f"ms at 450 GB/s; peak {_peak_gib():.2f} GiB")
+        res[f"M{m}"] = {"err": err, "first_s": first, "step_s": walls,
+                        "tokens_per_s": tokens / wall, "idle": idle,
+                        "bubble": bubble_fraction(n, m),
+                        "permute_bytes": permute, "peak_gib": _peak_gib(),
+                        "launches": launched, "trace": prof}
+    with torch.no_grad():
+        res["flash_errs"] = _flash_exact(seen, "pipeline_4")
+    m0, m1 = (f"M{m}" for m in (c["micro"][0], c["micro"][-1]))
+    return {**res, "launches": res[m0]["launches"],
+            "peak_gib": max(res[f"M{m}"]["peak_gib"] for m in c["micro"]),
+            "collective_bytes_step": res[m1]["trace"]["collective"]["sent"]}
 
 
 def _decode_tp4_cfg():
@@ -4716,6 +5010,7 @@ def _mesh_rank(rank: int, n: int, port: int, refs: dict | None,
             with torch.no_grad():
                 _world1_checks(mesh, out)
             _world1_train(mesh, out)     # gradients: outside no_grad
+            _world1_pipeline(out)
         else:
             failed = []
             for name, cell in (
@@ -4725,11 +5020,12 @@ def _mesh_rank(rank: int, n: int, port: int, refs: dict | None,
                     ("mla", lambda: _cell_mla(refs, mesh, n)),
                     ("train_2x2", lambda: _cell_train_2x2(refs)),
                     ("train_tp4", lambda: _cell_train_tp4(mesh, n)),
-                    ("decode_tp4", lambda: _cell_decode_tp4(refs, mesh, n))):
+                    ("decode_tp4", lambda: _cell_decode_tp4(refs, mesh, n)),
+                    ("pipeline_4", lambda: _cell_pipeline_4(refs, n))):
                 _reset_peak()
                 t0 = time.perf_counter()
                 try:
-                    with torch.set_grad_enabled(name.startswith("train")):
+                    with torch.set_grad_enabled(name in GRAD_CELLS):
                         out[name] = cell()
                 except Failed as exc:
                     # a gate, met alike on every rank after the cell's
@@ -4797,6 +5093,7 @@ def phase_mesh(requests: int) -> dict:
         f"{wall:.1f} s in all")
     if n == 1:
         return {"launches": results[0]["launches"],
+                "launches_pipeline": results[0]["launches_pipeline"],
                 "errs": results[0]["flash_errs"]}
     for cell in MESH_CELLS:
         peaks = [res[cell]["peak_gib"] for res in results]
@@ -4814,10 +5111,22 @@ def phase_mesh(requests: int) -> dict:
         "tub_gemm": results[0]["grid"]["launches"]["tub_gemm"],
         "fused_paged_decode":
             results[0]["grid"]["launches"]["fused_paged_decode"]}
-    for cell in ("train_2x2", "train_tp4"):
+    for cell in ("train_2x2", "train_tp4", "pipeline_4"):
         log(f"  {cell} flash launches by rank: " + ", ".join(
             str(res[cell]["launches"]) for res in results))
-    return {"launches": launches, "errs": {}}
+    for m in PIPELINE_4["micro"]:
+        log(f"  pipeline_4 M {m} by rank: step s " + "; ".join(
+            " ".join(f"{w:.3f}" for w in res["pipeline_4"][f"M{m}"]["step_s"])
+            for res in results) + "; idle share " + ", ".join(
+            f"{res['pipeline_4'][f'M{m}']['idle']:.3f}" for res in results)
+            + f" (bubble {results[0]['pipeline_4'][f'M{m}']['bubble']:.3f}); "
+            "permute MB a step " + ", ".join(
+            f"{res['pipeline_4'][f'M{m}']['permute_bytes'] / 1e6:.1f}"
+            for res in results) + "; peak GiB " + ", ".join(
+            f"{res['pipeline_4'][f'M{m}']['peak_gib']:.2f}" for res in results))
+    return {"launches": launches,
+            "launches_pipeline": results[0]["pipeline_4"]["launches"],
+            "errs": results[0]["pipeline_4"]["flash_errs"]}
 
 
 # ---------------------------------------------------------------------------
@@ -5363,6 +5672,8 @@ def main() -> int:
                 row["launches_recurrent"] = recurrent["launches"].get(row["name"])
                 row["launches_pipeline"] = pipeline["launches"].get(row["name"])
                 row["launches_mesh"] = mesh["launches"].get(row["name"])
+                row["launches_mesh_pipeline"] = mesh.get(
+                    "launches_pipeline", {}).get(row["name"])
     except Failed as exc:
         log(f"FAILED: {exc}")
         return 1

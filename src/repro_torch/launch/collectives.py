@@ -10,7 +10,10 @@ others') and one to :data:`CALLS`, each under its kind, keyed by
 ``hlo_stats.CollectiveStats``; :func:`reset` zeroes all three.
 
 Payloads: ``all-reduce`` the buffer; ``all-gather`` the gathered result;
-``reduce-scatter`` the unreduced input; ``all-to-all`` the send buffer.
+``reduce-scatter`` the unreduced input; ``all-to-all`` the send buffer;
+``collective-permute`` (:func:`shift`) the tensor a rank sends, counted on
+each rank that sends, payload and sent alike (the reference's 1 x
+|operand|, no ring factor).
 
 Two layers:
 
@@ -29,7 +32,10 @@ Two layers:
     ``reduce_scatter`` when the ranks of the axis computed on different rows
     (FSDP over ``data``), else the rank's own slice of the (then identical)
     gradient;
-  - :func:`all_to_all` — ``all_to_all_single`` both ways (expert parallelism).
+  - :func:`all_to_all` — ``all_to_all_single`` both ways (expert parallelism);
+  - :func:`shift` — the reference's ``ppermute`` by one position along an
+    axis (a pipeline's stage hand-off): send to the next position, receive
+    from the previous one; backward the reverse permute.
 
 With no process group, a local mesh or an axis of size 1 each is the
 identity and counts nothing.
@@ -44,7 +50,8 @@ from repro_torch.launch.hlo_stats import COLLECTIVES, CollectiveStats
 
 __all__ = ["BYTES", "SENT", "CALLS", "reset", "stats", "axis_group",
            "barrier", "all_reduce_", "all_gather_into", "all_to_all_single",
-           "copy_to", "reduce_from", "gather", "all_to_all", "max_over"]
+           "copy_to", "reduce_from", "gather", "all_to_all", "shift",
+           "max_over"]
 
 #: payload bytes, ring bytes a rank sends, and calls, by kind, since the
 #: last :func:`reset`
@@ -73,6 +80,13 @@ def _count(kind: str, t: torch.Tensor, group) -> None:
     BYTES[kind] += nbytes
     SENT[kind] += nbytes * (p - 1) / p * (2 if kind == "all-reduce" else 1)
     CALLS[kind] += 1
+
+
+def _count_permute(t: torch.Tensor) -> None:
+    nbytes = t.numel() * t.element_size()
+    BYTES["collective-permute"] += nbytes
+    SENT["collective-permute"] += nbytes
+    CALLS["collective-permute"] += 1
 
 
 def _size(group) -> int:
@@ -130,6 +144,28 @@ def all_to_all_single(out: torch.Tensor, t: torch.Tensor,
         return out
     _count("all-to-all", t, group)
     dist.all_to_all_single(out, t.contiguous(), group=group)
+    return out
+
+
+def _permute(t: torch.Tensor, group, index: int, step: int) -> torch.Tensor:
+    """One ``batch_isend_irecv`` on ``group``: send ``t`` to the position
+    ``index + step`` of the group and receive from ``index - step``.  A
+    position past either end is no one: nothing goes there, and what comes
+    from there is zeros.  Peers are translated to global ranks.  Waiting on
+    the work orders the current stream after it (no host sync under NCCL)."""
+    t = t.contiguous()
+    out = torch.zeros_like(t)
+    size = _size(group)
+    ops = []
+    if 0 <= index + step < size:
+        _count_permute(t)
+        ops.append(dist.P2POp(dist.isend, t,
+                              dist.get_global_rank(group, index + step), group))
+    if 0 <= index - step < size:
+        ops.append(dist.P2POp(dist.irecv, out,
+                              dist.get_global_rank(group, index - step), group))
+    for work in dist.batch_isend_irecv(ops):
+        work.wait()
     return out
 
 
@@ -220,6 +256,19 @@ class _AllToAll(torch.autograd.Function):
         return all_to_all_single(torch.empty_like(g), g, ctx.group), None
 
 
+class _Shift(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, index):
+        ctx.group, ctx.index = group, index
+        return _permute(x, group, index, +1)
+
+    @staticmethod
+    def backward(ctx, g):
+        # the gradient of what this rank received goes back to its sender;
+        # the gradient of what it sent comes from its receiver
+        return _permute(g, ctx.group, ctx.index, -1), None, None
+
+
 def copy_to(x: torch.Tensor, mesh, axis: str = "model") -> torch.Tensor:
     """Identity forward, ``all_reduce`` of the gradient over ``axis``."""
     group = axis_group(mesh, axis)
@@ -257,3 +306,22 @@ def all_to_all(x: torch.Tensor, mesh, axis: str = "model") -> torch.Tensor:
     if not torch.is_grad_enabled() or not x.requires_grad:
         return all_to_all_single(torch.empty_like(x), x, group)
     return _AllToAll.apply(x, group)
+
+
+def shift(x: torch.Tensor, mesh, axis: str) -> torch.Tensor:
+    """The reference's ``lax.ppermute`` of ``x`` by one position along
+    ``axis``: each rank sends ``x`` to position ``i + 1`` of its line and
+    returns what position ``i - 1`` sent (zeros at position 0).  The
+    reference's wrap from the last position to the first is left out: a
+    pipeline never uses what it carries, so the last rank sends nothing
+    forward and the first receives nothing.  Backward is the reverse
+    permute: the gradient of the received tensor goes to ``i - 1``, that of
+    the sent one comes from ``i + 1`` (zeros at the last position).  Every
+    rank of the line must call it, in the same order, in both passes."""
+    group = axis_group(mesh, axis)
+    if group is None:
+        return x
+    index = mesh.axis_index(axis)
+    if not torch.is_grad_enabled() or not x.requires_grad:
+        return _permute(x, group, index, +1)
+    return _Shift.apply(x, group, index)

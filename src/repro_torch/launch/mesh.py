@@ -7,7 +7,9 @@ Two kinds of mesh, one class:
   (``repro_torch.backends.grid``) then runs its shards one after another
   there and adds the partial sums explicitly; a pipeline
   (``launch/pipeline.py``) hands its stages over on that device.  Only a
-  one-position :func:`make_mesh` exists without a process group.
+  one-position :func:`make_mesh` exists without a process group.  A local
+  mesh whose positions name several devices is refused by
+  ``pipeline_apply``: stages on several devices run one rank a position.
 * **Distributed** (a process group is up, from ``torchrun``'s ``RANK`` /
   ``WORLD_SIZE`` / ``LOCAL_RANK`` through :func:`init_distributed`, or from a
   test's spawn): one position per rank, row-major, each rank on its own
@@ -41,10 +43,6 @@ __all__ = ["Mesh", "make_production_mesh", "make_mesh", "make_grid_mesh",
            "make_pipeline_mesh", "grid_mesh", "current_mesh",
            "init_distributed", "distributed", "world_size", "rank",
            "DEFAULT_TIMEOUT_S"]
-
-_MULTI_DEVICE_MSG = ("needs one device per position, which the port's "
-                     "pipeline does not have yet (ROADMAP Queue 1 item 6, the "
-                     "pipeline across cards)")
 
 #: the process group's timeout: a rank that diverges (and leaves the others
 #: waiting in a collective) fails the run after this long instead of hanging
@@ -315,8 +313,14 @@ def grid_mesh(units_x: int, units_y: int) -> Mesh | None:
 
 def make_pipeline_mesh(n_stages: int, device="cuda") -> Mesh:
     """The ``("pod",)`` mesh of an ``n_stages``-stage layer pipeline
-    (``repro_torch.launch.pipeline``), every stage on ``device``."""
+    (``repro_torch.launch.pipeline``).
+
+    With a process group up, one rank per stage (:func:`make_mesh`: the
+    world size must be ``n_stages``); without one, every stage on
+    ``device`` (the stages run in turn there)."""
     n_stages = int(n_stages)
     if n_stages < 1:
         raise ValueError(f"a pipeline needs >= 1 stage, got {n_stages}")
+    if distributed():
+        return make_mesh((n_stages,), ("pod",), device)
     return Mesh((n_stages,), ("pod",), (torch.device(device),) * n_stages)

@@ -1,24 +1,35 @@
-"""GPipe-style layer pipeline over the ``pod`` axis, on one device.
+"""GPipe-style layer pipeline over the ``pod`` axis.
 
 Layers are split into ``P`` contiguous stages (:func:`split_stages`) and
 ``M`` microbatches stream through them on the reference's schedule: at
 tick ``t`` stage 0 ingests microbatch ``t``, every other stage takes what
 the stage before it produced at tick ``t - 1``, and the last stage emits
-microbatch ``t - (P - 1)``.  Where the reference's ``shard_map`` passes
-the activation to the next pod with a ``lax.ppermute``, the port hands the
-tensor over on the one device; gradients come from autograd through the
-same schedule.
+microbatch ``t - (P - 1)``; ``T = M + P - 1`` ticks in all.  Gradients come
+from autograd through the same schedule.  Two executors, picked by the
+mesh (``launch.mesh.make_pipeline_mesh``):
 
-A stage that holds no microbatch at a tick (the pipeline's fill and drain)
-runs nothing, so a call makes ``P * M`` stage calls; in the reference those
-idle ticks compute on zeros whose results never reach an emitted
-microbatch, so the outputs are the same.  :func:`bubble_fraction` reports
-the share of the reference schedule those ticks take, ``(P - 1) / (M + P -
-1)``; nothing here executes it.
+* **Distributed** (a ``torch.distributed`` mesh with a ``pod`` axis, one
+  rank a stage): the reference's ``shard_map`` body on every rank.  The
+  rank takes its own stage's parameters, steps every tick in lockstep with
+  the other ranks, and hands its activation to the next stage with
+  ``collectives.shift`` (the reference's ``lax.ppermute``, whose backward
+  is the reverse permute).  At an idle tick (fill and drain) it computes
+  on zeros, as the reference does, so every rank's autograd graph is one
+  chain over the ticks and the backward meets the hand-offs in the same
+  reverse order on every rank.  The emits are summed over ``pod``
+  (``reduce_from``, the reference's ``psum``), so every rank holds the
+  whole output; ``x`` enters through ``copy_to``, so every rank holds
+  ``dL/dx``.  Other axes of the mesh (``data``) each run their own
+  pipeline on their own ``x``.
+* **Local** (no process group, every stage on one device): the stages are
+  handed over on that device, and a stage that holds no microbatch at a
+  tick runs nothing, so a call makes ``P * M`` stage calls; the idle ticks
+  of the reference compute on zeros whose results never reach an emitted
+  microbatch, so the outputs are the same.  A local mesh whose stages sit
+  on several devices raises: run one rank a stage under ``torchrun``.
 
-The mesh comes from ``launch.mesh.make_pipeline_mesh``: every stage on one
-device.  A mesh whose stages sit on several devices raises
-``NotImplementedError`` (ROADMAP Queue 1 item 6, the pipeline across cards).
+:func:`bubble_fraction` is the share of the schedule the idle ticks take,
+``(P - 1) / (M + P - 1)``.
 """
 
 from __future__ import annotations
@@ -28,7 +39,7 @@ from typing import Callable
 import torch
 from torch.utils import _pytree as pytree
 
-from repro_torch.launch.mesh import _MULTI_DEVICE_MSG
+from repro_torch.launch import collectives as coll
 
 __all__ = ["pipeline_apply", "split_stages", "bubble_fraction"]
 
@@ -53,15 +64,22 @@ def pipeline_apply(stage_fn: Callable, staged_params, x, mesh,
     """Run ``x``'s microbatches through the layer pipeline.
 
     stage_fn(stage_params, h) -> h : applies ONE stage's layers.
-    staged_params: tree with leading (n_stages, ...) axis (see split_stages).
-    x: (n_micro, mb, ...) microbatched activations.
-    Returns (n_micro, mb, ...) outputs.
+    staged_params: tree with leading (n_stages, ...) axis (see split_stages);
+      on a distributed mesh a leaf may instead have a leading axis of 1 and
+      hold only this rank's stage, as ``shard_map`` hands a pod its slice.
+    x: (n_micro, mb, ...) microbatched activations (the same on every rank
+      of ``axis``).
+    Returns (n_micro, mb, ...) outputs (on every rank of ``axis``).
     """
-    n_stages = mesh.shape[mesh.axes.index(axis)]
+    if mesh.distributed:
+        return _pipeline_on_mesh(stage_fn, staged_params, x, mesh, axis)
+    n_stages = mesh.axis_size(axis)
     if len(set(mesh.devices)) > 1:
-        raise NotImplementedError(
-            f"a pipeline with stages on {len(set(mesh.devices))} devices "
-            f"{_MULTI_DEVICE_MSG}")
+        raise RuntimeError(
+            f"a pipeline with stages on {len(set(mesh.devices))} devices runs "
+            f"one rank a stage: start {n_stages} processes under torchrun "
+            f"(or call launch.mesh.init_distributed in each) and build the "
+            f"mesh with make_pipeline_mesh({n_stages})")
     n_micro = x.shape[0]
     stages = [pytree.tree_map(lambda a, p=p: a[p], staged_params)
               for p in range(n_stages)]
@@ -76,3 +94,48 @@ def pipeline_apply(stage_fn: Callable, staged_params, x, mesh,
         if 0 <= out_idx < n_micro:
             outs[out_idx] = held[-1]
     return torch.stack(outs)
+
+
+def _pipeline_on_mesh(stage_fn, staged_params, x, mesh, axis):
+    """The reference's ``shard_map`` body on this rank (see the module
+    docstring).  Every tensor a rank receives stays in its graph (a
+    ``torch.where`` on its position, never a Python branch), so that each
+    rank runs every hand-off's backward and the sends meet their
+    receives."""
+    n_stages = mesh.axis_size(axis)
+    p = mesh.axis_index(axis)
+
+    def own(a):
+        if a.shape[0] == n_stages:
+            return a[p]
+        if a.shape[0] == 1:
+            return a[0]
+        raise ValueError(f"a staged leaf of leading dimension {a.shape[0]} on "
+                         f"a {n_stages}-stage mesh: want {n_stages} (every "
+                         f"stage) or 1 (this rank's)")
+
+    params = pytree.tree_map(own, staged_params)
+    group = coll.axis_group(mesh, axis)
+    if group is not None and x.device.type == "cuda":
+        # NCCL wants every rank of a group in the first call on it, which a
+        # point-to-point call need not have; a barrier first is collective
+        torch.distributed.barrier(group=group)
+    x = coll.copy_to(x, mesh, axis)
+    n_micro = x.shape[0]
+    ticks = n_micro + n_stages - 1
+    first = torch.tensor(p == 0, device=x.device)
+    last = torch.tensor(p == n_stages - 1, device=x.device)
+    zeros = x.new_zeros(x.shape[1:])
+    buf = zeros
+    outs = []
+    for t in range(ticks):
+        # stage 0 ingests microbatch t (zeros once the stream dries up)
+        buf = torch.where(first, x[t] if t < n_micro else zeros, buf)
+        buf = stage_fn(params, buf)
+        # the last stage emits microbatch t - (P - 1)
+        if t >= n_stages - 1:
+            outs.append(torch.where(last, buf, zeros))
+        if t < ticks - 1:       # what the last tick would hand on is unused
+            buf = coll.shift(buf, mesh, axis)
+    # the emits live on the last stage only: sum-replicate across stages
+    return coll.reduce_from(torch.stack(outs), mesh, axis)
