@@ -87,7 +87,8 @@ class BackendExecution:
     """Live handle for one :func:`use_backend` scope.
 
     ``backend`` — the resolved :class:`GemmBackend` every site executes on;
-    ``calls`` — the :class:`ExecutedGemm` sites in execution order;
+    ``calls`` — the :class:`ExecutedGemm` sites in execution order (a
+    holder that reads none sets it to None, and none is built);
     ``on_output`` — an optional ``callable(site, GEMM result)`` invoked
     once per call, in the same order; ``weight_cache`` — an optional
     caller-owned dict in which ``dense`` keeps each weight's codes so they
@@ -99,7 +100,7 @@ class BackendExecution:
         self.backend = backend
         self.on_output = on_output
         self.weight_cache = weight_cache
-        self.calls: list[ExecutedGemm] = []
+        self.calls: list[ExecutedGemm] | None = []
 
     def backend_for(self, site: str) -> GemmBackend | None:
         """The backend ``dense`` must execute ``site`` on (None = float)."""
@@ -107,10 +108,11 @@ class BackendExecution:
 
     def record(self, site: str, m: int, k: int, n_out: int,
                backend: GemmBackend, out=None) -> None:
-        """Append one executed GEMM site to ``calls``."""
-        self.calls.append(ExecutedGemm(
-            int(m), int(k), int(n_out), backend.name, backend.bits,
-            str(site), int(backend.stream_len or 0)))
+        """Append one executed GEMM site to ``calls`` (unless it is None)."""
+        if self.calls is not None:
+            self.calls.append(ExecutedGemm(
+                int(m), int(k), int(n_out), backend.name, backend.bits,
+                str(site), int(backend.stream_len or 0)))
         if self.on_output is not None and out is not None:
             self.on_output(str(site), out)
 

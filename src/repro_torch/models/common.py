@@ -28,6 +28,7 @@ from repro_torch.core import packing
 from repro_torch.core.quantization import quantize, quantize_per_row
 from repro_torch.launch import collectives as coll
 from repro_torch.models.config import ModelConfig
+from repro_torch.runtime import spans
 
 __all__ = [
     "ParamDef", "init_tree", "dense", "rmsnorm", "embed_lookup",
@@ -450,31 +451,36 @@ def _backend_matmul(execution, backend, site: str, w: torch.Tensor,
     ``quantize`` produced at pack time — iff the store's width matches the
     backend's; a mismatch raises rather than re-quantizing.
     """
-    x2 = x.reshape(-1, x.shape[-1])
-    if packing.is_packed(w):
-        if int(w.bits) != int(backend.bits):
-            raise ValueError(
-                f"site {site!r}: packed store holds {w.bits}-bit codes but "
-                f"the backend executes at {backend.bits}-bit — re-quantizing "
-                f"packed codes at a second width compounds quantization "
-                f"error; repack from the float parameters "
-                f"(packed-width-mismatch)")
-        wq = w.quantized()
-        k, n_out = w.k, w.n_out
-    else:
-        w2 = w.reshape(w.shape[0], -1) if w.ndim > 2 else w
-        wq = _weight_codes(execution, backend, w2)
-        k, n_out = w2.shape[0], w2.shape[1]
-    if activation_scale_mode() == "per-row":
-        xq = quantize_per_row(x2.to(torch.float32), bits=backend.bits)
-    else:
-        xq = quantize(x2.to(torch.float32), bits=backend.bits,
-                      per_channel=False)
-    acc = backend.execute(xq.values, wq.values)
-    out = acc.to(torch.float32) * xq.scale * wq.scale.reshape(1, -1)
-    execution.record(site, m=x2.shape[0], k=k, n_out=n_out, backend=backend,
-                     out=acc)
-    return out.to(x.dtype).reshape(*x.shape[:-1], *w.shape[1:])
+    with spans.span("dense"):
+        x2 = x.reshape(-1, x.shape[-1])
+        if packing.is_packed(w):
+            if int(w.bits) != int(backend.bits):
+                raise ValueError(
+                    f"site {site!r}: packed store holds {w.bits}-bit codes "
+                    f"but the backend executes at {backend.bits}-bit — "
+                    f"re-quantizing packed codes at a second width compounds "
+                    f"quantization error; repack from the float parameters "
+                    f"(packed-width-mismatch)")
+            wq = w.quantized()
+            k, n_out = w.k, w.n_out
+        else:
+            w2 = w.reshape(w.shape[0], -1) if w.ndim > 2 else w
+            wq = _weight_codes(execution, backend, w2)
+            k, n_out = w2.shape[0], w2.shape[1]
+        with spans.span("dense.quantize"):
+            if activation_scale_mode() == "per-row":
+                xq = quantize_per_row(x2.to(torch.float32), bits=backend.bits)
+            else:
+                xq = quantize(x2.to(torch.float32), bits=backend.bits,
+                              per_channel=False)
+        with spans.span("dense.gemm"):
+            acc = backend.execute(xq.values, wq.values)
+        with spans.span("dense.dequantize"):
+            out = (acc.to(torch.float32) * xq.scale
+                   * wq.scale.reshape(1, -1)).to(x.dtype)
+        execution.record(site, m=x2.shape[0], k=k, n_out=n_out,
+                         backend=backend, out=acc)
+    return out.reshape(*x.shape[:-1], *w.shape[1:])
 
 
 def _plain_matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:

@@ -34,7 +34,15 @@ schedule-dependent garbage into the per-tensor activation-quantization
 scales of a live backend scope.
 
 Time is counted in scheduler steps (1 decode step each); energy in Eq.-1
-dynamic µJ via :class:`~repro_torch.serving.energy.EnergyModel`.
+dynamic µJ via :class:`~repro_torch.serving.energy.EnergyModel`.  Wall
+time is left to :mod:`repro_torch.runtime.spans`: under
+``spans.recording()`` :meth:`ServingEngine.run` records ``engine.step``,
+``engine.decode`` (issuing the step), ``engine.decode.sync`` (waiting for
+its tokens), ``engine.decode.bookkeep``, ``engine.schedule``,
+``engine.prefill``, and a request's ``engine.admit`` and ``engine.queue``
+(from the start of its arrival step); ``_decode`` records ``layer.attn``
+(``attn.kv_write``, ``attn.attend``) and ``layer.mlp``.  Off, each site
+costs one flag test.
 
 On a grid with a ``torch.distributed`` process group up, the engine serves
 under ``launch.mesh.make_grid_mesh(*grid)``, one PE unit per rank: every
@@ -67,6 +75,7 @@ from repro_torch.models.blocks import layer_slice
 from repro_torch.models.common import dense, rmsnorm
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.mlp import mlp_fwd
+from repro_torch.runtime import spans
 from repro_torch.serving.energy import EnergyModel
 from repro_torch.serving.paged_kv import PagedKVCache
 from repro_torch.serving.scheduler import (Request, RequestState,
@@ -359,30 +368,34 @@ class ServingEngine:
             lp = layer_slice(params["layers"], i)
             pk, pv = k_pool[i], v_pool[i]
             with site_scope("layers"):
-                h = rmsnorm(lp["ln1"], x, cfg.rms_eps)
-                with site_scope("attn"):
-                    q = dense(lp["attn"]["wq"], h, cfg, name="wq")
-                    k = dense(lp["attn"]["wk"], h, cfg, name="wk")
-                    v = dense(lp["attn"]["wv"], h, cfg, name="wv")
-                    q = rope_lib.apply_rope(q, positions, cfg.rope_theta)
-                    k = rope_lib.apply_rope(k, positions, cfg.rope_theta)
-                    paged_lib.write_kv_token(pk, block_tables, lengths,
-                                             k[:, 0], self.page_size)
-                    paged_lib.write_kv_token(pv, block_tables, lengths,
-                                             v[:, 0], self.page_size)
-                    if self.attention == "fused":
-                        out = fused_lib.fused_paged_decode_attention(
-                            q, pk, pv, block_tables, valid,
-                            num_heads=cfg.num_heads)
-                    else:
-                        out = paged_lib.paged_decode_attention(
-                            q, pk, pv, block_tables, valid,
-                            num_heads=cfg.num_heads)
-                    out = attn_lib._out_proj(lp["attn"], out, cfg)
-                x = x + out
-                h2 = rmsnorm(lp["ln2"], x, cfg.rms_eps)
-                with site_scope("mlp"):
-                    x = x + mlp_fwd(lp["mlp"], h2, cfg)
+                with spans.span("layer.attn"):
+                    h = rmsnorm(lp["ln1"], x, cfg.rms_eps)
+                    with site_scope("attn"):
+                        q = dense(lp["attn"]["wq"], h, cfg, name="wq")
+                        k = dense(lp["attn"]["wk"], h, cfg, name="wk")
+                        v = dense(lp["attn"]["wv"], h, cfg, name="wv")
+                        with spans.span("attn.kv_write"):
+                            q = rope_lib.apply_rope(q, positions, cfg.rope_theta)
+                            k = rope_lib.apply_rope(k, positions, cfg.rope_theta)
+                            paged_lib.write_kv_token(pk, block_tables, lengths,
+                                                     k[:, 0], self.page_size)
+                            paged_lib.write_kv_token(pv, block_tables, lengths,
+                                                     v[:, 0], self.page_size)
+                        with spans.span("attn.attend"):
+                            if self.attention == "fused":
+                                out = fused_lib.fused_paged_decode_attention(
+                                    q, pk, pv, block_tables, valid,
+                                    num_heads=cfg.num_heads)
+                            else:
+                                out = paged_lib.paged_decode_attention(
+                                    q, pk, pv, block_tables, valid,
+                                    num_heads=cfg.num_heads)
+                        out = attn_lib._out_proj(lp["attn"], out, cfg)
+                    x = x + out
+                with spans.span("layer.mlp"):
+                    h2 = rmsnorm(lp["ln2"], x, cfg.rms_eps)
+                    with site_scope("mlp"):
+                        x = x + mlp_fwd(lp["mlp"], h2, cfg)
         logits = model_lib.logits_out(params, cfg, x)
         # lengths advance on-device so the host never re-uploads them
         new_lengths = torch.where(active, lengths + 1, lengths)
@@ -407,17 +420,26 @@ class ServingEngine:
         return rng.integers(0, self.cfg.vocab_size,
                             req.prompt_len).astype(np.int32)
 
+    @contextlib.contextmanager
     def _scope(self):
+        """The backend or plan scope :meth:`run` serves in (none on the
+        float path).  Nothing reads the sites it contracts, so its
+        execution keeps no ``calls`` list."""
+        if self.plan is None and self.backend is None:
+            yield None
+            return
         if self.plan is not None:
-            return backends_lib.use_plan(
+            scope = backends_lib.use_plan(
                 self.plan, grid=self.grid, on_output=self.on_gemm_output,
                 weight_cache=self.weight_cache)
-        if self.backend is not None:
-            return backends_lib.use_backend(
+        else:
+            scope = backends_lib.use_backend(
                 self.backend, bits=self.bits, grid=self.grid,
                 on_output=self.on_gemm_output,
                 weight_cache=self.weight_cache)
-        return contextlib.nullcontext()
+        with scope as execution:
+            execution.calls = None
+            yield execution
 
     def _check_same_tokens(self, ids: torch.Tensor, step: int) -> None:
         """Raise unless every rank of the mesh sampled ``ids`` (B,) at this
@@ -490,6 +512,9 @@ class ServingEngine:
         decoded_slots = 0
         prefill_calls = 0
         step = 0
+        # perf_counter_ns at each step's start, kept while spans record: a
+        # request's queue span runs from its arrival step's start
+        step_t0: dict[int, int] = {}
         max_steps = (max(r.arrival_step for r in trace)
                      + 2 * sum(r.output_len + 1 for r in trace) + 16)
 
@@ -524,12 +549,20 @@ class ServingEngine:
                 groups.setdefault(key, []).append(req.spec)
             out = {}
             for specs in groups.values():
-                width = _bucket(max(s.prompt_len for s in specs))
-                padded = np.zeros((len(specs), width), np.int32)
-                for i, spec in enumerate(specs):
-                    padded[i, : spec.prompt_len] = self.prompt_tokens(spec)
-                logits, k_l, v_l = self._prefill(
-                    torch.from_numpy(padded).to(dev))
+                if step_t0:
+                    for spec in specs:
+                        arrived = step_t0.get(spec.arrival_step)
+                        if arrived is not None:  # recorded since its arrival
+                            with spans.span("engine.queue", req=spec.req_id,
+                                            start=arrived):
+                                pass
+                with spans.span("engine.prefill"):
+                    width = _bucket(max(s.prompt_len for s in specs))
+                    padded = np.zeros((len(specs), width), np.int32)
+                    for i, spec in enumerate(specs):
+                        padded[i, : spec.prompt_len] = self.prompt_tokens(spec)
+                    logits, k_l, v_l = self._prefill(
+                        torch.from_numpy(padded).to(dev))
                 prefill_calls += 1
                 for i, spec in enumerate(specs):
                     out[spec.req_id] = (logits[i, spec.prompt_len - 1],
@@ -540,18 +573,19 @@ class ServingEngine:
         def admit(req: Request, at: int, last_logits, k_rows, v_rows) -> None:
             nonlocal tokens_total, energy_uj
             spec = req.spec
-            cache.allocate(spec.req_id, spec.total_len)
-            cache.write_prefill(spec.req_id, k_rows, v_rows)
-            first = int(torch.argmax(last_logits))
-            slot = next(i for i in range(b) if slot_req[i] is None)
-            slot_req[slot] = req
-            lengths[slot] = spec.prompt_len
-            active[slot] = True
-            d_tokens[slot, 0] = first
-            d_lengths[slot] = spec.prompt_len
-            d_active[slot] = True
-            d_btables[slot] = torch.from_numpy(
-                cache.block_table_row(spec.req_id)).to(dev)
+            with spans.span("engine.admit", req=spec.req_id):
+                cache.allocate(spec.req_id, spec.total_len)
+                cache.write_prefill(spec.req_id, k_rows, v_rows)
+                first = int(torch.argmax(last_logits))
+                slot = next(i for i in range(b) if slot_req[i] is None)
+                slot_req[slot] = req
+                lengths[slot] = spec.prompt_len
+                active[slot] = True
+                d_tokens[slot, 0] = first
+                d_lengths[slot] = spec.prompt_len
+                d_active[slot] = True
+                d_btables[slot] = torch.from_numpy(
+                    cache.block_table_row(spec.req_id)).to(dev)
             req.state = RequestState.RUNNING
             req.admitted_step = at
             req.slot = slot
@@ -573,41 +607,50 @@ class ServingEngine:
                 if step > max_steps:
                     raise RuntimeError("serving loop exceeded its step bound "
                                        "— scheduler stuck?")
-                # 1) decode the running set (admitted before this step)
-                n_active = int(active.sum())
-                if n_active:
-                    logits, k_pool, v_pool, d_lengths = self._decode(
-                        self._exec_params, d_tokens, cache.k_pool,
-                        cache.v_pool, d_btables, d_lengths, d_active)
-                    cache.sync_pools(k_pool, v_pool)
-                    nxt_dev = torch.argmax(logits[:, 0], dim=-1).to(torch.int32)
-                    if self.mesh is not None:
-                        self._check_same_tokens(nxt_dev, step)
-                    d_tokens = nxt_dev[:, None].clone()
-                    nxt = nxt_dev.cpu().numpy()
-                    decode_ticks += 1
-                    decoded_slots += n_active
-                    energy_uj += self.energy.decode_energy_uj(n_active)
-                    for slot in range(b):
-                        req = slot_req[slot]
-                        if req is None:
-                            continue
-                        lengths[slot] += 1          # KV written for the input
-                        cache.lengths[req.req_id] = int(lengths[slot])
-                        req.generated += 1
-                        req_tokens[req.req_id].append(int(nxt[slot]))
-                        tokens_total += 1
-                        if req.generated >= req.spec.output_len:
-                            finish(req, step, slot)
-                # 2) step boundary: admit arrivals (join decode next step);
-                # same-step admissions share one prefill call per bucket
-                admitted = scheduler.admissions(step, list(waiting),
-                                                int(active.sum()), cache)
-                if admitted:
-                    prefills = prefill_admissions(admitted)
-                    for req in admitted:
-                        waiting.remove(req)
-                        admit(req, step, *prefills[req.spec.req_id])
+                with spans.span("engine.step") as t0:
+                    if t0 is not None:
+                        step_t0[step] = t0
+                    # 1) decode the running set (admitted before this step)
+                    n_active = int(active.sum())
+                    if n_active:
+                        with spans.span("engine.decode"):
+                            logits, k_pool, v_pool, d_lengths = self._decode(
+                                self._exec_params, d_tokens, cache.k_pool,
+                                cache.v_pool, d_btables, d_lengths, d_active)
+                            cache.sync_pools(k_pool, v_pool)
+                            nxt_dev = torch.argmax(logits[:, 0],
+                                                   dim=-1).to(torch.int32)
+                            d_tokens = nxt_dev[:, None].clone()
+                        with spans.span("engine.decode.sync"):
+                            if self.mesh is not None:
+                                self._check_same_tokens(nxt_dev, step)
+                            nxt = nxt_dev.cpu().numpy()
+                        with spans.span("engine.decode.bookkeep"):
+                            decode_ticks += 1
+                            decoded_slots += n_active
+                            energy_uj += self.energy.decode_energy_uj(n_active)
+                            for slot in range(b):
+                                req = slot_req[slot]
+                                if req is None:
+                                    continue
+                                lengths[slot] += 1      # KV written for the input
+                                cache.lengths[req.req_id] = int(lengths[slot])
+                                req.generated += 1
+                                req_tokens[req.req_id].append(int(nxt[slot]))
+                                tokens_total += 1
+                                if req.generated >= req.spec.output_len:
+                                    finish(req, step, slot)
+                    # 2) step boundary: admit arrivals (join decode next
+                    # step); same-step admissions share one prefill call per
+                    # bucket
+                    with spans.span("engine.schedule"):
+                        admitted = scheduler.admissions(step, list(waiting),
+                                                        int(active.sum()), cache)
+                    if admitted:
+                        prefills = prefill_admissions(admitted)
+                        for req in admitted:
+                            waiting.remove(req)
+                            admit(req, step, *prefills[req.spec.req_id])
                 step += 1
 
         lat = np.array([r.latency for r in finished])
