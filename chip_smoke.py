@@ -1033,8 +1033,10 @@ def _fused_gather_divergence(cfg, fused, gather, *, steps: int = 4,
             seen.clear()
             cache = caches[name]
             with scope(), activation_scaling("per-row"):
-                lg, _, _, _ = eng._decode(eng.params, tok, cache.k_pool,
-                                          cache.v_pool, d_bt, lengths, active)
+                # the eager body: a replay would skip ``recording``
+                lg, _, _, _ = eng._decode_step(eng.params, tok, cache.k_pool,
+                                               cache.v_pool, d_bt, lengths,
+                                               active)
             got[name] = (lg[:, 0], list(seen))
         (lg_g, codes_g), (lg_f, codes_f) = got["gather"], got["fused"]
         require(len(codes_g) == len(codes_f) == 7 * cfg.num_layers + 1,
@@ -1100,6 +1102,30 @@ def serve_trace(requests: int):
 SERVE_KW = dict(bits=4, max_batch=8, page_size=16, max_seq_len=1024)
 
 
+def graph_note(rep) -> str:
+    """How a served trace's decode steps ran (``ServingReport``): replayed
+    from a captured CUDA graph, or eagerly."""
+    return (f"decode steps from a CUDA graph {rep.decode_replays} (captures "
+            f"{rep.decode_captures}), eager {rep.decode_eager}")
+
+
+def issued(rep) -> int:
+    """The decode steps of a served trace whose kernels their wrappers
+    issued from Python, and so counted in ``LAUNCHES``: those run eagerly
+    and those captured into a CUDA graph.  A replay issues none; what the
+    card ran is counted by the profiler (:func:`_kernel_launches`)."""
+    return rep.decode_eager + rep.decode_captures
+
+
+def _kernel_launches(prof, pieces: dict[str, str]) -> dict[str, int]:
+    """Launches on the card, by ``torch.profiler``, of each kernel of
+    ``pieces`` (a name -> a piece of its traced name): graph replays
+    included, which the wrappers' ``LAUNCHES`` do not see."""
+    rows = _device_rows(prof)
+    return {name: sum(n for _, key, n in rows if piece in key)
+            for name, piece in pieces.items()}
+
+
 def phase_serve(cfg, params, requests: int) -> dict:
     log(f"serve: tubgemm_cuda@4 per-row, fused decode, {requests} requests")
     torch.cuda.reset_peak_memory_stats()
@@ -1113,17 +1139,23 @@ def phase_serve(cfg, params, requests: int) -> dict:
     log(f"  engine built (weights profiled for Eq.-1 energy) in "
         f"{time.perf_counter() - t0:.1f} s")
 
-    # ---- main path, tub + fused: counters zeroed just before, read just after
+    # ---- main path, tub + fused: counters zeroed just before, read just
+    # after; the profiler counts what ran on the card, replays included
+    from torch.profiler import ProfilerActivity, profile
     ug.reset_launches()
     fused_lib.reset_launches()
     t0 = time.perf_counter()
-    with activation_scaling("per-row"):
+    with activation_scaling("per-row"), profile(
+            activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         rep = engine.run(trace, "continuous")
-    torch.cuda.synchronize()
+        torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {"tub_gemm": ug.LAUNCHES["tub_gemm"],
-                "fused_paged_decode": fused_lib.LAUNCHES["fused_paged_decode"]}
+    wrapped = {"tub_gemm": ug.LAUNCHES["tub_gemm"],
+               "fused_paged_decode": fused_lib.LAUNCHES["fused_paged_decode"]}
     tu_during_tub = ug.LAUNCHES["tu_gemm"]
+    launches = _kernel_launches(prof, {
+        "tub_gemm": "TubPulses", "fused_paged_decode": "fused_decode_split_kernel"})
+    del prof
     log(f"  [tubgemm_cuda@4, fused] requests {rep.requests}/{len(trace)}, "
         f"tokens {rep.tokens}, steps {rep.steps}, decode steps "
         f"{rep.decode_steps}, prefill calls {rep.prefill_calls}, "
@@ -1131,11 +1163,16 @@ def phase_serve(cfg, params, requests: int) -> dict:
         f"p99 {rep.latency_p99:.1f}, occupancy {rep.occupancy:.3f}, "
         f"energy {rep.energy_per_token_uj:.2f} uJ/token")
     log(f"  wall {wall:.2f} s, {rep.decode_steps / wall:.2f} decode steps/s "
-        f"(prefill included in the wall), {rep.tokens / wall:.2f} tokens/s")
-    log(f"  launches: fused {launches['fused_paged_decode']} (= layers x decode "
-        f"steps = {cfg.num_layers * rep.decode_steps}), tub "
-        f"{launches['tub_gemm']} (= sites x (decode steps + prefill calls) = "
-        f"{sites * (rep.decode_steps + rep.prefill_calls)})")
+        f"(prefill included in the wall, traced by torch.profiler), "
+        f"{rep.tokens / wall:.2f} tokens/s; {graph_note(rep)}")
+    log(f"  launches on the card (profiler): fused "
+        f"{launches['fused_paged_decode']} (= layers x decode steps = "
+        f"{cfg.num_layers * rep.decode_steps}), tub {launches['tub_gemm']} (= "
+        f"sites x (decode steps + prefill calls) = "
+        f"{sites * (rep.decode_steps + rep.prefill_calls)}); issued by the "
+        f"wrappers: fused {wrapped['fused_paged_decode']}, tub "
+        f"{wrapped['tub_gemm']} (eager and captured decode steps "
+        f"{issued(rep)})")
     require(rep.requests == len(trace), "not every request completed")
     require(all(len(rep.request_tokens[r.req_id]) == r.output_len
                 for r in trace), "a request's stream has the wrong length")
@@ -1147,6 +1184,10 @@ def phase_serve(cfg, params, requests: int) -> dict:
             "fused decode launch count != layers x decode steps")
     require(launches["tub_gemm"] == sites * (rep.decode_steps + rep.prefill_calls),
             "tub_gemm launch count != sites x (decode steps + prefill calls)")
+    require(wrapped["fused_paged_decode"] == cfg.num_layers * issued(rep),
+            "fused decode calls != layers x issued decode steps")
+    require(wrapped["tub_gemm"] == sites * (issued(rep) + rep.prefill_calls),
+            "tub_gemm calls != sites x (issued decode steps + prefill calls)")
     require(tu_during_tub == 0, "tu_gemm launched under tubgemm_cuda")
 
     # ---- main path, second backend: a short tugemm_cuda run
@@ -1163,11 +1204,12 @@ def phase_serve(cfg, params, requests: int) -> dict:
     torch.cuda.synchronize()
     wall_tu = time.perf_counter() - t0
     launches["tu_gemm"] = ug.LAUNCHES["tu_gemm"]
+    log(f"  [tugemm_cuda@4, {len(short)} requests] {graph_note(rep_tu)}")
     require(rep_tu.requests == len(short), "tugemm_cuda run incomplete")
-    require(launches["tu_gemm"] == sites * (rep_tu.decode_steps + rep_tu.prefill_calls)
+    require(launches["tu_gemm"] == sites * (issued(rep_tu) + rep_tu.prefill_calls)
             and launches["tu_gemm"] > 0, "tu_gemm launch count off")
     require(fused_lib.LAUNCHES["fused_paged_decode"]
-            == cfg.num_layers * rep_tu.decode_steps, "fused count off (tu run)")
+            == cfg.num_layers * issued(rep_tu), "fused count off (tu run)")
     del tu_engine
 
     # ---- comparisons (their launches are not counted above)
@@ -1328,7 +1370,7 @@ def _quant_serve(cfg, params, trace) -> tuple[dict, int]:
         qg_lib.quant_gemm = kernel
     launches = {"quant_gemm": qg_lib.LAUNCHES["quant_gemm"],
                 "fused_paged_decode": fused_lib.LAUNCHES["fused_paged_decode"]}
-    calls = rep.decode_steps + rep.prefill_calls
+    calls = issued(rep) + rep.prefill_calls
     want = QUANT_SITES_PER_LAYER * cfg.num_layers * calls
     log(f"  [quant_kernel@{QUANT_BITS}, fused] requests {rep.requests}/{len(trace)}, "
         f"tokens {rep.tokens}, steps {rep.steps}, decode steps "
@@ -1337,11 +1379,13 @@ def _quant_serve(cfg, params, trace) -> tuple[dict, int]:
         f"p50 {rep.latency_p50:.1f}, p99 {rep.latency_p99:.1f}, occupancy "
         f"{rep.occupancy:.3f}, energy {rep.energy_per_token_uj:.2f} uJ/token")
     log(f"  wall {wall:.2f} s, {rep.decode_steps / wall:.2f} decode steps/s "
-        f"(prefill included in the wall), {rep.tokens / wall:.2f} tokens/s")
-    log(f"  launches: quant_gemm {launches['quant_gemm']} (= {QUANT_SITES_PER_LAYER}"
-        f" sites x {cfg.num_layers} layers x (decode steps + prefill calls) = "
-        f"{want}), fused {launches['fused_paged_decode']} (= layers x decode "
-        f"steps = {cfg.num_layers * rep.decode_steps})")
+        f"(prefill included in the wall), {rep.tokens / wall:.2f} tokens/s; "
+        f"{graph_note(rep)}")
+    log(f"  launches issued: quant_gemm {launches['quant_gemm']} (= "
+        f"{QUANT_SITES_PER_LAYER} sites x {cfg.num_layers} layers x (eager and "
+        f"captured decode steps + prefill calls) = {want}), fused "
+        f"{launches['fused_paged_decode']} (= layers x eager and captured "
+        f"decode steps = {cfg.num_layers * issued(rep)})")
     require(rep.requests == len(trace), "quant run: not every request completed")
     require(all(len(rep.request_tokens[r.req_id]) == r.output_len
                 for r in trace), "quant run: a stream has the wrong length")
@@ -1349,7 +1393,7 @@ def _quant_serve(cfg, params, trace) -> tuple[dict, int]:
                 for t in ts), "quant run: token id out of range")
     require(launches["quant_gemm"] == want > 0,
             "quant_gemm launch count != 6 sites x layers x model calls")
-    require(launches["fused_paged_decode"] == cfg.num_layers * rep.decode_steps,
+    require(launches["fused_paged_decode"] == cfg.num_layers * issued(rep),
             "quant run: fused decode launch count != layers x decode steps")
     require(ug.LAUNCHES["tub_gemm"] == ug.LAUNCHES["tu_gemm"] == 0,
             "a unary GEMM kernel launched without a backend scope")
@@ -1492,7 +1536,9 @@ def _teacher_forced_sites(cfg, engines, *, steps: int = TEACHER_STEPS,
     recorded = []
     for eng in engines:
         outs: list = []
-        eng.on_gemm_output = lambda site, out, _o=outs: _o.append((site, out))
+        # a replayed step hands over its graph's buffers: copy them
+        eng.on_gemm_output = lambda site, out, _o=outs: _o.append(
+            (site, out.clone()))
         cache = eng.new_cache()
         with eng._scope(), activation_scaling("per-row"):
             logits, k_l, v_l = eng._prefill(prompts)
@@ -1542,7 +1588,7 @@ def _plan_serve(cfg, params, plan, trace, packed: bool, weight_cache=None):
     launches = {"tub_gemm": ug.LAUNCHES["tub_gemm"],
                 "tu_gemm": ug.LAUNCHES["tu_gemm"],
                 "fused_paged_decode": fused_lib.LAUNCHES["fused_paged_decode"]}
-    calls = rep.decode_steps + rep.prefill_calls
+    calls = issued(rep) + rep.prefill_calls
     want = {name: calls * sum(e.count for e in plan.sites if e.design == design)
             for name, design in (("tub_gemm", "tubgemm_cuda"),
                                  ("tu_gemm", "tugemm_cuda"))}
@@ -1551,11 +1597,12 @@ def _plan_serve(cfg, params, plan, trace, packed: bool, weight_cache=None):
         f"{rep.requests}/{len(trace)}, tokens {rep.tokens}, decode steps "
         f"{rep.decode_steps}, prefill calls {rep.prefill_calls}; wall "
         f"{wall:.2f} s, {rep.decode_steps / wall:.2f} decode steps/s, "
-        f"{rep.tokens / wall:.2f} tokens/s (prefill included in the wall)")
+        f"{rep.tokens / wall:.2f} tokens/s (prefill included in the wall); "
+        f"{graph_note(rep)}")
     log(f"  [{tag}] launches: tub_gemm {launches['tub_gemm']} (plan: "
         f"{want['tub_gemm']}), tu_gemm {launches['tu_gemm']} (plan: "
         f"{want['tu_gemm']}), fused {launches['fused_paged_decode']} (= layers "
-        f"x decode steps = {cfg.num_layers * rep.decode_steps})")
+        f"x eager and captured decode steps = {cfg.num_layers * issued(rep)})")
     require(rep.requests == len(trace), f"{tag} plan run: not every request "
                                         f"completed")
     require(all(len(rep.request_tokens[r.req_id]) == r.output_len
@@ -1564,7 +1611,7 @@ def _plan_serve(cfg, params, plan, trace, packed: bool, weight_cache=None):
             f"{tag} plan run: tub_gemm launches != tubgemm_cuda sites x calls")
     require(launches["tu_gemm"] == want["tu_gemm"],
             f"{tag} plan run: tu_gemm launches != tugemm_cuda sites x calls")
-    require(launches["fused_paged_decode"] == cfg.num_layers * rep.decode_steps,
+    require(launches["fused_paged_decode"] == cfg.num_layers * issued(rep),
             f"{tag} plan run: fused decode launches != layers x decode steps")
     return engine, rep, wall, launches
 
@@ -1822,8 +1869,9 @@ def _ugemm_site_outputs(engine, cfg, spec: str) -> None:
     with backends.use_backend(rec, weight_cache=engine.weight_cache,
                               on_output=lambda s, o: outs.append((s, o))), \
             activation_scaling("per-row"):
-        engine._decode(engine._exec_params, tokens, cache.k_pool, cache.v_pool,
-                       d_bt, lengths, active)
+        # the eager body: a replay would skip ``recording``
+        engine._decode_step(engine._exec_params, tokens, cache.k_pool,
+                            cache.v_pool, d_bt, lengths, active)
     sites = 7 * cfg.num_layers + 1
     require(len(outs) == len(seen) == sites,
             f"{spec}: {len(outs)} site outputs for {sites} sites")
@@ -1871,13 +1919,13 @@ def _ugemm_serve(cfg, params, spec: str, trace, weight_cache=None):
         f"engine built in {built:.1f} s; tokens {rep.tokens}, decode steps "
         f"{rep.decode_steps}, prefill calls {rep.prefill_calls}; wall "
         f"{wall:.2f} s, {rep.decode_steps / wall:.3f} decode steps/s, "
-        f"{rep.tokens / wall:.3f} tokens/s (prefill included); energy "
-        f"{rep.energy_per_token_uj:.2f} uJ/token; peak "
+        f"{rep.tokens / wall:.3f} tokens/s (prefill included); "
+        f"{graph_note(rep)}; energy {rep.energy_per_token_uj:.2f} uJ/token; peak "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     require(rep.requests == len(trace), f"{spec}: not every request completed")
     require(all(len(rep.request_tokens[r.req_id]) == r.output_len
                 for r in trace), f"{spec}: a stream has the wrong length")
-    require(fused == cfg.num_layers * rep.decode_steps > 0,
+    require(fused == cfg.num_layers * issued(rep) > 0,
             f"{spec}: fused decode launches {fused} != layers x decode steps")
     require(ug.LAUNCHES["tub_gemm"] == ug.LAUNCHES["tu_gemm"] == 0,
             f"{spec}: a unary kernel launched")
@@ -2062,9 +2110,10 @@ def _grid_serve(cfg, params, trace, **kw):
         f"{rep.tokens / wall:.2f} tokens/s (prefill included); "
         f"{rep.energy_per_token_uj:.2f} uJ/token (Eq. 1, "
         f"{type(engine.energy.step_cost(8)).__name__}); launches {launches}; "
-        f"peak {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+        f"{graph_note(rep)}; peak "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     require(rep.requests == len(trace), f"{tag} run: not every request completed")
-    require(launches["fused_paged_decode"] == cfg.num_layers * rep.decode_steps,
+    require(launches["fused_paged_decode"] == cfg.num_layers * issued(rep),
             f"{tag} run: fused decode launches != layers x decode steps")
     return engine, rep, wall, launches
 
@@ -2816,9 +2865,9 @@ def _dense_serve(arch: str) -> dict:
     n_sites = len(expected_sites(cfg))
     tub, fused = ug.LAUNCHES["tub_gemm"], fused_lib.LAUNCHES["fused_paged_decode"]
     require(rep.requests == len(trace), f"{arch}: not every request completed")
-    require(fused == cfg.num_layers * rep.decode_steps,
+    require(fused == cfg.num_layers * issued(rep),
             f"{arch}: fused decode launches {fused}")
-    require(tub == n_sites * (rep.decode_steps + rep.prefill_calls),
+    require(tub == n_sites * (issued(rep) + rep.prefill_calls),
             f"{arch}: tub_gemm launches {tub}")
     reps = {}
     for attention in ("fused", "gather"):
@@ -2831,8 +2880,10 @@ def _dense_serve(arch: str) -> dict:
         f"tubgemm_cuda@4 per-row, fused] {rep.requests} requests, {rep.tokens} "
         f"tokens, {rep.decode_steps} decode steps in {wall:.2f} s "
         f"({rep.decode_steps / wall:.2f} decode steps/s); launches fused {fused}, "
-        f"tub {tub} (= {n_sites} sites x {rep.decode_steps + rep.prefill_calls}); "
-        f"float path fused == gather: {same}; peak {peak / 2**30:.2f} GiB")
+        f"tub {tub} (= {n_sites} sites x {issued(rep) + rep.prefill_calls}, "
+        f"eager and captured decode steps and prefill calls); "
+        f"{graph_note(rep)}; float path fused == gather: {same}; peak "
+        f"{peak / 2**30:.2f} GiB")
     require(same, f"{arch}: fused and gather sampled different tokens (float path)")
     del engine
     return {"tub_gemm": tub, "fused_paged_decode": fused, "wall_s": wall,

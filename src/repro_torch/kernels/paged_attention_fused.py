@@ -56,6 +56,9 @@ MAX_HEAD_DIM = 1024
 #: on demand; every launch leaves them zeroed.  One buffer a device, so the
 #: calls on a device must be ordered on one stream
 _COUNTERS: dict[int, torch.Tensor] = {}
+#: the buffers growth replaced, kept (zeroed) because a captured CUDA graph
+#: may still launch the kernel on them
+_RETIRED: list[torch.Tensor] = []
 
 
 def reset_launches() -> None:
@@ -212,6 +215,8 @@ def _counters(device: torch.device, rows: int) -> torch.Tensor:
     """The device's zeroed ticket counters, at least ``rows`` of them."""
     buf = _COUNTERS.get(device.index)
     if buf is None or buf.numel() < rows:
+        if buf is not None:
+            _RETIRED.append(buf)
         buf = torch.zeros(max(rows, 2 * (0 if buf is None else buf.numel())),
                           dtype=torch.int32, device=device)
         _COUNTERS[device.index] = buf

@@ -154,8 +154,10 @@ def _embed_in(params, cfg: ModelConfig, tokens=None, embeds=None, sh=None):
             x = embed_lookup(table, torch.where(hit, local, 0), compute)
             x = coll.reduce_from(x * hit[..., None].to(compute), mesh)
     if cfg.scale_embeddings:
-        x = x * torch.tensor(math.sqrt(cfg.d_model), dtype=torch.float32,
-                             device=x.device).to(compute)
+        # filled on the device (no host copy, so a decode step that embeds
+        # can be captured as a CUDA graph), rounded to float32 first
+        x = x * torch.full((), math.sqrt(cfg.d_model), dtype=torch.float32,
+                           device=x.device).to(compute)
     return x
 
 

@@ -24,6 +24,11 @@ The layer stack is a Python loop over the leading axis of the stacked
 parameters (the reference scans it under ``jit``; eager PyTorch has nothing
 to trace, so there is no compiled-prefill cache either).  Block tables,
 lengths and pending tokens live on the device and are updated incrementally.
+On a CUDA device with no process group the decode step is captured once
+as a CUDA graph and replayed at every later step
+(:meth:`ServingEngine._decode`): the same kernels on the same buffers,
+without the Python loop's launches.  The engine keeps its paged pools from one :meth:`ServingEngine.run` to the next
+(zeroed), so that one capture serves every run.
 Two host syncs per step are the reference's own and are kept: the ``int()``
 of each admission's first token and the copy of the step's sampled tokens.
 
@@ -40,9 +45,11 @@ time is left to :mod:`repro_torch.runtime.spans`: under
 ``engine.decode`` (issuing the step), ``engine.decode.sync`` (waiting for
 its tokens), ``engine.decode.bookkeep``, ``engine.schedule``,
 ``engine.prefill``, and a request's ``engine.admit`` and ``engine.queue``
-(from the start of its arrival step); ``_decode`` records ``layer.attn``
-(``attn.kv_write``, ``attn.attend``) and ``layer.mlp``.  Off, each site
-costs one flag test.
+(from the start of its arrival step); ``_decode`` records
+``engine.decode.capture`` and ``engine.decode.replay`` around a graph's
+capture and replay, and an eager step's ``layer.attn`` (``attn.kv_write``,
+``attn.attend``) and ``layer.mlp``, which a replay does not run.  Off, each
+site costs one flag test.
 
 On a grid with a ``torch.distributed`` process group up, the engine serves
 under ``launch.mesh.make_grid_mesh(*grid)``, one PE unit per rank: every
@@ -72,7 +79,7 @@ from repro_torch.models import attention as attn_lib
 from repro_torch.models import model as model_lib
 from repro_torch.models import rope as rope_lib
 from repro_torch.models.blocks import layer_slice
-from repro_torch.models.common import dense, rmsnorm
+from repro_torch.models.common import activation_scale_mode, dense, rmsnorm
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.mlp import mlp_fwd
 from repro_torch.runtime import spans
@@ -116,6 +123,11 @@ class ServingReport:
     request_tokens: dict[int, tuple[int, ...]]
     decode_steps: int = 0      # decode ticks actually executed
     prefill_calls: int = 0     # batched prefill forward passes
+    # how the decode steps ran: eagerly, or from a graph replay (captured in
+    # this run or earlier); decode_eager + decode_replays == decode_steps
+    decode_eager: int = 0
+    decode_replays: int = 0
+    decode_captures: int = 0
 
     def to_dict(self) -> dict:
         d = dataclasses.asdict(self)
@@ -124,6 +136,19 @@ class ServingReport:
         d["request_tokens"] = {str(k): list(v)
                                for k, v in self.request_tokens.items()}
         return d
+
+
+@dataclasses.dataclass(eq=False)
+class _DecodeGraph:
+    """A decode step captured as one CUDA graph, the key it replays under
+    (``ServingEngine._graph_key``), and what a replay redoes on the host."""
+    key: tuple
+    graph: object        # torch.cuda.CUDAGraph
+    inputs: tuple        # static tokens, block tables, lengths, active
+    outputs: tuple       # static logits, new lengths
+    sites: list          # (site, int32 GEMM output buffer), in call order
+    calls: list          # the step's ExecutedGemm records
+    held: tuple          # what the key names by id, and the weight codes read
 
 
 def _bucket(n: int, floor: int = 4) -> int:
@@ -334,21 +359,142 @@ class ServingEngine:
         self.on_gemm_output = None
         #: the distributed grid mesh (one unit per rank), None on one device
         self.mesh = mesh_lib.grid_mesh(*grid) if grid else None
+        #: the captured decode step, None until one is captured
+        self._graph: _DecodeGraph | None = None
+        #: the key of the last step run eagerly for want of a graph; the next
+        #: step under the same key is captured
+        self._graph_warm: tuple | None = None
+        #: decode steps so far by how they ran (see ``ServingReport``)
+        self.decode_counts = {"eager": 0, "replays": 0, "captures": 0}
+        #: the paged pools of the last :meth:`run`, which the next takes over
+        self._run_pools: tuple | None = None
 
     # -- model steps ----------------------------------------------------------
 
-    def new_cache(self) -> PagedKVCache:
+    def new_cache(self, pools=None) -> PagedKVCache:
+        """A fresh paged cache of the engine's geometry (over ``pools``, an
+        earlier cache's, zeroed, when given)."""
         cfg = self.cfg
         return PagedKVCache(
             num_layers=cfg.num_layers, num_kv_heads=cfg.num_kv_heads,
             head_dim=cfg.resolved_head_dim, num_pages=self.num_pages,
             page_size=self.page_size, max_seq_len=self.max_seq_len,
-            device=self.device)
+            device=self.device, pools=pools)
 
     @torch.no_grad()
     def _decode(self, params, tokens, k_pool, v_pool, block_tables,
                 lengths, active):
-        """One ragged decode step for the whole batch.
+        """One ragged decode step for the whole batch (:meth:`_decode_step`).
+
+        On a CUDA device with no ``torch.distributed`` process group, the
+        step runs from a CUDA graph.  The first step under a new
+        :meth:`_graph_key` runs eagerly (it fills the weight-code cache,
+        loads the kernel library and asks the occupancy calculator); the
+        next is captured; every later one copies its inputs into the
+        graph's static buffers and replays it.  A replay returns the graph's static logits and
+        lengths, which the next replay overwrites, and hands the scope's
+        ``on_output`` each site's int32 output buffer, in call order (a
+        holder that keeps one past the step must copy it).  The kernels'
+        ``LAUNCHES`` count their wrappers' calls, so a replay adds nothing
+        to them.  Anywhere else every step runs eagerly.
+        """
+        inputs = (tokens, block_tables, lengths, active)
+        execution = backends_lib.active_execution()
+        graph = None
+        if self._capturable(k_pool.device):
+            key = self._graph_key(params, k_pool, v_pool, inputs, execution)
+            graph = self._graph
+            if graph is None or graph.key != key:
+                graph = None
+                if self._graph_warm == key:
+                    with spans.span("engine.decode.capture"):
+                        graph = self._capture(key, execution, params, k_pool,
+                                              v_pool, inputs)
+                else:
+                    self._graph_warm = key
+        if graph is None:
+            self.decode_counts["eager"] += 1
+            return self._decode_step(params, tokens, k_pool, v_pool,
+                                     block_tables, lengths, active)
+        with spans.span("engine.decode.replay"):
+            return self._replay(graph, execution, k_pool, v_pool, inputs)
+
+    @staticmethod
+    def _capturable(device: torch.device) -> bool:
+        """True iff a decode step on ``device`` may run from a CUDA graph:
+        a CUDA device and no process group (under one the engine's grid
+        mesh, or a grid plan's backends, reduce with collectives)."""
+        return device.type == "cuda" and not mesh_lib.distributed()
+
+    @staticmethod
+    def _graph_key(params, k_pool, v_pool, inputs, execution) -> tuple:
+        """What a captured step is valid under: the pools' storage and
+        shape, every input's shape and dtype (so the batch and the block
+        tables' width), the parameters, the activation scaling, and the
+        scope's kind, backend, plan, grid and weight-code cache."""
+        scope = None if execution is None else (
+            type(execution), execution.backend,
+            id(getattr(execution, "plan", None)),
+            getattr(execution, "grid", None), id(execution.weight_cache))
+        return (k_pool.device, k_pool.data_ptr(), v_pool.data_ptr(),
+                tuple(k_pool.shape), k_pool.dtype,
+                tuple((tuple(t.shape), t.dtype) for t in inputs),
+                id(params), activation_scale_mode(), scope)
+
+    def _capture(self, key, execution, params, k_pool, v_pool,
+                 inputs) -> _DecodeGraph:
+        """Capture :meth:`_decode_step` on copies of ``inputs`` as one CUDA
+        graph with its own memory pool, and keep it.  The scope's
+        ``on_output`` and ``calls`` are set aside meanwhile: the capture
+        records each site's output buffer and record instead."""
+        self._graph = None                 # the old graph's pool goes first
+        static = tuple(t.clone() for t in inputs)
+        sites: list = []
+        calls: list = []
+        saved = None
+        if execution is not None:
+            saved = execution.on_output, execution.calls
+            execution.on_output = lambda site, out: sites.append((site, out))
+            execution.calls = calls
+        graph = torch.cuda.CUDAGraph()
+        try:
+            with torch.cuda.device(k_pool.device), torch.cuda.graph(graph):
+                logits, _, _, new_lengths = self._decode_step(
+                    params, static[0], k_pool, v_pool, *static[1:])
+        finally:
+            if saved is not None:
+                execution.on_output, execution.calls = saved
+        cache = None if execution is None else execution.weight_cache
+        held = (params, getattr(execution, "plan", None), cache,
+                tuple(cache.values()) if cache else ())
+        self._graph = _DecodeGraph(
+            key=key, graph=graph, inputs=static, outputs=(logits, new_lengths),
+            sites=sites, calls=calls, held=held)
+        self.decode_counts["captures"] += 1
+        return self._graph
+
+    def _replay(self, graph: _DecodeGraph, execution, k_pool, v_pool, inputs):
+        """One decode step from ``graph``: copy the inputs that are not its
+        static buffers in, replay, then redo what the capture recorded on
+        the host (``calls``, ``on_output``)."""
+        for static, x in zip(graph.inputs, inputs):
+            if x is not static:
+                static.copy_(x)
+        graph.graph.replay()
+        if execution is not None:
+            if execution.calls is not None:
+                execution.calls.extend(graph.calls)
+            if execution.on_output is not None:
+                for site, out in graph.sites:
+                    execution.on_output(site, out)
+        self.decode_counts["replays"] += 1
+        logits, new_lengths = graph.outputs
+        return logits, k_pool, v_pool, new_lengths
+
+    @torch.no_grad()
+    def _decode_step(self, params, tokens, k_pool, v_pool, block_tables,
+                     lengths, active):
+        """One ragged decode step for the whole batch, run eagerly.
 
         tokens (B, 1) int32; pools (L, P, page, KVH, hd); block_tables
         (B, max_blocks) int32; lengths (B,) int32 — each slot's own position
@@ -477,7 +623,9 @@ class ServingEngine:
         if scheduler.max_batch != self.max_batch:
             raise ValueError("scheduler.max_batch != engine max_batch")
         dev = self.device
-        cache = self.new_cache()
+        cache = self.new_cache(pools=self._run_pools)
+        self._run_pools = (cache.k_pool, cache.v_pool)
+        counts = dict(self.decode_counts)
         for req in trace:
             if req.total_len > cache.max_seq_len:
                 raise ValueError(f"request {req.req_id} needs {req.total_len} "
@@ -677,4 +825,7 @@ class ServingEngine:
             request_tokens={k: tuple(v) for k, v in req_tokens.items()},
             decode_steps=decode_ticks,
             prefill_calls=prefill_calls,
+            decode_eager=self.decode_counts["eager"] - counts["eager"],
+            decode_replays=self.decode_counts["replays"] - counts["replays"],
+            decode_captures=self.decode_counts["captures"] - counts["captures"],
         )

@@ -96,11 +96,17 @@ class PagedKVCache:
     handed).  Host-side bookkeeping (block tables, lengths, the allocator)
     stays in plain Python — the device never sees a page id that the
     allocator has not handed out.
+
+    ``pools`` — the ``(k_pool, v_pool)`` of an earlier cache of the same
+    shape and dtype on ``device``, zeroed in place and taken over instead of
+    allocating new ones (the serving engine keeps one pair across its runs,
+    so that a decode step captured against them stays valid).
     """
 
     def __init__(self, *, num_layers: int, num_kv_heads: int, head_dim: int,
                  num_pages: int, page_size: int, max_seq_len: int,
-                 dtype: torch.dtype = torch.float32, device="cuda") -> None:
+                 dtype: torch.dtype = torch.float32, device="cuda",
+                 pools: tuple[torch.Tensor, torch.Tensor] | None = None) -> None:
         if page_size < 1:
             raise ValueError(f"page_size must be >= 1, got {page_size}")
         self.num_layers = num_layers
@@ -114,8 +120,16 @@ class PagedKVCache:
             raise RuntimeError("PagedKVCache(device='cuda') needs a CUDA "
                                "device; pass device='cpu' to run on the CPU")
         self.device = device
-        self.k_pool = torch.zeros(shape, dtype=dtype, device=device)
-        self.v_pool = torch.zeros(shape, dtype=dtype, device=device)
+        if pools is None:
+            self.k_pool = torch.zeros(shape, dtype=dtype, device=device)
+            self.v_pool = torch.zeros(shape, dtype=dtype, device=device)
+        else:
+            for pool in pools:
+                if tuple(pool.shape) != shape or pool.dtype != dtype:
+                    raise ValueError(f"pools of {tuple(pool.shape)} "
+                                     f"{pool.dtype} cannot hold a {shape} "
+                                     f"{dtype} cache")
+            self.k_pool, self.v_pool = (pool.zero_() for pool in pools)
         self.allocator = PageAllocator(num_pages)
         self.block_tables: dict[object, list[int]] = {}
         self.lengths: dict[object, int] = {}

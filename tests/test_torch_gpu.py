@@ -832,3 +832,147 @@ def test_recurrent_models_card_equal_cpu(cuda, arch):
     gradient within 1e-4 of max(1, max|CPU|), flash launched once per
     shared-block application.  A mismatch raises ``chip_smoke.Failed``."""
     _chip_smoke()._recurrent_card_vs_cpu(arch)
+
+
+# -- the serving engine's decode step captured as a CUDA graph -----------------
+
+#: engines whose decode step the graph runs: the unary kernels under a
+#: backend scope, the float path (cuBLAS head and output projection) on
+#: either attention, the count-decoded uGEMM, cfg.quant_kernel's packed
+#: kernel with no scope, and gemma's scaled embedding and soft-capped head
+GRAPH_ENGINES = {
+    "gemma-tubgemm_cuda-fused": dict(arch="gemma-7b", backend="tubgemm_cuda"),
+    "tubgemm_cuda-fused": dict(backend="tubgemm_cuda", attention="fused"),
+    "tugemm_cuda-gather": dict(backend="tugemm_cuda", attention="gather"),
+    "float-fused": dict(attention="fused"),
+    "float-gather": dict(attention="gather"),
+    "ugemm-fused": dict(backend="ugemm", attention="fused"),
+    "quant_kernel-fused": dict(attention="fused", quant_kernel=True),
+}
+
+
+def _graph_engine(cuda, backend=None, attention="fused", quant_kernel=False,
+                  arch="llama3-8b"):
+    from repro_torch import configs
+    from repro_torch.models import model as model_lib
+    from repro_torch.serving import ServingEngine
+    cfg = configs.get_smoke_config(arch).replace(compute_dtype="float32")
+    if quant_kernel:
+        cfg = cfg.replace(quant_bits=4, quant_kernel=True)
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(0)
+    params = model_lib.init_params(cfg, gen, device=cuda)
+    return ServingEngine(cfg, params, backend=backend, bits=4,
+                         attention=attention, max_batch=4, page_size=8,
+                         max_seq_len=64, device=cuda)
+
+
+@pytest.mark.parametrize("which", list(GRAPH_ENGINES))
+def test_replayed_decode_step_equals_the_eager_body(cuda, which):
+    """Over a trace with admissions, evictions and slot reuse, every decode
+    step (replayed from the graph after the first two) equals the eager
+    body run on a copy of the state before it, bit for bit: the logits,
+    both pools, the lengths and every site's int32 handed to on_output.
+    A second run on the same engine replays from its first step."""
+    from repro_torch import backends
+    from repro_torch.models.common import activation_scaling
+    from repro_torch.serving import TrafficConfig, generate_trace
+    eng = _graph_engine(cuda, **GRAPH_ENGINES[which])
+    trace = generate_trace(TrafficConfig(num_requests=8, arrival_rate=0.8,
+                                         seed=1))
+    decode = eng._decode
+    how = []
+
+    def checked(params, tokens, k_pool, v_pool, tables, lengths, active):
+        execution = backends.active_execution()
+        before = [t.clone() for t in (tokens, k_pool, v_pool, tables,
+                                      lengths, active)]
+        counts = dict(eng.decode_counts)
+        out = decode(params, tokens, k_pool, v_pool, tables, lengths, active)
+        how.append(next(k for k in ("eager", "replays")
+                        if eng.decode_counts[k] != counts[k]))
+        got = tuple(t.clone() for t in out)
+        want_sites: list = []
+        hook = None if execution is None else execution.on_output
+        if execution is not None:
+            execution.on_output = lambda s, o: want_sites.append((s, o))
+        try:
+            want = eng._decode_step(params, *before)
+        finally:
+            if execution is not None:
+                execution.on_output = hook
+        for a, b in zip(got, want):
+            assert a.dtype == b.dtype and torch.equal(a, b), how[-1]
+        sites = seen[len(seen) - len(want_sites):] if want_sites else []
+        assert [s for s, _ in sites] == [s for s, _ in want_sites]
+        assert all(torch.equal(a, b) for (_, a), (_, b) in zip(sites, want_sites))
+        return out                  # the run goes on with the step's own pools
+
+    seen: list = []
+    eng.on_gemm_output = lambda s, o: seen.append((s, o.clone()))
+    eng._decode = checked
+    with activation_scaling("per-row"):
+        rep = eng.run(trace, "continuous")
+        again = eng.run(trace, "continuous")
+    assert rep.requests == len(trace) and rep.decode_steps > 8
+    assert (rep.decode_eager, rep.decode_captures) == (1, 1)
+    assert rep.decode_replays == rep.decode_steps - 1
+    assert how == ["eager"] + ["replays"] * (rep.decode_steps
+                                             + again.decode_steps - 1)
+    assert (again.decode_eager, again.decode_captures) == (0, 0)
+    assert again.request_tokens == rep.request_tokens
+    assert bool(eng.backend) == (len(seen) > 0)
+
+
+def test_replayed_decode_steps_run_their_kernels(cuda):
+    """The kernels' LAUNCHES count their wrappers' calls: the eager step and
+    the capture issue one step's each (7 sites a layer and the head on
+    tub_gemm, one fused decode a layer), the replays (the captured step's
+    own, then N more) none.  The profiler
+    counts the kernels the N replays ran on the card: as many as N eager
+    steps run."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.models.common import activation_scaling
+    eng = _graph_engine(cuda, backend="tubgemm_cuda")
+    cfg, b = eng.cfg, eng.max_batch
+    cache = eng.new_cache()
+    tables = torch.zeros((b, cache.max_blocks), dtype=torch.int32)
+    for i in range(b):
+        cache.allocate(i, 30)
+        tables[i] = torch.from_numpy(cache.block_table_row(i))
+    args = (torch.arange(1, b + 1, dtype=torch.int32, device=cuda)[:, None],
+            cache.k_pool, cache.v_pool, tables.to(cuda),
+            torch.full((b,), 20, dtype=torch.int32, device=cuda),
+            torch.ones((b,), dtype=torch.bool, device=cuda))
+    n = 5
+
+    def counts():
+        return (ug.LAUNCHES["tub_gemm"], ug.LAUNCHES["tu_gemm"],
+                fused_lib.LAUNCHES["fused_paged_decode"])
+
+    def on_card(step):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(n):
+                step(eng.params, *args)
+            torch.cuda.synchronize()
+        rows = [(e.key, e.count) for e in prof.key_averages()
+                if e.device_type == DeviceType.CUDA]
+        return tuple(sum(c for key, c in rows if piece in key)
+                     for piece in ("TubPulses", "TuPulses",
+                                   "fused_decode_split_kernel"))
+
+    with eng._scope(), activation_scaling("per-row"):
+        ug.reset_launches()
+        fused_lib.reset_launches()
+        eng._decode(eng.params, *args)                  # eager
+        eng._decode(eng.params, *args)                  # captured, replayed
+        issued = counts()
+        replayed = on_card(eng._decode)
+        after = counts()
+        eager = on_card(eng._decode_step)
+    assert eng.decode_counts == {"eager": 1, "replays": n + 1, "captures": 1}
+    step = (7 * cfg.num_layers + 1, 0, cfg.num_layers)
+    assert issued == after == tuple(2 * x for x in step)
+    assert replayed == eager == tuple(n * x for x in step)
