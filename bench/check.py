@@ -1,7 +1,9 @@
 """How ``correct`` is decided for a served cell.
 
 Once the window has closed, the memory peak has been read and the engine is
-freed, the plain reference (``bench/reference.py``) is run over a sample of
+freed, the plain reference that the cell's configuration names under
+``reference`` (``bench/reference.py`` for the dense family;
+``manifest.reference``) is run, on every rank, over a sample of
 the requests the window finished (``serve.sample_requests``): each prompt,
 worked out again from the prompt seed and the request id, followed by the
 tokens the program served for it.  Three numbers are compared, each with
@@ -25,22 +27,25 @@ Deeper rows are not compared one by one, nor the widest gap of a token:
 once the fused decode's rounding flips a code, the row moves by a whole
 quantization step, and the two sides' later tokens part (PERF.md §2).
 The control (``bench/control.py``, ``judge(control="tf32")``) puts the
-reference, in TF32, in the program's place.
+reference, in TF32, in the program's place.  On a cell of several cards
+each rank judges the window it served with the reference built for its
+``(rank, world)``; rank 0's verdict is the run's.
 """
 
 from __future__ import annotations
 
 import torch
 
-from bench import reference as ref_lib
+from bench import manifest
 
 __all__ = ["judge", "reference_readings", "numbers", "gaps", "token_shares",
            "rows_off"]
 
 
-def _sequences(window, chosen, prompt_seed: int, vocab: int, device):
+def _sequences(ref_lib, window, chosen, prompt_seed: int, vocab: int,
+               device):
     """(token tensor, served tokens tensor, prompt length) of each chosen
-    request."""
+    request, its prompt as ``ref_lib.prompt_tokens`` makes it again."""
     out = []
     for t_index, rid in chosen:
         tr = window.traces[t_index]
@@ -84,7 +89,7 @@ def keep_of(rows: list) -> dict:
     return {i: torch.tensor(sorted(v)) for i, v in keep.items()}
 
 
-def reference_readings(model: ref_lib.Reference, seqs, keep: dict,
+def reference_readings(model, seqs, keep: dict,
                        layers=(0,)) -> tuple:
     """(logits at every served position, the kept rows' integer products at
     ``layers``) of ``model``."""
@@ -111,9 +116,9 @@ def token_shares(ref_logits, served, gap: float) -> dict:
             "tokens_over": float((g > gap).float().mean())}
 
 
-def rows_off(captured: dict, rows: list, keep: dict, ref: dict, layer: int = 0,
-             other: dict | None = None) -> float:
-    """The share of compared rows, over the sites of ``layer``, whose integer
+def rows_off(captured: dict, rows: list, keep: dict, ref: dict, sites,
+             layer: int = 0, other: dict | None = None) -> float:
+    """The share of compared rows, over ``sites`` of ``layer``, whose integer
     product differs from the reference's (``ref``: its products at that
     layer); ``other`` (another side's products, as ``ref``) stands in for
     the program's captured ones."""
@@ -121,7 +126,7 @@ def rows_off(captured: dict, rows: list, keep: dict, ref: dict, layer: int = 0,
     off = total = 0
     for i, pos, call, r in rows:
         j = index[i][pos]
-        for name in ref_lib.SITES:
+        for name in sites:
             mine = (other[i][name][j] if other is not None
                     else captured[call]["sites"][(layer, name)][r])
             off += bool((mine.to(torch.float32) != ref[i][name][j]).any())
@@ -134,35 +139,44 @@ def numbers(values: dict, limits: dict) -> dict:
     return {k: {"value": values[k], "limit": limits[k]} for k in sorted(limits)}
 
 
+def _device_of(params) -> torch.device:
+    while isinstance(params, dict):
+        params = next(iter(params.values()))
+    return params.device
+
+
 def judge(cell: dict, sizes: dict, params: dict, window, captured: dict,
-          chosen: list, prompt_seed: int,
-          control: str | None = None) -> tuple[bool, dict]:
-    """(correct, compared numbers) of a run.
+          chosen: list, prompt_seed: int, control: str | None = None,
+          rank: int = 0, world: int = 1) -> tuple[bool, dict]:
+    """(correct, compared numbers) of a run on rank ``rank`` of ``world``.
 
     ``control``: a precision of the reference (``"tf32"``) that stands in
     for the program: at every position of the same sequences the token it
     puts first, and its layer-0 products, are judged in place of the
     program's (``bench/control.py``)."""
-    device = params["embed"].device
+    ref_lib = manifest.reference(cell)
+    device = _device_of(params)
     limits = cell["check"]["limits"]
     if "prefill" not in captured or "decode" not in captured:
         raise RuntimeError("the window ran too few steps to capture the "
                            "prefill and decode calls the check compares "
                            f"(captured: {sorted(captured)})")
-    seqs = _sequences(window, chosen, prompt_seed, sizes["vocab_size"], device)
+    seqs = _sequences(ref_lib, window, chosen, prompt_seed,
+                      sizes["vocab_size"], device)
     bits = cell["engine"]["bits"]
-    model = ref_lib.Reference(sizes, params, bits)
+    model = ref_lib.Reference(sizes, params, bits, rank=rank, world=world)
     rows = compared_rows(captured, window, chosen)
     keep = keep_of(rows)
     logits, products = reference_readings(model, seqs, keep)
     served, other = [s for _, s, _ in seqs], None
     if control is not None:
-        stand_in = ref_lib.Reference(sizes, params, bits, precision=control)
+        stand_in = ref_lib.Reference(sizes, params, bits, precision=control,
+                                     rank=rank, world=world)
         picked, other = reference_readings(stand_in, seqs, keep)
         served, other = [lg.argmax(dim=-1) for lg in picked], other[0]
     values = dict(token_shares(logits, served, cell["check"]["gap"]),
                   l0_rows_off=rows_off(captured, rows, keep, products[0],
-                                       other=other))
+                                       ref_lib.SITES, other=other))
     out = numbers(values, limits)
     correct = all(v["value"] <= v["limit"] for v in out.values())
     return correct, out

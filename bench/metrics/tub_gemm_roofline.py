@@ -6,7 +6,9 @@ _backend_matmul`` -> ``kernels/unary_gemm.py:tub_gemm`` ->
 ``csrc/unary_gemm.cu``) at the rows serving needs: a prefill call's prompt
 tokens (not the padding of its width) at the layers' sites and each prompt's
 last row at the head, since only that row's logits give a token; a decode
-step's active slots at every site.  A call of
+step's active slots at every site.  The cell's family module gives the
+(K, N) of each GEMM a call contracts on the traced rank
+(``gemm_calls``: under an engine grid, that rank's shards).  A call of
 ``rows`` rows at a (K, N) site needs ``2 K N rows`` operations and moves the
 weight codes and the activation codes at the cell's bits plus the int32
 output; its least time is the larger of operations over the int8 peak and
@@ -19,14 +21,6 @@ from bench import peaks
 KERNELS = (("unary_mma_kernel<", "TubPulses"),)
 
 
-def site_shapes(sizes: dict) -> list:
-    """(K, N) of every dense site of one layer, then the head's."""
-    d, f = sizes["d_model"], sizes["d_ff"]
-    q = sizes["num_heads"] * sizes["head_dim"]
-    kv = sizes["num_kv_heads"] * sizes["head_dim"]
-    return [(d, q), (d, kv), (d, kv), (q, d), (d, f), (d, f), (f, d)]
-
-
 def call_seconds(k: int, n: int, rows: int, bits: int, kind: str) -> float:
     ops = 2.0 * k * n * rows
     nbytes = (k * n + rows * k) * bits / 8.0 + rows * n * 4.0
@@ -36,8 +30,6 @@ def call_seconds(k: int, n: int, rows: int, bits: int, kind: str) -> float:
 
 def least_seconds(run) -> float:
     sizes, bits, kind = run.sizes, run.bits, run.device_kind
-    layer = site_shapes(sizes)
-    head = (sizes["d_model"], sizes["vocab_size"])
     total = 0.0
     rec = run.traced
     # (rows at the layers' sites, rows at the head) of every call
@@ -45,9 +37,11 @@ def least_seconds(run) -> float:
              for _, lens in groups]
     calls += [(len(rows), len(rows)) for rows in rec.decode_slots().values()]
     for rows, head_rows in calls:
-        total += sizes["num_layers"] * sum(
-            call_seconds(k, n, rows, bits, kind) for k, n in layer)
-        total += call_seconds(*head, head_rows, bits, kind)
+        for times, gemms in run.family.gemm_calls(
+                sizes, run.engine, rows, head_rows, rank=run.rank,
+                world=run.chips):
+            total += times * sum(call_seconds(k, n, r, bits, kind)
+                                 for k, n, r in gemms)
     return total
 
 

@@ -95,10 +95,13 @@ class Reference:
     ``lm_head`` (D, V), ``final_norm``; under ``layers`` stacked ``ln1``,
     ``ln2``, ``attn/{wq,wk,wv}`` (L, D, heads, hd), ``attn/wo`` (L, H, hd,
     D), ``mlp/{w_gate,w_up}`` (L, D, F), ``mlp/w_down`` (L, F, D)).
+    ``rank`` of ``world``: the process's card among the cell's; the dense
+    model is computed whole on each, so neither changes the result.
     """
 
     def __init__(self, sizes: dict, params: dict, bits: int,
-                 precision: str = "fp32") -> None:
+                 precision: str = "fp32", rank: int = 0,
+                 world: int = 1) -> None:
         if precision not in ("fp32", "tf32"):
             raise ValueError(f"precision must be fp32 or tf32, got {precision!r}")
         self.s = sizes

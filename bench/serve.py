@@ -1,8 +1,9 @@
 """The ``serve`` driver: one cell of served traffic through the port's engine.
 
-A run builds the weights from the seed on the device, builds
-``repro_torch.serving.engine.ServingEngine`` with the cell's engine options,
-warms up the cell's prefill widths and decode batch, then serves
+A run has the cell's family module (``bench/families/``) build the weights
+from the seed on the device and the port's engine
+(``repro_torch.serving.engine.ServingEngine``) from the cell's engine
+options, warms up the cell's prefill widths and decode batch, then serves
 consecutive traces (``bench.traffic``) inside
 ``activation_scaling(act_scale)``, as many as fit ``--seconds`` at the
 cell's nominal pace (:func:`trace_count`), and reports over them.
@@ -39,13 +40,11 @@ import time
 import numpy as np
 import torch
 
-from bench import reference as ref_lib
+from bench import manifest
 from bench import traffic as traffic_lib
-from bench import weights as weights_lib
 
-__all__ = ["Probe", "TraceRecord", "Window", "build", "serve_window",
-           "sizes_of", "refuse_unserved", "CheckPlan", "PLAN",
-           "PROGRAM_ATTRS"]
+__all__ = ["Probe", "TraceRecord", "Window", "serve_window", "CheckPlan",
+           "PLAN", "PROGRAM_ATTRS", "longest_positions", "run_cell"]
 
 PROGRAM_ATTRS = ("run", "_decode", "_prefill", "on_gemm_output",
                  "prompt_seed", "weight_cache")
@@ -66,89 +65,11 @@ class CheckPlan:
 PLAN = CheckPlan()
 
 
-#: published keys that change the model when they are set: each must be
-#: absent, null or false, or the port and the reference would serve another
-#: model than the file describes
-UNSERVED = ("attention_bias", "mlp_bias", "bias", "qkv_bias", "use_bias",
-            "num_local_experts", "num_experts", "n_routed_experts",
-            "kv_lora_rank", "q_lora_rank", "layer_types", "use_sliding_window",
-            "use_qk_norm", "qk_layernorm")
-
-
 def longest_positions(cell: dict) -> int:
     """The most positions a request of the cell's traffic holds: its prompt
     and every served token but the last, which is never fed back."""
     tr = cell["traffic"]
     return int(tr["prompt"][1]) + int(tr["output"][1]) - 1
-
-
-def refuse_unserved(config: dict, longest: int | None) -> None:
-    """Raise ``ManifestError`` where a published key or value asks for what
-    the port's dense serve path and the plain reference do not implement
-    (both: SwiGLU on silu, an untied head, no biases, full RoPE, full causal
-    attention).  ``longest``: the most positions a request holds (None: any
-    sliding window or RoPE scaling is refused)."""
-    from bench.manifest import ManifestError
-    name = config.get("name", "?")
-
-    def no(why: str):
-        raise ManifestError(f"configuration {name!r}: {why}; the port's "
-                            f"serve path and bench/reference.py serve "
-                            f"another model")
-
-    if config.get("hidden_act") != "silu":
-        no(f"hidden_act {config.get('hidden_act')!r}, not 'silu'")
-    if config.get("tie_word_embeddings") is not False:
-        no(f"tie_word_embeddings {config.get('tie_word_embeddings')!r}, not "
-           f"false (the head is a matrix of its own)")
-    for key in UNSERVED:
-        if config.get(key):
-            no(f"{key} {config[key]!r}")
-    if float(config.get("partial_rotary_factor", 1.0)) != 1.0:
-        no(f"partial_rotary_factor {config['partial_rotary_factor']!r}")
-    window = config.get("sliding_window")
-    if window is not None and (longest is None or int(window) < longest):
-        no(f"sliding_window {window} under the {longest} positions a "
-           f"request holds")
-    scaling = config.get("rope_scaling")
-    if scaling is not None:
-        kind = scaling.get("rope_type", scaling.get("type"))
-        reach = int(config.get("max_position_embeddings", 0))
-        # dynamic NTK scaling starts above max_position_embeddings
-        if kind != "dynamic" or longest is None or longest > reach:
-            no(f"rope_scaling {scaling!r} acting within the {longest} "
-               f"positions a request holds")
-
-
-def sizes_of(config: dict, longest: int | None = None) -> dict:
-    """The model sizes of a configuration file's published keys, once
-    :func:`refuse_unserved` has passed them."""
-    refuse_unserved(config, longest)
-    d, h = int(config["hidden_size"]), int(config["num_attention_heads"])
-    return {
-        "d_model": d,
-        "d_ff": int(config["intermediate_size"]),
-        "num_layers": int(config["num_hidden_layers"]),
-        "num_heads": h,
-        "num_kv_heads": int(config["num_key_value_heads"]),
-        "head_dim": int(config.get("head_dim", d // h)),
-        "vocab_size": int(config["vocab_size"]),
-        "rope_theta": float(config["rope_theta"]),
-        "rms_eps": float(config["rms_norm_eps"]),
-    }
-
-
-def port_config(name: str, sizes: dict):
-    """The port's ``ModelConfig`` of these sizes, computing in float32."""
-    from repro_torch.models.config import ModelConfig
-    return ModelConfig(
-        arch_id=name, family="dense", num_layers=sizes["num_layers"],
-        d_model=sizes["d_model"], num_heads=sizes["num_heads"],
-        num_kv_heads=sizes["num_kv_heads"], head_dim=sizes["head_dim"],
-        d_ff=sizes["d_ff"], vocab_size=sizes["vocab_size"],
-        activation="swiglu", rope_theta=sizes["rope_theta"],
-        rms_eps=sizes["rms_eps"], compute_dtype="float32",
-        param_dtype="float32", remat=False)
 
 
 def _bucket(n: int, floor: int = 4) -> int:
@@ -246,7 +167,8 @@ class TraceRecord:
 class Probe:
     """The benchmark's instruments on one engine (see the module doc)."""
 
-    def __init__(self, engine, scheduler, capture: dict | None = None):
+    def __init__(self, engine, scheduler, capture: dict | None = None,
+                 sites: tuple = ()):
         for attr in PROGRAM_ATTRS:
             if not hasattr(engine, attr):
                 raise RuntimeError(f"the serving engine has no attribute "
@@ -257,6 +179,8 @@ class Probe:
         self.max_batch = scheduler.max_batch
         self.rec: TraceRecord | None = None
         self.capture_plan = capture or {}
+        #: the reference's site names whose products the check compares
+        self.sites = frozenset(sites)
         self.captured: dict = {}
         self._armed: dict | None = None
         self._decode_pending: float | None = None
@@ -331,7 +255,7 @@ class Probe:
         if armed is None:
             return
         name = site.rpartition("/")[2]
-        if name in ref_lib.SITES:
+        if name in self.sites:
             layer = armed["seen"].get(name, 0)      # layers run in order
             armed["seen"][name] = layer + 1
             if layer in self.capture_plan.get("layers", (0,)):
@@ -394,31 +318,18 @@ class Window:
         return out
 
 
-def build(cell: dict, sizes: dict, seed: int, device):
-    """(weights, engine) of a cell for ``seed``."""
-    from repro_torch.serving.engine import ServingEngine
-    eng = cell["engine"]
-    cfg = port_config(cell["config"], sizes)
-    params = weights_lib.make_params(sizes, seed, device)
-    engine = ServingEngine(
-        cfg, params, max_batch=eng["max_batch"], page_size=eng["page_size"],
-        num_pages=eng["num_pages"], max_seq_len=eng["max_seq_len"],
-        backend=eng["backend"], bits=eng["bits"], packed=eng["packed"],
-        attention=eng["attention"], prompt_seed=int(seed), device=device)
-    return params, engine
-
-
 def make_probe(cell: dict, engine, seed: int,
                plan: CheckPlan = PLAN) -> Probe:
-    """The probe of an engine, set to capture the layer-0 products of the
-    prefill call and the decode step of trace 0 that ``plan`` and the seed
-    pick."""
+    """The probe of an engine, set to capture the layer-0 products, at the
+    sites of the cell's reference, of the prefill call and the decode step
+    of trace 0 that ``plan`` and the seed pick."""
     from repro_torch.serving.scheduler import make_scheduler
     rng = np.random.default_rng([int(seed), 7])
     picks = {"prefill": int(rng.integers(*plan.prefill)),
              "decode": int(rng.integers(*plan.decode))}
     return Probe(engine, make_scheduler(cell["engine"]["scheduler"],
-                                        cell["engine"]["max_batch"]), picks)
+                                        cell["engine"]["max_batch"]), picks,
+                 manifest.reference(cell).SITES)
 
 
 def warm_up(cell: dict, probe: Probe) -> None:
@@ -494,6 +405,11 @@ def decode_step_of(window: Window, captured: dict) -> None:
         d["step"] = steps[d.pop("ordinal")]
 
 
+def _dense():
+    from bench.families import dense
+    return dense
+
+
 @dataclasses.dataclass
 class RunView:
     """What a metric reader is handed (``bench/metrics/<name>.py``)."""
@@ -504,6 +420,12 @@ class RunView:
     device_kind: str
     trace: object = None          # devtrace.DeviceTrace of the traced trace
     traced: TraceRecord | None = None
+    #: the cell's family module (``bench/families/``) and engine options
+    family: object = dataclasses.field(default_factory=_dense)
+    engine: dict = dataclasses.field(default_factory=dict)
+    #: the cards the run holds, one rank each, and the reading rank's
+    chips: int = 1
+    rank: int = 0
 
     @property
     def untraced(self) -> Window:
@@ -516,25 +438,34 @@ class RunView:
 def run_cell(cell: dict, seed: int, seconds: float, trace: bool, *,
              t_start: float, metrics: list, device="cuda",
              on_window_closed=None, marks: tuple = (),
-             plan: CheckPlan = PLAN) -> dict:
+             plan: CheckPlan = PLAN, rank: int = 0, world: int = 1,
+             phase=None) -> dict:
     """One run of a served cell; returns the result line's object.
 
     ``metrics``: the metric entries to report (``manifest.metrics_for``);
     ``on_window_closed()``: called once the window has closed, before
     anything else reads the run (the harness checks ``sys.modules`` there);
-    ``marks``: ``(what, perf_counter)`` stamps of the caller's set-up.
+    ``marks``: ``(what, perf_counter)`` stamps of the caller's set-up;
+    ``rank`` of ``world``: this process's card among the cell's (every
+    rank serves the same traces in lockstep and judges its own window;
+    ``run.py`` profiles and reads metrics on rank 0 alone); ``phase(what)``:
+    called as each phase of the run starts.
     """
     from bench import check as check_lib
     from bench import devtrace
-    from bench import manifest
+    phase = phase or (lambda what: None)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device(device)
-    sizes = sizes_of(cell["configuration"], longest_positions(cell))
+    family = manifest.family(cell)
+    sizes = family.sizes_of(cell["configuration"], longest_positions(cell))
     t_build = time.perf_counter()
-    params, engine = build(cell, sizes, seed, dev)
+    phase("weights and engine")
+    params, engine = family.build(cell, sizes, seed, dev, rank=rank,
+                                  world=world)
     probe = make_probe(cell, engine, seed, plan)
     t_warm = time.perf_counter()
+    phase("warm-up")
     warm_up(cell, probe)
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
@@ -551,6 +482,7 @@ def run_cell(cell: dict, seed: int, seconds: float, trace: bool, *,
           f"{t_start + setup_s - t_warm:.2f} s warm-up (the kernel library's "
           f"build included on a checkout's first run)", file=sys.stderr)
     traced_out: list = []
+    phase("window")
     window = serve_window(
         cell, probe, trace_count(cell, seconds), profiled=1 if trace else None,
         profiler=(lambda: devtrace.profiled(traced_out)) if trace else None)
@@ -561,7 +493,9 @@ def run_cell(cell: dict, seed: int, seconds: float, trace: bool, *,
     kind = (torch.cuda.get_device_name(dev) if dev.type == "cuda"
             else "cpu")
     view = RunView(setup_s=setup_s, window=window, sizes=sizes,
-                   bits=cell["engine"]["bits"], device_kind=kind)
+                   bits=cell["engine"]["bits"], device_kind=kind,
+                   family=family, engine=cell["engine"], chips=world,
+                   rank=rank)
     if trace:
         dtrace, offset = traced_out[0]
         view.traced = window.traces[1]
@@ -588,8 +522,10 @@ def run_cell(cell: dict, seed: int, seconds: float, trace: bool, *,
     if dev.type == "cuda":
         torch.cuda.empty_cache()
     t_check = time.perf_counter()
+    phase("check")
     correct, compared = check_lib.judge(cell, sizes, params, window, captured,
-                                        chosen, prompt_seed=int(seed))
+                                        chosen, prompt_seed=int(seed),
+                                        rank=rank, world=world)
     for t in window.traces:
         print(f"trace {t.index}: {t.wall:.3f} s, {len(t.start)} steps, "
               f"{len(t.dec_end)} decodes, {len(t.admitted)} admissions",
@@ -603,7 +539,8 @@ def run_cell(cell: dict, seed: int, seconds: float, trace: bool, *,
     out = {"correct": bool(correct), "attempted": attempted,
            "failed": attempted - finished, "metrics": values,
            "device": {"platform": "gpu" if dev.type == "cuda" else dev.type,
-                      "kind": kind, "count": 1, "memory_peak_bytes": int(peak)}}
+                      "kind": kind, "count": world,
+                      "memory_peak_bytes": int(peak)}}
     if trace:
         out["device"]["busy_s"] = view.trace.busy_s
         out["device"]["window_s"] = view.trace.window_s

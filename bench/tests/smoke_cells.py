@@ -4,6 +4,7 @@ from __future__ import annotations
 
 import copy
 import json
+import shutil
 from pathlib import Path
 
 from bench import serve
@@ -37,13 +38,65 @@ def port_smoke_sizes(arch: str) -> dict:
 
 def cell(name: str, *, configuration: dict | None = None, **traffic) -> dict:
     """The benchmark's cell ``name`` with its limits, on the port's smoke
-    sizes (or ``configuration``), a small engine and short traffic."""
+    sizes (or ``configuration``), a small engine and short traffic; its
+    configuration's reference file unless ``configuration`` names one."""
     wl = json.loads((BENCH / "workloads" / f"{name}.json").read_text())
-    cfg = configuration or port_smoke_sizes(wl["config"])
+    committed = json.loads((BENCH / "configs" / f"{wl['config']}.json")
+                           .read_text())
+    cfg = dict(configuration or port_smoke_sizes(wl["config"]))
+    cfg.setdefault("reference", committed["reference"])
     out = copy.deepcopy(wl)
     out.update(name=name, chips=1, configuration=cfg)
     out["engine"].update(max_batch=4, page_size=4, max_seq_len=96,
                          num_pages=None)
     out["traffic"] = dict({"requests": 8, "rate": 2.0, "prompt": [9, 60],
                            "output": [6, 14], "trace_seconds": 1.0}, **traffic)
+    return out
+
+
+def checkout(dest: Path, *, configs: dict | None = None,
+             workloads: dict | None = None, files: dict | None = None) -> dict:
+    """A checkout for a test at ``dest``: a copy of ``bench/`` and of
+    ``BENCHMARK.json``, the port's ``src/`` linked in, and
+
+    ``configs``  ``{name: configuration}``, each a configuration file and a
+      ``configs`` entry;
+    ``workloads``  ``{name: (workload, chips)}``, each a workload file and a
+      ``workloads`` entry;
+    ``files``  ``{path from dest: text}``, written as they are;
+
+    added as new files, no file of the copy edited but the manifest.
+    Returns the manifest."""
+    root = BENCH.parent
+    shutil.copytree(BENCH, dest / "bench",
+                    ignore=shutil.ignore_patterns("__pycache__"))
+    (dest / "src").symlink_to(root / "src")
+    bench = json.loads((root / "BENCHMARK.json").read_text())
+    for name, cfg in (configs or {}).items():
+        (dest / "bench" / "configs" / f"{name}.json").write_text(
+            json.dumps(dict(cfg, name=name)))
+        bench["configs"].append({"name": name, "source": "a test",
+                                 "file": f"bench/configs/{name}.json",
+                                 "reduced": [], "why": "a test"})
+    for name, (wl, chips) in (workloads or {}).items():
+        (dest / "bench" / "workloads" / f"{name}.json").write_text(
+            json.dumps(wl))
+        bench["workloads"].append({"name": name, "config": wl["config"],
+                                   "traffic": name.rpartition(".")[2],
+                                   "chips": chips, "why": "a test"})
+    for path, text in (files or {}).items():
+        (dest / path).parent.mkdir(parents=True, exist_ok=True)
+        (dest / path).write_text(text)
+    (dest / "BENCHMARK.json").write_text(json.dumps(bench))
+    return bench
+
+
+def workload(name: str, config: str, **engine) -> dict:
+    """The workload file of the smoke cell ``name`` (:func:`cell`), naming
+    ``config``, its engine options updated by ``engine``."""
+    out = cell(name)
+    for key in ("name", "chips", "configuration"):
+        out.pop(key)
+    out["config"] = config
+    out["engine"].update(engine)
     return out

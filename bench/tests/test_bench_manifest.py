@@ -127,7 +127,8 @@ def test_committed_benchmark_keeps_the_contract():
 def test_committed_configurations_are_served_as_published(cell):
     from bench import serve
     c = manifest.cell(manifest.load(ROOT), cell)
-    sizes = serve.sizes_of(c["configuration"], serve.longest_positions(c))
+    sizes = manifest.family(c).sizes_of(c["configuration"],
+                                        serve.longest_positions(c))
     assert sizes["num_layers"] == c["configuration"]["num_hidden_layers"]
 
 
@@ -156,6 +157,7 @@ UNSERVED_CASES = {
 @pytest.mark.parametrize("case", list(UNSERVED_CASES))
 def test_a_key_the_port_does_not_serve_is_refused(case):
     from bench import serve
+    from bench.families import dense
     change, refused = UNSERVED_CASES[case]
     c = manifest.cell(manifest.load(ROOT), "phi3-mini-3.8b.docqa")
     config = dict(c["configuration"], **change)
@@ -164,6 +166,6 @@ def test_a_key_the_port_does_not_serve_is_refused(case):
     assert longest == 2015 + 32 - 1
     if refused:
         with pytest.raises(manifest.ManifestError, match="phi3-mini-3.8b"):
-            serve.sizes_of(config, longest)
+            dense.sizes_of(config, longest)
     else:
-        serve.sizes_of(config, longest)
+        dense.sizes_of(config, longest)

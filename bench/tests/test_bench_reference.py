@@ -10,7 +10,8 @@ import numpy as np
 import pytest
 import torch
 
-from bench import reference, serve, weights
+from bench import reference
+from bench.families import dense
 from bench.tests import smoke_cells
 
 TOL = 1e-4
@@ -18,10 +19,10 @@ TOL = 1e-4
 
 def _engine(arch: str, seed: int):
     from repro_torch.serving.engine import ServingEngine
-    sizes = serve.sizes_of(smoke_cells.port_smoke_sizes(arch))
-    params = weights.make_params(sizes, seed, torch.device("cpu"))
+    sizes = dense.sizes_of(smoke_cells.port_smoke_sizes(arch))
+    params = dense.make_params(sizes, seed, torch.device("cpu"))
     engine = ServingEngine(
-        serve.port_config(arch, sizes), params, max_batch=2, page_size=4,
+        dense.port_config(arch, sizes), params, max_batch=2, page_size=4,
         max_seq_len=64, backend="tubgemm_cuda", bits=4, attention="fused",
         prompt_seed=seed, device="cpu")
     return sizes, params, engine
