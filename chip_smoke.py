@@ -97,7 +97,9 @@ Phases, each of which fails the run (non-zero exit) on its own:
    forward, prefill and three decode steps within 1e-4, greedy tokens
    equal, and for MoE the routing indices, loss and gradients; then at
    published widths, cut in depth only: phi3.5-moe (4 layers) through the
-   one-shot serve mode's functions under ``tubgemm_cuda``@4 per-row, with
+   one-shot serve mode's functions (``moe_fwd``; ``ServingEngine`` serves
+   MoE through ``moe_serve``, which the benchmark's four-card cell
+   ``phi3.5-moe-42b-a6.6b.ep4-chat`` runs) under ``tubgemm_cuda``@4 per-row, with
    every site, ``lm_head`` included, launching ``tub_gemm`` once a call,
    prefill against forward (same T) and decode against forward with the
    expert capacity lifted to T within 1e-3 at fp32, a traced decode step
@@ -2452,8 +2454,10 @@ def _no_drop(cfg):
 
 def expected_sites(cfg, cached: bool = False) -> list[str]:
     """The dense sites one forward records, in order: MLA's ``w_uk`` /
-    ``w_uv`` only without a cache, the MoE's shared expert only (router and
-    routed experts stay float), ``lm_head`` unless tied."""
+    ``w_uv`` only without a cache, the MoE's shared expert only (in
+    ``moe_fwd`` the router and routed experts stay float; the serving
+    engine's ``moe_serve`` contracts the routed experts too), ``lm_head``
+    unless tied."""
     if cfg.attention == "mla":
         attn = ["w_dq", "w_uq", "w_dkv", "w_kr"] + ([] if cached else ["w_uk", "w_uv"])
     else:

@@ -111,7 +111,8 @@ def _unstack(stacked, n: int) -> list:
 
 
 def _transformer_block(layer_params, x, cfg: ModelConfig, *, positions,
-                       cache, cache_pos, kv_valid_len, sh=None):
+                       cache, cache_pos, kv_valid_len, sh=None, serving=None,
+                       layer: int = 0):
     specs = None if sh is None else sh.layer_specs
     layer_params = materialize(layer_params, specs, sh,
                                cached=cache is not None)
@@ -123,7 +124,12 @@ def _transformer_block(layer_params, x, cfg: ModelConfig, *, positions,
             tp=_tp(sh, specs, "attn"))
     x = x + attn_out
     h = rmsnorm(layer_params["ln2"], x, cfg.rms_eps)
-    if cfg.is_moe:
+    if cfg.is_moe and serving is not None:
+        with site_scope("moe"):
+            out = moe_lib.moe_serve(layer_params["moe"], h, cfg, serving,
+                                    layer)
+            aux = None
+    elif cfg.is_moe:
         with site_scope("moe"):
             out, aux = moe_lib.moe_fwd(layer_params["moe"], h, cfg, sh=sh)
     else:
@@ -181,7 +187,7 @@ def _recurrent_layer(block, lp, x, cfg: ModelConfig, caches, i: int,
 
 def stack_fwd(params: dict, x: torch.Tensor, cfg: ModelConfig, *,
               positions, caches: dict | None = None, cache_pos=0,
-              kv_valid_len=None, sh=None):
+              kv_valid_len=None, sh=None, serving=None):
     """Run the full layer stack.  Returns (x, new_caches, aux_loss).
 
     ``params`` holds "layers" (stacked) and, for the hybrid, "shared".
@@ -195,7 +201,10 @@ def stack_fwd(params: dict, x: torch.Tensor, cfg: ModelConfig, *,
     load-balance loss (0 for every other family), added in layer order as
     the reference's scan carries it.  ``sh``: the rank's
     :class:`~repro_torch.models.common.Sharding` (``params`` its slices),
-    or None.
+    or None.  ``serving``: a :class:`~repro_torch.models.moe.Serving` —
+    an MoE stack's layers then run the serving expert layer
+    (``moe.moe_serve``, the serving engine's prefill) in place of
+    ``moe_fwd``; None elsewhere.
     """
     zero = torch.zeros((), dtype=torch.float32, device=x.device)
     if cfg.family == "hybrid":
@@ -214,11 +223,12 @@ def stack_fwd(params: dict, x: torch.Tensor, cfg: ModelConfig, *,
     # attention transformer (dense / moe / audio / vlm)
     lc = caches["attn"] if caches is not None else None
 
-    def layer(lp, x, cache):
+    def layer(lp, x, cache, i=0):
         with site_scope("layers"):
             out, _, aux = _transformer_block(
                 lp, x, cfg, positions=positions, cache=cache,
-                cache_pos=cache_pos, kv_valid_len=kv_valid_len, sh=sh)
+                cache_pos=cache_pos, kv_valid_len=kv_valid_len, sh=sh,
+                serving=serving, layer=i)
         return out, aux
 
     remat = cfg.remat and lc is None and torch.is_grad_enabled()
@@ -227,7 +237,7 @@ def stack_fwd(params: dict, x: torch.Tensor, cfg: ModelConfig, *,
         if remat:
             x, a = checkpoint(layer, lp, x, None, use_reentrant=False)
         else:
-            x, a = layer(lp, x, None if lc is None else layer_slice(lc, i))
+            x, a = layer(lp, x, None if lc is None else layer_slice(lc, i), i)
         if a is not None:
             aux = aux + a
     return x, caches, aux

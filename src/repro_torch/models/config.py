@@ -10,7 +10,8 @@ from __future__ import annotations
 import dataclasses
 from typing import Literal
 
-__all__ = ["ModelConfig", "MoEConfig", "MLAConfig", "SSMConfig", "RWKVConfig"]
+__all__ = ["ModelConfig", "MoEConfig", "SparseMixerMoEConfig", "MLAConfig",
+           "SSMConfig", "RWKVConfig"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -25,6 +26,15 @@ class MoEConfig:
     # the results are all-reduced (baseline).  "a2a" = all-to-all dispatch
     # (optimized variant, see EXPERIMENTS.md §Perf).
     ep_impl: Literal["psum", "a2a"] = "psum"
+
+
+@dataclasses.dataclass(frozen=True)
+class SparseMixerMoEConfig(MoEConfig):
+    """An MoE whose serving expert layer (``moe.moe_serve``) routes by
+    Phi-3.5-MoE's sparsemixer, top-2 at inference, its band
+    ``router_noise`` (the published router_jitter_noise); a plain
+    :class:`MoEConfig` routes by softmax top-k.  ``moe_fwd`` (forward and
+    training) routes every MoE by softmax."""
 
 
 @dataclasses.dataclass(frozen=True)

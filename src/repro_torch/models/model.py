@@ -423,17 +423,18 @@ def make_sharding(cfg: ModelConfig, mesh, phase: str, batch: int,
 
 
 def prefill(params: dict, cfg: ModelConfig, tokens=None, *, caches,
-            embeds=None, sh=None):
+            embeds=None, sh=None, serving=None):
     """Populate caches (in place) from a prompt: KV, recurrent states, conv
     tails and token-shift buffers.  Returns (logits, caches).  ``sh`` as in
-    :func:`forward`."""
+    :func:`forward`; ``serving`` (a ``moe.Serving``, the serving engine's)
+    runs an MoE stack's experts through ``moe.moe_serve``."""
     x = _embed_in(params, cfg, tokens, embeds, sh)
     s = x.shape[1]
     positions = torch.arange(s, device=x.device)[None, :]
     valid = torch.full((x.shape[0],), s, dtype=torch.int32, device=x.device)
     x, new_caches, _ = blocks_lib.stack_fwd(
         params, x, cfg, positions=positions, caches=caches, cache_pos=0,
-        kv_valid_len=valid, sh=sh)
+        kv_valid_len=valid, sh=sh, serving=serving)
     return _logits_out(params, cfg, x, sh=sh), new_caches
 
 

@@ -9,9 +9,30 @@ tokens of largest weight for it (:func:`_capacity`); a token routed to a
 full expert is dropped there, and tokens not routed to it ride along with
 weight 0.
 
-The router and the routed experts' matmuls are float and are not dense
-sites, even under a backend or plan scope; only the shared expert's
-``w_gate`` / ``w_up`` / ``w_down`` are sites (``…/moe/shared/w_up``).
+In :func:`moe_fwd` (the forward, training and one-shot serve paths) the
+router and the routed experts' matmuls are float and are not dense sites,
+even under a backend or plan scope; only the shared expert's ``w_gate`` /
+``w_up`` / ``w_down`` are sites (``…/moe/shared/w_up``).
+
+Serving (:func:`moe_serve`, which ``ServingEngine``'s prefill and decode
+step run) is dropless: every (row, expert) pair routed to an expert this
+rank holds is computed, and rows no request holds (idle decode slots, a
+prefill group's padding) reach no expert.  Routing is softmax top-k
+renormalized, or under a ``SparseMixerMoEConfig`` Phi-3.5-MoE's top-2
+(:func:`sparsemixer`); the router stays a float matmul, its float32 logits
+accumulated in float64 so that a row's routing does not depend on the rows
+that share its call.  Each local expert's ``w_gate`` / ``w_up`` /
+``w_down`` are dense sites (``layers/moe/w_up``), so a backend scope
+contracts them on its unit.
+The prefill gathers each expert's routed rows, their count read to the
+host once a layer; the decode step hands every local expert the step's
+whole block of slots, unrouted rows zeroed, and reads nothing on the host.
+Under an expert-parallel mesh the ranks' partial outputs are added by one
+``all_reduce(SUM)`` a layer (the psum layout).  Spans (``runtime.spans``):
+``moe`` (the layer), ``moe.route`` (router and routing), ``moe.dispatch``
+(the rows each local expert takes), ``moe.experts`` (the experts' sites),
+``moe.combine`` (weighting and scatter-add), ``moe.exchange`` (the
+``all_reduce``).
 
 Expert parallelism (``launch.mesh``, ``with mesh:``; a distributed mesh
 whose ``model`` axis is above 1 and divides the expert count, as the
@@ -41,6 +62,7 @@ batch rank together.
 
 from __future__ import annotations
 
+import dataclasses
 import math
 
 import torch
@@ -49,11 +71,13 @@ import torch.nn.functional as F
 from repro_torch.backends.runtime import site_scope
 from repro_torch.launch import collectives as coll
 from repro_torch.launch import mesh as mesh_lib
-from repro_torch.models.common import ParamDef, tp_of
-from repro_torch.models.config import ModelConfig
+from repro_torch.models.common import ParamDef, dense, tp_of
+from repro_torch.models.config import ModelConfig, SparseMixerMoEConfig
 from repro_torch.models.mlp import mlp_defs, mlp_fwd
+from repro_torch.runtime import spans
 
-__all__ = ["moe_defs", "moe_fwd", "ep_shards", "EXPERT_LEAVES"]
+__all__ = ["moe_defs", "moe_fwd", "ep_shards", "EXPERT_LEAVES", "Serving",
+           "moe_serve", "sparsemixer"]
 
 #: the expert stacks expert parallelism slices on their expert axis
 EXPERT_LEAVES = ("w_gate", "w_up", "w_down")
@@ -287,3 +311,153 @@ def _moe_ep_a2a(params, x_flat, cfg: ModelConfig, mesh, scoring="softmax",
                                  dtype=x_flat.dtype, device=x_flat.device)])
     aux = coll.reduce_from(_aux_loss(probs, topk_idx, cfg, sh), mesh)
     return coll.reduce_from(out, mesh), aux / n
+
+
+# ---------------------------------------------------------------------------
+# The serving expert layer (ServingEngine's prefill and decode step)
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class Serving:
+    """What :func:`moe_serve` is told of one call.
+
+    ``live`` — (B, S) bool: the rows a request holds; the others (idle
+    decode slots, a prefill group's padding) reach no expert.
+    ``counts`` — an (L, E_local, 2) int64 tensor on the device, to which a
+    layer adds, by local expert, its routed rows and 1 if it had any
+    (None: nothing counted).
+    ``mesh`` — the expert-parallel mesh (axis ``model``, one share of the
+    experts a rank), None on one device.
+    ``gather`` — True: each local expert contracts exactly its routed rows,
+    their counts read to the host once a layer (prefill); False: each
+    contracts the call's whole block of rows with the unrouted ones zeroed,
+    and nothing is read on the host (the decode step).
+    """
+    live: torch.Tensor
+    counts: torch.Tensor | None = None
+    mesh: object = None
+    gather: bool = True
+
+
+def sparsemixer(logits: torch.Tensor, eps: float):
+    """Phi-3.5-MoE's top-2 routing at inference (``modeling_phimoe.py``'s
+    ``sparsemixer`` without training's jitter): (idx (T, 2), w (T, 2)).
+
+    The first expert is the best logit ``m1``; its weight is the softmax,
+    at it, of the logits with every ``j`` masked where ``(m1 - s_j) /
+    max(|s_j|, m1) > 2 eps``.  The second is the best of the rest, weighted
+    the same way over the rest.  The weights are not renormalized; ties go
+    to the lower index.
+    """
+    idx, w = [], []
+    scores = logits
+    for _ in range(2):
+        top, at = torch.max(scores, dim=-1, keepdim=True)
+        band = (top - logits) / torch.maximum(logits.abs(), top)
+        masked = scores.masked_fill(band > 2 * eps, float("-inf"))
+        w.append(torch.softmax(masked, dim=-1).gather(-1, at))
+        idx.append(at)
+        scores = scores.scatter(-1, at, float("-inf"))
+    return torch.cat(idx, dim=-1), torch.cat(w, dim=-1)
+
+
+def _serve_routing(router_w, x_flat, cfg: ModelConfig):
+    """(idx (T, K), w (T, K)): softmax top-k renormalized, or sparsemixer
+    under a :class:`~repro_torch.models.config.SparseMixerMoEConfig`.  The
+    float32 logits are accumulated in float64 and rounded once: a float32
+    GEMM's summation order follows its shape, so its logits for a row would
+    depend on how many rows share the call, and with them the experts a
+    request is routed to."""
+    m = cfg.moe
+    sparse = isinstance(m, SparseMixerMoEConfig)
+    if sparse and m.top_k != 2:
+        raise ValueError(f"sparsemixer routes top-2, not top-{m.top_k}")
+    logits = torch.matmul(x_flat.to(torch.float64),
+                          router_w.to(torch.float64)).to(torch.float32)
+    if sparse:
+        return sparsemixer(logits, m.router_noise)
+    w, idx = _top_k(torch.softmax(logits, dim=-1), m.top_k)
+    return idx, w / torch.clamp(w.sum(dim=-1, keepdim=True), min=1e-9)
+
+
+def _serve_experts(params, cfg: ModelConfig, mesh):
+    """The local expert stacks and the first global expert: all of them on
+    one device, the rank's share under an expert-parallel mesh."""
+    if mesh is None:
+        if params["w_gate"].shape[0] != cfg.moe.num_experts:
+            raise ValueError(f"expert stacks hold {params['w_gate'].shape[0]} "
+                             f"of {cfg.moe.num_experts} experts outside an "
+                             f"expert-parallel mesh")
+        return params["w_gate"], params["w_up"], params["w_down"], 0
+    return _local_experts(params, cfg, mesh)
+
+
+def _serve_ffn(xs, w_g, w_u, w_d, cfg: ModelConfig):
+    """One expert's SwiGLU on its rows, each matmul a dense site."""
+    h = F.silu(dense(w_g, xs, cfg, name="w_gate")) * dense(w_u, xs, cfg,
+                                                           name="w_up")
+    return dense(w_d, h, cfg, name="w_down")
+
+
+def _exchange(out: torch.Tensor, mesh) -> torch.Tensor:
+    """The ranks' partial outputs added: one ``all_reduce(SUM)`` over
+    ``model`` (in place); nothing on one device."""
+    group = coll.axis_group(mesh, "model")
+    return out if group is None else coll.all_reduce_(out, group)
+
+
+@torch.no_grad()
+def moe_serve(params: dict, x: torch.Tensor, cfg: ModelConfig,
+              serving: Serving, layer: int = 0) -> torch.Tensor:
+    """The routed experts' output for ``x`` (B, S, D), dropless (see the
+    module doc and :class:`Serving`); ``layer`` indexes ``serving.counts``.
+    Each rank weights its experts' rows by their routing weights, adds them
+    to their token rows in expert order, and the ranks' parts are summed."""
+    if cfg.moe.num_shared_experts:
+        raise ValueError("the serving expert layer has no shared experts")
+    d = x.shape[-1]
+    x_flat = x.reshape(-1, d)
+    t = x_flat.shape[0]
+    live = serving.live.reshape(-1)
+    with spans.span("moe"):
+        with spans.span("moe.route"):
+            idx, w = _serve_routing(params["router"], x_flat, cfg)
+        wg, wu, wd, first = _serve_experts(params, cfg, serving.mesh)
+        n = wg.shape[0]
+        with spans.span("moe.dispatch"):
+            experts = torch.arange(n, device=x.device)
+            # (T, K, E_local): pair k of row t goes to local expert e
+            mine = ((idx - first)[..., None] == experts) & live[:, None, None]
+            routed = mine.any(dim=1)                              # (T, E_local)
+            weight = (mine * w[..., None]).sum(dim=1).to(x.dtype)
+            rows_per = routed.sum(dim=0)
+            if serving.counts is not None:
+                serving.counts[layer] += torch.stack(
+                    [rows_per, (rows_per > 0).to(rows_per.dtype)], dim=-1)
+            if serving.gather:
+                # each expert's routed rows, in expert then row order
+                key = torch.where(routed.t(), experts[:, None], n).reshape(-1)
+                rows = torch.sort(key, stable=True).indices % t
+                sizes = rows_per.tolist()
+                starts = [sum(sizes[:e]) for e in range(n)]
+                picked = [rows[a: a + c] for a, c in zip(starts, sizes)]
+                inputs = [x_flat[r] for r in picked]
+            else:
+                picked = [None] * n
+                inputs = [torch.where(routed[:, e:e + 1], x_flat, 0.0)
+                          for e in range(n)]
+        with spans.span("moe.experts"):
+            outs = [_serve_ffn(xs, wg[e], wu[e], wd[e], cfg)
+                    if xs.shape[0] else None for e, xs in enumerate(inputs)]
+        with spans.span("moe.combine"):
+            acc = torch.zeros_like(x_flat)
+            for e, (y, r) in enumerate(zip(outs, picked)):
+                if y is None:
+                    continue
+                if r is None:
+                    acc += y * weight[:, e:e + 1]
+                else:
+                    acc.index_add_(0, r, y * weight[r, e:e + 1])
+        with spans.span("moe.exchange"):
+            acc = _exchange(acc, serving.mesh)
+    return acc.reshape(x.shape)

@@ -59,6 +59,22 @@ parameters, each dense site's shards run one per rank
 ``all_gather`` of the step's token ids checks that every rank sampled the
 same tokens (a rank whose scheduler diverged would deadlock in the next
 collective); a mismatch raises, naming the rank and the step.
+
+A mixture-of-experts decoder (``cfg.is_moe``, GQA attention, routed experts
+only) runs its expert layers through ``models.moe.moe_serve``, in the
+prefill and the decode step alike: dropless, rows no request holds (idle
+slots, a prefill group's padding) reach no expert, and each local expert's
+``w_gate`` / ``w_up`` / ``w_down`` are dense sites (``layers/moe/w_up``).
+With a process group up the engine serves with expert parallelism: a
+``("model",)`` mesh of the world, each rank holding ``E / world`` experts
+of every layer (its own stacks, or the whole ones, sliced), the attention,
+router, embedding and head replicated, one ``all_reduce(SUM)`` a layer;
+the step stays eager, and the sampled tokens are checked across ranks as
+on a grid.  The layer records the spans ``moe``, ``moe.route``,
+``moe.dispatch``, ``moe.experts``, ``moe.combine`` and ``moe.exchange``;
+:attr:`ServingEngine.expert_rows` counts on the device, by phase, layer
+and local expert, the routed rows and the calls with a routed row, read
+once a run into ``ServingReport.expert_rows``.
 """
 
 from __future__ import annotations
@@ -82,6 +98,7 @@ from repro_torch.models.blocks import layer_slice
 from repro_torch.models.common import activation_scale_mode, dense, rmsnorm
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.mlp import mlp_fwd
+from repro_torch.models import moe as moe_lib
 from repro_torch.runtime import spans
 from repro_torch.serving.energy import EnergyModel
 from repro_torch.serving.paged_kv import PagedKVCache
@@ -128,6 +145,9 @@ class ServingReport:
     decode_eager: int = 0
     decode_replays: int = 0
     decode_captures: int = 0
+    # an MoE engine's ``expert_rows`` for this run, [decode, prefill] x layer
+    # x local expert x (routed rows, calls with a routed row); () otherwise
+    expert_rows: tuple = ()
 
     def to_dict(self) -> dict:
         d = dataclasses.asdict(self)
@@ -299,12 +319,20 @@ class ServingEngine:
                  batched_prefill: bool = True, device="cuda",
                  weight_cache: dict | None = None):
         if cfg.attention != "gqa" or cfg.ssm is not None or cfg.rwkv is not None \
-                or cfg.family not in ("dense", "audio", "vlm") or cfg.is_moe:
+                or cfg.family not in ("dense", "audio", "vlm", "moe") \
+                or cfg.is_moe != (cfg.family == "moe"):
             raise ValueError(
                 "ServingEngine supports the dense GQA transformer family "
                 f"(got family={cfg.family!r}, attention={cfg.attention!r})")
         if backend is not None and plan is not None:
             raise ValueError("pass either backend= or plan=, not both")
+        if cfg.is_moe and (cfg.moe.num_shared_experts or packed
+                           or (grid is not None and mesh_lib.distributed())):
+            raise ValueError("ServingEngine serves an MoE model's routed "
+                             "experts from float weights, without a grid "
+                             "across ranks (got shared experts "
+                             f"{cfg.moe.num_shared_experts}, packed={packed}, "
+                             f"grid={grid})")
         self.device = model_lib.require_device(device)
         if _params_device(params).type != self.device.type:
             raise ValueError(f"params live on {_params_device(params)}, "
@@ -359,6 +387,25 @@ class ServingEngine:
         self.on_gemm_output = None
         #: the distributed grid mesh (one unit per rank), None on one device
         self.mesh = mesh_lib.grid_mesh(*grid) if grid else None
+        #: an MoE model's expert-parallel mesh (the world on ``model``), None
+        #: on one device or for a dense model
+        self.ep_mesh = None
+        #: an MoE model's counter on the device (see ``ServingReport``)
+        self.expert_rows = None
+        if cfg.is_moe:
+            n = mesh_lib.world_size()
+            if cfg.moe.num_experts % n:
+                raise ValueError(f"{cfg.moe.num_experts} experts do not split "
+                                 f"over {n} ranks")
+            if n > 1:
+                self.ep_mesh = mesh_lib.make_mesh((n,), ("model",),
+                                                  self.device.type)
+            self.expert_rows = torch.zeros(
+                (2, cfg.num_layers, cfg.moe.num_experts // n, 2),
+                dtype=torch.int64, device=self.device)
+        #: prompt lengths of the prefill call about to run (its rows past
+        #: them are padding); None: every row is a prompt's
+        self._prefill_lengths: list | None = None
         #: the captured decode step, None until one is captured
         self._graph: _DecodeGraph | None = None
         #: the key of the last step run eagerly for want of a graph; the next
@@ -540,8 +587,15 @@ class ServingEngine:
                     x = x + out
                 with spans.span("layer.mlp"):
                     h2 = rmsnorm(lp["ln2"], x, cfg.rms_eps)
-                    with site_scope("mlp"):
-                        x = x + mlp_fwd(lp["mlp"], h2, cfg)
+                    if cfg.is_moe:
+                        with site_scope("moe"):
+                            x = x + moe_lib.moe_serve(
+                                lp["moe"], h2, cfg, moe_lib.Serving(
+                                    active[:, None], self.expert_rows[0],
+                                    self.ep_mesh, gather=False), i)
+                    else:
+                        with site_scope("mlp"):
+                            x = x + mlp_fwd(lp["mlp"], h2, cfg)
         logits = model_lib.logits_out(params, cfg, x)
         # lengths advance on-device so the host never re-uploads them
         new_lengths = torch.where(active, lengths + 1, lengths)
@@ -549,13 +603,22 @@ class ServingEngine:
 
     @torch.no_grad()
     def _prefill(self, tokens):
-        """(n, S) padded prompts -> (logits, stacked K, stacked V)."""
+        """(n, S) padded prompts -> (logits, stacked K, stacked V).  An MoE
+        model's rows past ``_prefill_lengths`` (set by :meth:`run` for the
+        call) reach no expert."""
         cfg = self.cfg
         caches = model_lib.init_caches(cfg, tokens.shape[0], tokens.shape[1],
                                        dtype=torch.float32,
                                        device=self.device)
+        serving = None
+        if cfg.is_moe:
+            n, width = tokens.shape
+            lengths = self._prefill_lengths or [width] * n
+            live = (torch.arange(width, device=tokens.device)[None]
+                    < torch.tensor(lengths, device=tokens.device)[:, None])
+            serving = moe_lib.Serving(live, self.expert_rows[1], self.ep_mesh)
         logits, new = model_lib.prefill(self._exec_params, cfg, tokens,
-                                        caches=caches)
+                                        caches=caches, serving=serving)
         return logits, new["attn"]["k"], new["attn"]["v"]
 
     # -- host-side serving loop -----------------------------------------------
@@ -587,12 +650,14 @@ class ServingEngine:
             execution.calls = None
             yield execution
 
-    def _check_same_tokens(self, ids: torch.Tensor, step: int) -> None:
-        """Raise unless every rank of the mesh sampled ``ids`` (B,) at this
-        decode step."""
+    def _check_same_tokens(self, ids: torch.Tensor, step: int,
+                           mesh=None) -> None:
+        """Raise unless every rank of ``mesh`` (default: the grid's) sampled
+        ``ids`` (B,) at this decode step."""
         from repro_torch.launch import collectives as coll
+        mesh = self.mesh if mesh is None else mesh
         ids = ids.contiguous()
-        n = self.mesh.size
+        n = mesh.size
         every = torch.empty((n * ids.shape[0],), dtype=ids.dtype,
                             device=ids.device)
         coll.all_gather_into(every, ids)
@@ -601,7 +666,7 @@ class ServingEngine:
         if bool(differ.any()):
             ranks = torch.nonzero(differ).flatten().tolist()
             raise RuntimeError(
-                f"rank {self.mesh.rank}: decode step {step} sampled token ids "
+                f"rank {mesh.rank}: decode step {step} sampled token ids "
                 f"{ids.tolist()}, ranks {ranks} sampled others "
                 f"({every[ranks].tolist()}): the ranks diverged")
 
@@ -709,8 +774,12 @@ class ServingEngine:
                     padded = np.zeros((len(specs), width), np.int32)
                     for i, spec in enumerate(specs):
                         padded[i, : spec.prompt_len] = self.prompt_tokens(spec)
-                    logits, k_l, v_l = self._prefill(
-                        torch.from_numpy(padded).to(dev))
+                    self._prefill_lengths = [s.prompt_len for s in specs]
+                    try:
+                        logits, k_l, v_l = self._prefill(
+                            torch.from_numpy(padded).to(dev))
+                    finally:
+                        self._prefill_lengths = None
                 prefill_calls += 1
                 for i, spec in enumerate(specs):
                     out[spec.req_id] = (logits[i, spec.prompt_len - 1],
@@ -749,6 +818,9 @@ class ServingEngine:
             if req.generated >= spec.output_len:
                 finish(req, at, slot)
 
+        ranks = self.mesh if self.mesh is not None else self.ep_mesh
+        if self.expert_rows is not None:
+            self.expert_rows.zero_()
         mesh = self.mesh if self.mesh is not None else contextlib.nullcontext()
         with mesh, self._scope():
             while waiting or any(active):
@@ -770,8 +842,8 @@ class ServingEngine:
                                                    dim=-1).to(torch.int32)
                             d_tokens = nxt_dev[:, None].clone()
                         with spans.span("engine.decode.sync"):
-                            if self.mesh is not None:
-                                self._check_same_tokens(nxt_dev, step)
+                            if ranks is not None:
+                                self._check_same_tokens(nxt_dev, step, ranks)
                             nxt = nxt_dev.cpu().numpy()
                         with spans.span("engine.decode.bookkeep"):
                             decode_ticks += 1
@@ -828,4 +900,6 @@ class ServingEngine:
             decode_eager=self.decode_counts["eager"] - counts["eager"],
             decode_replays=self.decode_counts["replays"] - counts["replays"],
             decode_captures=self.decode_counts["captures"] - counts["captures"],
+            expert_rows=(() if self.expert_rows is None
+                         else self.expert_rows.tolist()),
         )
